@@ -24,22 +24,37 @@
 //   * each group of 4 threads owns one query row: its scores, its
 //     (m, l) and a D/4 slice of its f32 accumulator stay in registers;
 //     row max and row sum are two xor-shuffles inside the group.
+// The tile loop is attention_tile.cuh, shared with the paged verify
+// kernel; this file supplies its row map (one head's query positions)
+// and the contiguous K/V address map.
 
-#include "common.cuh"
+#include "attention_tile.cuh"
 
 namespace {
 
-using repro::from_f32;
-using repro::kNegInf;
-using repro::to_f32;
+using repro::ContiguousKV;
+using repro::kBQ;
+using repro::kTileThreads;
 
-constexpr int kBQ = 32;             // query rows per CTA
-constexpr int kBK = 16;             // key rows per tile
-constexpr int kThreads = 128;       // 4 threads per query row
-constexpr int kCols = kBK / 4;      // score columns per thread
+// Query rows q0..q0+kBQ-1 of one (batch, head), at positions 0..Sq-1.
+template <typename T>
+struct HeadRows {
+  const T* q;                       // this (batch, head)'s row 0
+  T* o;
+  long long q_ss, o_ss;
+  int q0, Sq;
+  __device__ __forceinline__ bool valid(int rr) const { return q0 + rr < Sq; }
+  __device__ __forceinline__ const T* qrow(int rr) const {
+    return q + (q0 + rr) * q_ss;
+  }
+  __device__ __forceinline__ int q_pos(int rr) const { return q0 + rr; }
+  __device__ __forceinline__ T* orow(int rr) const {
+    return o + (q0 + rr) * o_ss;
+  }
+};
 
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kTileThreads)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ o, int Sq,
                        int Skv, int H, int G, long long q_sb, long long q_ss,
@@ -47,96 +62,16 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        long long k_sh, long long v_sb, long long v_ss,
                        long long v_sh, long long o_sb, long long o_ss,
                        long long o_sh, float scale) {
-  constexpr int kJ = D / 4;         // accumulator slice per thread
-  __shared__ float qs[kBQ][D + 1];
-  __shared__ float ks[kBK][D + 1];
-  __shared__ float vs[kBK][D];
-  __shared__ float ps[kBQ][kBK + 1];
-
   const int q0 = blockIdx.x * kBQ;
   const int b = blockIdx.y / H;
   const int h = blockIdx.y - b * H;
   const int kvh = h / G;
-  const int tid = threadIdx.x;
-  const int r = tid >> 2;           // this thread's query row in the tile
-  const int sub = tid & 3;          // its quarter of the row
-
-  const T* qb = q + b * q_sb + h * q_sh;
-  const T* kb = k + b * k_sb + kvh * k_sh;
-  const T* vb = v + b * v_sb + kvh * v_sh;
-
-  for (int i = tid; i < kBQ * D; i += kThreads) {
-    const int rr = i / D, d = i - rr * D;
-    qs[rr][d] = (q0 + rr < Sq) ? to_f32(qb[(q0 + rr) * q_ss + d]) : 0.f;
-  }
-
-  float m = kNegInf, l = 0.f;
-  float acc[kJ];
-#pragma unroll
-  for (int j = 0; j < kJ; ++j) acc[j] = 0.f;
-
-  const int q_pos = q0 + r;
+  const HeadRows<T> rows{q + b * q_sb + h * q_sh, o + b * o_sb + h * o_sh,
+                         q_ss, o_ss, q0, Sq};
+  const ContiguousKV<T> kv{k + b * k_sb + kvh * k_sh,
+                          v + b * v_sb + kvh * v_sh, k_ss, v_ss};
   // causal: the tile's last query row sees keys up to q0 + kBQ - 1
-  const int k_end = min(Skv, q0 + kBQ);
-  for (int k0 = 0; k0 < k_end; k0 += kBK) {
-    __syncthreads();                // previous tile fully consumed
-    for (int i = tid; i < kBK * D; i += kThreads) {
-      const int rr = i / D, d = i - rr * D;
-      const bool in = k0 + rr < Skv;
-      ks[rr][d] = in ? to_f32(kb[(k0 + rr) * k_ss + d]) : 0.f;
-      vs[rr][d] = in ? to_f32(vb[(k0 + rr) * v_ss + d]) : 0.f;
-    }
-    __syncthreads();
-
-    float s[kCols];
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) s[c] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      const float qv = qs[r][d];
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) s[c] += qv * ks[sub + 4 * c][d];
-    }
-    float mloc = kNegInf;
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) {
-      const int k_pos = k0 + sub + 4 * c;
-      s[c] = (k_pos <= q_pos && k_pos < Skv) ? s[c] * scale : kNegInf;
-      mloc = fmaxf(mloc, s[c]);
-    }
-    mloc = fmaxf(mloc, __shfl_xor_sync(0xffffffffu, mloc, 1));
-    mloc = fmaxf(mloc, __shfl_xor_sync(0xffffffffu, mloc, 2));
-    const float m_new = fmaxf(m, mloc);
-    const float alpha = expf(m - m_new);
-    float psum = 0.f;
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) {
-      const float p = expf(s[c] - m_new);
-      ps[r][sub + 4 * c] = p;
-      psum += p;
-    }
-    psum += __shfl_xor_sync(0xffffffffu, psum, 1);
-    psum += __shfl_xor_sync(0xffffffffu, psum, 2);
-    l = alpha * l + psum;
-    m = m_new;
-    __syncwarp();                   // the row's 4 threads share one warp
-
-#pragma unroll
-    for (int j = 0; j < kJ; ++j) acc[j] *= alpha;
-#pragma unroll
-    for (int c = 0; c < kBK; ++c) {
-      const float p = ps[r][c];
-#pragma unroll
-      for (int j = 0; j < kJ; ++j) acc[j] += p * vs[c][sub + 4 * j];
-    }
-  }
-
-  if (q_pos < Sq) {
-    const float inv = 1.f / fmaxf(l, 1e-30f);
-    T* orow = o + b * o_sb + (long long)q_pos * o_ss + h * o_sh;
-#pragma unroll
-    for (int j = 0; j < kJ; ++j) orow[sub + 4 * j] = from_f32<T>(acc[j] * inv);
-  }
+  repro::attend_tile<T, D>(rows, kv, min(Skv, q0 + kBQ), scale);
 }
 
 template <typename T, int D>
@@ -144,7 +79,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
            int Sq, int Skv, int H, int G, const long long* st, float scale,
            cudaStream_t stream) {
   dim3 grid((Sq + kBQ - 1) / kBQ, B * H);
-  flash_attention_kernel<T, D><<<grid, kThreads, 0, stream>>>(
+  flash_attention_kernel<T, D><<<grid, kTileThreads, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), Sq, Skv, H, G, st[0],
       st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10],

@@ -6,16 +6,18 @@
 ``--engine continuous`` (the default here) feeds a seeded Poisson
 arrival list to ``ContinuousBatchingEngine.serve``; ``--engine fixed``
 serves the same requests in ``--batch``-sized groups through
-``ServeEngine``.  The run prints TTFT p50/p99, TPOT mean, tokens/s,
-the engine's host syncs and the kernels' launch counts.  Weights are
-random, made from ``--seed``; prompts are random tokens.  ``--device``
-defaults to ``cuda``.
+``ServeEngine``.  ``--kv-page-size N`` gives the continuous engine a
+paged KV cache of N-row pages, and ``--prefix-cache`` adds the radix
+prefix cache over it.  The run prints TTFT p50/p99, TPOT mean,
+tokens/s, the engine's host syncs, the kernels' launch counts and, with
+the prefix cache, its hits.  Weights are random, made from ``--seed``;
+prompts are random tokens.  ``--device`` defaults to ``cuda``.
 
 Director-measured energy (``PowerRun``, tok/J) needs the harness,
 core and power modules, which are not ported yet (ROADMAP §A.4), and
-the options of the reference launcher for speculative decoding, paged
-KV, prefix caching, chunked prefill, preemption, tensor parallelism
-and replicas are refused until their ROADMAP items land.
+the options of the reference launcher for speculative decoding,
+chunked prefill, preemption, tensor parallelism and replicas are
+refused until their ROADMAP items land.
 """
 from __future__ import annotations
 
@@ -28,14 +30,16 @@ import torch
 from repro_torch.configs import get_config, list_archs, reduce_config
 from repro_torch.kernels.decode_attention.ops import decode_attention
 from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.paged_decode_attention.ops import (
+    paged_decode_attention)
+from repro_torch.kernels.paged_verify_attention.ops import (
+    paged_verify_attention)
 from repro_torch.models import build_model
 from repro_torch.serving import ContinuousBatchingEngine, Request, ServeEngine
 
 # reference-launcher options that wait for a later slice
 UNPORTED = {
     "speculative": "ROADMAP §A.7 (speculative decoding)",
-    "kv_page_size": "ROADMAP §A.5 (paged KV)",
-    "prefix_cache": "ROADMAP §A.5 (prefix caching)",
     "prefill_chunk": "ROADMAP §A.6 (chunked prefill)",
     "preemption": "ROADMAP §A.6 (preemption)",
     "tp": "ROADMAP §A.8 (tensor parallel)",
@@ -113,10 +117,10 @@ def main(argv=None):
     ap.add_argument("--qps", type=float, default=4.0)
     ap.add_argument("--min-duration", type=float, default=60.0)
     ap.add_argument("--seed", type=int, default=0)
-    # refused until ported
-    ap.add_argument("--speculative", action="store_true")
     ap.add_argument("--kv-page-size", type=int, default=0)
     ap.add_argument("--prefix-cache", action="store_true")
+    # refused until ported
+    ap.add_argument("--speculative", action="store_true")
     ap.add_argument("--prefill-chunk", type=int, default=0)
     ap.add_argument("--preemption", action="store_true")
     ap.add_argument("--tp", type=int, default=1)
@@ -128,6 +132,10 @@ def main(argv=None):
             ap.error(f"--{name.replace('_', '-')} is not ported yet: {item}")
     if args.prompt_len + args.new_tokens > args.max_len:
         ap.error("--prompt-len + --new-tokens must fit --max-len")
+    if args.prefix_cache and not args.kv_page_size:
+        ap.error("--prefix-cache needs --kv-page-size")
+    if args.kv_page_size and args.engine != "continuous":
+        ap.error("--kv-page-size needs --engine continuous")
 
     cfg = get_config(args.arch)
     if args.reduce:
@@ -137,7 +145,9 @@ def main(argv=None):
     if args.engine == "continuous":
         engine = ContinuousBatchingEngine(
             model, params, max_len=args.max_len, n_slots=args.slots,
-            chunk_steps=args.chunk_steps, device=args.device)
+            chunk_steps=args.chunk_steps, device=args.device,
+            kv_page_size=args.kv_page_size,
+            prefix_caching=args.prefix_cache)
     else:
         engine = ServeEngine(model, params, max_len=args.max_len,
                              batch_size=args.batch, device=args.device)
@@ -153,7 +163,10 @@ def main(argv=None):
                       args.new_tokens, args.seed + 1), False)
     requests = make_requests(arrivals, cfg.vocab_size, args.prompt_len,
                              args.new_tokens, args.seed + 2)
-    decode_attention.launches = flash_attention.launches = 0
+    kernels = (decode_attention, flash_attention, paged_decode_attention,
+               paged_verify_attention)
+    for k in kernels:
+        k.launches = 0
     if model.device.type == "cuda":
         torch.cuda.synchronize(model.device)
     t0 = time.perf_counter()
@@ -170,9 +183,15 @@ def main(argv=None):
           f"{m['tpot_mean_s'] * 1e3:.2f} ms, "
           f"{m['tokens_per_s']:.1f} tokens/s, host syncs: "
           f"{getattr(engine, 'host_syncs', 'n/a')}")
-    print(f"  kernel launches: decode_attention "
-          f"{decode_attention.launches}, flash_attention "
-          f"{flash_attention.launches}")
+    print("  kernel launches: " + ", ".join(
+        f"{k.__name__} {k.launches}" for k in kernels))
+    if getattr(engine, "prefix_caching", False):
+        st = engine.prefix_stats
+        print(f"  prefix cache: {st['hits']}/{st['lookups']} hits, "
+              f"{st['cached_tokens']} prompt tokens served from cache, "
+              f"{st['evicted_pages']} pages evicted, peak "
+              f"{engine.page_pool.peak_used} pages (page size "
+              f"{args.kv_page_size})")
     return m
 
 

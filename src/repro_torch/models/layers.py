@@ -1,9 +1,9 @@
 """Transformer layers of the dense decoder (PyTorch port).
 
 The dense subset of the reference ``models/layers.py``: norms, RoPE,
-GQA prefill/decode with the KV-cache write, and the SwiGLU FFN.  The
-reference's ``shard``/``tp_psum`` are identities at TP = 1 and are
-dropped.  Attention goes through the kernel wrappers when ``kernels``
+GQA prefill/decode with the KV-cache write, the paged-KV decode and
+verify paths, and the SwiGLU FFN.  The reference's ``shard``/``tp_psum``
+are identities at TP = 1 and are dropped.  Attention goes through the kernel wrappers when ``kernels``
 is set (CPU tensors still take the plain version inside them) and
 straight to the plain versions otherwise.
 """
@@ -19,6 +19,12 @@ from repro_torch.kernels.decode_attention.ops import (
 )
 from repro_torch.kernels.flash_attention.ops import (
     flash_attention, flash_attention_plain,
+)
+from repro_torch.kernels.paged_decode_attention.ops import (
+    paged_decode_attention, paged_view,
+)
+from repro_torch.kernels.paged_verify_attention.ops import (
+    paged_verify_attention, verify_attention_plain,
 )
 from repro_torch.models.param import ParamDef
 
@@ -69,26 +75,67 @@ def rope(x, positions, theta: float):
 # ----------------------------------------------------------------------
 # KV cache write
 # ----------------------------------------------------------------------
+def cache_update_window(cache, new, pos):
+    """Write ``new`` (B, T, KVH, D) at rows ``[pos, pos + T)`` of
+    ``cache`` (B, S, KVH, D), in place (the reference's one-hot update
+    rebuilds the cache; its jit donates the buffer, so this is the same
+    state change).  ``pos`` is a scalar or a per-slot (B,) tensor:
+    every slot writes its own contiguous window.
+
+    Rows past S - 1 are clamped to S - 1, where the reference's one-hot
+    writes nothing: only a slot the engine has already retired can sit
+    that deep (a zero-budget prompt of exactly ``max_len`` tokens), its
+    row is garbage either way and is rewritten at the next prefill.
+    The clamp keeps the write free of a host sync.
+    """
+    b, t = new.shape[:2]
+    pos = torch.as_tensor(pos, device=cache.device).long()
+    if pos.ndim == 0:
+        pos = pos.expand(b)
+    rows = pos[:, None] + torch.arange(t, device=cache.device)[None, :]
+    slots = torch.arange(b, device=cache.device)[:, None].expand(b, t)
+    cache.index_put_((slots, rows.clamp(max=cache.shape[1] - 1)),
+                     new.to(cache.dtype))
+    return cache
+
+
 def cache_update(cache, new, pos):
     """Write ``new`` (B, 1, KVH, D) into ``cache`` (B, S, KVH, D) at
-    ``pos``, in place (the reference's one-hot update rebuilds the
-    cache; its jit donates the buffer, so this is the same state
-    change).  ``pos`` is a scalar or a per-slot (B,) tensor.
+    ``pos``, a scalar or a per-slot (B,) tensor, in place: the T = 1
+    case of ``cache_update_window``."""
+    return cache_update_window(cache, new, pos)
 
-    Per-slot positions are clamped to S - 1: only a slot the engine has
-    already retired can sit at S (a zero-budget prompt of exactly
-    ``max_len`` tokens), where the reference's one-hot writes nothing;
-    its row is garbage either way and is rewritten at the next prefill.
-    """
-    new = new[:, 0].to(cache.dtype)
-    pos = torch.as_tensor(pos, device=cache.device)
-    if pos.ndim == 1:
-        rows = torch.arange(cache.shape[0], device=cache.device)
-        cache.index_put_((rows, pos.long().clamp(max=cache.shape[1] - 1)),
-                         new)
-    else:
-        cache.index_copy_(1, pos.long().reshape(1), new[:, None])
-    return cache
+
+def paged_dest(pages, pos, t: int, page_size: int):
+    """Physical (page, offset) index tensors, each (B, T), of logical
+    rows ``[pos, pos + T)`` of every slot through the page table
+    ``pages`` (B, NB).  Rows whose logical block falls off the table
+    clamp to the slot's last table entry: retired slots' tables are
+    reset to the reserved garbage page 0, so their frozen in-chunk
+    writes can never corrupt a reallocated page.  The model computes
+    it once per step and shares it across layers and K/V."""
+    b = pages.shape[0]
+    pos = torch.as_tensor(pos, device=pages.device).long()
+    if pos.ndim == 0:
+        pos = pos.expand(b)
+    rows = pos[:, None] + torch.arange(t, device=pages.device)[None, :]
+    blk = (rows // page_size).clamp(max=pages.shape[1] - 1)
+    return torch.gather(pages.long(), 1, blk), rows % page_size
+
+
+def paged_insert_window(pool, new, pages, pos, dest=None):
+    """Scatter ``new`` (B, T, KVH, D) into ``pool`` (P, page_size, KVH,
+    D) at logical rows ``[pos, pos + T)`` of each slot, resolved through
+    the page table ``pages`` (B, NB), in place (the reference's scatter
+    rebuilds the pool; its jit donates the buffer, so this is the same
+    state change).  The paged analogue of ``cache_update_window``; a
+    window may span a page boundary, and rows off the table clamp as
+    ``paged_dest`` says.  ``dest`` is that index when the caller has
+    it already."""
+    if dest is None:
+        dest = paged_dest(pages, pos, new.shape[1], pool.shape[1])
+    pool.index_put_(dest, new.to(pool.dtype))
+    return pool
 
 
 # ----------------------------------------------------------------------
@@ -166,6 +213,64 @@ def gqa_decode(x, p, cfg, cache, pos, *, kernels: bool = True):
     else:
         o = decode_attention_plain(q, k_cache, v_cache, pos)
     return o.reshape(b, 1, -1) @ p["wo"]
+
+
+def gqa_decode_paged(x, p, cfg, cache, pos, pages, *, kernels: bool = True,
+                     dest=None):
+    """One-token decode against a paged KV pool.
+
+    ``cache`` = dict(k, v) with pool leaves (P, page_size, KVH, D)
+    shared by all slots, written in place; ``pages`` (B, NB) is the
+    per-slot page table and ``pos`` the per-slot depth vector (``dest``:
+    its ``paged_dest``, when the caller has it).  The gather/scatter
+    indirection preserves the contiguous layout's values bit for bit,
+    so greedy output is token-identical to ``gqa_decode`` for any page
+    permutation."""
+    b = x.shape[0]
+    q, k, v = _proj_qkv(x, p, cfg)
+    pos = torch.as_tensor(pos, device=x.device)
+    poss = pos[:, None] if pos.ndim == 1 else pos.reshape(1)
+    q = rope(q, poss, cfg.rope_theta)
+    k = rope(k, poss, cfg.rope_theta)
+    if dest is None:
+        dest = paged_dest(pages, pos, 1, cache["k"].shape[1])
+    k_pool = paged_insert_window(cache["k"], k, pages, pos, dest)
+    v_pool = paged_insert_window(cache["v"], v, pages, pos, dest)
+    if kernels:
+        o = paged_decode_attention(q, k_pool, v_pool, pages, pos)
+    else:
+        o = decode_attention_plain(q, paged_view(k_pool, pages),
+                                   paged_view(v_pool, pages), pos)
+    return o.reshape(b, 1, -1) @ p["wo"]
+
+
+def gqa_verify_paged(x, p, cfg, cache, pos, pages, *, kernels: bool = True,
+                     dest=None):
+    """Multi-token window against a paged KV pool (the suffix prefill
+    of a prefix-cache hit, and the speculative verify window).
+
+    x: (B, T, d); window rows ``[pos, pos + T)`` rope at their absolute
+    positions, scatter through the page table (a window may span page
+    boundaries; ``dest`` as in ``gqa_decode_paged``) and attend
+    causally within the window, to the full prefix below it."""
+    b, t, _ = x.shape
+    q, k, v = _proj_qkv(x, p, cfg)
+    pos = torch.as_tensor(pos, device=x.device)
+    if pos.ndim == 0:
+        pos = pos.expand(b)
+    positions = pos[:, None] + torch.arange(t, device=x.device)[None, :]
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+    if dest is None:
+        dest = paged_dest(pages, pos, t, cache["k"].shape[1])
+    k_pool = paged_insert_window(cache["k"], k, pages, pos, dest)
+    v_pool = paged_insert_window(cache["v"], v, pages, pos, dest)
+    if kernels:
+        o = paged_verify_attention(q, k_pool, v_pool, pages, pos)
+    else:
+        o = verify_attention_plain(q, paged_view(k_pool, pages),
+                                   paged_view(v_pool, pages), pos)
+    return o.reshape(b, t, -1) @ p["wo"]
 
 
 # ----------------------------------------------------------------------

@@ -11,6 +11,10 @@ callers donate them.
   params = lm.init(seed=0)                 # or param.from_jax(tree)
   logits, cache = lm.prefill(params, {"tokens": toks}, max_len=2048)
   logits, cache = lm.decode_step(params, cache, next_tokens)
+
+The paged engine's cache tree (``init_paged_cache``) holds page pools
+shared by all slots plus a ``pages`` table; ``decode_step`` and
+``verify_step`` then go through the page table.
 """
 from __future__ import annotations
 
@@ -79,9 +83,12 @@ class LM:
     # ------------------------------------------------------------------
     # Block application
     # ------------------------------------------------------------------
-    def _apply_block(self, x, bp, mode, cache, pos):
+    def _apply_block(self, x, bp, mode, cache, pos, pages=None, dest=None):
         """One ``attn_dense`` block; ``cache`` (this layer's dict(k, v))
-        is written in place.  Returns the block output."""
+        is written in place.  ``pages`` (B, NB) switches decode and
+        verify to the paged KV pool: the cache leaves are then shared
+        physical pages, not per-slot rows (``dest``: the window's
+        ``paged_dest``).  Returns the block output."""
         cfg = self.cfg
         h = L.rmsnorm(x, bp["ln1"], cfg.norm_eps)
         if mode == "prefill":
@@ -93,23 +100,37 @@ class LM:
             cache["k"][:, s:] = 0
             cache["v"][:, :s] = v
             cache["v"][:, s:] = 0
+        elif mode == "decode" and pages is not None:
+            o = L.gqa_decode_paged(h, bp["attn"], cfg, cache, pos, pages,
+                                   kernels=self.kernels, dest=dest)
         elif mode == "decode":
             o = L.gqa_decode(h, bp["attn"], cfg, cache, pos,
                              kernels=self.kernels)
+        elif mode == "verify" and pages is not None:
+            o = L.gqa_verify_paged(h, bp["attn"], cfg, cache, pos, pages,
+                                   kernels=self.kernels, dest=dest)
         else:
             raise NotImplementedError(
-                f"mode {mode!r}: training and speculative verify are not "
-                f"ported yet, see ROADMAP §A.7 and §A.12")
+                f"mode {mode!r} without a page table: training and the "
+                f"contiguous speculative verify are not ported yet, see "
+                f"ROADMAP §A.7 and §A.12")
         x = x + o
         h2 = L.rmsnorm(x, bp["ln2"], cfg.norm_eps)
         return x + L.ffn(h2, bp["ffn"])
 
-    def _run_stack(self, params, x, mode, cache, pos):
-        """Run all blocks over the stacked parameters and caches."""
+    def _run_stack(self, params, x, mode, cache, pos, pages=None):
+        """Run all blocks over the stacked parameters and caches.  One
+        page table serves every layer (the pools are stacked per layer,
+        the table is not), so the window's physical rows are resolved
+        once here for all of them."""
+        dest = None
+        if pages is not None:
+            dest = L.paged_dest(pages, pos, x.shape[1],
+                                cache["blocks"]["k"].shape[2])
         for i in range(self.cfg.n_layers):
             bp = tree_map(lambda a: a[i], params["blocks"])
             c = {"k": cache["blocks"]["k"][i], "v": cache["blocks"]["v"][i]}
-            x = self._apply_block(x, bp, mode, c, pos)
+            x = self._apply_block(x, bp, mode, c, pos, pages, dest)
         return x
 
     # ------------------------------------------------------------------
@@ -131,6 +152,26 @@ class LM:
         return tree_map(
             lambda s: torch.zeros(s[0], dtype=s[1], device=self.device),
             self.cache_specs(batch, max_len, per_slot_pos))
+
+    def paged_cache_specs(self, batch: int, n_pages: int, page_size: int,
+                          pages_per_slot: int) -> dict[str, Any]:
+        """Shapes and dtypes of the paged engine's cache tree: stacked
+        (L, P, page_size, KVH, D) K and V page pools shared by all
+        slots, a per-slot (B,) ``pos`` and the (B, NB) int32 page
+        table."""
+        cfg = self.cfg
+        pool = ((cfg.n_layers, n_pages, page_size, cfg.n_kv_heads,
+                 cfg.head_dim), self.dtype)
+        return {"layers": {"blocks": {"k": pool, "v": pool}},
+                "pos": ((batch,), torch.int32),
+                "pages": ((batch, pages_per_slot), torch.int32)}
+
+    def init_paged_cache(self, batch: int, n_pages: int, page_size: int,
+                         pages_per_slot: int):
+        return tree_map(
+            lambda s: torch.zeros(s[0], dtype=s[1], device=self.device),
+            self.paged_cache_specs(batch, n_pages, page_size,
+                                   pages_per_slot))
 
     # ------------------------------------------------------------------
     # Embedding / head
@@ -166,15 +207,39 @@ class LM:
                         "pos": torch.tensor(seq, dtype=torch.int32,
                                             device=x.device)}
 
+    def verify_step(self, params, cache, tokens):
+        """tokens: (B, T) -> logits (B, T, Vp) and the cache, the T
+        tokens' K/V written in place at per-slot rows ``[pos, pos + T)``
+        through the page table.  ``pos`` is returned unchanged: the
+        caller advances it (by the accepted length, in speculative
+        decoding).  Only the paged form is ported; the contiguous
+        verify waits for speculative decoding (ROADMAP §A.7)."""
+        pos = cache["pos"]
+        pages = cache.get("pages")
+        if pages is None:
+            raise NotImplementedError(
+                "verify_step without a page table (contiguous "
+                "speculative verify) is not ported yet, see ROADMAP §A.7")
+        x = self._embed_inputs(params, {"tokens": tokens})
+        x = self._run_stack(params, x, "verify", cache["layers"], pos,
+                            pages)
+        logits = self._logits(params, x)
+        return logits, {"layers": cache["layers"], "pos": pos,
+                        "pages": pages}
+
     def decode_step(self, params, cache, tokens):
         """tokens: (B, 1) -> logits (B, 1, Vp) and the cache, its K/V
         written in place and ``pos`` advanced by one.
 
         ``cache["pos"]`` may be a scalar (fixed batch) or a per-slot (B,)
-        tensor (continuous batching)."""
+        tensor (continuous batching); a ``cache["pages"]`` table sends
+        the step through the paged KV pool and stays in the tree."""
         pos = cache["pos"]
+        pages = cache.get("pages")
         x = self._embed_inputs(params, {"tokens": tokens})
-        x = self._run_stack(params, x, "decode", cache["layers"], pos)
+        x = self._run_stack(params, x, "decode", cache["layers"], pos, pages)
         logits = self._logits(params, x)
-        return logits, {"layers": cache["layers"], "pos": pos + 1}
-
+        out = {"layers": cache["layers"], "pos": pos + 1}
+        if pages is not None:
+            out["pages"] = pages
+        return logits, out

@@ -29,6 +29,8 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.serving.kv_pages import GARBAGE_PAGE, PagePool, PoolExhausted
+from repro_torch.serving.prefix_cache import PrefixCache
 
 
 @dataclasses.dataclass
@@ -38,8 +40,8 @@ class Request:
     Caller-set: ``rid`` (unique per serve), ``prompt`` ((S,) int
     tokens), ``max_new_tokens``, ``arrival_s`` (seconds on the serve
     clock).  Everything else is engine-stamped.  The reference's fields
-    for scheduling, preemption, prefix caching and speculative decoding
-    arrive with those features.
+    for scheduling, preemption and speculative decoding arrive with
+    those features.
     """
 
     rid: int
@@ -51,7 +53,10 @@ class Request:
     done_s: Optional[float] = None
     output: Optional[list] = None
     energy_j: Optional[float] = None  # filled by attribute_request_energy
+    cached_tokens: int = 0            # prompt tokens served from the
+                                      # prefix cache (no prefill compute)
     prefill_tokens: int = 0           # prompt tokens computed at admission
+                                      # (the unique suffix on a hit)
 
     def ttft_s(self) -> Optional[float]:
         """Time to first token (arrival to first emission)."""
@@ -136,7 +141,7 @@ class ServeEngine:
 
 
 class ContinuousBatchingEngine:
-    """Slot-based continuous batching, greedy, contiguous KV cache.
+    """Slot-based continuous batching, greedy, contiguous or paged KV.
 
     Usage::
 
@@ -148,18 +153,25 @@ class ContinuousBatchingEngine:
     decode chunk the host performs exactly one device->host copy
     (``host_syncs`` counts them); ``decode_steps`` counts the model
     decode steps run.
+
+    Paged KV (``kv_page_size > 0``): ``kv_pages`` physical pages
+    (default: every slot full, plus the garbage page 0) of
+    ``kv_page_size`` rows, handed out by a host-side ``PagePool``; the
+    (n_slots, max_len / kv_page_size) page table lives on the device.
+    With ``prefix_caching`` a hit admits through ``_extend_slot``, which
+    computes only the uncached suffix (``prefix_stats`` counts lookups,
+    hits, cached tokens and evicted pages).
     """
 
     def __init__(self, model, params, *, max_len: int = 256,
                  n_slots: int = 8, chunk_steps: int = 8, device="cuda",
                  draft_model=None, spec_k: int = 0, kv_page_size: int = 0,
+                 kv_pages: Optional[int] = None,
                  prefix_caching: bool = False,
                  prefill_chunk_tokens: int = 0, scheduler=None):
         refused = {
             "draft_model/spec_k (speculative decoding, ROADMAP §A.7)":
                 draft_model is not None or spec_k,
-            "kv_page_size (paged KV, ROADMAP §A.5)": kv_page_size,
-            "prefix_caching (ROADMAP §A.5)": prefix_caching,
             "prefill_chunk_tokens (chunked prefill, ROADMAP §A.6)":
                 prefill_chunk_tokens,
             "scheduler (preemption, ROADMAP §A.6)": scheduler is not None,
@@ -175,41 +187,144 @@ class ContinuousBatchingEngine:
         self.chunk_steps = chunk_steps
         self.host_syncs = 0            # decode-chunk device->host copies
         self.decode_steps = 0          # model decode steps (all slots)
+        # paged KV: block-granular cache through a per-slot page table,
+        # with optional radix prefix caching on top
+        self.page_size = int(kv_page_size)
+        self.paged = self.page_size > 0
+        self.prefix_caching = bool(prefix_caching)
+        if self.prefix_caching and not self.paged:
+            raise ValueError("prefix_caching requires kv_page_size > 0")
+        self.page_pool: Optional[PagePool] = None
+        self.prefix_cache: Optional[PrefixCache] = None
+        if self.paged:
+            if max_len % self.page_size:
+                raise ValueError(
+                    f"max_len {max_len} not a multiple of kv_page_size "
+                    f"{self.page_size}")
+            self.pages_per_slot = max_len // self.page_size
+            # +1: physical page 0 is the reserved garbage page
+            self.n_pages = (int(kv_pages) if kv_pages is not None
+                            else n_slots * self.pages_per_slot + 1)
+            if self.n_pages < self.pages_per_slot + 1:
+                raise ValueError(
+                    f"kv_pages {self.n_pages} cannot hold even one "
+                    f"full slot ({self.pages_per_slot} pages) plus the "
+                    f"garbage page")
+            self.page_pool = PagePool(self.n_pages, self.page_size)
+            if self.prefix_caching:
+                self.prefix_cache = PrefixCache(self.page_pool,
+                                                self.page_size)
+        self.prefix_stats = self._zero_prefix_stats()
         self.reset()
+
+    @staticmethod
+    def _zero_prefix_stats() -> dict:
+        return {"lookups": 0, "hits": 0, "cached_tokens": 0,
+                "evicted_pages": 0}
 
     # -- device state ---------------------------------------------------
     def reset(self):
-        """Fresh slot state: empty cache, zero positions, no budgets."""
+        """Fresh slot state: empty cache, zero positions, no budgets;
+        in paged mode also a full page pool and an empty prefix
+        cache."""
         n = self.n_slots
+        if self.paged:
+            cache = self.model.init_paged_cache(
+                n, self.n_pages, self.page_size, self.pages_per_slot)
+            self.page_pool.reset()
+            if self.prefix_cache is not None:
+                self.prefix_cache.reset()
+            # host shadow of page ownership: pages each slot holds a
+            # reference on (the device side only sees the table row)
+            self._slot_pages: list[list[int]] = [[] for _ in range(n)]
+        else:
+            cache = self.model.init_cache(n, self.max_len,
+                                          per_slot_pos=True)
         self.state = {
-            "cache": self.model.init_cache(n, self.max_len,
-                                           per_slot_pos=True),
+            "cache": cache,
             "tok": torch.zeros((n,), dtype=torch.long, device=self.device),
             "remaining": torch.zeros((n,), dtype=torch.int32,
                                      device=self.device),
         }
 
     @torch.no_grad()
-    def _prefill_slot(self, params, state, tokens, slot: int, budget: int):
+    def _prefill_slot(self, params, state, tokens, slot: int, budget: int,
+                      pages: Optional[list] = None):
         """Prefill one (1, S) prompt into slot ``slot``, in place.
 
-        The prompt's K/V land at rows [0, S) of the slot's cache row and
-        the rest of the row is zeroed (the reference overwrites the whole
-        row with the zero-padded batch-1 prefill cache).  The slot's
-        position becomes S, its first greedy token seeds decoding, and
-        its budget becomes ``budget - 1``.  Other slots are untouched.
-        Returns (state, tok0) with tok0 still on the device.
+        Contiguous: the prompt's K/V land at rows [0, S) of the slot's
+        cache row and the rest of the row is zeroed (the reference
+        overwrites the whole row with the zero-padded batch-1 prefill
+        cache).  Paged (``pages``: the slot's physical pages in position
+        order): the prompt's K/V are chopped into page-size blocks and
+        scattered at the first ceil(S / page_size) of them, and the
+        slot's table row is installed.  The reference also scatters the
+        zero tail of its padded prefill cache into the rest of the row;
+        no position past S is ever read before decode writes it, so
+        that write is left out.  The slot's position becomes S, its
+        first greedy token seeds decoding, and its budget becomes
+        ``budget - 1``.  Other slots are untouched.  Returns (state,
+        tok0) with tok0 still on the device.
         """
         cache = state["cache"]
-        row = {"blocks": {name: t[:, slot:slot + 1] for name, t in
-                          cache["layers"]["blocks"].items()}}
-        logits, one = self.model.prefill(params, {"tokens": tokens},
-                                         max_len=self.max_len, cache=row)
+        if pages is None:
+            row = {"blocks": {name: t[:, slot:slot + 1] for name, t in
+                              cache["layers"]["blocks"].items()}}
+            logits, one = self.model.prefill(params, {"tokens": tokens},
+                                             max_len=self.max_len,
+                                             cache=row)
+        else:
+            ps = self.page_size
+            n_blk = -(-int(tokens.shape[1]) // ps)
+            logits, one = self.model.prefill(params, {"tokens": tokens},
+                                             max_len=n_blk * ps)
+            idx = torch.as_tensor(pages[:n_blk], dtype=torch.long,
+                                  device=self.device)
+            for name, pool in cache["layers"]["blocks"].items():
+                small = one["layers"]["blocks"][name]   # (L, 1, n*ps, ..)
+                pool[:, idx] = small[:, 0].reshape(
+                    small.shape[0], n_blk, ps, *pool.shape[3:])
+            cache["pages"][slot] = self._table_row(pages)
         tok0 = torch.argmax(logits[0, -1], -1)
         cache["pos"][slot] = one["pos"]
         state["tok"][slot] = tok0
         state["remaining"][slot] = max(budget - 1, 0)
         return state, tok0
+
+    @torch.no_grad()
+    def _extend_slot(self, params, state, suffix, slot: int, pages: list,
+                     start: int, budget: int):
+        """Admit a prefix-cache hit: only the unique suffix is computed.
+
+        ``suffix``: (1, S - start) the prompt tokens not covered by the
+        cached pages (``lookup`` leaves it non-empty).  K/V are stored
+        post-RoPE at absolute positions, so the shared pages already
+        hold exactly what a full prefill would have written; the suffix
+        runs through a batch-1 paged ``verify_step`` on the engine's
+        pool, starting at absolute position ``start``, and its last
+        logit row seeds decoding like a full prefill's.  Returns (state,
+        tok0) with tok0 still on the device.
+        """
+        cache = state["cache"]
+        table = self._table_row(pages)
+        mini = {"layers": cache["layers"],
+                "pos": torch.full((1,), start, dtype=torch.int32,
+                                  device=self.device),
+                "pages": table[None]}
+        logits, _ = self.model.verify_step(params, mini, suffix)
+        tok0 = torch.argmax(logits[0, -1], -1)
+        cache["pos"][slot] = start + int(suffix.shape[1])
+        cache["pages"][slot] = table
+        state["tok"][slot] = tok0
+        state["remaining"][slot] = max(budget - 1, 0)
+        return state, tok0
+
+    def _table_row(self, pages: list) -> torch.Tensor:
+        """A slot's full device table row: its pages, then garbage page
+        0 up to ``pages_per_slot``."""
+        row = list(pages) + [GARBAGE_PAGE] * (self.pages_per_slot
+                                              - len(pages))
+        return torch.tensor(row, dtype=torch.int32, device=self.device)
 
     @torch.no_grad()
     def _decode_chunk(self, params, state):
@@ -240,19 +355,107 @@ class ContinuousBatchingEngine:
         state.update(cache=cache, tok=tok, remaining=remaining)
         return state, buf
 
-    def _admit_slot(self, r: Request, b: int, cx: _ServeCtx) -> None:
-        """Admit ``r`` into free slot ``b``: prefill, stamp, route."""
-        prompt = _prompt_tensor(r.prompt, self.device)
-        s = int(prompt.shape[1])
+    # -- paged admission (host side) -------------------------------------
+    def _alloc_pages(self, n: int) -> list[int]:
+        """Allocate ``n`` pages, evicting cache-only prefix pages under
+        memory pressure.  Raises ``PoolExhausted`` when eviction cannot
+        free enough (every remaining page is pinned by a live slot)."""
+        pool = self.page_pool
+        if n > pool.free_pages() and self.prefix_cache is not None:
+            self.prefix_stats["evicted_pages"] += self.prefix_cache.evict(
+                n - pool.free_pages())
+        return pool.alloc(n)
+
+    def _release_slot(self, b: int) -> None:
+        """Drop a retired slot's page references, aiming its table row
+        at the garbage page *first*: the frozen chunk loop keeps
+        scattering at the dead slot's position, and those writes must
+        not land on pages that may be reallocated to another request."""
+        if not self.paged:
+            return
+        self.state["cache"]["pages"][b] = GARBAGE_PAGE
+        for p in self._slot_pages[b]:
+            self.page_pool.unref(p)
+        self._slot_pages[b] = []
+
+    def _acquire_pages(self, toks: tuple, s: int,
+                       budget: int) -> tuple[list, int]:
+        """Pin prefix-cache hit pages and allocate the fresh remainder
+        for a prompt of ``s`` tokens decoding up to ``budget`` more.
+
+        Hit pages are ``ref``-ed *before* allocating, because allocation
+        may evict: pinning first means eviction can never free a page
+        this request is about to read.  On ``PoolExhausted`` the pins
+        are rolled back and the exception propagates (the caller
+        defers).  Returns ``(row, start)``: the physical pages in
+        position order and the cached-token count.
+        """
+        ps = self.page_size
+        n_blocks = min(self.pages_per_slot, -(-(s + budget) // ps))
+        shared = (self.prefix_cache.lookup(toks)
+                  if self.prefix_cache is not None else [])
+        for p in shared:
+            self.page_pool.ref(p)
+        try:
+            fresh = self._alloc_pages(n_blocks - len(shared))
+        except PoolExhausted:
+            for p in shared:
+                self.page_pool.unref(p)
+            raise
+        if self.prefix_cache is not None:
+            self.prefix_stats["lookups"] += 1
+            if shared:
+                self.prefix_stats["hits"] += 1
+                self.prefix_stats["cached_tokens"] += len(shared) * ps
+        return shared + fresh, len(shared) * ps
+
+    def _intern_prompt(self, toks: tuple, row: list) -> None:
+        """Intern the *full* blocks of ``toks`` (physical pages
+        ``row``) into the prefix cache, once their K/V exists.  Only
+        full blocks: a partial last block still receives its slot's
+        decode writes, so sharing it would let another request read
+        tokens that aren't prompt."""
+        if self.prefix_cache is None:
+            return
+        n_full = min(len(toks) // self.page_size, len(row))
+        self.prefix_cache.insert(toks[:n_full * self.page_size],
+                                 row[:n_full])
+
+    def _admit_slot(self, r: Request, b: int, cx: _ServeCtx) -> bool:
+        """Admit ``r`` into free slot ``b``: prefill (or, on a prefix
+        hit, extend), stamp, route.  ``False`` = defer: the page pool
+        cannot cover the request until a slot retires."""
+        toks = tuple(int(x) for x in np.asarray(r.prompt).reshape(-1))
+        prompt = _prompt_tensor(toks, self.device)
+        s = len(toks)
         budget = r.max_new_tokens
         if s + budget > self.max_len:
             raise ValueError(f"request {r.rid}: prompt {s} + budget "
                              f"{budget} tokens exceed max_len "
                              f"{self.max_len}")
-        r.prefill_tokens += s
-        self.state, tok0 = self._prefill_slot(self.params, self.state,
-                                              prompt, b, budget)
+        if not self.paged:
+            r.prefill_tokens += s
+            self.state, tok0 = self._prefill_slot(self.params, self.state,
+                                                  prompt, b, budget)
+            self._finish_admit(r, b, tok0, budget, cx)
+            return True
+        try:
+            row, start = self._acquire_pages(toks, s, budget)
+        except PoolExhausted:
+            return False
+        self._slot_pages[b] = list(row)
+        r.cached_tokens += start
+        r.prefill_tokens += s - start
+        if start:
+            self.state, tok0 = self._extend_slot(
+                self.params, self.state, prompt[:, start:], b, row, start,
+                budget)
+        else:
+            self.state, tok0 = self._prefill_slot(
+                self.params, self.state, prompt, b, budget, row)
+        self._intern_prompt(toks, row)
         self._finish_admit(r, b, tok0, budget, cx)
+        return True
 
     def _finish_admit(self, r: Request, b: int, tok0, budget: int,
                       cx: _ServeCtx) -> None:
@@ -265,6 +468,7 @@ class ContinuousBatchingEngine:
         if budget <= 1:
             r.done_s = t_now
             cx.done.append(r)
+            self._release_slot(b)
         else:
             cx.slots[b] = r
             cx.slot_left[b] = budget - 1
@@ -280,7 +484,9 @@ class ContinuousBatchingEngine:
         stragglers).  ``first_token_s`` and ``done_s`` are seconds since
         serve() start, the clock of ``arrival_s``.  With
         ``honor_arrivals=False`` the queue drains as fast as slots free
-        up (Offline scenario).  Admission is FIFO by arrival.
+        up (Offline scenario).  Admission is FIFO by arrival; in paged
+        mode a request the page pool cannot cover waits at the head of
+        the queue until a slot retires.
         """
         counts = collections.Counter(r.rid for r in requests)
         dup = sorted(r for r, c in counts.items() if c > 1)
@@ -289,6 +495,7 @@ class ContinuousBatchingEngine:
                 f"duplicate request ids in admission queue: {dup} -- "
                 f"rids must be unique per serve()")
         self.reset()
+        self.prefix_stats = self._zero_prefix_stats()
         self.host_syncs = 0
         self.decode_steps = 0
         pending = collections.deque(
@@ -303,8 +510,18 @@ class ContinuousBatchingEngine:
                                or pending[0].arrival_s <= t):
                 cx.ready.append(pending.popleft())
             for b in range(self.n_slots):
-                if cx.slots[b] is None and cx.ready:
-                    self._admit_slot(cx.ready.popleft(), b, cx)
+                if cx.slots[b] is not None or not cx.ready:
+                    continue
+                r = cx.ready.popleft()
+                if not self._admit_slot(r, b, cx):
+                    # defer: a retiring slot will free its pages
+                    cx.ready.appendleft(r)
+                    if not any(s is not None for s in cx.slots):
+                        raise RuntimeError(
+                            f"request {r.rid} needs more KV pages than "
+                            f"eviction can ever free (pool of "
+                            f"{self.page_pool.n_pages - 1} usable pages)")
+                    break
             if not any(s is not None for s in cx.slots):
                 if not cx.ready:
                     if not pending:
@@ -331,6 +548,7 @@ class ContinuousBatchingEngine:
                     r.done_s = t_chunk
                     cx.done.append(r)
                     cx.slots[b] = None
+                    self._release_slot(b)
         return cx.done
 
 
