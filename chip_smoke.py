@@ -12,7 +12,8 @@ Phases, each fatal on failure:
    version's, one PyTorch library call's (SDPA, a yardstick the port
    never calls) and the least time the card could take (its bound).
    Paged decode must also equal contiguous decode bit for bit on the
-   same values, through a shuffled page table.
+   same values, through a shuffled page table, and likewise paged
+   verify and contiguous verify.
    Then every build the wrappers can launch (float32 and bfloat16,
    D 64 and 128, G 1/2/4/8) once at a small shape against its plain
    version.
@@ -31,6 +32,15 @@ Phases, each fatal on failure:
 7. Token identity: phase 4's requests through the contiguous engine and
    through a paged engine with shuffled pages give the same tokens; a
    prefix hit's first-token logits match a cold prefill's.
+8. Full-width speculative engine: the weights above with layers past 2
+   damped to 0.001 (a high-acceptance pair) and a 2-layer truncated
+   draft, ``spec_k=4``, serve phase 4's requests; verify, draft decode
+   and flash launches are exact and the host copies once per chunk.
+   The plain engine serves them on the same weights in the same call.
+9. Speculative tokens: ``verify_step`` against sequential
+   ``decode_step``s; plain against speculative engine offline (a
+   divergence must start at a near-tie); paged speculative (shuffled
+   pages) token-identical to contiguous speculative.
 
 The line before the last holds the kernels' JSON record; the last line
 is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside
@@ -137,6 +147,8 @@ def phase_kernels(torch, dev):
         paged_decode_attention, paged_decode_attention_plain)
     from repro_torch.kernels.paged_verify_attention.ops import (
         paged_verify_attention, paged_verify_attention_plain)
+    from repro_torch.kernels.verify_attention.ops import (
+        verify_attention, verify_attention_plain)
 
     bf16 = torch.bfloat16
     gen = torch.Generator(device=dev)
@@ -298,14 +310,49 @@ def phase_kernels(torch, dev):
           f"KVH={kvh} D={d}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
           f"SDPA (contiguous, no gather) {library_ms:.4f} ms, bound "
           f"{bound_ms * 1e3:.2f} us ({bound_by}, {flops} flop, {nbytes} B)")
+
+    # --- verify: the speculative window (T = k + 1 = 5) on the decode
+    # cache, at the decode shape's ragged depths clipped to S - T
+    t = 5
+    pos = ragged.clamp(max=s - t)
+    q = torch.randn((b, t, h, d), generator=gen, device=dev).to(bf16)
+    got = verify_attention(q, kc, vc, pos)
+    err, rel = compare("verify_attention", got,
+                       verify_attention_plain(q, kc, vc, pos))
+    check(torch.equal(got, paged_verify_attention(q, kp, vp, pages, pos)),
+          "verify_attention is not bit-identical to paged_verify_attention "
+          "on the same values through a shuffled page table")
+    ms = time_ms(lambda: verify_attention(q, kc, vc, pos))
+    plain_ms = time_ms(lambda: verify_attention_plain(q, kc, vc, pos))
+    q_pos = pos[:, None] + torch.arange(t, device=dev)[None, :]   # (B, T)
+    vmask = (torch.arange(s, device=dev)[None, None, :]
+             <= q_pos[:, :, None])[:, None].expand(b, h, t, s)
+    library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        q.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2),
+        attn_mask=vmask, enable_gqa=True))
+    rows = int((pos.long() + t).sum())              # positions read
+    nbytes = rows * kvh * d * 2 * 2 + 2 * q.numel() * 2 + b * 4
+    flops = int((q_pos.long() + 1).sum()) * h * d * 4   # visible pairs
+    bound_ms, bound_by = bound(nbytes, flops)
+    out["verify_attention"] = dict(
+        max_abs_err=err, rel_norm_err=rel, ms=ms, plain_ms=plain_ms,
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+    print(f"  verify_attention max |kernel - plain| {err:.3e}, "
+          f"||kernel - plain|| / ||plain|| {rel:.3e}, torch.equal to "
+          f"paged_verify_attention: True")
+    print(f"  verify_attention B={b} T={t} KVH={kvh} G={g} D={d} S={s} "
+          f"ragged pos: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
+          f"(boolean (B, H, T, S) mask) {library_ms:.4f} ms, bound "
+          f"{bound_ms * 1e3:.2f} us ({bound_by}, {nbytes} B, {flops} flop)")
     return out
 
 
 def phase_builds(torch, dev):
     """Phase 3, second part: every build the wrappers can launch (the
     kernels are templates on dtype, D and, for decode, G), once each at
-    a small ragged shape against the plain version: paged verify with a
-    5-token window across a page boundary."""
+    a small ragged shape against the plain version: both verify kernels
+    with a 5-token window (across a page boundary for paged verify),
+    which must agree bit for bit."""
     import itertools
     from repro_torch.kernels.decode_attention.ops import (
         decode_attention, decode_attention_plain)
@@ -315,6 +362,8 @@ def phase_builds(torch, dev):
         paged_decode_attention, paged_decode_attention_plain)
     from repro_torch.kernels.paged_verify_attention.ops import (
         paged_verify_attention, paged_verify_attention_plain)
+    from repro_torch.kernels.verify_attention.ops import (
+        verify_attention, verify_attention_plain)
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(4321)
@@ -351,10 +400,15 @@ def phase_builds(torch, dev):
               f"paged_decode_attention {name} is not bit-identical to "
               f"decode_attention")
         q = randn(b, 5, h, d)
-        pver = compare(f"paged_verify_attention {name}",
-                       paged_verify_attention(q, kp, vp, pages, starts),
+        got = paged_verify_attention(q, kp, vp, pages, starts)
+        pver = compare(f"paged_verify_attention {name}", got,
                        paged_verify_attention_plain(q, kp, vp, pages,
                                                     starts))
+        ver = verify_attention(q, kc, vc, starts)
+        cver = compare(f"verify_attention {name}", ver,
+                       verify_attention_plain(q, kc, vc, starts))
+        check(torch.equal(ver, got), f"verify_attention {name} is not "
+              f"bit-identical to paged_verify_attention")
         q = randn(2, sq, h, d)
         k, v = randn(2, sq, kvh, d), randn(2, sq, kvh, d)
         fl = compare(f"flash_attention {name}",
@@ -362,8 +416,9 @@ def phase_builds(torch, dev):
                      flash_attention_plain(q, k, v, causal=True))
         print(f"  {name}: decode max err {dec[0]:.2e} rel {dec[1]:.2e}; "
               f"flash {fl[0]:.2e}/{fl[1]:.2e}; paged decode "
-              f"{pdec[0]:.2e}/{pdec[1]:.2e} (= decode); paged verify "
-              f"{pver[0]:.2e}/{pver[1]:.2e}")
+              f"{pdec[0]:.2e}/{pdec[1]:.2e} (= decode); verify "
+              f"{cver[0]:.2e}/{cver[1]:.2e}; paged verify "
+              f"{pver[0]:.2e}/{pver[1]:.2e} (= verify)")
 
 
 def launch_counters() -> dict:
@@ -374,9 +429,11 @@ def launch_counters() -> dict:
         paged_decode_attention)
     from repro_torch.kernels.paged_verify_attention.ops import (
         paged_verify_attention)
+    from repro_torch.kernels.verify_attention.ops import verify_attention
     return {k.__name__: k for k in (decode_attention, flash_attention,
                                     paged_decode_attention,
-                                    paged_verify_attention)}
+                                    paged_verify_attention,
+                                    verify_attention)}
 
 
 def print_served(m: dict, wall_s: float, engine) -> None:
@@ -385,6 +442,30 @@ def print_served(m: dict, wall_s: float, engine) -> None:
           f"p50/p99 {m['ttft_p50_s'] * 1e3:.1f}/{m['ttft_p99_s'] * 1e3:.1f}"
           f" ms, TPOT mean {m['tpot_mean_s'] * 1e3:.2f} ms, host syncs "
           f"{engine.host_syncs}, decode steps {engine.decode_steps}")
+
+
+def served_run(torch, engine, requests, honor_arrivals=True):
+    """Serve a copy of ``requests`` after a warm-up request (cuBLAS
+    handles, kernel libraries) outside the counted run, with every
+    launch counter set to 0 just before; returns (done, wall seconds,
+    launches)."""
+    import copy
+
+    import numpy as np
+    from repro_torch.serving import Request
+
+    engine.serve([Request(rid=-1, prompt=np.arange(64), max_new_tokens=9)],
+                 honor_arrivals=False)
+    torch.cuda.synchronize()
+    kernels = launch_counters()
+    for k in kernels.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    done = engine.serve(copy.deepcopy(requests),
+                        honor_arrivals=honor_arrivals)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    return done, wall_s, {name: k.launches for name, k in kernels.items()}
 
 
 def phase_engine(torch, dev, model, params):
@@ -405,18 +486,7 @@ def phase_engine(torch, dev, model, params):
                         max_new_tokens=int(rng.integers(32, 129)),
                         arrival_s=float(a))
                 for i, a in enumerate(arrivals)]
-    # warm-up (cuBLAS handles, kernel libraries) outside the counted run
-    engine.serve([Request(rid=-1, prompt=np.arange(64), max_new_tokens=9)],
-                 honor_arrivals=False)
-    torch.cuda.synchronize()
-    kernels = launch_counters()
-    for k in kernels.values():
-        k.launches = 0
-    t0 = time.perf_counter()
-    done = engine.serve(requests)
-    torch.cuda.synchronize()
-    wall_s = time.perf_counter() - t0
-    launches = {name: k.launches for name, k in kernels.items()}
+    done, wall_s, launches = served_run(torch, engine, requests)
     m = summarize(done, wall_s)
     print_served(m, wall_s, engine)
     print("  launches: " + ", ".join(f"{k} {n}"
@@ -438,9 +508,27 @@ def phase_engine(torch, dev, model, params):
     check(engine.host_syncs * engine.chunk_steps == engine.decode_steps,
           "more than one host copy per decode chunk")
     check(launches["paged_decode_attention"]
-          == launches["paged_verify_attention"] == 0,
-          "the contiguous engine launched a paged kernel")
+          == launches["paged_verify_attention"]
+          == launches["verify_attention"] == 0,
+          "the plain contiguous engine launched a paged or verify kernel")
     return engine, requests, launches
+
+
+def prefill_slots(torch, model, params, prompts, max_len):
+    """A per-slot cache of ``max_len`` rows with slot b prefilled with
+    prompts[b] (each (1, S_b)); returns it and each prefill's last-token
+    logits."""
+    cache = model.init_cache(len(prompts), max_len, per_slot_pos=True)
+    logits = []
+    with torch.no_grad():
+        for b, prompt in enumerate(prompts):
+            row = {"blocks": {k: t[:, b:b + 1] for k, t in
+                              cache["layers"]["blocks"].items()}}
+            lg, one = model.prefill(params, {"tokens": prompt},
+                                    max_len=max_len, cache=row)
+            cache["pos"][b] = one["pos"]
+            logits.append(lg[0, -1])
+    return cache, logits
 
 
 def phase_consistency(torch, dev, cfg, params):
@@ -457,16 +545,8 @@ def phase_consistency(torch, dev, cfg, params):
     runs = []
     for kernels in (True, False):
         model = build_model(cfg, dev, kernels=kernels)
-        cache = model.init_cache(len(lens), 1280, per_slot_pos=True)
-        logits = []
+        cache, logits = prefill_slots(torch, model, params, prompts, 1280)
         with torch.no_grad():
-            for b, prompt in enumerate(prompts):
-                row = {"blocks": {k: t[:, b:b + 1] for k, t in
-                                  cache["layers"]["blocks"].items()}}
-                lg, one = model.prefill(params, {"tokens": prompt},
-                                        max_len=1280, cache=row)
-                cache["pos"][b] = one["pos"]
-                logits.append(lg[0, -1])
             for step in range(forced.shape[1]):
                 lg, cache = model.decode_step(params, cache,
                                               forced[:, step:step + 1])
@@ -557,8 +637,8 @@ def phase_paged_engine(torch, dev, model, params):
     check(launches["flash_attention"] == layers * misses,
           f"flash launches {launches['flash_attention']} != {layers} "
           f"layers x {misses} misses")
-    check(launches["decode_attention"] == 0,
-          "the paged engine launched contiguous decode attention")
+    check(launches["decode_attention"] == launches["verify_attention"] == 0,
+          "the paged engine launched a contiguous decode or verify kernel")
     check(engine.host_syncs * engine.chunk_steps == engine.decode_steps,
           "more than one host copy per decode chunk")
     return launches
@@ -635,6 +715,179 @@ def phase_token_identity(torch, dev, model, params, engine, requests):
     check(rel <= LOGIT_REL_TOL, f"prefix-hit logits differ by {rel}")
 
 
+def spec_engines(dev, model, params):
+    """The speculative pair of ``benchmarks/speculative_efficiency.py``
+    at full width: the target's layers past 2 damped to 0.001 of their
+    residual output, and its first 2 layers as the draft.  Returns a
+    factory of engines on the damped weights (``spec_k`` 4 with the
+    draft, 0 without)."""
+    from repro_torch.serving import (ContinuousBatchingEngine,
+                                     damp_upper_layers, truncate_draft)
+
+    damped = damp_upper_layers(params, n_keep=2, damp=0.001)
+    dmodel, dparams = truncate_draft(model, damped, 2)
+
+    def make(spec_k=4, **more):
+        draft = (dict(draft_model=dmodel, draft_params=dparams,
+                      spec_k=spec_k) if spec_k else {})
+        return ContinuousBatchingEngine(
+            model, damped, max_len=2048, n_slots=8, chunk_steps=8,
+            device=dev, **draft, **more)
+    return make
+
+
+def phase_spec_engine(torch, dev, model, make, requests):
+    """Phase 8: phase 4's 16 requests at 8 QPS through the speculative
+    engine (k = 4, 2-layer truncated draft) on the damped weights, then
+    through the plain engine on the same weights, in this one call."""
+    from repro_torch.launch.serve import summarize
+
+    cfg = model.cfg
+    spec = make()
+    done, wall_s, launches = served_run(torch, spec, requests)
+    m = summarize(done, wall_s)
+    st = spec.spec_stats
+    rounds = spec.spec_rounds
+    print_served(m, wall_s, spec)
+    print(f"  speculative k={spec.spec_k}: acceptance "
+          f"{spec.acceptance_rate():.4f} ({st['accepted']}/{st['proposed']}"
+          f" drafts), {st['rounds']} slot-rounds, {rounds} rounds, "
+          f"{spec.host_syncs} host copies")
+    print("  launches: " + ", ".join(f"{k} {n}"
+                                     for k, n in launches.items()))
+    check(len(done) == len(requests),
+          f"{len(done)} of {len(requests)} requests completed")
+    for r in done:
+        check(len(r.output) == r.max_new_tokens,
+              f"request {r.rid}: {len(r.output)} of {r.max_new_tokens} "
+              f"tokens")
+        check(all(0 <= t < model.vp for t in r.output),
+              f"request {r.rid}: token outside the padded vocabulary")
+    dl = spec.draft_model.cfg.n_layers
+    n = len(requests)
+    check(launches["verify_attention"] == cfg.n_layers * rounds,
+          f"verify launches {launches['verify_attention']} != "
+          f"{cfg.n_layers} layers x {rounds} rounds")
+    check(launches["decode_attention"]
+          == dl * (spec.spec_k + 1) * rounds,
+          f"decode launches {launches['decode_attention']} != {dl} draft "
+          f"layers x {spec.spec_k + 1} steps x {rounds} rounds")
+    check(launches["flash_attention"] == (cfg.n_layers + dl) * n,
+          f"flash launches {launches['flash_attention']} != "
+          f"({cfg.n_layers} + {dl}) layers x {n} admissions")
+    check(launches["paged_decode_attention"]
+          == launches["paged_verify_attention"] == 0,
+          "the contiguous speculative engine launched a paged kernel")
+    check(spec.host_syncs * spec.chunk_steps == rounds,
+          "host copies != chunks: more than one copy per chunk")
+    check(spec.decode_steps == 0, "the speculative engine ran plain "
+          "decode steps")
+
+    plain = make(spec_k=0)
+    done, wall_s, _ = served_run(torch, plain, requests)
+    mp = summarize(done, wall_s)
+    print("  plain engine, same damped weights, same requests:")
+    print_served(mp, wall_s, plain)
+    print(f"  tokens/s speculative / plain: "
+          f"{m['tokens_per_s'] / mp['tokens_per_s']:.3f}")
+    return launches
+
+
+def phase_spec_tokens(torch, dev, model, params, make, requests):
+    """Phase 9: speculative token checks.  (1) Model level: a 5-token
+    ``verify_step`` against 5 sequential ``decode_step``s.  (2) Phase
+    4's requests offline through the plain and the speculative
+    contiguous engines: every divergence must start at a near-tie.
+    (3) The same requests through the speculative paged engine
+    (shuffled 16-row pages) must give the speculative contiguous
+    engine's tokens exactly."""
+    import numpy as np
+    from repro_torch.serving import PagePool
+
+    cfg = model.cfg
+    # (1) model level, on the undamped weights: all 28 layers count
+    rng = np.random.default_rng(2)
+    prompts = [torch.as_tensor(rng.integers(0, cfg.vocab_size, n),
+                               device=dev)[None] for n in (300, 17, 1024, 129)]
+    cache, _ = prefill_slots(torch, model, params, prompts, 1280)
+    with torch.no_grad():
+        window = torch.as_tensor(rng.integers(0, cfg.vocab_size, (4, 5)),
+                                 device=dev)
+        seq = {"layers": {"blocks": {k: t.clone() for k, t in
+                                     cache["layers"]["blocks"].items()}},
+               "pos": cache["pos"].clone()}
+        steps = []
+        for j in range(window.shape[1]):
+            lg, seq = model.decode_step(params, seq, window[:, j:j + 1])
+            steps.append(lg[:, 0])
+        want = torch.stack(steps, 1).float()
+        got, vc = model.verify_step(params, cache, window)
+        got = got.float()
+    rel = float((got - want).abs().max() / want.abs().max())
+    agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    print(f"  verify_step (4 slots at depths 300/17/1024/129, 5-token "
+          f"window) vs 5 decode_steps: max |verify - decode| / max "
+          f"|decode| = {rel:.3e}, argmax agreement {agree:.2f}")
+    check(bool(torch.isfinite(got).all()), "non-finite verify logits")
+    check(rel <= LOGIT_REL_TOL, f"verify_step logits differ by {rel}")
+    check(torch.equal(vc["pos"], cache["pos"]), "verify_step moved pos")
+
+    # (2) plain vs speculative, offline, on the damped weights
+    def serve(eng):
+        done, _, launches = served_run(torch, eng, requests, False)
+        return {r.rid: r.output for r in done}, launches
+
+    plain, _ = serve(make(spec_k=0))
+    spec_eng = make()
+    spec, _ = serve(spec_eng)
+    same = sum(spec[rid] == plain[rid] for rid in plain)
+    print(f"  {same}/{len(plain)} requests token-identical (speculative vs "
+          f"plain, offline), acceptance {spec_eng.acceptance_rate():.4f}")
+    damped = spec_eng.params
+    by_rid = {r.rid: r for r in requests}
+    for rid in sorted(plain):
+        a, b = plain[rid], spec[rid]
+        if a == b:
+            continue
+        check(len(a) == len(b), f"request {rid}: {len(b)} speculative "
+              f"tokens vs {len(a)} plain")
+        j = next(i for i in range(len(a)) if a[i] != b[i])
+        prompt = np.concatenate([np.asarray(by_rid[rid].prompt), a[:j]])
+        with torch.no_grad():
+            toks = torch.as_tensor(prompt, device=dev)[None]
+            lg, c = model.prefill(damped, {"tokens": toks[:, :-1]},
+                                  max_len=toks.shape[1])
+            lg, _ = model.decode_step(damped, c, toks[:, -1:])
+        row = lg[0, -1].float()
+        gap = float(row[a[j]] - row[b[j]])
+        tol = LOGIT_REL_TOL * float(row.abs().max())
+        print(f"  request {rid} diverges at token {j}: logit(plain "
+              f"{a[j]}) - logit(speculative {b[j]}) = {gap:.4f}, "
+              f"near-tie limit {tol:.4f}")
+        check(gap <= tol, f"request {rid}: divergence at token {j} is not "
+              f"a near-tie ({gap} > {tol})")
+
+    # (3) paged speculative vs contiguous speculative: the same bits
+    paged = make(kv_page_size=16)
+    order = np.random.default_rng(11).permutation(paged.n_pages - 1) + 1
+    paged.page_pool = PagePool(paged.n_pages, paged.page_size,
+                               order=order.tolist())
+    got, launches = serve(paged)
+    same = sum(got[rid] == spec[rid] for rid in spec)
+    rounds = paged.spec_rounds
+    print(f"  {same}/{len(spec)} requests token-identical (paged "
+          f"speculative, shuffled pages, vs contiguous speculative); "
+          f"paged_verify_attention {launches['paged_verify_attention']} "
+          f"launches = {cfg.n_layers} x {rounds} rounds")
+    check(same == len(spec), "paged speculative tokens differ from the "
+          "contiguous speculative engine's")
+    check(launches["paged_verify_attention"] == cfg.n_layers * rounds,
+          f"paged verify launches {launches['paged_verify_attention']} != "
+          f"{cfg.n_layers} layers x {rounds} rounds")
+    check(launches["verify_attention"] == 0,
+          "the paged speculative engine launched contiguous verify")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -701,8 +954,16 @@ def main() -> int:
     phase("phase 7: paged vs contiguous tokens; prefix hit vs cold logits")
     phase_token_identity(torch, dev, model, params, engine, requests)
 
+    phase("phase 8: full-width speculative engine (k = 4) vs plain engine")
+    make = spec_engines(dev, model, params)
+    spec_launches = phase_spec_engine(torch, dev, model, make, requests)
+
+    phase("phase 9: speculative tokens: verify_step, near-ties, paged")
+    phase_spec_tokens(torch, dev, model, params, make, requests)
+
     # launches: each kernel's count on its own path's run (phase 4 for
-    # the contiguous kernels, phase 6 for the paged ones)
+    # the contiguous kernels, phase 6 for the paged ones, phase 8 for
+    # the verify kernel)
     dec = "src/repro/kernels/decode_attention/decode_attention.py"
     sources = {
         "decode_attention": (f"{dec}:351", launches),
@@ -710,7 +971,8 @@ def main() -> int:
             "src/repro/kernels/flash_attention/flash_attention.py:77",
             launches),
         "paged_decode_attention": (f"{dec}:266", paged_launches),
-        "paged_verify_attention": (f"{dec}:308", paged_launches)}
+        "paged_verify_attention": (f"{dec}:308", paged_launches),
+        "verify_attention": (f"{dec}:127", spec_launches)}
     record = {"kernels": [
         dict(name=name, route="cuda",
              source=f"src/repro_torch/kernels/csrc/{name}.cu",

@@ -1,6 +1,6 @@
 // One CTA's tile of multi-row attention with an f32 online softmax,
-// shared by the causal flash kernel (flash_attention.cu) and the paged
-// verify kernel (paged_verify_attention.cu).
+// shared by the causal flash kernel (flash_attention.cu) and the two
+// verify kernels (verify_attention.cu, paged_verify_attention.cu).
 //
 // The CTA owns kBQ query rows.  A row map (``Rows``) says, for CTA-local
 // row rr, whether it exists (``valid``), where its query and output
@@ -114,5 +114,31 @@ __device__ __forceinline__ void attend_tile(const Rows& rows, const Map& kv,
     for (int j = 0; j < kJ; ++j) orow[sub + 4 * j] = from_f32<T>(acc[j] * inv);
   }
 }
+
+// The verify kernels' row map: the tile's rows are flattened (window
+// row t, head g) pairs of one (slot, KV head), row index t * G + g, so
+// the G heads that share a KV head share every K/V tile the CTA loads.
+// Window row t sits at absolute position pos[b] + t.  Both verify
+// kernels use this one map, so on the same K/V values they differ only
+// in their address map and return the same bits.
+template <typename T>
+struct WindowRows {
+  const T* q;                       // (slot, t = 0, head kvh * G)
+  T* o;
+  long long q_ss, q_sh, o_ss, o_sh;
+  int r0, G, n, p0;                 // first row, heads, T * G, pos[b]
+  __device__ __forceinline__ bool valid(int rr) const { return r0 + rr < n; }
+  __device__ __forceinline__ const T* qrow(int rr) const {
+    const int t = (r0 + rr) / G;
+    return q + t * q_ss + (r0 + rr - t * G) * q_sh;
+  }
+  __device__ __forceinline__ int q_pos(int rr) const {
+    return p0 + (r0 + rr) / G;
+  }
+  __device__ __forceinline__ T* orow(int rr) const {
+    const int t = (r0 + rr) / G;
+    return o + t * o_ss + (r0 + rr - t * G) * o_sh;
+  }
+};
 
 }  // namespace repro

@@ -9,8 +9,8 @@
 // h // G at positions <= pos[b] + j, where logical position t is row
 // t % ps of physical page pages[b, t / ps] of the shared pool.  It
 // serves the suffix prefill of a prefix-cache hit (T = the uncached
-// suffix, tens to hundreds of tokens) and, later, paged speculative
-// verify (T = k + 1, down to 1).
+// suffix, tens to hundreds of tokens) and paged speculative verify
+// (T = k + 1, down to 1).
 //
 // What bounds it on the H100: the larger of the causal-pair flops
 // (4 * D per query head per visible key) and the K/V pages read once;
@@ -21,8 +21,9 @@
 //     one block.  At T = 200 that is hundreds of rows for one CTA, so
 //     here the window is tiled instead: one CTA per (32-row tile of the
 //     window's T * G rows, slot, KV head).  Row r of the tile is window
-//     row t = r / G of query head kvh * G + r % G, so the G heads that
-//     share a KV head share every K/V tile the CTA loads;
+//     row t = r / G of query head kvh * G + r % G (attention_tile.cuh's
+//     WindowRows, shared with the contiguous verify kernel), so the G
+//     heads that share a KV head share every K/V tile the CTA loads;
 //   * the tile loop is attention_tile.cuh, the flash kernel's body,
 //     with a query offset pos[b] and the paged address map of
 //     common.cuh: each CTA streams its slot's pages from position 0 up
@@ -40,28 +41,7 @@ namespace {
 using repro::kBQ;
 using repro::kTileThreads;
 using repro::PagedKV;
-
-// The tile's rows: flattened (window row t, head g) pairs of one
-// (slot, KV head), row index t * G + g.
-template <typename T>
-struct WindowRows {
-  const T* q;                       // (slot, t = 0, head kvh * G)
-  T* o;
-  long long q_ss, q_sh, o_ss, o_sh;
-  int r0, G, n, p0;                 // first row, heads, T * G, pos[b]
-  __device__ __forceinline__ bool valid(int rr) const { return r0 + rr < n; }
-  __device__ __forceinline__ const T* qrow(int rr) const {
-    const int t = (r0 + rr) / G;
-    return q + t * q_ss + (r0 + rr - t * G) * q_sh;
-  }
-  __device__ __forceinline__ int q_pos(int rr) const {
-    return p0 + (r0 + rr) / G;
-  }
-  __device__ __forceinline__ T* orow(int rr) const {
-    const int t = (r0 + rr) / G;
-    return o + t * o_ss + (r0 + rr - t * G) * o_sh;
-  }
-};
+using repro::WindowRows;
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kTileThreads)

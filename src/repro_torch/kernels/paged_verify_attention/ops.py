@@ -5,7 +5,8 @@ versions.
 window through the page table: the suffix prefill of a prefix-cache hit
 (and, with speculative decoding, the verify window).  A CPU tensor goes
 to ``paged_verify_attention_plain`` (the reference's jnp path: gather
-through the page table, then ``verify_attention_jnp``); a CUDA tensor
+through the page table, then ``verify_attention_plain``, the copy of
+``verify_attention_jnp``, re-exported here); a CUDA tensor
 launches the hand-written kernel in ``csrc/paged_verify_attention.cu``
 or raises.  ``paged_verify_attention.launches`` counts kernel launches.
 
@@ -23,37 +24,10 @@ import math
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.decode_attention.ops import MASK_VALUE
 from repro_torch.kernels.paged_decode_attention.ops import (
     check_paged_args, paged_view,
 )
-
-
-def verify_attention_plain(q, k_cache, v_cache, pos):
-    """Multi-token attention against a KV cache, the copy of
-    ``models/layers.py:verify_attention_jnp``.
-
-    q: (B, T, H, D); caches: (B, S, KVH, D); pos: scalar or per-slot
-    (B,) window start.  Query token ``t`` of slot ``b`` attends to
-    cache positions ``<= pos_b + t``: causal within the window, full
-    prefix below it.  T = 1 reduces to ``decode_attention_plain``."""
-    b, t, h, d = q.shape
-    skv, kvh = k_cache.shape[1], k_cache.shape[2]
-    g = h // kvh
-    scale = 1.0 / math.sqrt(d)
-    qg = q.reshape(b, t, kvh, g, d)
-    s = torch.einsum("bthgd,bkhd->bthgk", qg.float(),
-                     k_cache.float()) * scale
-    pos = torch.as_tensor(pos, dtype=torch.int32, device=q.device)
-    if pos.ndim == 0:
-        pos = pos.expand(b)
-    kv_pos = torch.arange(skv, device=q.device)
-    q_pos = pos[:, None] + torch.arange(t, device=q.device)[None, :]
-    mask = kv_pos[None, None, :] <= q_pos[:, :, None]         # (B, T, S)
-    s = torch.where(mask[:, :, None, None, :], s, MASK_VALUE)
-    p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bthgk,bkhd->bthgd", p, v_cache.float())
-    return o.reshape(b, t, h, d).to(q.dtype)
+from repro_torch.kernels.verify_attention.ops import verify_attention_plain
 
 
 def paged_verify_attention_plain(q, k_pool, v_pool, pages, pos):

@@ -11,7 +11,11 @@ one warm-up chunk, measures:
   synchronize), then one chunk under ``torch.profiler`` for its kernels'
   device time; busy share = kernel time / the wall time measured with
   the profiler off; and the kernels that take the most device time;
-- prefill: the same for an admission of ``PROMPT_LEN`` tokens.
+- prefill: the same for an admission of ``PROMPT_LEN`` tokens;
+- speculative round: the same for one chunk of ``CHUNK_STEPS`` rounds
+  of the speculative engine (``SPEC_K`` drafts from a 2-layer truncated
+  draft, the target's layers past 2 damped to 0.001: ``chip_smoke.py``
+  phase 8's pair), its slots filled the same way, per round.
 
 Prints one JSON object as its last line.  Needs a CUDA device; the
 numbers are the card's and are printed beside its name and power limit.
@@ -30,13 +34,15 @@ from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.configs import get_config
 from repro_torch.models import build_model
-from repro_torch.serving import ContinuousBatchingEngine
+from repro_torch.serving import (ContinuousBatchingEngine,
+                                 damp_upper_layers, truncate_draft)
 
 ARCH = "qwen3-1.7b"     # the engine shape chip_smoke.py serves at
 MAX_LEN = 2048
 SLOTS = 8
 CHUNK_STEPS = 8
 PROMPT_LEN = 1024
+SPEC_K = 4
 SEED = 0
 
 
@@ -100,6 +106,28 @@ def main():
                   kernel_ms_per_step=decode["kernel_ms"] / steps)
     prefill = _profiled(lambda: admit(0), _wall_ms(lambda: admit(0), 2))
 
+    damped = damp_upper_layers(params, n_keep=2, damp=0.001)
+    dmodel, dparams = truncate_draft(model, damped, 2)
+    spec = ContinuousBatchingEngine(
+        model, damped, max_len=MAX_LEN, n_slots=SLOTS,
+        chunk_steps=CHUNK_STEPS, draft_model=dmodel, draft_params=dparams,
+        spec_k=SPEC_K)
+    for b in range(SLOTS):
+        prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                              PROMPT_LEN),
+                                 device=spec.device)[None]
+        spec._prefill_slot(damped, spec.state, prompt, b,
+                           budget - SPEC_K)
+        spec._prefill_draft(dparams, spec.state, prompt, b)
+
+    def spec_chunk():
+        spec._spec_chunk(damped, dparams, spec.state)
+
+    spec_chunk()                                      # warm-up
+    rounds = _profiled(spec_chunk, _wall_ms(spec_chunk, 2))
+    rounds.update(wall_ms_per_round=rounds["wall_ms"] / steps,
+                  kernel_ms_per_round=rounds["kernel_ms"] / steps)
+
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -113,13 +141,20 @@ def main():
     print(f"  prefill ({PROMPT_LEN} tokens): "
           f"{prefill['wall_ms']:.3f} ms wall, {prefill['kernel_ms']:.3f} ms "
           f"of kernels, busy {prefill['busy_share']:.1%}")
-    for name, part in (("decode", decode), ("prefill", prefill)):
+    print(f"  speculative (k={SPEC_K}, depth ~"
+          f"{int(spec.state['cache']['pos'].max())}): "
+          f"{rounds['wall_ms_per_round']:.3f} ms/round host wall, "
+          f"{rounds['kernel_ms_per_round']:.3f} ms/round of kernels, busy "
+          f"{rounds['busy_share']:.1%}, {rounds['n_kernels'] // steps} "
+          f"kernels/round")
+    for name, part in (("decode", decode), ("prefill", prefill),
+                       ("speculative", rounds)):
         for t in part["top"]:
             print(f"  {name} {t['ms']:9.3f} ms x{t['count']:<5} "
                   f"{t['kernel']}")
     out = {"device": smi, "arch": cfg.name, "slots": SLOTS,
            "prompt_len": PROMPT_LEN, "decode": decode,
-           "prefill": prefill}
+           "prefill": prefill, "speculative": rounds}
     print(json.dumps(out))
     return out
 

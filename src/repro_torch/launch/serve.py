@@ -8,16 +8,25 @@ arrival list to ``ContinuousBatchingEngine.serve``; ``--engine fixed``
 serves the same requests in ``--batch``-sized groups through
 ``ServeEngine``.  ``--kv-page-size N`` gives the continuous engine a
 paged KV cache of N-row pages, and ``--prefix-cache`` adds the radix
-prefix cache over it.  The run prints TTFT p50/p99, TPOT mean,
-tokens/s, the engine's host syncs, the kernels' launch counts and, with
-the prefix cache, its hits.  Weights are random, made from ``--seed``;
-prompts are random tokens.  ``--device`` defaults to ``cuda``.
+prefix cache over it.  ``--speculative`` turns on speculative decoding:
+a draft model proposes ``--k`` tokens per slot and round and the target
+verifies them in one forward; ``--draft truncate`` (the default) drafts
+with the target's first ``--draft-layers`` blocks, an arch name drafts
+with that model (fresh weights, same vocabulary).  The run prints TTFT
+p50/p99, TPOT mean, tokens/s, the engine's host syncs, the kernels'
+launch counts and, with the prefix cache, its hits, with
+``--speculative`` the acceptance rate.  Weights are random, made from
+``--seed``; prompts are random tokens.  ``--device`` defaults to
+``cuda``.
+
+  python -m repro_torch.launch.serve --arch qwen3-1.7b --reduce \
+      --device cpu --speculative --k 4 --qps 20 --min-duration 0.5
 
 Director-measured energy (``PowerRun``, tok/J) needs the harness,
 core and power modules, which are not ported yet (ROADMAP §A.4), and
-the options of the reference launcher for speculative decoding,
-chunked prefill, preemption, tensor parallelism and replicas are
-refused until their ROADMAP items land.
+the options of the reference launcher for chunked prefill, preemption,
+tensor parallelism and replicas are refused until their ROADMAP items
+land.
 """
 from __future__ import annotations
 
@@ -34,12 +43,13 @@ from repro_torch.kernels.paged_decode_attention.ops import (
     paged_decode_attention)
 from repro_torch.kernels.paged_verify_attention.ops import (
     paged_verify_attention)
+from repro_torch.kernels.verify_attention.ops import verify_attention
 from repro_torch.models import build_model
-from repro_torch.serving import ContinuousBatchingEngine, Request, ServeEngine
+from repro_torch.serving import (ContinuousBatchingEngine, Request,
+                                 ServeEngine, truncate_draft)
 
 # reference-launcher options that wait for a later slice
 UNPORTED = {
-    "speculative": "ROADMAP §A.7 (speculative decoding)",
     "prefill_chunk": "ROADMAP §A.6 (chunked prefill)",
     "preemption": "ROADMAP §A.6 (preemption)",
     "tp": "ROADMAP §A.8 (tensor parallel)",
@@ -101,6 +111,25 @@ def _serve_fixed(engine, requests, honor_arrivals):
     return done
 
 
+def build_draft(args, cfg, model, params):
+    """(draft_model, draft_params) for ``--speculative``: the target's
+    first ``--draft-layers`` blocks (``--draft truncate``), or the arch
+    ``--draft`` names (reduced alongside ``--reduce``) with fresh
+    weights from ``--seed`` + 2; the vocabularies must match."""
+    if args.draft == "truncate":
+        return truncate_draft(model, params, n_layers=args.draft_layers)
+    dcfg = get_config(args.draft)
+    if args.reduce:
+        dcfg = reduce_config(dcfg)
+    if dcfg.vocab_size != cfg.vocab_size:
+        raise SystemExit(
+            f"--draft {args.draft}: vocab {dcfg.vocab_size} != target "
+            f"vocab {cfg.vocab_size} (draft and target must share the "
+            f"tokenizer)")
+    dmodel = build_model(dcfg, args.device)
+    return dmodel, dmodel.init(args.seed + 2)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", required=True, choices=list_archs())
@@ -119,8 +148,18 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--kv-page-size", type=int, default=0)
     ap.add_argument("--prefix-cache", action="store_true")
+    ap.add_argument("--speculative", action="store_true",
+                    help="speculative decoding: draft k tokens with a "
+                         "small model, verify in one target forward")
+    ap.add_argument("--draft", default="truncate",
+                    help="draft model: 'truncate' (the target's first "
+                         "--draft-layers blocks, shared embed/head) or "
+                         "an arch name with a matching vocab")
+    ap.add_argument("--draft-layers", type=int, default=2,
+                    help="layers kept by --draft truncate")
+    ap.add_argument("--k", type=int, default=4,
+                    help="draft tokens per verify round")
     # refused until ported
-    ap.add_argument("--speculative", action="store_true")
     ap.add_argument("--prefill-chunk", type=int, default=0)
     ap.add_argument("--preemption", action="store_true")
     ap.add_argument("--tp", type=int, default=1)
@@ -130,8 +169,13 @@ def main(argv=None):
         value = getattr(args, name)
         if value and not (name in ("tp", "replicas") and value == 1):
             ap.error(f"--{name.replace('_', '-')} is not ported yet: {item}")
-    if args.prompt_len + args.new_tokens > args.max_len:
-        ap.error("--prompt-len + --new-tokens must fit --max-len")
+    spec_k = args.k if args.speculative else 0
+    if args.prompt_len + args.new_tokens + spec_k > args.max_len:
+        ap.error("--prompt-len + --new-tokens (+ --k with --speculative) "
+                 "must fit --max-len")
+    if args.speculative and args.engine != "continuous":
+        ap.error("--speculative is a continuous-engine decode mode; add "
+                 "--engine continuous")
     if args.prefix_cache and not args.kv_page_size:
         ap.error("--prefix-cache needs --kv-page-size")
     if args.kv_page_size and args.engine != "continuous":
@@ -143,11 +187,17 @@ def main(argv=None):
     model = build_model(cfg, args.device)
     params = model.init(args.seed)
     if args.engine == "continuous":
+        spec_kw, draft_name = {}, None
+        if args.speculative:
+            dmodel, dparams = build_draft(args, cfg, model, params)
+            spec_kw = dict(draft_model=dmodel, draft_params=dparams,
+                           spec_k=args.k)
+            draft_name = dmodel.cfg.name
         engine = ContinuousBatchingEngine(
             model, params, max_len=args.max_len, n_slots=args.slots,
             chunk_steps=args.chunk_steps, device=args.device,
             kv_page_size=args.kv_page_size,
-            prefix_caching=args.prefix_cache)
+            prefix_caching=args.prefix_cache, **spec_kw)
     else:
         engine = ServeEngine(model, params, max_len=args.max_len,
                              batch_size=args.batch, device=args.device)
@@ -164,7 +214,7 @@ def main(argv=None):
     requests = make_requests(arrivals, cfg.vocab_size, args.prompt_len,
                              args.new_tokens, args.seed + 2)
     kernels = (decode_attention, flash_attention, paged_decode_attention,
-               paged_verify_attention)
+               paged_verify_attention, verify_attention)
     for k in kernels:
         k.launches = 0
     if model.device.type == "cuda":
@@ -185,6 +235,11 @@ def main(argv=None):
           f"{getattr(engine, 'host_syncs', 'n/a')}")
     print("  kernel launches: " + ", ".join(
         f"{k.__name__} {k.launches}" for k in kernels))
+    if args.speculative:
+        st = engine.spec_stats
+        print(f"  speculative k={args.k} (draft {draft_name}): acceptance "
+              f"{engine.acceptance_rate():.2f}, {st['rounds']} verified "
+              f"slot-rounds")
     if getattr(engine, "prefix_caching", False):
         st = engine.prefix_stats
         print(f"  prefix cache: {st['hits']}/{st['lookups']} hits, "

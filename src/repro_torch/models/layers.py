@@ -1,8 +1,8 @@
 """Transformer layers of the dense decoder (PyTorch port).
 
 The dense subset of the reference ``models/layers.py``: norms, RoPE,
-GQA prefill/decode with the KV-cache write, the paged-KV decode and
-verify paths, and the SwiGLU FFN.  The reference's ``shard``/``tp_psum``
+GQA prefill/decode/verify with the KV-cache write, the paged-KV decode
+and verify paths, and the SwiGLU FFN.  The reference's ``shard``/``tp_psum``
 are identities at TP = 1 and are dropped.  Attention goes through the kernel wrappers when ``kernels``
 is set (CPU tensors still take the plain version inside them) and
 straight to the plain versions otherwise.
@@ -24,7 +24,10 @@ from repro_torch.kernels.paged_decode_attention.ops import (
     paged_decode_attention, paged_view,
 )
 from repro_torch.kernels.paged_verify_attention.ops import (
-    paged_verify_attention, verify_attention_plain,
+    paged_verify_attention,
+)
+from repro_torch.kernels.verify_attention.ops import (
+    verify_attention, verify_attention_plain,
 )
 from repro_torch.models.param import ParamDef
 
@@ -213,6 +216,34 @@ def gqa_decode(x, p, cfg, cache, pos, *, kernels: bool = True):
     else:
         o = decode_attention_plain(q, k_cache, v_cache, pos)
     return o.reshape(b, 1, -1) @ p["wo"]
+
+
+def gqa_verify(x, p, cfg, cache, pos, *, kernels: bool = True):
+    """Multi-token verify (speculative decoding): score a T-token window
+    per slot in one forward against ``cache`` = dict(k, v), each
+    (B, S, KVH, D), updated in place.
+
+    x: (B, T, d); ``pos`` is a scalar or per-slot (B,) window start.
+    Token ``t`` ropes and caches at position ``pos + t`` and attends
+    causally within the window, to the committed prefix below it.
+    Rejected tokens need no rollback: attention masks by position, and
+    the next window starts at the accepted frontier and overwrites the
+    stale rows.  T = 1 reduces to ``gqa_decode``."""
+    b, t, _ = x.shape
+    q, k, v = _proj_qkv(x, p, cfg)
+    pos = torch.as_tensor(pos, device=x.device)
+    if pos.ndim == 0:
+        pos = pos.expand(b)
+    positions = pos[:, None] + torch.arange(t, device=x.device)[None, :]
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+    k_cache = cache_update_window(cache["k"], k, pos)
+    v_cache = cache_update_window(cache["v"], v, pos)
+    if kernels:
+        o = verify_attention(q, k_cache, v_cache, pos)
+    else:
+        o = verify_attention_plain(q, k_cache, v_cache, pos)
+    return o.reshape(b, t, -1) @ p["wo"]
 
 
 def gqa_decode_paged(x, p, cfg, cache, pos, pages, *, kernels: bool = True,

@@ -12,9 +12,10 @@ callers donate them.
   logits, cache = lm.prefill(params, {"tokens": toks}, max_len=2048)
   logits, cache = lm.decode_step(params, cache, next_tokens)
 
-The paged engine's cache tree (``init_paged_cache``) holds page pools
-shared by all slots plus a ``pages`` table; ``decode_step`` and
-``verify_step`` then go through the page table.
+``verify_step`` scores a T-token window per slot (speculative
+decoding).  The paged engine's cache tree (``init_paged_cache``) holds
+page pools shared by all slots plus a ``pages`` table; ``decode_step``
+and ``verify_step`` then go through the page table.
 """
 from __future__ import annotations
 
@@ -109,11 +110,13 @@ class LM:
         elif mode == "verify" and pages is not None:
             o = L.gqa_verify_paged(h, bp["attn"], cfg, cache, pos, pages,
                                    kernels=self.kernels, dest=dest)
+        elif mode == "verify":
+            o = L.gqa_verify(h, bp["attn"], cfg, cache, pos,
+                             kernels=self.kernels)
         else:
             raise NotImplementedError(
-                f"mode {mode!r} without a page table: training and the "
-                f"contiguous speculative verify are not ported yet, see "
-                f"ROADMAP §A.7 and §A.12")
+                f"mode {mode!r}: training is not ported yet, see ROADMAP "
+                f"§A.12")
         x = x + o
         h2 = L.rmsnorm(x, bp["ln2"], cfg.norm_eps)
         return x + L.ffn(h2, bp["ffn"])
@@ -210,22 +213,21 @@ class LM:
     def verify_step(self, params, cache, tokens):
         """tokens: (B, T) -> logits (B, T, Vp) and the cache, the T
         tokens' K/V written in place at per-slot rows ``[pos, pos + T)``
-        through the page table.  ``pos`` is returned unchanged: the
-        caller advances it (by the accepted length, in speculative
-        decoding).  Only the paged form is ported; the contiguous
-        verify waits for speculative decoding (ROADMAP §A.7)."""
+        (through the page table when the cache has one).  ``pos`` is
+        returned unchanged: the caller advances it (by the accepted
+        length, in speculative decoding), which rolls rejected tokens
+        back in place -- their rows sit past the new frontier and the
+        next window overwrites them."""
         pos = cache["pos"]
         pages = cache.get("pages")
-        if pages is None:
-            raise NotImplementedError(
-                "verify_step without a page table (contiguous "
-                "speculative verify) is not ported yet, see ROADMAP §A.7")
         x = self._embed_inputs(params, {"tokens": tokens})
         x = self._run_stack(params, x, "verify", cache["layers"], pos,
                             pages)
         logits = self._logits(params, x)
-        return logits, {"layers": cache["layers"], "pos": pos,
-                        "pages": pages}
+        out = {"layers": cache["layers"], "pos": pos}
+        if pages is not None:
+            out["pages"] = pages
+        return logits, out
 
     def decode_step(self, params, cache, tokens):
         """tokens: (B, 1) -> logits (B, 1, Vp) and the cache, its K/V

@@ -1,4 +1,5 @@
-"""Serving engines of the port (contiguous and paged greedy paths)."""
+"""Serving engines of the port: contiguous and paged KV, radix prefix
+caching and speculative decoding."""
 from repro_torch.serving.engine import (  # noqa: F401
     ContinuousBatchingEngine, Request, ServeEngine,
     attribute_request_energy,
@@ -7,3 +8,6 @@ from repro_torch.serving.kv_pages import (  # noqa: F401
     GARBAGE_PAGE, PagePool, PoolExhausted,
 )
 from repro_torch.serving.prefix_cache import PrefixCache  # noqa: F401
+from repro_torch.serving.speculative import (  # noqa: F401
+    damp_upper_layers, greedy_verify, speculative_sample, truncate_draft,
+)

@@ -1,6 +1,5 @@
 """Serving engines: fixed-batch and slot-based continuous batching
-(PyTorch port of the reference ``serving/engine.py``, contiguous greedy
-path).
+(PyTorch port of the reference ``serving/engine.py``).
 
 ``ServeEngine`` (fixed batch)
     Prefills one batch together and decodes it in lock-step, one
@@ -12,11 +11,12 @@ path).
     admission queue mid-flight by a batch-1 prefill written into the
     slot's cache rows.  Each decode chunk runs ``chunk_steps`` greedy
     steps with no host round trip inside; the host copies the chunk's
-    (n_slots, chunk_steps) token buffer once (``host_syncs``).
+    (n_slots, chunk_steps) token buffer once (``host_syncs``).  Paged
+    KV with a radix prefix cache, and speculative decoding with a draft
+    model, are modes of the same engine.
 
-Paged KV, prefix caching, chunked prefill, preemption and speculative
-decoding are not ported yet (ROADMAP §A.5-§A.7); the constructor
-refuses them.
+Chunked prefill and preemption are not ported yet (ROADMAP §A.6); the
+constructor refuses them.
 """
 from __future__ import annotations
 
@@ -31,6 +31,9 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.serving.kv_pages import GARBAGE_PAGE, PagePool, PoolExhausted
 from repro_torch.serving.prefix_cache import PrefixCache
+from repro_torch.serving.speculative import (greedy_verify,
+                                             sample_categorical,
+                                             speculative_sample)
 
 
 @dataclasses.dataclass
@@ -40,8 +43,7 @@ class Request:
     Caller-set: ``rid`` (unique per serve), ``prompt`` ((S,) int
     tokens), ``max_new_tokens``, ``arrival_s`` (seconds on the serve
     clock).  Everything else is engine-stamped.  The reference's fields
-    for scheduling, preemption and speculative decoding arrive with
-    those features.
+    for scheduling and preemption arrive with those features.
     """
 
     rid: int
@@ -57,6 +59,12 @@ class Request:
                                       # prefix cache (no prefill compute)
     prefill_tokens: int = 0           # prompt tokens computed at admission
                                       # (the unique suffix on a hit)
+    draft_tokens: int = 0             # draft-model token forwards this
+                                      # request triggered (speculative)
+    verify_tokens: int = 0            # target token forwards it triggered
+                                      # (speculative: prefill + rounds *
+                                      # (k + 1), more per emitted token at
+                                      # low acceptance)
 
     def ttft_s(self) -> Optional[float]:
         """Time to first token (arrival to first emission)."""
@@ -161,17 +169,31 @@ class ContinuousBatchingEngine:
     With ``prefix_caching`` a hit admits through ``_extend_slot``, which
     computes only the uncached suffix (``prefix_stats`` counts lookups,
     hits, cached tokens and evicted pages).
+
+    Speculative decoding (``spec_k > 0`` with a ``draft_model``): each
+    chunk runs ``chunk_steps`` draft-and-verify rounds instead of
+    single-token steps (``spec_rounds`` counts them).  Per round the
+    draft decodes ``spec_k + 1`` steps for every slot, the target scores
+    the window ``[tok, d_1..d_k]`` in one ``verify_step``, and
+    acceptance (``greedy_verify``, or ``speculative_sample`` at
+    ``temperature > 0``) commits a per-slot prefix plus one token.
+    Accepted lengths are ragged across slots; each round writes a fixed
+    (n_slots, k + 1) block of the chunk's token buffer with per-slot
+    emit counts, so the host still copies once per chunk.  Only the
+    per-slot positions advance, so rejected tokens roll back in place.
+    The draft keeps its own contiguous cache, in paged mode too.
+    Greedy speculative output is token-identical to plain greedy
+    decode for any draft.
     """
 
     def __init__(self, model, params, *, max_len: int = 256,
                  n_slots: int = 8, chunk_steps: int = 8, device="cuda",
-                 draft_model=None, spec_k: int = 0, kv_page_size: int = 0,
-                 kv_pages: Optional[int] = None,
+                 draft_model=None, draft_params=None, spec_k: int = 0,
+                 temperature: float = 0.0, spec_seed: int = 0,
+                 kv_page_size: int = 0, kv_pages: Optional[int] = None,
                  prefix_caching: bool = False,
                  prefill_chunk_tokens: int = 0, scheduler=None):
         refused = {
-            "draft_model/spec_k (speculative decoding, ROADMAP §A.7)":
-                draft_model is not None or spec_k,
             "prefill_chunk_tokens (chunked prefill, ROADMAP §A.6)":
                 prefill_chunk_tokens,
             "scheduler (preemption, ROADMAP §A.6)": scheduler is not None,
@@ -185,8 +207,28 @@ class ContinuousBatchingEngine:
         self.max_len = max_len
         self.n_slots = n_slots
         self.chunk_steps = chunk_steps
+        self.spec_k = int(spec_k)
+        self.speculative = self.spec_k > 0
+        if self.speculative and draft_model is None:
+            raise ValueError("spec_k > 0 needs draft_model/draft_params")
+        self.draft_model = draft_model
+        self.draft_params = draft_params
+        self.temperature = float(temperature)
+        self.spec_seed = spec_seed
+        if self.speculative:
+            if draft_model.cfg.vocab_size != model.cfg.vocab_size:
+                raise ValueError(
+                    f"draft vocab {draft_model.cfg.vocab_size} != target "
+                    f"vocab {model.cfg.vocab_size}")
+            if draft_model.device != self.device:
+                raise ValueError(f"draft device {draft_model.device} != "
+                                 f"engine device {self.device}")
         self.host_syncs = 0            # decode-chunk device->host copies
-        self.decode_steps = 0          # model decode steps (all slots)
+        self.decode_steps = 0          # plain model decode steps (all slots)
+        self.spec_rounds = 0           # speculative rounds (all slots)
+        # speculative accounting (host-accumulated, reset per serve):
+        # rounds/proposed/accepted over live slots, prefill token counts
+        self.spec_stats = self._zero_spec_stats()
         # paged KV: block-granular cache through a per-slot page table,
         # with optional radix prefix caching on top
         self.page_size = int(kv_page_size)
@@ -218,15 +260,27 @@ class ContinuousBatchingEngine:
         self.reset()
 
     @staticmethod
+    def _zero_spec_stats() -> dict:
+        return {"rounds": 0, "proposed": 0, "accepted": 0, "emitted": 0,
+                "draft_fwd": 0, "draft_prefill_tokens": 0,
+                "target_prefill_tokens": 0}
+
+    @staticmethod
     def _zero_prefix_stats() -> dict:
         return {"lookups": 0, "hits": 0, "cached_tokens": 0,
                 "evicted_pages": 0}
 
+    def acceptance_rate(self) -> float:
+        """Fraction of proposed draft tokens the target accepted."""
+        return self.spec_stats["accepted"] / max(
+            1, self.spec_stats["proposed"])
+
     # -- device state ---------------------------------------------------
     def reset(self):
         """Fresh slot state: empty cache, zero positions, no budgets;
-        in paged mode also a full page pool and an empty prefix
-        cache."""
+        in paged mode also a full page pool and an empty prefix cache;
+        in speculative mode also an empty contiguous draft cache and,
+        when sampling, a generator seeded with ``spec_seed``."""
         n = self.n_slots
         if self.paged:
             cache = self.model.init_paged_cache(
@@ -246,6 +300,12 @@ class ContinuousBatchingEngine:
             "remaining": torch.zeros((n,), dtype=torch.int32,
                                      device=self.device),
         }
+        if self.speculative:
+            self.state["draft_cache"] = self.draft_model.init_cache(
+                n, self.max_len, per_slot_pos=True)
+            if self.temperature > 0:
+                self.gen = torch.Generator(device=self.device)
+                self.gen.manual_seed(self.spec_seed)
 
     @torch.no_grad()
     def _prefill_slot(self, params, state, tokens, slot: int, budget: int,
@@ -268,11 +328,8 @@ class ContinuousBatchingEngine:
         """
         cache = state["cache"]
         if pages is None:
-            row = {"blocks": {name: t[:, slot:slot + 1] for name, t in
-                              cache["layers"]["blocks"].items()}}
-            logits, one = self.model.prefill(params, {"tokens": tokens},
-                                             max_len=self.max_len,
-                                             cache=row)
+            logits = self._prefill_row(self.model, params, cache, tokens,
+                                       slot)
         else:
             ps = self.page_size
             n_blk = -(-int(tokens.shape[1]) // ps)
@@ -285,8 +342,8 @@ class ContinuousBatchingEngine:
                 pool[:, idx] = small[:, 0].reshape(
                     small.shape[0], n_blk, ps, *pool.shape[3:])
             cache["pages"][slot] = self._table_row(pages)
+            cache["pos"][slot] = one["pos"]
         tok0 = torch.argmax(logits[0, -1], -1)
-        cache["pos"][slot] = one["pos"]
         state["tok"][slot] = tok0
         state["remaining"][slot] = max(budget - 1, 0)
         return state, tok0
@@ -318,6 +375,27 @@ class ContinuousBatchingEngine:
         state["tok"][slot] = tok0
         state["remaining"][slot] = max(budget - 1, 0)
         return state, tok0
+
+    def _prefill_row(self, model, params, cache, tokens, slot: int):
+        """Batch-1 prefill of ``tokens`` (1, S) by ``model`` into row
+        ``slot`` of the contiguous per-slot ``cache``, in place: K/V at
+        rows [0, S), zeros after, position S.  Returns the logits."""
+        row = {"blocks": {name: t[:, slot:slot + 1] for name, t in
+                          cache["layers"]["blocks"].items()}}
+        logits, one = model.prefill(params, {"tokens": tokens},
+                                    max_len=self.max_len, cache=row)
+        cache["pos"][slot] = one["pos"]
+        return logits
+
+    @torch.no_grad()
+    def _prefill_draft(self, dparams, state, tokens, slot: int):
+        """Speculative mode: the draft prefills the *full* (1, S) prompt
+        into its contiguous cache row -- on a prefix hit too, since it
+        has no pages to share -- so that drafting starts aligned with
+        the target."""
+        self._prefill_row(self.draft_model, dparams, state["draft_cache"],
+                          tokens, slot)
+        return state
 
     def _table_row(self, pages: list) -> torch.Tensor:
         """A slot's full device table row: its pages, then garbage page
@@ -355,6 +433,96 @@ class ContinuousBatchingEngine:
         state.update(cache=cache, tok=tok, remaining=remaining)
         return state, buf
 
+    @torch.no_grad()
+    def _spec_chunk(self, params, dparams, state):
+        """Run ``chunk_steps`` draft-and-verify rounds on the device.
+
+        Exactly ``chunk_steps`` rounds with no host read inside, as in
+        ``_decode_chunk``.  Each round the draft runs k + 1 decode
+        steps: step j processes the token at window offset j (writing
+        its K/V at ``pos + j``) and proposes token j + 1; the last step
+        only fills d_k's cache row, which a fully accepted window needs
+        next round.  The target then scores ``[tok, d_1..d_k]`` in one
+        ``verify_step`` and acceptance commits ``n_emit = acc + 1``
+        tokens per active slot: target and draft positions both advance
+        by ``n_emit``.  Inactive slots hold position, token and draft
+        position; their window writes are garbage that the next prefill
+        into the slot overwrites.
+
+        Returns (state, out) with ``out`` (n_slots, rounds * (k + 2))
+        long on the device: the per-round (k + 1) token blocks, then the
+        per-round emit counts (0 for an inactive slot, else the accepted
+        length + 1) -- one tensor, so that the host fetches the chunk in
+        one copy (``_split_spec``).
+        """
+        k, b, rounds = self.spec_k, self.n_slots, self.chunk_steps
+        sampled = self.temperature > 0
+        cache, dcache = state["cache"], state["draft_cache"]
+        tok, remaining = state["tok"], state["remaining"]
+        dev = self.device
+        buf = torch.zeros((b, rounds, k + 1), dtype=torch.long, device=dev)
+        n_emit_all = torch.zeros((b, rounds), dtype=torch.long, device=dev)
+        for i in range(rounds):
+            active = remaining > 0
+            pos0, dpos0 = cache["pos"], dcache["pos"]
+            cur, proposals, dlogits = tok, [], []
+            for _ in range(k + 1):
+                logits, dcache = self.draft_model.decode_step(
+                    dparams, dcache, cur[:, None])
+                row = logits[:, -1].float()
+                if sampled:
+                    row = self._mask_pad(row)
+                    cur = sample_categorical(self.gen,
+                                             row / self.temperature)
+                    dlogits.append(row)
+                else:
+                    cur = torch.argmax(row, dim=-1)
+                proposals.append(cur)
+            draft_toks = torch.stack(proposals[:k], dim=1)       # (B, k)
+            window = torch.cat([tok[:, None], draft_toks], dim=1)
+            logits, cache = self.model.verify_step(params, cache, window)
+            if sampled:
+                acc, out_toks = speculative_sample(
+                    self.gen, self._mask_pad(logits.float()),
+                    torch.stack(dlogits[:k], dim=1), draft_toks,
+                    self.temperature)
+            else:
+                acc, out_toks = greedy_verify(logits, draft_toks)
+            acc = acc.long()
+            n_emit = torch.where(active, acc + 1, 0).to(torch.int32)
+            new_tok = torch.gather(out_toks, 1, acc[:, None])[:, 0]
+            buf[:, i] = out_toks
+            n_emit_all[:, i] = n_emit
+            cache["pos"] = pos0 + n_emit
+            dcache["pos"] = torch.where(active, pos0 + n_emit, dpos0)
+            tok = torch.where(active, new_tok, tok)
+            remaining = (remaining - n_emit).clamp_min(0)
+        self.spec_rounds += rounds
+        state.update(cache=cache, draft_cache=dcache, tok=tok,
+                     remaining=remaining)
+        return state, torch.cat([buf.reshape(b, -1), n_emit_all], dim=1)
+
+    def _split_spec(self, out) -> tuple[list, Any]:
+        """Host side of ``_spec_chunk``'s packed output (numpy): each
+        slot's emitted tokens, stitched from its per-round blocks, and
+        the (n_slots, rounds) emit counts."""
+        rounds, k1 = self.chunk_steps, self.spec_k + 1
+        buf = out[:, :rounds * k1].reshape(-1, rounds, k1)
+        n_emit = out[:, rounds * k1:]
+        toks = [[int(x) for i in range(rounds)
+                 for x in buf[b, i, :n_emit[b, i]]]
+                for b in range(out.shape[0])]
+        return toks, n_emit
+
+    def _mask_pad(self, logits):
+        """-1e30 over the padded vocabulary tail before sampling (the
+        argmax paths stay unmasked, to match the plain engine)."""
+        vocab = self.model.cfg.vocab_size
+        if logits.shape[-1] == vocab:
+            return logits
+        pad = torch.arange(logits.shape[-1], device=logits.device) >= vocab
+        return torch.where(pad, -1e30, logits)
+
     # -- paged admission (host side) -------------------------------------
     def _alloc_pages(self, n: int) -> list[int]:
         """Allocate ``n`` pages, evicting cache-only prefix pages under
@@ -391,7 +559,8 @@ class ContinuousBatchingEngine:
         position order and the cached-token count.
         """
         ps = self.page_size
-        n_blocks = min(self.pages_per_slot, -(-(s + budget) // ps))
+        n_blocks = min(self.pages_per_slot,
+                       -(-(s + budget + self.spec_k) // ps))
         shared = (self.prefix_cache.lookup(toks)
                   if self.prefix_cache is not None else [])
         for p in shared:
@@ -429,42 +598,55 @@ class ContinuousBatchingEngine:
         prompt = _prompt_tensor(toks, self.device)
         s = len(toks)
         budget = r.max_new_tokens
-        if s + budget > self.max_len:
+        # speculative verify windows write up to spec_k rows past the
+        # last decoded position; keep them in the cache
+        if s + budget + self.spec_k > self.max_len:
             raise ValueError(f"request {r.rid}: prompt {s} + budget "
-                             f"{budget} tokens exceed max_len "
-                             f"{self.max_len}")
+                             f"{budget} + spec_k {self.spec_k} tokens "
+                             f"exceed max_len {self.max_len}")
+        start = 0
         if not self.paged:
-            r.prefill_tokens += s
             self.state, tok0 = self._prefill_slot(self.params, self.state,
                                                   prompt, b, budget)
-            self._finish_admit(r, b, tok0, budget, cx)
-            return True
-        try:
-            row, start = self._acquire_pages(toks, s, budget)
-        except PoolExhausted:
-            return False
-        self._slot_pages[b] = list(row)
-        r.cached_tokens += start
-        r.prefill_tokens += s - start
-        if start:
-            self.state, tok0 = self._extend_slot(
-                self.params, self.state, prompt[:, start:], b, row, start,
-                budget)
         else:
-            self.state, tok0 = self._prefill_slot(
-                self.params, self.state, prompt, b, budget, row)
-        self._intern_prompt(toks, row)
-        self._finish_admit(r, b, tok0, budget, cx)
+            try:
+                row, start = self._acquire_pages(toks, s, budget)
+            except PoolExhausted:
+                return False
+            self._slot_pages[b] = list(row)
+            r.cached_tokens += start
+            if start:
+                self.state, tok0 = self._extend_slot(
+                    self.params, self.state, prompt[:, start:], b, row,
+                    start, budget)
+            else:
+                self.state, tok0 = self._prefill_slot(
+                    self.params, self.state, prompt, b, budget, row)
+            self._intern_prompt(toks, row)
+        r.prefill_tokens += s - start
+        if self.speculative:
+            self.state = self._prefill_draft(self.draft_params, self.state,
+                                             prompt, b)
+        self._finish_admit(r, b, tok0, budget, s, start, cx)
         return True
 
-    def _finish_admit(self, r: Request, b: int, tok0, budget: int,
-                      cx: _ServeCtx) -> None:
-        """Emit the first token (a host read: the true TTFT) and either
-        retire the request or hand the slot to the decode loop."""
+    def _finish_admit(self, r: Request, b: int, tok0, budget: int, s: int,
+                      start: int, cx: _ServeCtx) -> None:
+        """Emit the first token (a host read: the true TTFT), account
+        the speculative prefill work of a prompt of ``s`` tokens with
+        ``start`` served from the prefix cache, and either retire the
+        request or hand the slot to the decode loop."""
         first = int(tok0)
         t_now = cx.now() - cx.t0
         r.first_token_s = t_now
         r.output = [first][: r.max_new_tokens]      # budget 0 -> []
+        if self.speculative:
+            # the draft prefilled the full prompt, the target only the
+            # part the prefix cache did not hold
+            r.draft_tokens += s
+            r.verify_tokens += s - start
+            self.spec_stats["draft_prefill_tokens"] += s
+            self.spec_stats["target_prefill_tokens"] += s - start
         if budget <= 1:
             r.done_s = t_now
             cx.done.append(r)
@@ -472,6 +654,22 @@ class ContinuousBatchingEngine:
         else:
             cx.slots[b] = r
             cx.slot_left[b] = budget - 1
+
+    def _account_rounds(self, r: Request, n_emit, take: int) -> None:
+        """Speculative accounting of one slot's chunk from its per-round
+        emit counts: a round ran for the slot iff it emitted, and
+        emitted its accepted length + 1."""
+        k = self.spec_k
+        rounds = int((n_emit > 0).sum())
+        accepted = int(n_emit.sum()) - rounds
+        r.draft_tokens += rounds * (k + 1)
+        r.verify_tokens += rounds * (k + 1)
+        st = self.spec_stats
+        st["rounds"] += rounds
+        st["proposed"] += rounds * k
+        st["accepted"] += accepted
+        st["draft_fwd"] += rounds * (k + 1)
+        st["emitted"] += take
 
     # -- host orchestration ---------------------------------------------
     def serve(self, requests: list[Request],
@@ -495,9 +693,11 @@ class ContinuousBatchingEngine:
                 f"duplicate request ids in admission queue: {dup} -- "
                 f"rids must be unique per serve()")
         self.reset()
+        self.spec_stats = self._zero_spec_stats()
         self.prefix_stats = self._zero_prefix_stats()
         self.host_syncs = 0
         self.decode_steps = 0
+        self.spec_rounds = 0
         pending = collections.deque(
             sorted(requests, key=lambda r: (r.arrival_s, r.rid)))
         cx = _ServeCtx(slots=[None] * self.n_slots,
@@ -532,18 +732,26 @@ class ContinuousBatchingEngine:
                             sleep(dt)
                 continue
             # one fused multi-token chunk; a single host copy after it
-            self.state, buf = self._decode_chunk(self.params, self.state)
-            buf_np = buf.cpu().numpy()
+            if self.speculative:
+                self.state, out = self._spec_chunk(
+                    self.params, self.draft_params, self.state)
+                slot_toks, n_emit = self._split_spec(out.cpu().numpy())
+            else:
+                self.state, buf = self._decode_chunk(self.params,
+                                                     self.state)
+                slot_toks = buf.cpu().tolist()
             self.host_syncs += 1
             t_chunk = now() - cx.t0
             for b in range(self.n_slots):
                 r = cx.slots[b]
                 if r is None:
                     continue
-                toks = [int(x) for x in buf_np[b]]
+                toks = slot_toks[b]
                 take = min(cx.slot_left[b], len(toks))
                 r.output.extend(toks[:take])
                 cx.slot_left[b] -= take
+                if self.speculative:
+                    self._account_rounds(r, n_emit[b], take)
                 if cx.slot_left[b] == 0:    # retire; slot free to refill
                     r.done_s = t_chunk
                     cx.done.append(r)
@@ -554,28 +762,41 @@ class ContinuousBatchingEngine:
 
 def attribute_request_energy(requests: list[Request],
                              times_s: np.ndarray,
-                             watts: np.ndarray) -> dict[int, float]:
+                             watts: np.ndarray,
+                             weight: Optional[Callable[[Request], float]]
+                             = None) -> dict[int, float]:
     """Split measured system energy across in-flight requests.
 
     ``times_s``/``watts``: power samples (seconds since run start -- the
     clock the engine stamps requests on).  Each sample interval's energy
-    is divided equally among the requests in flight (arrival <= t <
-    done) during it; idle intervals are dropped.  Fills
-    ``Request.energy_j`` and returns {rid: joules}.  (The reference's
-    per-request ``weight`` serves speculative decoding and arrives with
-    it.)
+    is divided among the requests in flight (arrival <= t < done) during
+    it; idle intervals are dropped.  Fills ``Request.energy_j`` and
+    returns {rid: joules}.
+
+    ``weight``: optional per-request weighting, ``r -> float``.  By
+    default every live request gets an equal share of an interval's
+    energy; with a weight the split is proportional, and the shares of
+    an interval still sum to its energy.  Speculative serving uses it to
+    bill draft-model forwards to the request that triggered them
+    (``r.draft_tokens`` scaled by the draft/target FLOP ratio).
     """
     times_s = np.asarray(times_s, float)
     watts = np.asarray(watts, float)
     per: dict[int, float] = {r.rid: 0.0 for r in requests}
-    spans = [(r.rid, r.arrival_s, r.done_s) for r in requests
+    w_of = ((lambda r: 1.0) if weight is None
+            else (lambda r: max(float(weight(r)), 1e-12)))
+    spans = [(r.rid, r.arrival_s, r.done_s, w_of(r)) for r in requests
              if r.done_s is not None]
     for i in range(len(times_s) - 1):
         t_lo, t_hi = times_s[i], times_s[i + 1]
         e = watts[i] * (t_hi - t_lo)
-        live = [rid for rid, a, d in spans if a < t_hi and d > t_lo]
-        for rid in live:
-            per[rid] += e / len(live)
+        live = [(rid, w) for rid, a, d, w in spans
+                if a < t_hi and d > t_lo]
+        if not live:
+            continue
+        w_sum = sum(w for _, w in live)
+        for rid, w in live:
+            per[rid] += e * w / w_sum
     for r in requests:
         r.energy_j = per.get(r.rid)
     return per

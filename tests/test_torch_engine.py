@@ -161,8 +161,8 @@ def test_launcher_runs_on_cpu():
 
 
 @pytest.mark.parametrize("flag", [
-    ["--speculative"], ["--prefill-chunk", "32"], ["--preemption"],
-    ["--tp", "4"], ["--replicas", "2"]])
+    ["--prefill-chunk", "32"], ["--preemption"], ["--tp", "4"],
+    ["--replicas", "2"]])
 def test_launcher_refuses_unported_options(flag, capsys):
     with pytest.raises(SystemExit):
         tserve.main(["--arch", "qwen3-1.7b", "--reduce", "--device", "cpu",
@@ -170,8 +170,7 @@ def test_launcher_refuses_unported_options(flag, capsys):
     assert "ROADMAP" in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("kw", [dict(spec_k=4),
-                                dict(prefill_chunk_tokens=32),
+@pytest.mark.parametrize("kw", [dict(prefill_chunk_tokens=32),
                                 dict(scheduler=object())])
 def test_engine_refuses_unported_options(kw):
     tm = build_model(tcfg.reduce_config(tcfg.get_config("qwen3-1.7b")),
@@ -230,6 +229,8 @@ def test_port_imports_neither_jax_nor_the_reference_package():
             "repro_torch/serving/prefix_cache.py",
             "repro_torch/kernels/paged_decode_attention/ops.py",
             "repro_torch/kernels/paged_verify_attention/ops.py",
+            "repro_torch/kernels/verify_attention/ops.py",
+            "repro_torch/serving/speculative.py",
             os.path.join("..", "chip_smoke.py")} <= seen
     assert not offenders, offenders
 

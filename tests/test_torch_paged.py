@@ -215,7 +215,10 @@ def test_gqa_paged_blocks_match_reference(models):
 
 def test_verify_step_matches_reference_and_needs_pages(models):
     """Model-level paged verify: logits, the unchanged ``pos``, and the
-    written pools; without a page table it is refused."""
+    written pools.  The page table is what sends it through the pools:
+    without one it is the contiguous verify, which on the slot-contiguous
+    views of the same pools gives the same logits wherever the window
+    fits the table (slot 0; slot 1's window runs off its 12 rows)."""
     jm, jp, tm, tp = models
     rng = np.random.default_rng(3)
     pos, pages = np.array([3, 9], np.int32), np.array(
@@ -233,9 +236,13 @@ def test_verify_step_matches_reference_and_needs_pages(models):
     assert torch.equal(gc["pos"], torch.from_numpy(pos))
     np.testing.assert_allclose(_np(gc["layers"]["blocks"]["k"]),
                                _np(wc["layers"]["blocks"]["k"]), **TOL)
-    with pytest.raises(NotImplementedError, match="ROADMAP §A.7"):
-        tm.verify_step(tp, tm.init_cache(2, 12, per_slot_pos=True),
-                       torch.from_numpy(toks))
+    flat = {"layers": {"blocks": {
+        name: torch.stack([TL.paged_view(pool, torch.from_numpy(pages))
+                           for pool in tc["layers"]["blocks"][name]])
+        for name in ("k", "v")}}, "pos": torch.from_numpy(pos)}
+    cont, cc = tm.verify_step(tp, flat, torch.from_numpy(toks))
+    assert "pages" not in cc
+    np.testing.assert_allclose(_np(cont[0]), _np(got[0]), **TOL)
 
 
 # --- the paged engine ---------------------------------------------------
