@@ -14,9 +14,11 @@ Phases, each fatal on failure:
    Paged decode must also equal contiguous decode bit for bit on the
    same values, through a shuffled page table, and likewise paged
    verify and contiguous verify.
+   The linear scan (rwkv6-3b's prefill: B 1, T 1,024 and a ragged
+   1,000, H 48, dh 64) against its plain chunked version, y and state.
    Then every build the wrappers can launch (float32 and bfloat16,
-   D 64 and 128, G 1/2/4/8) once at a small shape against its plain
-   version.
+   D 64 and 128, G 1/2/4/8; the scan at dh 32/64/128) once at a small
+   shape against its plain version.
 4. Full-width engine: qwen3-1.7b (28 layers, d_model 2048, 16/8 heads,
    padded vocab 153,600, bf16, seeded random weights) behind
    ``ContinuousBatchingEngine(n_slots=8, max_len=2048, chunk_steps=8)``
@@ -41,6 +43,18 @@ Phases, each fatal on failure:
    ``decode_step``s; plain against speculative engine offline (a
    divergence must start at a near-tie); paged speculative (shuffled
    pages) token-identical to contiguous speculative.
+10. Full-width rwkv6-3b engine (the qwen3 engines freed first): 32
+   RWKV-6 layers, d_model 2,560, 48 padded heads of 64, vocab 65,536,
+   bf16, seeded random weights; phase 4's 16 requests (tokens redrawn
+   in its vocabulary) through ``ContinuousBatchingEngine(n_slots=8,
+   max_len=2048, chunk_steps=8)``; every layer's prefill scan went
+   through the linear-scan kernel (launches = 32 x admissions).
+11. rwkv6 consistency: prefill(prompt + 8 tokens) against
+   prefill(prompt) and 8 decode steps (the state, and the token-shift
+   rows ``x_prev_t``/``x_prev_c``, handed from prefill to decode) for 4
+   slots at 300/17/1,000/129 tokens, and the kernel path against the
+   plain path on the same prompts: held in float32 (the same seeded
+   weights, full width), reported in bf16.
 
 The line before the last holds the kernels' JSON record; the last line
 is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside
@@ -49,6 +63,7 @@ result.
 """
 from __future__ import annotations
 
+import gc
 import json
 import os
 import subprocess
@@ -78,11 +93,33 @@ TOLS = {"bfloat16": dict(rtol=2e-2, atol=2e-2),
 # rounding of the same float32 value to bf16 moves it by under 2^-9.
 REL_NORM_TOL = {"bfloat16": 5e-3, "float32": 1e-5}
 
+# The linear scan in float32: the plain version's chunked form takes
+# exp of differences of within-chunk cumulative log decays (up to ~300
+# in magnitude, float32 ulp ~3e-5) where the kernel multiplies the
+# decays step by step, so they part by ~1e-5 relative: the reference's
+# own scan tolerance (tests/test_kernels.py:167), and 1e-4 by norm.  In
+# bf16 the repo's tolerances above hold.  The final state is float32 in
+# both and is held within 5e-4, as in the reference's test.
+SCAN_TOLS = {"bfloat16": (TOLS["bfloat16"], REL_NORM_TOL["bfloat16"]),
+             "float32": (dict(rtol=5e-4, atol=5e-4), 1e-4)}
+STATE_TOL = dict(rtol=5e-4, atol=5e-4)
+
 # Phase 5: the kernel and plain paths round attention to bf16 at slightly
 # different points; through 28 bf16 layers those one-ulp differences
 # grow.  Logits are compared relative to their largest magnitude.
 LOGIT_REL_TOL = 5e-2
 ARGMAX_AGREE_MIN = 0.9
+
+# Phase 11: random-weight rwkv6 amplifies rounding far more than the
+# dense stack.  The reference's own bf16 prefill(prompt + 8) against
+# prefill(prompt) + 8 decode steps parts by ~0.16 of max |logit| at 32
+# layers (tests/test_torch_rwkv.py::test_handoff_error_is_rounding_
+# as_in_the_reference), so phase 5's 5e-2 cannot tell a fault from
+# rounding in bf16.  The same weights in float32 part by ~1e-4 there;
+# a wrong token-shift row or state moves the logits by O(1).  So the
+# handoff and the kernel-vs-plain path are held in float32, within
+# 5e-3, and the bf16 numbers are reported.
+F32_LOGIT_REL_TOL = 5e-3
 
 
 def fail(msg: str) -> None:
@@ -119,21 +156,53 @@ def bound(nbytes: float, flops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def compare(label: str, got, want) -> tuple[float, float]:
+def compare(label: str, got, want, tols=None) -> tuple[float, float]:
     """Hold a kernel's output against its plain version's, per element
-    and by norm; returns (max abs error, relative norm error)."""
+    and by norm (``tols``: (allclose kwargs, norm limit) by dtype, the
+    repo's kernel tolerances unless given); returns (max abs error,
+    relative norm error)."""
     import torch
     dtype = str(want.dtype).removeprefix("torch.")
+    tol, rel_tol = (tols or {}).get(dtype,
+                                    (TOLS[dtype], REL_NORM_TOL[dtype]))
     diff = got.float() - want.float()
     err = float(diff.abs().max())
     rel = float(diff.norm() / want.float().norm().clamp_min(1e-30))
     check(bool(torch.isfinite(got).all()), f"{label}: non-finite output")
-    check(torch.allclose(got.float(), want.float(), **TOLS[dtype]),
+    check(torch.allclose(got.float(), want.float(), **tol),
           f"{label} disagrees with its plain version: max abs err {err}")
-    check(rel <= REL_NORM_TOL[dtype],
-          f"{label}: ||kernel - plain|| / ||plain|| = {rel} > "
-          f"{REL_NORM_TOL[dtype]}")
+    check(rel <= rel_tol,
+          f"{label}: ||kernel - plain|| / ||plain|| = {rel} > {rel_tol}")
     return err, rel
+
+
+def compare_scan(torch, label: str, r, k, v, logw, u):
+    """The linear scan against its plain version on the same inputs:
+    y by ``compare`` at the scan's tolerances, the final state within
+    ``STATE_TOL``.  Returns (max abs err of y, its norm error, max abs
+    err of the state)."""
+    from repro_torch.kernels.linear_scan.ops import (linear_scan,
+                                                     linear_scan_plain)
+    y, s = linear_scan(r, k, v, logw, u)
+    yp, sp = linear_scan_plain(r, k, v, logw, u, return_state=True)
+    err, rel = compare(label, y, yp, SCAN_TOLS)
+    serr = float((s - sp).abs().max())
+    check(bool(torch.isfinite(s).all()), f"{label}: non-finite state")
+    check(torch.allclose(s, sp, **STATE_TOL),
+          f"{label}: final state differs by {serr}")
+    return err, rel, serr
+
+
+def scan_inputs(torch, gen, dev, b, t, h, dh, dtype):
+    """The reference's scan test inputs (tests/test_kernels.py:151-156)
+    from ``gen``: r, k, v ~ N(0, 0.25) in ``dtype``, logw = -exp(N(0,
+    0.25)) and u ~ N(0, 0.09) in float32."""
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    r, k, v = ((randn(b, t, h, dh) * 0.5).to(dtype) for _ in range(3))
+    logw = -torch.exp(randn(b, t, h, dh) * 0.5)
+    return r, k, v, logw, randn(h, dh) * 0.3
 
 
 def phase_kernels(torch, dev):
@@ -143,6 +212,8 @@ def phase_kernels(torch, dev):
         decode_attention, decode_attention_plain)
     from repro_torch.kernels.flash_attention.ops import (
         flash_attention, flash_attention_plain)
+    from repro_torch.kernels.linear_scan.ops import (linear_scan,
+                                                     linear_scan_plain)
     from repro_torch.kernels.paged_decode_attention.ops import (
         paged_decode_attention, paged_decode_attention_plain)
     from repro_torch.kernels.paged_verify_attention.ops import (
@@ -344,6 +415,40 @@ def phase_kernels(torch, dev):
           f"ragged pos: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
           f"(boolean (B, H, T, S) mask) {library_ms:.4f} ms, bound "
           f"{bound_ms * 1e3:.2f} us ({bound_by}, {nbytes} B, {flops} flop)")
+
+    # --- linear scan: rwkv6-3b's prefill of 1,024 tokens (48 padded
+    # heads of 64), then a ragged 1,000
+    b, h, dh = 1, 48, 64
+    errs, rels, serrs = [], [], []
+    for t in (1024, 1000):
+        r, k, v, logw, u = scan_inputs(torch, gen, dev, b, t, h, dh, bf16)
+        err, rel, serr = compare_scan(torch, f"linear_scan (T={t})", r, k,
+                                      v, logw, u)
+        errs.append(err)
+        rels.append(rel)
+        serrs.append(serr)
+        print(f"  linear_scan T={t}: max |kernel - plain| {err:.3e}, "
+              f"||kernel - plain|| / ||plain|| {rel:.3e}, state max err "
+              f"{serr:.3e}")
+    r, k, v, logw, u = scan_inputs(torch, gen, dev, b, 1024, h, dh, bf16)
+    ms = time_ms(lambda: linear_scan(r, k, v, logw, u))
+    plain_ms = time_ms(lambda: linear_scan_plain(r, k, v, logw, u,
+                                                 return_state=True))
+    t = r.shape[1]
+    # r, k, v, y in bf16, logw in f32, read or written once; u and the
+    # f32 state; the recurrence's 5 dh^2 flop per step and head
+    nbytes = (4 * r.numel() * 2 + logw.numel() * 4 + u.numel() * 4
+              + b * h * dh * dh * 4)
+    flops = 5 * b * t * h * dh * dh
+    bound_ms, bound_by = bound(nbytes, flops)
+    out["linear_scan"] = dict(
+        max_abs_err=max(errs), rel_norm_err=max(rels),
+        state_max_abs_err=max(serrs), ms=ms, plain_ms=plain_ms,
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+    print(f"  linear_scan B={b} T={t} H={h} dh={dh}: kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms, no library call, bound "
+          f"{bound_ms * 1e3:.2f} us ({bound_by}, {nbytes} B, {flops} flop; "
+          f"{flops / 67e12 * 1e6:.2f} us at float32's 67 TFLOP/s)")
     return out
 
 
@@ -419,6 +524,15 @@ def phase_builds(torch, dev):
               f"{pdec[0]:.2e}/{pdec[1]:.2e} (= decode); verify "
               f"{cver[0]:.2e}/{cver[1]:.2e}; paged verify "
               f"{pver[0]:.2e}/{pver[1]:.2e} (= verify)")
+    # the scan: B 2, T 77 (no multiple of a staged block), H 3
+    for dtype, dh in itertools.product((torch.float32, torch.bfloat16),
+                                       (32, 64, 128)):
+        name = f"{str(dtype).removeprefix('torch.')} dh={dh}"
+        r, k, v, logw, u = scan_inputs(torch, gen, dev, 2, 77, 3, dh, dtype)
+        err, rel, serr = compare_scan(torch, f"linear_scan {name}", r, k,
+                                      v, logw, u)
+        print(f"  linear_scan {name}: y max err {err:.2e} rel {rel:.2e}, "
+              f"state {serr:.2e}")
 
 
 def launch_counters() -> dict:
@@ -429,11 +543,12 @@ def launch_counters() -> dict:
         paged_decode_attention)
     from repro_torch.kernels.paged_verify_attention.ops import (
         paged_verify_attention)
+    from repro_torch.kernels.linear_scan.ops import linear_scan
     from repro_torch.kernels.verify_attention.ops import verify_attention
     return {k.__name__: k for k in (decode_attention, flash_attention,
                                     paged_decode_attention,
                                     paged_verify_attention,
-                                    verify_attention)}
+                                    verify_attention, linear_scan)}
 
 
 def print_served(m: dict, wall_s: float, engine) -> None:
@@ -888,6 +1003,121 @@ def phase_spec_tokens(torch, dev, model, params, make, requests):
           "the paged speculative engine launched contiguous verify")
 
 
+def phase_rwkv_engine(torch, dev, requests):
+    """Phase 10: phase 4's requests (arrivals, prompt lengths, budgets),
+    their tokens redrawn in rwkv6-3b's vocabulary, through the
+    full-width rwkv6-3b engine.  Returns (model, params, launches)."""
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import summarize
+    from repro_torch.models import build_model
+    from repro_torch.models.param import tree_leaves
+    from repro_torch.models.rwkv6 import padded_heads
+    from repro_torch.serving import ContinuousBatchingEngine
+
+    cfg = get_config("rwkv6-3b")
+    model = build_model(cfg, dev)
+    params = model.init(seed=0)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    print(f"  {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} "
+          f"heads padded to {padded_heads(cfg)} of {cfg.head_dim}, d_ff "
+          f"{cfg.d_ff}, vocab {model.vp}, {n_params / 1e9:.3f} B params "
+          f"({cfg.dtype})")
+    rng = np.random.default_rng(0)
+    requests = [dataclasses.replace(r, prompt=rng.integers(
+        0, cfg.vocab_size, len(r.prompt))) for r in requests]
+    engine = ContinuousBatchingEngine(model, params, max_len=2048,
+                                      n_slots=8, chunk_steps=8, device=dev)
+    done, wall_s, launches = served_run(torch, engine, requests)
+    m = summarize(done, wall_s)
+    print_served(m, wall_s, engine)
+    print("  launches: " + ", ".join(f"{k} {n}"
+                                     for k, n in launches.items()))
+    n = len(requests)
+    check(len(done) == n, f"{len(done)} of {n} requests completed")
+    for r in done:
+        check(len(r.output) == r.max_new_tokens,
+              f"request {r.rid}: {len(r.output)} of {r.max_new_tokens} "
+              f"tokens")
+        check(all(0 <= t < model.vp for t in r.output),
+              f"request {r.rid}: token outside the padded vocabulary")
+    check(launches["linear_scan"] == cfg.n_layers * n,
+          f"linear_scan launches {launches['linear_scan']} != "
+          f"{cfg.n_layers} layers x {n} admissions")
+    check(engine.host_syncs * engine.chunk_steps == engine.decode_steps,
+          "more than one host copy per decode chunk")
+    check(all(c == 0 for k, c in launches.items() if k != "linear_scan"),
+          "the rwkv engine launched an attention kernel")
+    return model, params, launches
+
+
+def rwkv_paths(torch, dev, cfg, params) -> dict:
+    """For 4 slots at prompt lengths 300/17/1,000/129: the last-token
+    logits of prefill(prompt + 8 tokens) against those of
+    prefill(prompt) followed by 8 ``decode_step``s on the same tokens,
+    on the kernel path and on the plain path, and the two paths against
+    each other.  Returns max |a - b| / max |b| of each comparison."""
+    import numpy as np
+    from repro_torch.models import build_model
+
+    rng = np.random.default_rng(5)
+    lens = (300, 17, 1000, 129)
+    extra = 8
+    toks = [torch.as_tensor(rng.integers(0, cfg.vocab_size, n + extra),
+                            device=dev)[None] for n in lens]
+    forced = torch.cat([t[:, n:] for t, n in zip(toks, lens)])   # (4, 8)
+    runs, out = {}, {}
+    for kernels in (True, False):
+        model = build_model(cfg, dev, kernels=kernels)
+        with torch.no_grad():
+            whole = torch.stack([model.prefill(params, {"tokens": t})[0][0, -1]
+                                 for t in toks]).float()
+        cache, _ = prefill_slots(torch, model, params,
+                                 [t[:, :n] for t, n in zip(toks, lens)],
+                                 2048)
+        with torch.no_grad():
+            for j in range(extra):
+                lg, cache = model.decode_step(params, cache,
+                                              forced[:, j:j + 1])
+        stepped = lg[:, -1].float()
+        check(bool(torch.isfinite(stepped).all())
+              and bool(torch.isfinite(whole).all()),
+              f"{cfg.dtype}: non-finite logits")
+        path = "kernel" if kernels else "plain"
+        out[f"{path} path: prefill(prompt) + {extra} decode steps vs "
+            f"prefill(prompt + {extra})"] = (stepped, whole)
+        runs[kernels] = (whole, stepped)
+    for i, what in enumerate(("prefill", "prefill + decode")):
+        out[f"kernel vs plain path, {what}"] = (runs[True][i],
+                                                runs[False][i])
+    return {k: float((a - b).abs().max() / b.abs().max())
+            for k, (a, b) in out.items()}
+
+
+def phase_rwkv_consistency(torch, dev, cfg, params):
+    """Phase 11: ``rwkv_paths`` on phase 10's seeded weights in float32,
+    each comparison within ``F32_LOGIT_REL_TOL``; then in bf16 on phase
+    10's own weights, reported (see ``F32_LOGIT_REL_TOL``)."""
+    import dataclasses
+
+    from repro_torch.models import build_model
+
+    f32 = dataclasses.replace(cfg, dtype="float32")
+    f32_params = build_model(f32, dev).init(seed=0)
+    for what, rel in rwkv_paths(torch, dev, f32, f32_params).items():
+        print(f"  float32, {what}: max |a - b| / max |b| = {rel:.3e}")
+        check(rel <= F32_LOGIT_REL_TOL, f"float32 {what}: {rel} > "
+              f"{F32_LOGIT_REL_TOL}")
+    del f32_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    for what, rel in rwkv_paths(torch, dev, cfg, params).items():
+        print(f"  bfloat16 (reported), {what}: max |a - b| / max |b| = "
+              f"{rel:.3e}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -961,9 +1191,21 @@ def main() -> int:
     phase("phase 9: speculative tokens: verify_step, near-ties, paged")
     phase_spec_tokens(torch, dev, model, params, make, requests)
 
+    # the qwen3 weights, engines and damped copy go before rwkv6-3b
+    del engine, make, model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    phase("phase 10: full-width rwkv6-3b engine")
+    rwkv, rwkv_params, rwkv_launches = phase_rwkv_engine(torch, dev,
+                                                         requests)
+
+    phase("phase 11: rwkv6 state handoff; kernel path vs plain path")
+    phase_rwkv_consistency(torch, dev, rwkv.cfg, rwkv_params)
+
     # launches: each kernel's count on its own path's run (phase 4 for
     # the contiguous kernels, phase 6 for the paged ones, phase 8 for
-    # the verify kernel)
+    # the verify kernel, phase 10 for the scan)
     dec = "src/repro/kernels/decode_attention/decode_attention.py"
     sources = {
         "decode_attention": (f"{dec}:351", launches),
@@ -972,7 +1214,9 @@ def main() -> int:
             launches),
         "paged_decode_attention": (f"{dec}:266", paged_launches),
         "paged_verify_attention": (f"{dec}:308", paged_launches),
-        "verify_attention": (f"{dec}:127", spec_launches)}
+        "verify_attention": (f"{dec}:127", spec_launches),
+        "linear_scan": ("src/repro/kernels/linear_scan/linear_scan.py:81",
+                        rwkv_launches)}
     record = {"kernels": [
         dict(name=name, route="cuda",
              source=f"src/repro_torch/kernels/csrc/{name}.cu",

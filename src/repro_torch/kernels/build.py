@@ -23,7 +23,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(HERE, "csrc")
 BUILD_DIR = os.path.join(HERE, "_build")
 SOURCES = ("decode_attention", "flash_attention", "paged_decode_attention",
-           "paged_verify_attention", "verify_attention")
+           "paged_verify_attention", "verify_attention", "linear_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -1,11 +1,11 @@
 """Where the engine's time goes on the card: decode and prefill profiled.
 
-  python -m repro_torch.launch.profile_engine
+  python -m repro_torch.launch.profile_engine [--arch rwkv6-3b]
 
-Fills every slot of full-width qwen3-1.7b's ``ContinuousBatchingEngine``
-(the engine shape ``chip_smoke.py`` serves at) with a prompt of
-``PROMPT_LEN`` tokens (seeded random weights and tokens), then, after
-one warm-up chunk, measures:
+Fills every slot of the full-width ``--arch`` (default qwen3-1.7b)
+``ContinuousBatchingEngine`` (the engine shape ``chip_smoke.py`` serves
+at) with a prompt of ``PROMPT_LEN`` tokens (seeded random weights and
+tokens), then, after one warm-up chunk, measures:
 
 - decode: host wall time per step over 4 chunks of 8 steps (ending in a
   synchronize), then one chunk under ``torch.profiler`` for its kernels'
@@ -15,13 +15,15 @@ one warm-up chunk, measures:
 - speculative round: the same for one chunk of ``CHUNK_STEPS`` rounds
   of the speculative engine (``SPEC_K`` drafts from a 2-layer truncated
   draft, the target's layers past 2 damped to 0.001: ``chip_smoke.py``
-  phase 8's pair), its slots filled the same way, per round.
+  phase 8's pair), its slots filled the same way, per round; only for
+  an architecture with a verify path (not rwkv6-3b).
 
 Prints one JSON object as its last line.  Needs a CUDA device; the
 numbers are the card's and are printed beside its name and power limit.
 """
 from __future__ import annotations
 
+import argparse
 import collections
 import json
 import subprocess
@@ -32,7 +34,7 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from repro_torch.configs import get_config
+from repro_torch.configs import get_config, list_archs
 from repro_torch.models import build_model
 from repro_torch.serving import (ContinuousBatchingEngine,
                                  damp_upper_layers, truncate_draft)
@@ -78,8 +80,41 @@ def _profiled(fn, wall_ms: float, top: int = 8) -> dict:
                     for k, (n, ms) in ranked]}
 
 
-def main():
-    cfg = get_config(ARCH)
+def _profile_spec(model, params, rng) -> dict:
+    """One chunk of speculative rounds, its slots filled with
+    ``PROMPT_LEN``-token prompts: the profile of one round."""
+    cfg = model.cfg
+    budget = MAX_LEN - PROMPT_LEN
+    damped = damp_upper_layers(params, n_keep=2, damp=0.001)
+    dmodel, dparams = truncate_draft(model, damped, 2)
+    spec = ContinuousBatchingEngine(
+        model, damped, max_len=MAX_LEN, n_slots=SLOTS,
+        chunk_steps=CHUNK_STEPS, draft_model=dmodel, draft_params=dparams,
+        spec_k=SPEC_K)
+    for b in range(SLOTS):
+        prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                              PROMPT_LEN),
+                                 device=spec.device)[None]
+        spec._prefill_slot(damped, spec.state, prompt, b,
+                           budget - SPEC_K)
+        spec._prefill_draft(dparams, spec.state, prompt, b)
+
+    def spec_chunk():
+        spec._spec_chunk(damped, dparams, spec.state)
+
+    spec_chunk()                                      # warm-up
+    rounds = _profiled(spec_chunk, _wall_ms(spec_chunk, 2))
+    rounds.update(wall_ms_per_round=rounds["wall_ms"] / CHUNK_STEPS,
+                  kernel_ms_per_round=rounds["kernel_ms"] / CHUNK_STEPS,
+                  depth=int(spec.state["cache"]["pos"].max()))
+    return rounds
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--arch", default=ARCH, choices=list_archs())
+    args = ap.parse_args(argv)
+    cfg = get_config(args.arch)
     model = build_model(cfg, "cuda")
     params = model.init(SEED)
     eng = ContinuousBatchingEngine(model, params, max_len=MAX_LEN,
@@ -106,27 +141,8 @@ def main():
                   kernel_ms_per_step=decode["kernel_ms"] / steps)
     prefill = _profiled(lambda: admit(0), _wall_ms(lambda: admit(0), 2))
 
-    damped = damp_upper_layers(params, n_keep=2, damp=0.001)
-    dmodel, dparams = truncate_draft(model, damped, 2)
-    spec = ContinuousBatchingEngine(
-        model, damped, max_len=MAX_LEN, n_slots=SLOTS,
-        chunk_steps=CHUNK_STEPS, draft_model=dmodel, draft_params=dparams,
-        spec_k=SPEC_K)
-    for b in range(SLOTS):
-        prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size,
-                                              PROMPT_LEN),
-                                 device=spec.device)[None]
-        spec._prefill_slot(damped, spec.state, prompt, b,
-                           budget - SPEC_K)
-        spec._prefill_draft(dparams, spec.state, prompt, b)
-
-    def spec_chunk():
-        spec._spec_chunk(damped, dparams, spec.state)
-
-    spec_chunk()                                      # warm-up
-    rounds = _profiled(spec_chunk, _wall_ms(spec_chunk, 2))
-    rounds.update(wall_ms_per_round=rounds["wall_ms"] / steps,
-                  kernel_ms_per_round=rounds["kernel_ms"] / steps)
+    rounds = _profile_spec(model, params, rng) \
+        if model.kind == "attn_dense" else None
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -141,15 +157,15 @@ def main():
     print(f"  prefill ({PROMPT_LEN} tokens): "
           f"{prefill['wall_ms']:.3f} ms wall, {prefill['kernel_ms']:.3f} ms "
           f"of kernels, busy {prefill['busy_share']:.1%}")
-    print(f"  speculative (k={SPEC_K}, depth ~"
-          f"{int(spec.state['cache']['pos'].max())}): "
-          f"{rounds['wall_ms_per_round']:.3f} ms/round host wall, "
-          f"{rounds['kernel_ms_per_round']:.3f} ms/round of kernels, busy "
-          f"{rounds['busy_share']:.1%}, {rounds['n_kernels'] // steps} "
-          f"kernels/round")
+    if rounds is not None:
+        print(f"  speculative (k={SPEC_K}, depth ~{rounds['depth']}): "
+              f"{rounds['wall_ms_per_round']:.3f} ms/round host wall, "
+              f"{rounds['kernel_ms_per_round']:.3f} ms/round of kernels, "
+              f"busy {rounds['busy_share']:.1%}, "
+              f"{rounds['n_kernels'] // steps} kernels/round")
     for name, part in (("decode", decode), ("prefill", prefill),
                        ("speculative", rounds)):
-        for t in part["top"]:
+        for t in (part or {}).get("top", []):
             print(f"  {name} {t['ms']:9.3f} ms x{t['count']:<5} "
                   f"{t['kernel']}")
     out = {"device": smi, "arch": cfg.name, "slots": SLOTS,

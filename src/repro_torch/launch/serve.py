@@ -22,6 +22,14 @@ launch counts and, with the prefix cache, its hits, with
   python -m repro_torch.launch.serve --arch qwen3-1.7b --reduce \
       --device cpu --speculative --k 4 --qps 20 --min-duration 0.5
 
+``--arch rwkv6-3b`` serves the RWKV-6 stack through the same engines;
+its prefill runs the linear-scan kernel and its cache is a fixed-size
+recurrent state, so ``--kv-page-size``, ``--prefix-cache`` and
+``--speculative`` are refused for it (as the reference refuses them).
+
+  python -m repro_torch.launch.serve --arch rwkv6-3b --reduce \
+      --device cpu --qps 20 --min-duration 0.5
+
 Director-measured energy (``PowerRun``, tok/J) needs the harness,
 core and power modules, which are not ported yet (ROADMAP §A.4), and
 the options of the reference launcher for chunked prefill, preemption,
@@ -39,6 +47,7 @@ import torch
 from repro_torch.configs import get_config, list_archs, reduce_config
 from repro_torch.kernels.decode_attention.ops import decode_attention
 from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.linear_scan.ops import linear_scan
 from repro_torch.kernels.paged_decode_attention.ops import (
     paged_decode_attention)
 from repro_torch.kernels.paged_verify_attention.ops import (
@@ -214,7 +223,7 @@ def main(argv=None):
     requests = make_requests(arrivals, cfg.vocab_size, args.prompt_len,
                              args.new_tokens, args.seed + 2)
     kernels = (decode_attention, flash_attention, paged_decode_attention,
-               paged_verify_attention, verify_attention)
+               paged_verify_attention, verify_attention, linear_scan)
     for k in kernels:
         k.launches = 0
     if model.device.type == "cuda":

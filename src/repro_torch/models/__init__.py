@@ -1,4 +1,4 @@
-"""Model zoo entry point: ``build_model(cfg)`` (dense family only)."""
+"""Model zoo entry point: ``build_model(cfg)`` (dense and rwkv families)."""
 from __future__ import annotations
 
 from repro_torch.configs.base import ModelConfig

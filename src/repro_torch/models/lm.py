@@ -1,11 +1,13 @@
-"""Decoder-only language model, dense family (PyTorch port).
+"""Decoder-only language model, dense and rwkv families (PyTorch port).
 
 The counterpart of the reference ``models/lm.py::LM`` for
-``family == "dense"``: the same parameter tree (one ``"blocks"`` stack
-with a leading layer axis), the same cache tree, and the same
-``prefill`` / ``decode_step`` API.  Layers run as a Python loop over
-the stack.  Caches are updated in place where the reference's jitted
-callers donate them.
+``family == "dense"`` (``attn_dense`` blocks) and ``family == "rwkv"``
+(RWKV-6 blocks): the same parameter tree (one ``"blocks"`` stack with
+a leading layer axis), the same cache tree, and the same ``prefill`` /
+``decode_step`` API.  Layers run as a Python loop over the stack.
+Caches are updated in place where the reference's jitted callers
+donate them.  An rwkv cache holds each layer's recurrent state (``S``
+and the two token-shift rows) instead of K/V rows.
 
   lm = LM(cfg, device="cuda")
   params = lm.init(seed=0)                 # or param.from_jax(tree)
@@ -15,7 +17,9 @@ callers donate them.
 ``verify_step`` scores a T-token window per slot (speculative
 decoding).  The paged engine's cache tree (``init_paged_cache``) holds
 page pools shared by all slots plus a ``pages`` table; ``decode_step``
-and ``verify_step`` then go through the page table.
+and ``verify_step`` then go through the page table.  Both need
+random-access KV attention and raise ``NotImplementedError`` for rwkv,
+as the reference does.
 """
 from __future__ import annotations
 
@@ -26,40 +30,61 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import rwkv6 as R
 from repro_torch.models.param import (DTYPES, ParamDef, init_params,
                                       stack_tree, tree_map)
 
+# family -> the one layer kind its homogeneous stack holds
+_LAYER_KINDS = {"dense": "attn_dense", "rwkv": "rwkv"}
 
 
 class LM:
-    """Dense GQA decoder.  ``device`` defaults to ``cuda`` and raises
-    when no GPU is visible.  ``kernels=False`` sends attention to the
-    plain PyTorch versions on any device (the on-card yardstick); with
-    ``kernels=True`` CUDA tensors go through the hand-written kernels
-    and CPU tensors through the same plain versions."""
+    """Dense GQA decoder or RWKV-6 stack.  ``device`` defaults to
+    ``cuda`` and raises when no GPU is visible.  ``kernels=False`` sends
+    attention and the scan to the plain PyTorch versions on any device
+    (the on-card yardstick); with ``kernels=True`` CUDA tensors go
+    through the hand-written kernels and CPU tensors through the same
+    plain versions."""
 
     def __init__(self, cfg: ModelConfig, device="cuda", *,
                  kernels: bool = True):
-        if cfg.family != "dense":
+        if cfg.family not in _LAYER_KINDS:
             raise NotImplementedError(
-                f"family {cfg.family!r}: only the dense family "
-                f"(attn_dense blocks) is ported; see ROADMAP §A.11")
+                f"family {cfg.family!r}: only the dense (attn_dense) and "
+                f"rwkv families are ported; see ROADMAP §A.11")
         self.cfg = cfg
         self.vp = L.pad_vocab(cfg.vocab_size)
         self.device = resolve_device(device)
         self.kernels = kernels
         self.dtype = DTYPES[cfg.dtype]
+        self.kind = _LAYER_KINDS[cfg.family]
+
+    def check_verify(self) -> None:
+        """Raise ``NotImplementedError`` unless the stack has random-access
+        KV attention: verify windows and paged KV need it, and an rwkv
+        state has neither (the reference raises the same)."""
+        if self.kind != "attn_dense":
+            raise NotImplementedError(
+                f"speculative verify and paged KV need random-access KV "
+                f"attention; family {self.cfg.family!r} (layer kind "
+                f"{self.kind!r}) has no multi-token verify or page-table "
+                f"path")
 
     # ------------------------------------------------------------------
     # Parameter definitions
     # ------------------------------------------------------------------
     def _block_defs(self) -> dict:
-        """One ``attn_dense`` block, the only layer kind ported."""
+        """One block of the stack's layer kind."""
         cfg = self.cfg
-        return {"ln1": L.rmsnorm_def(cfg.d_model, cfg.dtype),
-                "ln2": L.rmsnorm_def(cfg.d_model, cfg.dtype),
-                "attn": L.gqa_defs(cfg),
-                "ffn": L.ffn_defs(cfg)}
+        d = {"ln1": L.rmsnorm_def(cfg.d_model, cfg.dtype),
+             "ln2": L.rmsnorm_def(cfg.d_model, cfg.dtype)}
+        if self.kind == "rwkv":
+            d["time"] = R.rwkv_time_defs(cfg)
+            d["chan"] = R.rwkv_channel_defs(cfg)
+        else:
+            d["attn"] = L.gqa_defs(cfg)
+            d["ffn"] = L.ffn_defs(cfg)
+        return d
 
     def param_defs(self):
         cfg = self.cfg
@@ -85,12 +110,15 @@ class LM:
     # Block application
     # ------------------------------------------------------------------
     def _apply_block(self, x, bp, mode, cache, pos, pages=None, dest=None):
-        """One ``attn_dense`` block; ``cache`` (this layer's dict(k, v))
-        is written in place.  ``pages`` (B, NB) switches decode and
-        verify to the paged KV pool: the cache leaves are then shared
-        physical pages, not per-slot rows (``dest``: the window's
-        ``paged_dest``).  Returns the block output."""
+        """One block; ``cache`` (this layer's dict of cache leaves) is
+        written in place.  An ``attn_dense`` block's cache is dict(k,
+        v); ``pages`` (B, NB) switches its decode and verify to the paged
+        KV pool: the cache leaves are then shared physical pages, not
+        per-slot rows (``dest``: the window's ``paged_dest``).  Returns
+        the block output."""
         cfg = self.cfg
+        if self.kind == "rwkv":
+            return self._apply_rwkv_block(x, bp, mode, cache)
         h = L.rmsnorm(x, bp["ln1"], cfg.norm_eps)
         if mode == "prefill":
             o, (k, v) = L.gqa_prefill(h, bp["attn"], cfg,
@@ -121,6 +149,37 @@ class LM:
         h2 = L.rmsnorm(x, bp["ln2"], cfg.norm_eps)
         return x + L.ffn(h2, bp["ffn"])
 
+    def _apply_rwkv_block(self, x, bp, mode, cache):
+        """One RWKV-6 block (reference ``LM._apply_block``, rwkv branch);
+        ``cache`` is this layer's dict(S, x_prev_t, x_prev_c), written in
+        place.  Prefill runs the scan from a zero state and leaves the
+        final state, the last token's ln1 output (``x_prev_t``) and its
+        ln2 output (``x_prev_c``); decode carries them one token on."""
+        cfg = self.cfg
+        h = L.rmsnorm(x, bp["ln1"], cfg.norm_eps)
+        if mode == "prefill":
+            o, S = R.time_mix(h, bp["time"], cfg, kernels=self.kernels)
+            cache["S"].copy_(S)
+            cache["x_prev_t"].copy_(h[:, -1:])
+        elif mode == "decode":
+            o, _ = R.time_mix_decode(h, bp["time"], cfg,
+                                     {"S": cache["S"],
+                                      "x_prev": cache["x_prev_t"]})
+            cache["x_prev_t"].copy_(h)
+        else:
+            raise NotImplementedError(
+                f"mode {mode!r}: an rwkv stack has prefill and decode "
+                f"only (training: ROADMAP §A.12)")
+        x = x + o
+        h2 = L.rmsnorm(x, bp["ln2"], cfg.norm_eps)
+        if mode == "prefill":
+            o2 = R.channel_mix(h2, bp["chan"])
+            cache["x_prev_c"].copy_(h2[:, -1:])
+        else:
+            o2 = R.channel_mix(h2, bp["chan"], cache["x_prev_c"])
+            cache["x_prev_c"].copy_(h2)
+        return x + o2
+
     def _run_stack(self, params, x, mode, cache, pos, pages=None):
         """Run all blocks over the stacked parameters and caches.  One
         page table serves every layer (the pools are stacked per layer,
@@ -132,7 +191,7 @@ class LM:
                                 cache["blocks"]["k"].shape[2])
         for i in range(self.cfg.n_layers):
             bp = tree_map(lambda a: a[i], params["blocks"])
-            c = {"k": cache["blocks"]["k"][i], "v": cache["blocks"]["v"][i]}
+            c = {name: t[i] for name, t in cache["blocks"].items()}
             x = self._apply_block(x, bp, mode, c, pos, pages, dest)
         return x
 
@@ -141,13 +200,20 @@ class LM:
     # ------------------------------------------------------------------
     def cache_specs(self, batch: int, max_len: int,
                     per_slot_pos: bool = False) -> dict[str, Any]:
-        """Shapes and dtypes of the cache tree: stacked (L, B, S, KVH, D)
-        K and V, plus ``pos`` -- per slot (B,) with ``per_slot_pos``."""
+        """Shapes and dtypes of the cache tree, stacked per layer, plus
+        ``pos`` -- per slot (B,) with ``per_slot_pos``.  Dense: (L, B, S,
+        KVH, D) K and V.  rwkv: the (L, B, H, dh, dh) float32 state and
+        the (L, B, 1, d) token-shift rows, whatever ``max_len``."""
         cfg = self.cfg
-        kv = ((cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim),
-              self.dtype)
+        if self.kind == "rwkv":
+            blocks = tree_map(lambda s: ((cfg.n_layers,) + s[0], s[1]),
+                              R.rwkv_state_defs(cfg, batch, self.dtype))
+        else:
+            kv = ((cfg.n_layers, batch, max_len, cfg.n_kv_heads,
+                   cfg.head_dim), self.dtype)
+            blocks = {"k": kv, "v": kv}
         pos_shape = (batch,) if per_slot_pos else ()
-        return {"layers": {"blocks": {"k": kv, "v": kv}},
+        return {"layers": {"blocks": blocks},
                 "pos": (pos_shape, torch.int32)}
 
     def init_cache(self, batch: int, max_len: int,
@@ -161,7 +227,8 @@ class LM:
         """Shapes and dtypes of the paged engine's cache tree: stacked
         (L, P, page_size, KVH, D) K and V page pools shared by all
         slots, a per-slot (B,) ``pos`` and the (B, NB) int32 page
-        table."""
+        table.  Dense stacks only."""
+        self.check_verify()
         cfg = self.cfg
         pool = ((cfg.n_layers, n_pages, page_size, cfg.n_kv_heads,
                  cfg.head_dim), self.dtype)
@@ -194,9 +261,11 @@ class LM:
         """inputs["tokens"]: (B, S) -> last-token logits (B, 1, Vp) and
         the cache, K/V at rows [0, S) and zeros up to ``max_len``.
 
-        ``cache`` (a ``{"blocks": {"k", "v"}}`` tree of (L, B, max_len,
-        KVH, D) tensors, e.g. views of one slot of an engine's cache) is
-        written in place instead of allocating a fresh one."""
+        ``cache`` (a ``{"blocks": {...}}`` tree shaped like
+        ``cache_specs(B, max_len)["layers"]``, e.g. views of one slot of an
+        engine's cache) is written in place instead of allocating a fresh
+        one.  An rwkv prefill writes each layer's final state and
+        token-shift rows there."""
         x = self._embed_inputs(params, inputs)
         b, seq = x.shape[0], x.shape[1]
         max_len = max_len or seq
@@ -217,7 +286,8 @@ class LM:
         returned unchanged: the caller advances it (by the accepted
         length, in speculative decoding), which rolls rejected tokens
         back in place -- their rows sit past the new frontier and the
-        next window overwrites them."""
+        next window overwrites them.  Dense stacks only."""
+        self.check_verify()
         pos = cache["pos"]
         pages = cache.get("pages")
         x = self._embed_inputs(params, {"tokens": tokens})

@@ -211,6 +211,8 @@ class ContinuousBatchingEngine:
         self.speculative = self.spec_k > 0
         if self.speculative and draft_model is None:
             raise ValueError("spec_k > 0 needs draft_model/draft_params")
+        if self.speculative:
+            model.check_verify()       # rwkv: no verify path, refuse now
         self.draft_model = draft_model
         self.draft_params = draft_params
         self.temperature = float(temperature)

@@ -231,6 +231,8 @@ def test_port_imports_neither_jax_nor_the_reference_package():
             "repro_torch/kernels/paged_verify_attention/ops.py",
             "repro_torch/kernels/verify_attention/ops.py",
             "repro_torch/serving/speculative.py",
+            "repro_torch/kernels/linear_scan/ops.py",
+            "repro_torch/models/rwkv6.py",
             os.path.join("..", "chip_smoke.py")} <= seen
     assert not offenders, offenders
 

@@ -1,6 +1,7 @@
-"""The port's dense LM on the CPU against the JAX reference: configs,
-the weight bridge, each layer function, and the model's prefill/decode
-logits on the same weights (float32, reduced configs, within 1e-4)."""
+"""The port's LM on the CPU against the JAX reference: configs, the
+weight bridge, each dense layer function, and the model's prefill/decode
+logits on the same weights (float32, reduced configs, within 1e-4), for
+the dense family and rwkv6 (whose own layers are in test_torch_rwkv)."""
 import dataclasses
 
 import jax
@@ -23,6 +24,7 @@ from repro_torch.models.param import from_jax, tree_leaves, tree_map
 torch.set_num_threads(1)
 
 DENSE = ["qwen3-1.7b", "qwen2.5-3b", "granite-3-2b", "yi-9b"]
+PORTED = DENSE + ["rwkv6-3b"]
 TOL = dict(rtol=1e-4, atol=1e-4)
 
 
@@ -49,7 +51,7 @@ def _np(x):
     return np.asarray(x, np.float32)
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", PORTED)
 def test_configs_match_reference(arch):
     full = tcfg.get_config(arch)
     assert dataclasses.asdict(full) == dataclasses.asdict(
@@ -59,7 +61,7 @@ def test_configs_match_reference(arch):
     assert full.head_dim == jcfg.get_config(arch).head_dim
 
 
-@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "rwkv6-3b",
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "jamba-v0.1-52b",
                                   "whisper-small"])
 def test_unported_families_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP §A.11"):
@@ -139,10 +141,11 @@ def test_cache_update_matches_reference():
         np.testing.assert_array_equal(_np(got), _np(want))
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", PORTED)
 def test_prefill_and_decode_logits_match_reference(arch):
     """Prefill, a scalar-pos decode step, then a ragged per-slot decode
-    step (the continuous-batching layout), all within 1e-4."""
+    step (the continuous-batching layout), all within 1e-4; every cache
+    leaf after prefill too (K/V, or rwkv's state and token-shift rows)."""
     jm, jp, tm, tp = _models(arch)
     rng = np.random.default_rng(3)
     toks = rng.integers(0, jm.cfg.vocab_size, (2, 11)).astype(np.int32)
@@ -152,8 +155,10 @@ def test_prefill_and_decode_logits_match_reference(arch):
     tl, tc = tm.prefill(tp, {"tokens": torch.from_numpy(toks).long()},
                         max_len=max_len)
     np.testing.assert_allclose(_np(tl), _np(jl), **TOL)
-    np.testing.assert_allclose(_np(tc["layers"]["blocks"]["k"]),
-                               _np(jc["layers"]["blocks"]["k"]), **TOL)
+    assert sorted(tc["layers"]["blocks"]) == sorted(jc["layers"]["blocks"])
+    for name, leaf in tc["layers"]["blocks"].items():
+        np.testing.assert_allclose(_np(leaf),
+                                   _np(jc["layers"]["blocks"][name]), **TOL)
     decode = jax.jit(jm.decode_step)
     nxt = rng.integers(0, jm.cfg.vocab_size, (2, 1)).astype(np.int32)
     jl, jc = decode(jp, jc, jnp.asarray(nxt))
