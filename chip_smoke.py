@@ -6,7 +6,8 @@
 Phases, each fatal on failure:
 
 1. Device: the card's name and ``nvidia-smi`` name and power limit.
-2. Build: compile every CUDA kernel from ``src/repro_torch/kernels/csrc``.
+2. Build: compile every CUDA kernel from ``src/repro_torch/kernels/csrc``
+   (seven sources, one ``nvcc`` each, in parallel).
 3. Kernels vs their plain PyTorch versions on the card, bf16, at the
    main paths' shapes; each kernel's median time beside its plain
    version's, one PyTorch library call's (SDPA, a yardstick the port
@@ -16,9 +17,14 @@ Phases, each fatal on failure:
    verify and contiguous verify.
    The linear scan (rwkv6-3b's prefill: B 1, T 1,024 and a ragged
    1,000, H 48, dh 64) against its plain chunked version, y and state.
+   The W8A8 int8 GEMM at the tiny model's shape (M 12,544, K = N = 64,
+   float32 out) and a qwen3-1.7b FFN up-projection (M 1,024, K 2,048,
+   N 6,144, bf16 out), equal to its plain version bit for bit, beside
+   ``torch._int_mm`` + the same epilogue and its bound at the int8 rate.
    Then every build the wrappers can launch (float32 and bfloat16,
-   D 64 and 128, G 1/2/4/8; the scan at dh 32/64/128) once at a small
-   shape against its plain version.
+   D 64 and 128, G 1/2/4/8; the scan at dh 32/64/128; the int8 GEMM at
+   the reference test's shapes and ragged edges, both outputs) once at
+   a small shape against its plain version.
 4. Full-width engine: qwen3-1.7b (28 layers, d_model 2048, 16/8 heads,
    padded vocab 153,600, bf16, seeded random weights) behind
    ``ContinuousBatchingEngine(n_slots=8, max_len=2048, chunk_steps=8)``
@@ -56,6 +62,18 @@ Phases, each fatal on failure:
    plain path on the same prompts: held in float32 (the same seeded
    weights, full width), reported in bf16.
 
+12. tiny-kws (4 layers, width 64, 12 classes, float32, seeded weights):
+   the forward on the card against the same weights on the CPU (1e-5
+   by norm); the W8A8 accuracy measurement (its four pointwise GEMMs,
+   M 12,544, K = N = 64, through ``int8_matmul``: exactly 4 launches)
+   against the same measurement through the plain GEMM (identical
+   agreement and error), relative logit error < 0.02.
+13. tiny-kws through the port's ``PowerRun``: SingleStream behind
+   ``TinySUT`` (10 Hz frames, 200 queries, 2 s) and MultiStream
+   8-sample bursts (64 queries, 0.5 s); both reviews must pass.
+   Forward latencies are the card's; the µJ/inference is the modeled
+   MCU's on the ``pin`` channel.
+
 The line before the last holds the kernels' JSON record; the last line
 is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside
 a checkout of the repository, the script exits non-zero and prints no
@@ -73,9 +91,11 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
 
-# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and dense bf16 flop/s
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, dense bf16 flop/s and
+# dense int8 op/s
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
+INT8_OP_PER_S = 1979e12
 
 # Tolerances of the repo's kernel tests (tests/test_kernels.py:16).  In
 # bf16, kernel and plain version both accumulate in float32 and round
@@ -121,6 +141,14 @@ ARGMAX_AGREE_MIN = 0.9
 # 5e-3, and the bf16 numbers are reported.
 F32_LOGIT_REL_TOL = 5e-3
 
+# Phase 12: the tiny forward on the card against the same weights on the
+# CPU, relative by norm; both float32 (TF32 off), only the matmuls'
+# summation order differs (the CPU tests hold the port within 1e-5 of
+# the reference the same way).  The W8A8 path's relative error must stay
+# under the reference test's own gate (tests/test_kernels.py:130-141).
+TINY_REL_TOL = 1e-5
+INT8_REL_ERR_MAX = 0.02
+
 
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr)
@@ -150,9 +178,10 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return times[len(times) // 2]
 
 
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
+def bound(nbytes: float, flops: float,
+          peak: float = BF16_FLOP_PER_S) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOP_PER_S * 1e3
+    t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -535,6 +564,183 @@ def phase_builds(torch, dev):
               f"state {serr:.2e}")
 
 
+def int8_inputs(torch, gen, dev, m, k, n):
+    """x (M, K) and w (K, N) drawn from N(0, 1) and quantized as the
+    tiny measurement quantizes them: per row of x, per column of w."""
+    from repro_torch.kernels.int8_matmul import quantize_int8
+    x = torch.randn((m, k), generator=gen, device=dev)
+    w = torch.randn((k, n), generator=gen, device=dev)
+    xq, sx = quantize_int8(x, axis=1)
+    wq, sw = quantize_int8(w, axis=0)
+    return xq, wq, sx, sw
+
+
+def compare_int8(torch, label, xq, wq, sx, sw, out_dtype):
+    """The int8 GEMM against its plain version: the integer sum is exact
+    and the epilogue's two multiplies run in the same order, so the two
+    must be equal bit for bit.  Returns the max abs difference (0)."""
+    from repro_torch.kernels.int8_matmul import int8_matmul, int8_matmul_plain
+    got = int8_matmul(xq, wq, sx, sw, out_dtype=out_dtype)
+    want = int8_matmul_plain(xq, wq, sx, sw, out_dtype)
+    check(got.dtype == out_dtype and got.shape == want.shape,
+          f"{label}: {got.dtype} {tuple(got.shape)}")
+    check(bool(torch.isfinite(got).all()), f"{label}: non-finite output")
+    err = float((got.float() - want.float()).abs().max())
+    check(torch.equal(got, want),
+          f"{label} is not bit-equal to its plain version: max abs err "
+          f"{err}")
+    return err
+
+
+def phase_int8(torch, dev):
+    """Phase 3, int8 GEMM: the tiny keyword spotter's pointwise GEMM (M
+    12,544, K = N = 64, float32 out; the main path's shape) and a
+    qwen3-1.7b FFN up-projection (M 1,024, K 2,048, N 6,144, bf16 out),
+    each equal to its plain version and timed beside it, beside
+    ``torch._int_mm`` + the same epilogue (a yardstick the port never
+    calls) and beside its bound at the int8 rate."""
+    from repro_torch.kernels.int8_matmul import int8_matmul, int8_matmul_plain
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(8)
+    rec = {}
+    for tag, (m, k, n), out_dtype in (
+            ("tiny", (12544, 64, 64), torch.float32),
+            ("lm", (1024, 2048, 6144), torch.bfloat16)):
+        xq, wq, sx, sw = int8_inputs(torch, gen, dev, m, k, n)
+        name = f"int8_matmul {tag} M={m} K={k} N={n} " \
+               f"{str(out_dtype).removeprefix('torch.')}"
+        err = compare_int8(torch, name, xq, wq, sx, sw, out_dtype)
+        ms = time_ms(lambda: int8_matmul(xq, wq, sx, sw,
+                                         out_dtype=out_dtype))
+        plain_ms = time_ms(lambda: int8_matmul_plain(xq, wq, sx, sw,
+                                                     out_dtype))
+        library_ms = time_ms(lambda: ((torch._int_mm(xq, wq).float() * sx)
+                                      * sw).to(out_dtype))
+        # x, w read once, the scales once, the output written once
+        out_bytes = 4 if out_dtype == torch.float32 else 2
+        nbytes = m * k + k * n + 4 * (m + n) + m * n * out_bytes
+        ops = 2 * m * n * k
+        bound_ms, bound_by = bound(nbytes, ops, INT8_OP_PER_S)
+        print(f"  {name}: equal to plain (max err {err}); kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, torch._int_mm + "
+              f"epilogue {library_ms:.4f} ms, bound {bound_ms * 1e3:.2f} us "
+              f"({bound_by}, {nbytes} B, {ops} int8 op)")
+        rec[tag] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                        bound_ms=bound_ms, bound_by=bound_by,
+                        library_ms=library_ms)
+    # the record's numbers are the main path's (tiny) shape; the LM
+    # shape's ride along under lm_*
+    out = dict(rec["tiny"])
+    out.update({f"lm_{key}": v for key, v in rec["lm"].items()
+                if key != "max_abs_err"})
+    return out
+
+
+def phase_int8_builds(torch, dev):
+    """Phase 3b, int8 GEMM: the reference test's shapes (256^3, 300 x
+    500 x 260, 128 x 1,024 x 512) and ragged edges (every dimension off
+    the 128 / 64 / 64 tiles, K off 16 and 4, N off 4), each with float32
+    and bf16 output, equal to the plain version."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(9)
+    shapes = ((256, 256, 256), (300, 500, 260), (128, 1024, 512),
+              (1, 1, 1), (17, 500, 9), (130, 77, 65), (129, 64, 63))
+    for (m, k, n) in shapes:
+        xq, wq, sx, sw = int8_inputs(torch, gen, dev, m, k, n)
+        for out_dtype in (torch.float32, torch.bfloat16):
+            compare_int8(torch, f"int8_matmul M={m} K={k} N={n} "
+                         f"{out_dtype}", xq, wq, sx, sw, out_dtype)
+        print(f"  int8_matmul M={m} K={k} N={n}: float32 and bf16 equal "
+              f"to plain")
+
+
+def phase_tiny(torch, dev):
+    """Phase 12: the tiny keyword spotter (4 layers, width 64, 12
+    classes) on seeded float32 weights: its forward on the card against
+    the same weights on the CPU, then the W8A8 accuracy measurement
+    through the kernel (the main path: 4 launches) and through the plain
+    version, which must agree exactly.  Returns the kernel's launch
+    count."""
+    from repro_torch.benchmarks.quantization_efficiency import (
+        BATCH, tiny_accuracy_measurement)
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models.param import tree_map
+    from repro_torch.models.tiny import IN_F, IN_T
+
+    cfg = get_config("tiny-kws")
+    model = build_model(cfg, dev)
+    params = model.init(seed=0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    x = torch.randn((BATCH, IN_T, IN_F), generator=gen, device=dev)
+    got = model(params, x)
+    want = build_model(cfg, "cpu")(tree_map(lambda t: t.cpu(), params),
+                                   x.cpu())
+    rel = float((got.cpu() - want).norm() / want.norm())
+    check(bool(torch.isfinite(got).all())
+          and got.shape == (BATCH, cfg.vocab_size),
+          f"tiny forward: {tuple(got.shape)}")
+    check(rel <= TINY_REL_TOL,
+          f"tiny forward: card vs CPU {rel} > {TINY_REL_TOL} by norm")
+    print(f"  tiny forward B={BATCH}: card vs CPU ||d|| / ||cpu|| "
+          f"{rel:.3e} (<= {TINY_REL_TOL})")
+
+    kernels = launch_counters()
+    for k in kernels.values():
+        k.launches = 0
+    q = tiny_accuracy_measurement(dev, params=params, x=x)
+    counts = {name: k.launches for name, k in kernels.items()}
+    launches = counts.pop("int8_matmul")
+    plain = tiny_accuracy_measurement(dev, params=params, x=x,
+                                      kernels=False)
+    check(launches == cfg.n_layers,
+          f"int8_matmul launched {launches} times, want {cfg.n_layers}")
+    check(not any(counts.values()), f"tiny path launched {counts}")
+    agree, err = q["int8_argmax_agreement"], q["int8_rel_err"]
+    check(err < INT8_REL_ERR_MAX,
+          f"int8 relative logit error {err} >= {INT8_REL_ERR_MAX}")
+    check((agree, err) == (plain["int8_argmax_agreement"],
+                           plain["int8_rel_err"]),
+          f"kernel path {(agree, err)} != plain path "
+          f"{(plain['int8_argmax_agreement'], plain['int8_rel_err'])}")
+    print(f"  W8A8 vs float32 (M {BATCH * IN_T}, K = N = {cfg.d_model}, "
+          f"{launches} launches): argmax agreement {agree:.4f} (reported, "
+          f"not gated), relative logit error {err:.6f} (< "
+          f"{INT8_REL_ERR_MAX}); plain path identical")
+    return launches
+
+
+def phase_tiny_power(torch, dev):
+    """Phase 13: the tiny model through the port's ``PowerRun``:
+    SingleStream behind ``TinySUT`` at 10 Hz frames (200 queries, 2 s)
+    and MultiStream 8-sample bursts (64 queries, 0.5 s); both reviews
+    must pass.  Latencies are the card's; energy is the modeled MCU's."""
+    from repro_torch.launch import tiny_benchmark
+
+    single = tiny_benchmark.single_stream(dev, min_duration_s=2.0,
+                                          period_s=0.1, min_queries=200)
+    check(single["review_passed"],
+          "tiny SingleStream review rejected:\n"
+          + single["result"].report.render())
+    print(f"  SingleStream: {single['n_queries']} queries, forward on the "
+          f"card p50 {single['p50_us']:.1f} us, p90 {single['p90_us']:.1f}"
+          f" us (measured); {single['modeled_uj_per_inf']:.3f} "
+          f"uJ/inference, {single['modeled_avg_uw']:.1f} uW average "
+          f"(modeled MCU, pin channel; I/O manager "
+          f"{single['pin_uj_per_inf']:.3f} uJ); review ACCEPTED")
+    multi = tiny_benchmark.multi_stream(dev, min_duration_s=0.5)
+    check(multi["review_passed"],
+          "tiny MultiStream review rejected:\n"
+          + multi["result"].report.render())
+    print(f"  MultiStream: {multi['bursts']} bursts of "
+          f"{tiny_benchmark.BURST}, burst on the card p50 "
+          f"{multi['p50_us']:.1f} us, p90 {multi['p90_us']:.1f} us, p99 "
+          f"{multi['p99_burst_ms'] * 1e3:.1f} us (measured); "
+          f"{multi['samples_per_s']:.0f} samples/s; review ACCEPTED")
+
+
 def launch_counters() -> dict:
     """The kernel wrappers, by name; each carries its ``launches``."""
     from repro_torch.kernels.decode_attention.ops import decode_attention
@@ -543,12 +749,14 @@ def launch_counters() -> dict:
         paged_decode_attention)
     from repro_torch.kernels.paged_verify_attention.ops import (
         paged_verify_attention)
+    from repro_torch.kernels.int8_matmul.ops import int8_matmul
     from repro_torch.kernels.linear_scan.ops import linear_scan
     from repro_torch.kernels.verify_attention.ops import verify_attention
     return {k.__name__: k for k in (decode_attention, flash_attention,
                                     paged_decode_attention,
                                     paged_verify_attention,
-                                    verify_attention, linear_scan)}
+                                    verify_attention, linear_scan,
+                                    int8_matmul)}
 
 
 def print_served(m: dict, wall_s: float, engine) -> None:
@@ -1161,8 +1369,10 @@ def main() -> int:
 
     phase("phase 3: kernels vs plain versions (bf16, main-path shapes)")
     kernels = phase_kernels(torch, dev)
+    kernels["int8_matmul"] = phase_int8(torch, dev)
     phase("phase 3b: every kernel build vs its plain version (small shapes)")
     phase_builds(torch, dev)
+    phase_int8_builds(torch, dev)
 
     phase("phase 4: full-width qwen3-1.7b engine")
     cfg = get_config("qwen3-1.7b")
@@ -1202,10 +1412,20 @@ def main() -> int:
 
     phase("phase 11: rwkv6 state handoff; kernel path vs plain path")
     phase_rwkv_consistency(torch, dev, rwkv.cfg, rwkv_params)
+    del rwkv, rwkv_params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    phase("phase 12: tiny-kws forward and W8A8 measurement")
+    int8_launches = phase_tiny(torch, dev)
+
+    phase("phase 13: tiny-kws through PowerRun (SingleStream, MultiStream)")
+    phase_tiny_power(torch, dev)
 
     # launches: each kernel's count on its own path's run (phase 4 for
     # the contiguous kernels, phase 6 for the paged ones, phase 8 for
-    # the verify kernel, phase 10 for the scan)
+    # the verify kernel, phase 10 for the scan, phase 12 for the int8
+    # GEMM)
     dec = "src/repro/kernels/decode_attention/decode_attention.py"
     sources = {
         "decode_attention": (f"{dec}:351", launches),
@@ -1216,7 +1436,9 @@ def main() -> int:
         "paged_verify_attention": (f"{dec}:308", paged_launches),
         "verify_attention": (f"{dec}:127", spec_launches),
         "linear_scan": ("src/repro/kernels/linear_scan/linear_scan.py:81",
-                        rwkv_launches)}
+                        rwkv_launches),
+        "int8_matmul": ("src/repro/kernels/int8_matmul/int8_matmul.py:42",
+                        {"int8_matmul": int8_launches})}
     record = {"kernels": [
         dict(name=name, route="cuda",
              source=f"src/repro_torch/kernels/csrc/{name}.cu",

@@ -1,7 +1,8 @@
 """Config registry: ``get_config("qwen3-1.7b")`` and reduced smoke configs.
 
-The dense decoder family and rwkv6 are ported so far; asking for any
-other architecture the JAX package knows raises ``NotImplementedError``.
+The dense decoder family, rwkv6 and the tiny keyword spotter are
+ported so far; asking for any other architecture the JAX package knows
+raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -18,18 +19,18 @@ _ARCH_MODULES = {
     "qwen2.5-3b": "qwen2_5_3b",
     "qwen3-1.7b": "qwen3_1_7b",
     "rwkv6-3b": "rwkv6_3b",
+    "tiny-kws": "tiny_kws",
     "yi-9b": "yi_9b",
 }
 
 # architectures of the reference package whose families (MoE, MLA,
-# hybrid, enc-dec, VLM, tiny) the port does not run yet
+# hybrid, enc-dec, VLM) the port does not run yet
 _NOT_PORTED = {
     "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
     "deepseek-v3-671b": "deepseek_v3_671b",
     "phi-3-vision-4.2b": "phi_3_vision_4_2b",
     "jamba-v0.1-52b": "jamba_v0_1_52b",
     "whisper-small": "whisper_small",
-    "tiny-kws": "tiny_kws",
     "edge-vit": "edge_vit",
 }
 
@@ -48,7 +49,8 @@ def get_config(name: str, **overrides) -> ModelConfig:
     if key in _NOT_PORTED:
         raise NotImplementedError(
             f"arch {key!r} is not ported yet, see ROADMAP §A.11 "
-            f"(the port runs the dense and rwkv families: {list_archs()})")
+            f"(the port runs the dense, rwkv and tiny families: "
+            f"{list_archs()})")
     if key not in _ARCH_MODULES:
         raise KeyError(f"unknown arch {name!r}; have {list_archs()}")
     mod = importlib.import_module(
@@ -64,8 +66,11 @@ def reduce_config(cfg: ModelConfig) -> ModelConfig:
 
     The same cut as the reference ``reduce_config`` for the ported
     families: at most 4 layers, width 128, 4/2 heads of 32, vocab 512,
-    float32; rwkv keeps 4/4 heads of 32.
+    float32; rwkv keeps 4/4 heads of 32.  A tiny config is returned
+    unchanged (it is already tiny).
     """
+    if cfg.family == "tiny":
+        return cfg
     if cfg.family not in ("dense", "rwkv"):
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet, see ROADMAP §A.11")

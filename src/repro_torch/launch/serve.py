@@ -30,9 +30,10 @@ recurrent state, so ``--kv-page-size``, ``--prefix-cache`` and
   python -m repro_torch.launch.serve --arch rwkv6-3b --reduce \
       --device cpu --qps 20 --min-duration 0.5
 
-Director-measured energy (``PowerRun``, tok/J) needs the harness,
-core and power modules, which are not ported yet (ROADMAP §A.4), and
-the options of the reference launcher for chunked prefill, preemption,
+Director-measured energy (``PowerRun``, tok/J) needs the engine SUTs
+and a measured H100 power source, which are not ported yet (ROADMAP
+§A.4; ``repro_torch.harness`` has the protocol itself), and the
+options of the reference launcher for chunked prefill, preemption,
 tensor parallelism and replicas are refused until their ROADMAP items
 land.
 """

@@ -233,6 +233,18 @@ def test_port_imports_neither_jax_nor_the_reference_package():
             "repro_torch/serving/speculative.py",
             "repro_torch/kernels/linear_scan/ops.py",
             "repro_torch/models/rwkv6.py",
+            "repro_torch/models/tiny.py",
+            "repro_torch/kernels/int8_matmul/ops.py",
+            "repro_torch/benchmarks/quantization_efficiency.py",
+            "repro_torch/launch/tiny_benchmark.py",
+            "repro_torch/hw.py",
+            *(f"repro_torch/core/{m}.py" for m in (
+                "__init__", "mlperf_log", "loadgen", "analyzer", "director",
+                "summarizer", "compliance", "power_model", "efficiency")),
+            *(f"repro_torch/power/{m}.py" for m in (
+                "__init__", "domains", "psu", "stack")),
+            *(f"repro_torch/harness/{m}.py" for m in (
+                "__init__", "scenarios", "power_run", "sut")),
             os.path.join("..", "chip_smoke.py")} <= seen
     assert not offenders, offenders
 
