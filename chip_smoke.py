@@ -21,10 +21,13 @@ Phases, each fatal on failure:
    float32 out) and a qwen3-1.7b FFN up-projection (M 1,024, K 2,048,
    N 6,144, bf16 out), equal to its plain version bit for bit, beside
    ``torch._int_mm`` + the same epilogue and its bound at the int8 rate.
+   Flash's bidirectional form at whisper-small's shapes (B 8, H = KVH
+   12, D 64, 1,500 keys; Sq 1,500, 1 and 4) beside SDPA.
    Then every build the wrappers can launch (float32 and bfloat16,
-   D 64 and 128, G 1/2/4/8; the scan at dh 32/64/128; the int8 GEMM at
-   the reference test's shapes and ragged edges, both outputs) once at
-   a small shape against its plain version.
+   D 64 and 128, G 1/2/4/8, flash in both forms; the scan at dh
+   32/64/128; the int8 GEMM at the reference test's shapes and ragged
+   edges, both outputs) once at a small shape against its plain
+   version.
 4. Full-width engine: qwen3-1.7b (28 layers, d_model 2048, 16/8 heads,
    padded vocab 153,600, bf16, seeded random weights) behind
    ``ContinuousBatchingEngine(n_slots=8, max_len=2048, chunk_steps=8)``
@@ -73,6 +76,16 @@ Phases, each fatal on failure:
    8-sample bursts (64 queries, 0.5 s); both reviews must pass.
    Forward latencies are the card's; the µJ/inference is the modeled
    MCU's on the ``pin`` channel.
+14. Full-width whisper-small (12 encoder layers over 1,500 frames, 12
+   decoder layers, d_model 768, 12 heads of 64, padded vocab 53,248,
+   bf16, seeded weights) behind ``ServeEngine(batch_size=8,
+   max_len=448)``: 8 requests with 4-token prompts and 64 new tokens,
+   frames from numpy seed 0 passed as ``extra_inputs``.  Flash runs
+   bidirectional in the encoder and the cross-attention, causal in the
+   decoder's prefill; decode runs each step's self-attention.  Launch
+   counts exact (flash 36 + 12 x 63, decode 12 x 63); the kernel path
+   against the plain path on the same weights (first-token logits
+   within phase 5's limit, tokens equal except from a near-tie on).
 
 The line before the last holds the kernels' JSON record; the last line
 is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside
@@ -81,6 +94,7 @@ result.
 """
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import os
@@ -481,6 +495,54 @@ def phase_kernels(torch, dev):
     return out
 
 
+def phase_flash_bidir(torch, dev):
+    """Phase 3, flash's bidirectional form at whisper-small's shapes
+    (bf16, B 8, H = KVH 12, D 64, 1,500 encoder frames): the encoder's
+    self-attention (Sq = Skv = 1,500) and the decoder's cross-attention
+    at decode (Sq 1) and at prefill (Sq 4, the start-of-transcript
+    prefix), each against its plain version, timed beside it, beside
+    SDPA (``is_causal=False``, a yardstick the port never calls) and
+    beside its bound.  Returns one record per shape."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention, flash_attention_plain)
+
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(17)
+    b, h, kvh, d, skv = 8, 12, 12, 64, 1500
+    k = torch.randn((b, skv, kvh, d), generator=gen, device=dev).to(bf16)
+    v = torch.randn((b, skv, kvh, d), generator=gen, device=dev).to(bf16)
+    out = {}
+    for tag, sq in (("encoder", 1500), ("cross_decode", 1),
+                    ("cross_prefill", 4)):
+        q = torch.randn((b, sq, h, d), generator=gen, device=dev).to(bf16)
+        err, rel = compare(f"flash_attention bidirectional {tag}",
+                           flash_attention(q, k, v, causal=False),
+                           flash_attention_plain(q, k, v, causal=False))
+        ms = time_ms(lambda: flash_attention(q, k, v, causal=False))
+        plain_ms = time_ms(lambda: flash_attention_plain(q, k, v,
+                                                         causal=False))
+        library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=False))
+        # q, k, v read once and o written once, bf16; every (query, key)
+        # pair scores: 2 D flop for q.k and 2 D for p.v
+        nbytes = (2 * b * sq * h * d + 2 * b * skv * kvh * d) * 2
+        flops = 4 * b * h * d * sq * skv
+        bound_ms, bound_by = bound(nbytes, flops)
+        out[tag] = dict(sq=sq, skv=skv, max_abs_err=err, rel_norm_err=rel,
+                        ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                        bound_by=bound_by, library_ms=library_ms)
+        print(f"  flash_attention bidirectional {tag} B={b} Sq={sq} "
+              f"Skv={skv} H={h} KVH={kvh} D={d}: max |kernel - plain| "
+              f"{err:.3e}, rel {rel:.3e}; kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, SDPA {library_ms:.4f} ms, bound "
+              f"{bound_ms * 1e3:.2f} us ({bound_by}, {nbytes} B, {flops} "
+              f"flop)")
+    return out
+
+
 def phase_builds(torch, dev):
     """Phase 3, second part: every build the wrappers can launch (the
     kernels are templates on dtype, D and, for decode, G), once each at
@@ -548,8 +610,20 @@ def phase_builds(torch, dev):
         fl = compare(f"flash_attention {name}",
                      flash_attention(q, k, v, causal=True),
                      flash_attention_plain(q, k, v, causal=True))
+        # the bidirectional form at Sq != Skv: ragged tiles on both
+        # sides, and one query row over whisper's 1,500 frames
+        bi = []
+        for bsq, bskv in ((sq, s), (1, 1500)):
+            q = randn(2, bsq, h, d)
+            k, v = randn(2, bskv, kvh, d), randn(2, bskv, kvh, d)
+            bi.append(compare(
+                f"flash_attention bidirectional {name} Sq={bsq} "
+                f"Skv={bskv}", flash_attention(q, k, v, causal=False),
+                flash_attention_plain(q, k, v, causal=False)))
         print(f"  {name}: decode max err {dec[0]:.2e} rel {dec[1]:.2e}; "
-              f"flash {fl[0]:.2e}/{fl[1]:.2e}; paged decode "
+              f"flash {fl[0]:.2e}/{fl[1]:.2e}; bidirectional "
+              f"{sq}x{s} {bi[0][0]:.2e}/{bi[0][1]:.2e}, 1x1500 "
+              f"{bi[1][0]:.2e}/{bi[1][1]:.2e}; paged decode "
               f"{pdec[0]:.2e}/{pdec[1]:.2e} (= decode); verify "
               f"{cver[0]:.2e}/{cver[1]:.2e}; paged verify "
               f"{pver[0]:.2e}/{pver[1]:.2e} (= verify)")
@@ -739,6 +813,143 @@ def phase_tiny_power(torch, dev):
           f"{multi['p50_us']:.1f} us, p90 {multi['p90_us']:.1f} us, p99 "
           f"{multi['p99_burst_ms'] * 1e3:.1f} us (measured); "
           f"{multi['samples_per_s']:.0f} samples/s; review ACCEPTED")
+
+
+def whisper_near_tie(torch, model, params, frames, prompt, a, b, j):
+    """The kernel path's logits at the first token j where greedy token
+    lists ``a`` (kernel path) and ``b`` (plain path) of one request part:
+    prefill of prompt + a[:j] less its last token, one decode step on
+    it.  Returns (logit(a[j]) - logit(b[j]), phase 9's near-tie limit)."""
+    import numpy as np
+    toks = torch.as_tensor(np.concatenate([np.asarray(prompt), a[:j]]),
+                           dtype=torch.long, device=frames.device)[None]
+    with torch.no_grad():
+        lg, c = model.prefill(params, {"frames": frames,
+                                       "tokens": toks[:, :-1]},
+                              max_len=toks.shape[1])
+        lg, _ = model.decode_step(params, c, toks[:, -1:])
+    row = lg[0, -1].float()
+    return (float(row[a[j]] - row[b[j]]),
+            LOGIT_REL_TOL * float(row.abs().max()))
+
+
+def phase_whisper(torch, dev):
+    """Phase 14: full-width whisper-small (12 + 12 layers, d_model 768,
+    12 heads of 64, 1,500 frames, padded vocab 53,248, bf16, seeded
+    weights) behind ``ServeEngine(batch_size=8, max_len=448)``: 8
+    requests with 4-token prompts and 64 new tokens each, frames (8,
+    1,500, 768) from numpy seed 0 as ``extra_inputs``.  Every attention
+    goes through a kernel: flash for the encoder (bidirectional), the
+    prefill's cross-attention (bidirectional, Sq 4) and causal decoder
+    prefill, and each decode step's cross-attention (Sq 1); decode for
+    each step's self-attention.  Launch counts are exact; the kernel
+    path is held against ``kernels=False`` on the same weights (first
+    token logits within phase 5's limit, greedy tokens equal except
+    from a near-tie on).  Returns the launch counts."""
+    import copy
+
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models.param import tree_leaves
+    from repro_torch.serving import Request, ServeEngine
+
+    cfg = get_config("whisper-small")
+    model = build_model(cfg, dev)
+    params = model.init(seed=0)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    e = cfg.encdec
+    print(f"  encoder {e.enc_layers} layers over {e.enc_len} frames, "
+          f"decoder {cfg.n_layers} layers, d_model {cfg.d_model}, heads "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} of {cfg.head_dim}, d_ff "
+          f"{cfg.d_ff}, padded vocab {model.vp}, {n_params} params "
+          f"({cfg.dtype})")
+    b, prompt_len, new_tokens, max_len = 8, 4, 64, 448
+    rng = np.random.default_rng(0)
+    frames = torch.as_tensor(
+        rng.standard_normal((b, e.enc_len, cfg.d_model), dtype=np.float32),
+        device=dev)
+    requests = [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size,
+                                                   prompt_len),
+                        max_new_tokens=new_tokens) for i in range(b)]
+    extra = {"frames": frames}
+    engine = ServeEngine(model, params, max_len=max_len, batch_size=b,
+                         device=dev)
+    with torch.no_grad():
+        enc_ms = time_ms(lambda: model.encode(params, frames), reps=5,
+                         warmup=1)
+    engine.run_batch([dataclasses.replace(r, max_new_tokens=2)
+                      for r in requests], extra_inputs=extra)  # warm-up
+    torch.cuda.synchronize()
+    kernels = launch_counters()
+    for k in kernels.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    done = engine.run_batch(copy.deepcopy(requests), now=time.perf_counter,
+                            extra_inputs=extra)
+    torch.cuda.synchronize()
+    t_end = time.perf_counter()
+    launches = {name: k.launches for name, k in kernels.items()}
+    tokens = engine.tokens_per_request(done)
+    prefill_ms = (done[0].first_token_s - t0) * 1e3
+    step_ms = (done[0].done_s - done[0].first_token_s) * 1e3 / (
+        new_tokens - 1)
+    print(f"  encoder (B {b}) {enc_ms:.3f} ms; run_batch: prefill "
+          f"(encoder, cross K/V, decoder) {prefill_ms:.3f} ms wall, decode "
+          f"{step_ms:.3f} ms per step x {new_tokens - 1}, {tokens} tokens "
+          f"in {(t_end - t0) * 1e3:.1f} ms: {tokens / (t_end - t0):.1f} "
+          f"tokens/s")
+    print("  launches: " + ", ".join(f"{k} {n}" for k, n in launches.items()))
+    check(tokens == b * new_tokens, f"{tokens} tokens, want {b * new_tokens}")
+    for r in done:
+        check(len(r.output) == new_tokens and
+              all(0 <= t < model.vp for t in r.output),
+              f"request {r.rid}: {len(r.output)} tokens, or one outside "
+              f"the padded vocabulary")
+    want_flash = 3 * cfg.n_layers + cfg.n_layers * (new_tokens - 1)
+    want_dec = cfg.n_layers * (new_tokens - 1)
+    check(launches["flash_attention"] == want_flash,
+          f"flash launches {launches['flash_attention']} != {want_flash} "
+          f"({3 * cfg.n_layers} + {cfg.n_layers} x {new_tokens - 1})")
+    check(launches["decode_attention"] == want_dec,
+          f"decode launches {launches['decode_attention']} != {want_dec}")
+    check(all(n == 0 for k, n in launches.items()
+              if k not in ("flash_attention", "decode_attention")),
+          "the whisper path launched another kernel")
+
+    # the plain path on the same weights
+    plain = build_model(cfg, dev, kernels=False)
+    inputs = {"frames": frames,
+              "tokens": torch.as_tensor(np.stack([r.prompt for r in
+                                                  requests]), device=dev)}
+    with torch.no_grad():
+        got = model.prefill(params, inputs, max_len=max_len)[0].float()
+        want = plain.prefill(params, inputs, max_len=max_len)[0].float()
+    rel = float((got - want).abs().max() / want.abs().max())
+    print(f"  first-token logits, kernel vs plain path: max |d| / max "
+          f"|plain| = {rel:.3e} (<= {LOGIT_REL_TOL})")
+    check(bool(torch.isfinite(got).all()), "non-finite whisper logits")
+    check(rel <= LOGIT_REL_TOL, f"whisper kernel-path logits differ by "
+          f"{rel}")
+    plain_done = ServeEngine(plain, params, max_len=max_len, batch_size=b,
+                             device=dev).run_batch(copy.deepcopy(requests),
+                                                   extra_inputs=extra)
+    same = 0
+    for r, p in zip(done, plain_done):
+        if r.output == p.output:
+            same += 1
+            continue
+        j = next(i for i in range(new_tokens) if r.output[i] != p.output[i])
+        gap, tol = whisper_near_tie(torch, model, params,
+                                    frames[r.rid:r.rid + 1], r.prompt,
+                                    r.output, p.output, j)
+        print(f"  request {r.rid} parts at token {j}: logit(kernel "
+              f"{r.output[j]}) - logit(plain {p.output[j]}) = {gap:.4f}, "
+              f"near-tie limit {tol:.4f}")
+        check(abs(gap) <= tol, f"request {r.rid}: kernel and plain paths "
+              f"part at token {j} without a near-tie ({gap} > {tol})")
+    print(f"  {same}/{b} requests token-identical (kernel vs plain path)")
+    return launches
 
 
 def launch_counters() -> dict:
@@ -1369,6 +1580,11 @@ def main() -> int:
 
     phase("phase 3: kernels vs plain versions (bf16, main-path shapes)")
     kernels = phase_kernels(torch, dev)
+    bidir = phase_flash_bidir(torch, dev)
+    flash = kernels["flash_attention"]
+    flash["max_abs_err"] = max([flash["max_abs_err"]]
+                               + [r["max_abs_err"] for r in bidir.values()])
+    flash["bidirectional"] = bidir
     kernels["int8_matmul"] = phase_int8(torch, dev)
     phase("phase 3b: every kernel build vs its plain version (small shapes)")
     phase_builds(torch, dev)
@@ -1422,16 +1638,23 @@ def main() -> int:
     phase("phase 13: tiny-kws through PowerRun (SingleStream, MultiStream)")
     phase_tiny_power(torch, dev)
 
-    # launches: each kernel's count on its own path's run (phase 4 for
-    # the contiguous kernels, phase 6 for the paged ones, phase 8 for
-    # the verify kernel, phase 10 for the scan, phase 12 for the int8
-    # GEMM)
+    phase("phase 14: full-width whisper-small through ServeEngine")
+    whisper_launches = phase_whisper(torch, dev)
+
+    # launches: each kernel's count on its own paths' runs (phases 4 and
+    # 14 for decode and flash, phase 6 for the paged kernels, phase 8
+    # for the verify kernel, phase 10 for the scan, phase 12 for the
+    # int8 GEMM)
     dec = "src/repro/kernels/decode_attention/decode_attention.py"
+    both = {k: launches[k] + whisper_launches[k] for k in launches}
+    for name in ("decode_attention", "flash_attention"):
+        kernels[name]["launches_by_phase"] = {
+            "4": launches[name], "14": whisper_launches[name]}
     sources = {
-        "decode_attention": (f"{dec}:351", launches),
+        "decode_attention": (f"{dec}:351", both),
         "flash_attention": (
             "src/repro/kernels/flash_attention/flash_attention.py:77",
-            launches),
+            both),
         "paged_decode_attention": (f"{dec}:266", paged_launches),
         "paged_verify_attention": (f"{dec}:308", paged_launches),
         "verify_attention": (f"{dec}:127", spec_launches),

@@ -1,7 +1,7 @@
 """Config registry: ``get_config("qwen3-1.7b")`` and reduced smoke configs.
 
-The dense decoder family, rwkv6 and the tiny keyword spotter are
-ported so far; asking for any other architecture the JAX package knows
+The dense decoder family, rwkv6, the whisper encoder-decoder and the
+tiny keyword spotter are ported so far; asking for any other architecture the JAX package knows
 raises ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -20,17 +20,17 @@ _ARCH_MODULES = {
     "qwen3-1.7b": "qwen3_1_7b",
     "rwkv6-3b": "rwkv6_3b",
     "tiny-kws": "tiny_kws",
+    "whisper-small": "whisper_small",
     "yi-9b": "yi_9b",
 }
 
 # architectures of the reference package whose families (MoE, MLA,
-# hybrid, enc-dec, VLM) the port does not run yet
+# hybrid, VLM) the port does not run yet
 _NOT_PORTED = {
     "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
     "deepseek-v3-671b": "deepseek_v3_671b",
     "phi-3-vision-4.2b": "phi_3_vision_4_2b",
     "jamba-v0.1-52b": "jamba_v0_1_52b",
-    "whisper-small": "whisper_small",
     "edge-vit": "edge_vit",
 }
 
@@ -49,7 +49,7 @@ def get_config(name: str, **overrides) -> ModelConfig:
     if key in _NOT_PORTED:
         raise NotImplementedError(
             f"arch {key!r} is not ported yet, see ROADMAP §A.11 "
-            f"(the port runs the dense, rwkv and tiny families: "
+            f"(the port runs the dense, rwkv, encdec and tiny families: "
             f"{list_archs()})")
     if key not in _ARCH_MODULES:
         raise KeyError(f"unknown arch {name!r}; have {list_archs()}")
@@ -66,12 +66,13 @@ def reduce_config(cfg: ModelConfig) -> ModelConfig:
 
     The same cut as the reference ``reduce_config`` for the ported
     families: at most 4 layers, width 128, 4/2 heads of 32, vocab 512,
-    float32; rwkv keeps 4/4 heads of 32.  A tiny config is returned
+    float32; rwkv keeps 4/4 heads of 32; encdec keeps 2 encoder layers
+    over 64 frames and 2 decoder layers.  A tiny config is returned
     unchanged (it is already tiny).
     """
     if cfg.family == "tiny":
         return cfg
-    if cfg.family not in ("dense", "rwkv"):
+    if cfg.family not in ("dense", "rwkv", "encdec"):
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet, see ROADMAP §A.11")
     changes: dict = dict(
@@ -87,4 +88,8 @@ def reduce_config(cfg: ModelConfig) -> ModelConfig:
     )
     if cfg.family == "rwkv":
         changes.update(n_heads=4, n_kv_heads=4, d_head=32)
+    if cfg.encdec is not None:
+        changes["encdec"] = dataclasses.replace(cfg.encdec, enc_layers=2,
+                                                enc_len=64)
+        changes["n_layers"] = 2
     return dataclasses.replace(cfg, **changes)

@@ -1,5 +1,5 @@
 // One CTA's tile of multi-row attention with an f32 online softmax,
-// shared by the causal flash kernel (flash_attention.cu) and the two
+// shared by the flash kernel (flash_attention.cu, both forms) and the two
 // verify kernels (verify_attention.cu, paged_verify_attention.cu).
 //
 // The CTA owns kBQ query rows.  A row map (``Rows``) says, for CTA-local

@@ -1,17 +1,23 @@
-"""Causal flash attention: the CUDA kernel's wrapper and its plain versions.
+"""Flash attention, causal or bidirectional: the CUDA kernel's wrapper
+and its plain versions.
 
-``flash_attention`` is the model-layout entry point the prefill uses.
+``flash_attention`` is the model-layout entry point that the prefill
+(causal), whisper's encoder and its cross-attention (bidirectional,
+Sq != Skv there) use.
 A CPU tensor goes to ``flash_attention_plain`` (the copy of the
 reference's ``flash_attention_jnp``); a CUDA tensor launches the
 hand-written kernel in ``csrc/flash_attention.cu`` or raises.
 ``flash_attention.launches`` counts kernel launches.
 
 Replaces ``src/repro/kernels/flash_attention/flash_attention.py:
-flash_attention_kernel`` (wrapper ``ops.py:flash_attention``) in its
-causal form.  The reference model runs its prefill through the jnp
-``flash_attention_jnp``; the port runs this kernel there instead, held
-against that function.  The kernel masks the ragged tail itself, so
-unlike the reference wrapper this one pads nothing.
+flash_attention_kernel`` (wrapper ``ops.py:flash_attention``) in both
+forms of its ``causal`` switch.  The reference model runs its prefill,
+encoder and cross-attention through the jnp ``flash_attention_jnp``;
+the port runs this kernel there instead, held against that function.
+The kernel masks the ragged tail itself, so unlike the reference
+wrapper this one pads nothing, and it takes whisper's 1,500 keys in the
+bidirectional form, where the reference wrapper asserts
+``causal or Skv % block_k == 0``.
 """
 from __future__ import annotations
 
@@ -101,24 +107,24 @@ def _lib():
     fn = lib.flash_attention_launch
     if fn.argtypes is None:
         fn.argtypes = ([_P] * 4 + [_I] * 6 + [_L] * 12
-                       + [ctypes.c_float, _I, _P])
+                       + [ctypes.c_float, _I, _I, _P])
         fn.restype = _I
     return fn
 
 
 def flash_attention(q, k, v, *, causal: bool = True):
-    """q: (B, Sq, H, D); k, v: (B, Skv, KVH, D) with H % KVH == 0.
+    """q: (B, Sq, H, D); k, v: (B, Skv, KVH, D) with H % KVH == 0 and
+    Skv >= 1; both sequences start at position 0.  ``causal`` lets query
+    row i see keys j <= i; otherwise every row sees all Skv keys.
     Returns (B, Sq, H, D).  CPU tensors take the plain version; CUDA
-    tensors launch the causal kernel (D in {64, 128}, float32 or
-    bfloat16) or raise."""
+    tensors launch the kernel (D in {64, 128}, float32 or bfloat16) or
+    raise."""
+    if k.shape[1] < 1:
+        raise ValueError("flash_attention: no keys (Skv = 0)")
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no path for {q.device}")
-    if not causal:
-        raise NotImplementedError(
-            "flash_attention: only the causal kernel is ported; the "
-            "bidirectional form (encoders) waits in ROADMAP §B.2")
     b, sq, h, d = q.shape
     _, skv, kvh, dk = k.shape
     if (dk != d or v.shape != k.shape or k.shape[0] != b or h % kvh):
@@ -135,7 +141,7 @@ def flash_attention(q, k, v, *, causal: bool = True):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         b, sq, skv, h, kvh, d,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
-        1.0 / math.sqrt(d), build.dtype_code(q),
+        1.0 / math.sqrt(d), int(causal), build.dtype_code(q),
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, "flash_attention")
     flash_attention.launches += 1

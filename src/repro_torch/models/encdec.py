@@ -1,0 +1,271 @@
+"""Encoder-decoder model, the whisper-small backbone (PyTorch port).
+
+The counterpart of the reference ``models/encdec.py::EncDecLM``: the
+same parameter tree (``embed``, ``lm_head``, ``enc_blocks``,
+``enc_norm``, ``dec_blocks`` with ``ln_x``/``xattn``, ``final_norm``),
+the same cache tree (``self_k``, ``self_v``, ``cross_k``, ``cross_v``
+and a scalar ``pos``) and the same ``prefill`` / ``decode_step`` API.
+
+The conv/mel frontend is a stub, as in the reference: the caller
+supplies precomputed frame embeddings (B, enc_len, d_model) as
+``inputs["frames"]``.  The encoder is a bidirectional transformer; the
+decoder adds causal self-attention over a KV cache and cross-attention
+to the encoder's K/V, computed once at prefill.  Positions are
+sinusoidal (the reference's documented simplification of whisper's
+learned ones), and the decoder's self-attention also applies RoPE,
+because the reference's does.  Every attention of the stack goes
+through the flash kernel (encoder and cross-attention bidirectional,
+decoder prefill causal) except the decoder's one-token self-attention,
+which goes through the decode kernel.  Layers run as a Python loop;
+the self-attention cache is updated in place where the reference's
+jitted callers donate it.
+
+  m = EncDecLM(cfg, device="cuda")
+  params = m.init(seed=0)                  # or param.from_jax(tree)
+  logits, cache = m.prefill(params, {"frames": f, "tokens": t}, 448)
+  logits, cache = m.decode_step(params, cache, next_tokens)
+"""
+from __future__ import annotations
+
+from typing import Any, Optional
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.flash_attention.ops import (flash_attention,
+                                                     flash_attention_plain)
+from repro_torch.models import layers as L
+from repro_torch.models.param import (DTYPES, ParamDef, init_params,
+                                      stack_tree, tree_map)
+
+
+def sinusoid(s: int, d: int, dtype, device=None) -> torch.Tensor:
+    """(s, d) sinusoidal position table, computed in float32 and cast
+    once to ``dtype``, as the reference does."""
+    pos = torch.arange(s, dtype=torch.float32, device=device)[:, None]
+    i = torch.arange(d // 2, dtype=torch.float32, device=device)[None, :]
+    ang = pos / torch.pow(10000.0, 2 * i / d)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], -1).to(dtype)
+
+
+def cross_attention(x, ctx_k, ctx_v, p, cfg, *, kernels: bool = True):
+    """x: (B, Sq, d) attends, bidirectionally, to the encoder's K/V
+    ``ctx_k``/``ctx_v`` (B, enc_len, KVH, D)."""
+    b, sq, _ = x.shape
+    q = (x @ p["wq"]).reshape(b, sq, cfg.n_heads, cfg.head_dim)
+    if kernels:
+        o = flash_attention(q, ctx_k, ctx_v, causal=False)
+    else:
+        o = flash_attention_plain(q, ctx_k, ctx_v, causal=False)
+    return o.reshape(b, sq, -1) @ p["wo"]
+
+
+def cross_kv(ctx, p, cfg):
+    """The encoder output's K and V for one decoder layer, each
+    (B, enc_len, KVH, D)."""
+    b, s, _ = ctx.shape
+    kvh, dh = cfg.n_kv_heads, cfg.head_dim
+    return ((ctx @ p["wk"]).reshape(b, s, kvh, dh),
+            (ctx @ p["wv"]).reshape(b, s, kvh, dh))
+
+
+class EncDecLM:
+    """Whisper-style encoder-decoder.  ``device`` defaults to ``cuda``
+    and raises when no GPU is visible.  ``kernels=False`` sends every
+    attention to the plain PyTorch versions on any device (the on-card
+    yardstick); with ``kernels=True`` CUDA tensors go through the
+    hand-written kernels and CPU tensors through the same plain
+    versions."""
+
+    def __init__(self, cfg: ModelConfig, device="cuda", *,
+                 kernels: bool = True):
+        if cfg.family != "encdec" or cfg.encdec is None:
+            raise ValueError(f"EncDecLM needs an encdec config, got family "
+                             f"{cfg.family!r}")
+        self.cfg = cfg
+        self.vp = L.pad_vocab(cfg.vocab_size)
+        self.device = resolve_device(device)
+        self.kernels = kernels
+        self.dtype = DTYPES[cfg.dtype]
+        self._tables: dict[int, torch.Tensor] = {}
+
+    # ------------------------------------------------------------------
+    # Parameter definitions
+    # ------------------------------------------------------------------
+    def _enc_block_defs(self) -> dict:
+        cfg = self.cfg
+        return {"ln1": L.rmsnorm_def(cfg.d_model, cfg.dtype),
+                "attn": L.gqa_defs(cfg),
+                "ln2": L.rmsnorm_def(cfg.d_model, cfg.dtype),
+                "ffn": L.ffn_defs(cfg)}
+
+    def _dec_block_defs(self) -> dict:
+        d = self._enc_block_defs()
+        d["ln_x"] = L.rmsnorm_def(self.cfg.d_model, self.cfg.dtype)
+        d["xattn"] = L.gqa_defs(self.cfg, cross=True)
+        return d
+
+    def param_defs(self):
+        cfg = self.cfg
+        return {
+            "embed": ParamDef((self.vp, cfg.d_model), ("vocab", "fsdp"),
+                              "embed", cfg.dtype),
+            "lm_head": ParamDef((cfg.d_model, self.vp), ("fsdp", "vocab"),
+                                "normal", cfg.dtype),
+            "enc_blocks": stack_tree(self._enc_block_defs(),
+                                     cfg.encdec.enc_layers),
+            "enc_norm": L.rmsnorm_def(cfg.d_model, cfg.dtype),
+            "dec_blocks": stack_tree(self._dec_block_defs(), cfg.n_layers),
+            "final_norm": L.rmsnorm_def(cfg.d_model, cfg.dtype),
+        }
+
+    def init(self, seed: int = 0):
+        """Seeded random weights, drawn on the model's device."""
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(seed)
+        return init_params(self.param_defs(), gen)
+
+    def train_loss(self, params, batch):
+        raise NotImplementedError(
+            "EncDecLM.train_loss: training is not ported yet, see ROADMAP "
+            "§A.12")
+
+    # ------------------------------------------------------------------
+    # Encoder, cross K/V, decoder stack
+    # ------------------------------------------------------------------
+    def _table(self, s: int) -> torch.Tensor:
+        """``sinusoid(s, d_model)`` in the model's dtype, built once per
+        length on the model's device."""
+        if s not in self._tables:
+            self._tables[s] = sinusoid(s, self.cfg.d_model, self.dtype,
+                                       self.device)
+        return self._tables[s]
+
+    def encode(self, params, frames):
+        """frames: (B, enc_len, d_model), the stubbed frontend's output
+        -> the normed encoder output, same shape, in the model's dtype."""
+        cfg = self.cfg
+        x = frames.to(self.dtype)
+        x = x + self._table(x.shape[1])[None]
+        for i in range(cfg.encdec.enc_layers):
+            bp = tree_map(lambda a: a[i], params["enc_blocks"])
+            h = L.rmsnorm(x, bp["ln1"], cfg.norm_eps)
+            x = x + L.gqa_attention(h, bp["attn"], cfg, causal=False,
+                                    use_rope=False, kernels=self.kernels)
+            h = L.rmsnorm(x, bp["ln2"], cfg.norm_eps)
+            x = x + L.ffn(h, bp["ffn"])
+        return L.rmsnorm(x, params["enc_norm"], cfg.norm_eps)
+
+    def _cross_kv_all(self, params, enc_out):
+        """Every decoder layer's cross K and V, computed once at prefill:
+        (k, v), each (L, B, enc_len, KVH, D)."""
+        ks, vs = [], []
+        for i in range(self.cfg.n_layers):
+            k, v = cross_kv(enc_out, tree_map(lambda a: a[i],
+                                              params["dec_blocks"]["xattn"]),
+                            self.cfg)
+            ks.append(k)
+            vs.append(v)
+        return torch.stack(ks), torch.stack(vs)
+
+    def _embed_dec(self, params, tokens, pos0: int = 0):
+        x = params["embed"][tokens]
+        return x + self._table(pos0 + tokens.shape[1])[pos0:][None]
+
+    def _dec_stack(self, params, x, mode: str, cache, pos):
+        """Run the decoder blocks.  ``mode`` "prefill" writes each
+        layer's K/V at rows [0, S) of the (zeroed) self-attention cache;
+        "decode" writes one row at ``pos`` and attends up to it.  Both
+        cross-attend to the cache's ``cross_k``/``cross_v``."""
+        cfg = self.cfg
+        for i in range(cfg.n_layers):
+            bp = tree_map(lambda a: a[i], params["dec_blocks"])
+            kv = {"k": cache["self_k"][i], "v": cache["self_v"][i]}
+            h = L.rmsnorm(x, bp["ln1"], cfg.norm_eps)
+            if mode == "prefill":
+                o, (k, v) = L.gqa_prefill(h, bp["attn"], cfg,
+                                          kernels=self.kernels)
+                kv["k"][:, :k.shape[1]] = k
+                kv["v"][:, :v.shape[1]] = v
+            else:
+                o = L.gqa_decode(h, bp["attn"], cfg, kv, pos,
+                                 kernels=self.kernels)
+            x = x + o
+            h = L.rmsnorm(x, bp["ln_x"], cfg.norm_eps)
+            x = x + cross_attention(h, cache["cross_k"][i],
+                                    cache["cross_v"][i], bp["xattn"], cfg,
+                                    kernels=self.kernels)
+            h = L.rmsnorm(x, bp["ln2"], cfg.norm_eps)
+            x = x + L.ffn(h, bp["ffn"])
+        return x
+
+    def _logits(self, params, x):
+        x = L.rmsnorm(x, params["final_norm"], self.cfg.norm_eps)
+        return (x @ params["lm_head"]).float()
+
+    # ------------------------------------------------------------------
+    # Caches
+    # ------------------------------------------------------------------
+    def cache_specs(self, batch: int, max_len: int) -> dict[str, Any]:
+        """Shapes and dtypes of the cache tree: (L, B, max_len, KVH, D)
+        self-attention K/V, (L, B, enc_len, KVH, D) cross K/V and a
+        scalar ``pos``."""
+        cfg = self.cfg
+
+        def kv(s):
+            return ((cfg.n_layers, batch, s, cfg.n_kv_heads, cfg.head_dim),
+                    self.dtype)
+
+        e = cfg.encdec.enc_len
+        return {"self_k": kv(max_len), "self_v": kv(max_len),
+                "cross_k": kv(e), "cross_v": kv(e),
+                "pos": ((), torch.int32)}
+
+    def init_cache(self, batch: int, max_len: int):
+        return tree_map(
+            lambda s: torch.zeros(s[0], dtype=s[1], device=self.device),
+            self.cache_specs(batch, max_len))
+
+    # ------------------------------------------------------------------
+    # Prefill / decode entry points
+    # ------------------------------------------------------------------
+    def prefill(self, params, inputs, max_len: Optional[int] = None):
+        """inputs: ``frames`` (B, enc_len, d_model) and ``tokens`` (B, S),
+        the decoder prompt -> last-token logits (B, 1, Vp) over the
+        padded vocabulary and the cache: self K/V at rows [0, S) and
+        zeros up to ``max_len``, the encoder's cross K/V, ``pos`` = S."""
+        if "frames" not in inputs:
+            raise ValueError(
+                "EncDecLM.prefill needs inputs['frames'] (B, enc_len, "
+                "d_model), the stubbed audio frontend's output; pass it "
+                "as ServeEngine.run_batch(..., extra_inputs={'frames': "
+                "...})")
+        tokens = inputs["tokens"]
+        b, s = tokens.shape
+        max_len = max_len or s
+        if s > max_len:
+            raise ValueError(f"prompt of {s} tokens > max_len {max_len}")
+        enc_out = self.encode(params, inputs["frames"])
+        cross_k, cross_v = self._cross_kv_all(params, enc_out)
+        specs = self.cache_specs(b, max_len)
+        cache = {n: torch.zeros(specs[n][0], dtype=specs[n][1],
+                                device=self.device)
+                 for n in ("self_k", "self_v")}
+        cache.update(cross_k=cross_k, cross_v=cross_v,
+                     pos=torch.tensor(s, dtype=torch.int32,
+                                      device=self.device))
+        x = self._dec_stack(params, self._embed_dec(params, tokens),
+                            "prefill", cache, None)
+        return self._logits(params, x[:, -1:]), cache
+
+    def decode_step(self, params, cache, tokens):
+        """tokens: (B, 1) -> logits (B, 1, Vp) and the cache, the new
+        self K/V row written in place at ``pos`` and ``pos`` advanced by
+        one.  The position row is picked on the device: no host read."""
+        pos = cache["pos"]
+        pe = torch.index_select(self._table(cache["self_k"].shape[2]), 0,
+                                pos.reshape(1).long())
+        x = params["embed"][tokens] + pe[None]
+        x = self._dec_stack(params, x, "decode", cache, pos)
+        return self._logits(params, x), dict(cache, pos=pos + 1)

@@ -1,8 +1,10 @@
-"""Transformer layers of the dense decoder (PyTorch port).
+"""Transformer layers of the dense decoder and the encoder-decoder
+(PyTorch port).
 
 The dense subset of the reference ``models/layers.py``: norms, RoPE,
-GQA prefill/decode/verify with the KV-cache write, the paged-KV decode
-and verify paths, and the SwiGLU FFN.  The reference's ``shard``/``tp_psum``
+full-sequence GQA attention (an encoder's, bidirectional), GQA
+prefill/decode/verify with the KV-cache write, the paged-KV decode and
+verify paths, and the SwiGLU FFN.  The reference's ``shard``/``tp_psum``
 are identities at TP = 1 and are dropped.  Attention goes through the kernel wrappers when ``kernels``
 is set (CPU tensors still take the plain version inside them) and
 straight to the plain versions otherwise.
@@ -144,7 +146,9 @@ def paged_insert_window(pool, new, pages, pos, dest=None):
 # ----------------------------------------------------------------------
 # GQA attention block
 # ----------------------------------------------------------------------
-def gqa_defs(cfg) -> dict:
+def gqa_defs(cfg, *, cross: bool = False) -> dict:
+    """Attention weights; ``cross`` (a decoder's cross-attention) leaves
+    out the qkv bias, as the reference does."""
     d, dh = cfg.d_model, cfg.head_dim
     h, kvh = cfg.n_heads, cfg.n_kv_heads
     dt = cfg.dtype
@@ -155,7 +159,7 @@ def gqa_defs(cfg) -> dict:
         "wo": ParamDef((h * dh, d), ("heads_flat", "fsdp"), "normal", dt,
                        1.0 / math.sqrt(h * dh * max(1, 2 * cfg.n_layers))),
     }
-    if cfg.qkv_bias:
+    if cfg.qkv_bias and not cross:
         defs["bq"] = ParamDef((h * dh,), ("heads_flat",), "zeros", dt)
         defs["bk"] = ParamDef((kvh * dh,), ("kv_flat",), "zeros", dt)
         defs["bv"] = ParamDef((kvh * dh,), ("kv_flat",), "zeros", dt)
@@ -182,19 +186,38 @@ def _proj_qkv(x, p, cfg):
     return q, k, v
 
 
+def _full_attention(x, p, cfg, *, causal: bool, use_rope: bool,
+                    kernels: bool):
+    """Attention over the whole of x from position 0; returns the
+    output and the K/V it attended (post-RoPE)."""
+    b, s, _ = x.shape
+    q, k, v = _proj_qkv(x, p, cfg)
+    if use_rope:
+        positions = torch.arange(s, device=x.device)
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+    if kernels:
+        o = flash_attention(q, k, v, causal=causal)
+    else:
+        o = flash_attention_plain(q, k, v, causal=causal,
+                                  chunk=cfg.attn_chunk)
+    return o.reshape(b, s, -1) @ p["wo"], k, v
+
+
+def gqa_attention(x, p, cfg, *, causal: bool = True, use_rope: bool = True,
+                  kernels: bool = True):
+    """Full-sequence attention (whisper's encoder runs it bidirectional
+    and without RoPE); the reference's ``layers.py:gqa_attention``.
+    x: (B, S, d) -> (B, S, d)."""
+    return _full_attention(x, p, cfg, causal=causal, use_rope=use_rope,
+                           kernels=kernels)[0]
+
+
 def gqa_prefill(x, p, cfg, *, kernels: bool = True):
     """Prefill from position 0, returning the output and the K/V to
     cache (post-RoPE)."""
-    b, s, _ = x.shape
-    positions = torch.arange(s, device=x.device)
-    q, k, v = _proj_qkv(x, p, cfg)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
-    if kernels:
-        o = flash_attention(q, k, v, causal=True)
-    else:
-        o = flash_attention_plain(q, k, v, causal=True, chunk=cfg.attn_chunk)
-    o = o.reshape(b, s, -1) @ p["wo"]
+    o, k, v = _full_attention(x, p, cfg, causal=True, use_rope=True,
+                              kernels=kernels)
     return o, (k, v)
 
 

@@ -3,7 +3,8 @@
 
 ``ServeEngine`` (fixed batch)
     Prefills one batch together and decodes it in lock-step, one
-    device->host copy per token.
+    device->host copy per token.  The one engine of an encoder-decoder
+    (whisper): its frames go in as ``run_batch``'s ``extra_inputs``.
 
 ``ContinuousBatchingEngine`` (the Server-scenario hot path)
     ``n_slots`` decode rows over one preallocated KV cache with a
@@ -102,6 +103,13 @@ def _engine_device(model, device) -> torch.device:
     return dev
 
 
+def _on_device(t: torch.Tensor, dev: torch.device) -> bool:
+    """Whether ``t`` lies on ``dev`` (``cuda`` without an index: any
+    card)."""
+    return t.device.type == dev.type and (dev.index is None
+                                          or t.device.index == dev.index)
+
+
 def _prompt_tensor(prompt, device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(prompt).reshape(-1),
                            dtype=torch.long, device=device)[None]
@@ -120,15 +128,28 @@ class ServeEngine:
 
     @torch.no_grad()
     def run_batch(self, requests: list[Request],
-                  now: Callable[[], float] = time.monotonic
-                  ) -> list[Request]:
-        """Service one batch of requests synchronously."""
+                  now: Callable[[], float] = time.monotonic,
+                  extra_inputs: Optional[dict] = None) -> list[Request]:
+        """Service one batch of requests synchronously.
+
+        ``extra_inputs`` are further prefill inputs beside the prompts'
+        ``tokens`` (an encoder-decoder's ``frames``), tensors on the
+        engine's device."""
         if len(requests) > self.batch:
             raise ValueError(f"{len(requests)} requests > batch size "
                              f"{self.batch}")
         prompts = torch.cat([_prompt_tensor(r.prompt, self.device)
                              for r in requests])
-        logits, cache = self.model.prefill(self.params, {"tokens": prompts},
+        inputs = {"tokens": prompts}
+        for name, t in (extra_inputs or {}).items():
+            if not isinstance(t, torch.Tensor):
+                raise TypeError(f"extra_inputs[{name!r}] is a "
+                                f"{type(t).__name__}, not a tensor")
+            if not _on_device(t, self.device):
+                raise ValueError(f"extra_inputs[{name!r}] is on {t.device}, "
+                                 f"the engine on {self.device}")
+            inputs[name] = t
+        logits, cache = self.model.prefill(self.params, inputs,
                                            max_len=self.max_len)
         tok = torch.argmax(logits[:, -1], -1)[:, None]
         t_first = now()
@@ -146,6 +167,10 @@ class ServeEngine:
             r.output = outs[i][: r.max_new_tokens]
             r.done_s = t_done
         return requests
+
+    def tokens_per_request(self, requests: list[Request]) -> int:
+        """Total emitted tokens (the efficiency denominators' work)."""
+        return sum(len(r.output or []) for r in requests)
 
 
 class ContinuousBatchingEngine:
@@ -201,6 +226,11 @@ class ContinuousBatchingEngine:
         for what, value in refused.items():
             if value:
                 raise NotImplementedError(f"{what} is not ported yet")
+        if model.cfg.family == "encdec":
+            raise NotImplementedError(
+                "ContinuousBatchingEngine has no encoder-decoder path (nor "
+                "has the reference's slot engine): serve whisper through "
+                "ServeEngine.run_batch(..., extra_inputs={'frames': ...})")
         self.device = _engine_device(model, device)
         self.model = model
         self.params = params
@@ -760,6 +790,8 @@ class ContinuousBatchingEngine:
                     cx.slots[b] = None
                     self._release_slot(b)
         return cx.done
+
+    tokens_per_request = ServeEngine.tokens_per_request
 
 
 def attribute_request_energy(requests: list[Request],

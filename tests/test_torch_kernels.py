@@ -72,43 +72,81 @@ def test_decode_plain_matches_pallas_and_ref(g, d, dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("sq,h,kvh,d", [
-    (17, 4, 2, 64),        # one ragged block
-    (200, 8, 2, 128),      # two blocks, ragged tail, G = 4
-    (129, 4, 4, 64),       # MHA, one row past a block
+@pytest.mark.parametrize("sq,skv,h,kvh,d,causal", [
+    pytest.param(17, 17, 4, 2, 64, True, id="17-4-2-64"),  # one ragged block
+    # two blocks, ragged tail, G = 4
+    pytest.param(200, 200, 8, 2, 128, True, id="200-8-2-128"),
+    # MHA, one row past a block
+    pytest.param(129, 129, 4, 4, 64, True, id="129-4-4-64"),
+    # causal with fewer query rows than keys (rows at 0..Sq-1)
+    pytest.param(77, 256, 4, 2, 64, True, id="causal-77-256-4-2-64"),
+    # bidirectional: ragged Sq against two key blocks, G = 4
+    pytest.param(200, 256, 8, 2, 128, False, id="bidir-200-256-8-2-128"),
+    # bidirectional: one query row (a decoded token's cross-attention)
+    pytest.param(1, 128, 4, 4, 64, False, id="bidir-1-128-4-4-64"),
 ])
-def test_flash_plain_matches_pallas_and_ref(sq, h, kvh, d, dtype):
+def test_flash_plain_matches_pallas_and_ref(sq, skv, h, kvh, d, causal,
+                                            dtype):
     """Causal prefill attention at lengths that are not multiples of the
-    Pallas kernel's 128-row blocks."""
-    rng = np.random.default_rng(sq + h + d)
+    Pallas kernel's 128-row blocks, and the bidirectional form (encoder,
+    cross-attention) at Sq != Skv; the Pallas wrapper takes the
+    bidirectional form only at Skv % 128 == 0."""
+    rng = np.random.default_rng(sq + skv + h + d)
     qj, qt = _pair(rng, (1, sq, h, d), dtype)
-    kj, kt = _pair(rng, (1, sq, kvh, d), dtype)
-    vj, vt = _pair(rng, (1, sq, kvh, d), dtype)
-    got = tflash.flash_attention_plain(qt, kt, vt, causal=True)
-    want = jax_flash(qj, kj, vj, causal=True, interpret=True)
+    kj, kt = _pair(rng, (1, skv, kvh, d), dtype)
+    vj, vt = _pair(rng, (1, skv, kvh, d), dtype)
+    got = tflash.flash_attention_plain(qt, kt, vt, causal=causal)
+    want = jax_flash(qj, kj, vj, causal=causal, interpret=True)
     np.testing.assert_allclose(_np(got), _np(want), **TOLS[dtype])
     # kernel layout oracle
     g = h // kvh
     qr = qj.transpose(0, 2, 1, 3).reshape(kvh, g, sq, d)
     want = jax_flash_ref(qr, kj.transpose(0, 2, 1, 3)[0],
-                         vj.transpose(0, 2, 1, 3)[0], causal=True)
+                         vj.transpose(0, 2, 1, 3)[0], causal=causal)
     got = tflash.flash_attention_ref(
         qt.transpose(1, 2).reshape(kvh, g, sq, d), kt.transpose(1, 2)[0],
-        vt.transpose(1, 2)[0], causal=True)
+        vt.transpose(1, 2)[0], causal=causal)
     np.testing.assert_allclose(_np(got), _np(want), **TOLS[dtype])
 
 
-@pytest.mark.parametrize("chunk", [64, 1024])
-def test_flash_plain_matches_model_jnp_chunked(chunk):
+@pytest.mark.parametrize("chunk,causal,sq,skv", [
+    pytest.param(64, True, 150, 150, id="64"),
+    pytest.param(1024, True, 150, 150, id="1024"),
+    # the reference pads q to whole chunks (150 -> 192), as it pads
+    # whisper's 1,500 frames to 2,048; the port slices the last chunk
+    pytest.param(64, False, 150, 150, id="bidir-64"),
+    pytest.param(64, False, 150, 300, id="bidir-64-skv300"),
+    pytest.param(1024, False, 3, 300, id="bidir-1024-sq3"),
+])
+def test_flash_plain_matches_model_jnp_chunked(chunk, causal, sq, skv):
     """The model-layout copy of ``flash_attention_jnp``, including its
-    q-chunk loop with a ragged last chunk."""
-    rng = np.random.default_rng(chunk)
-    qj, qt = _pair(rng, (2, 150, 4, 32), "float32")
-    kj, kt = _pair(rng, (2, 150, 2, 32), "float32")
-    vj, vt = _pair(rng, (2, 150, 2, 32), "float32")
-    want = flash_attention_jnp(qj, kj, vj, causal=True, chunk=chunk)
-    got = tflash.flash_attention_plain(qt, kt, vt, causal=True, chunk=chunk)
+    q-chunk loop with a ragged last chunk, in both forms."""
+    rng = np.random.default_rng(chunk + sq + skv)
+    qj, qt = _pair(rng, (2, sq, 4, 32), "float32")
+    kj, kt = _pair(rng, (2, skv, 2, 32), "float32")
+    vj, vt = _pair(rng, (2, skv, 2, 32), "float32")
+    want = flash_attention_jnp(qj, kj, vj, causal=causal, chunk=chunk)
+    got = tflash.flash_attention_plain(qt, kt, vt, causal=causal,
+                                       chunk=chunk)
     np.testing.assert_allclose(_np(got), _np(want), **TOLS["float32"])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bidirectional_ragged_keys_where_the_reference_asserts(dtype):
+    """Whisper's encoder has 1,500 keys, and 1,500 % 128 = 92: the
+    reference's Pallas wrapper asserts ``causal or Skv % block_k == 0``
+    there.  The port's kernel masks keys past Skv and pads nothing, so
+    its plain version takes any Skv >= 1; it is held against the
+    reference's jnp ``flash_attention_jnp(causal=False)``."""
+    rng = np.random.default_rng(7)
+    qj, qt = _pair(rng, (2, 40, 4, 64), dtype)
+    kj, kt = _pair(rng, (2, 300, 2, 64), dtype)
+    vj, vt = _pair(rng, (2, 300, 2, 64), dtype)
+    with pytest.raises(AssertionError, match="Skv % block_k"):
+        jax_flash(qj, kj, vj, causal=False, interpret=True)
+    np.testing.assert_allclose(
+        _np(tflash.flash_attention(qt, kt, vt, causal=False)),
+        _np(flash_attention_jnp(qj, kj, vj, causal=False)), **TOLS[dtype])
 
 
 def test_wrappers_route_cpu_tensors_to_plain_versions():
@@ -128,6 +166,10 @@ def test_wrappers_route_cpu_tensors_to_plain_versions():
                                tflash.flash_attention_plain(qp, k, v,
                                                             causal=True),
                                rtol=0, atol=0)
+    torch.testing.assert_close(
+        tflash.flash_attention(qp, k, v, causal=False),
+        tflash.flash_attention_plain(qp, k, v, causal=False),
+        rtol=0, atol=0)
     assert tdec.decode_attention.launches == n_dec
     assert tflash.flash_attention.launches == n_fl
 
@@ -141,3 +183,12 @@ def test_wrappers_have_no_fallback_for_other_devices():
     with pytest.raises(ValueError, match="no path"):
         tflash.flash_attention(torch.empty((1, 16, 4, 64), device="meta"),
                                k, k)
+
+
+def test_flash_wrapper_refuses_no_keys():
+    """Skv = 0 has no softmax: refused on every device, both forms."""
+    q = torch.zeros((1, 3, 4, 64))
+    k = torch.zeros((1, 0, 2, 64))
+    for causal in (True, False):
+        with pytest.raises(ValueError, match="Skv = 0"):
+            tflash.flash_attention(q, k, k, causal=causal)

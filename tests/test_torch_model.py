@@ -1,7 +1,8 @@
 """The port's LM on the CPU against the JAX reference: configs, the
 weight bridge, each dense layer function, and the model's prefill/decode
 logits on the same weights (float32, reduced configs, within 1e-4), for
-the dense family and rwkv6 (whose own layers are in test_torch_rwkv)."""
+the dense family and rwkv6 (whose own layers are in test_torch_rwkv);
+whisper's configs here, its model in test_torch_whisper."""
 import dataclasses
 
 import jax
@@ -24,7 +25,8 @@ from repro_torch.models.param import from_jax, tree_leaves, tree_map
 torch.set_num_threads(1)
 
 DENSE = ["qwen3-1.7b", "qwen2.5-3b", "granite-3-2b", "yi-9b"]
-PORTED = DENSE + ["rwkv6-3b"]
+LMS = DENSE + ["rwkv6-3b"]          # decoder-only: models/lm.py
+PORTED = LMS + ["whisper-small"]    # encdec: tests/test_torch_whisper.py
 TOL = dict(rtol=1e-4, atol=1e-4)
 
 
@@ -62,7 +64,7 @@ def test_configs_match_reference(arch):
 
 
 @pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "jamba-v0.1-52b",
-                                  "whisper-small"])
+                                  "deepseek-v3-671b"])
 def test_unported_families_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP §A.11"):
         tcfg.get_config(arch)
@@ -141,7 +143,7 @@ def test_cache_update_matches_reference():
         np.testing.assert_array_equal(_np(got), _np(want))
 
 
-@pytest.mark.parametrize("arch", PORTED)
+@pytest.mark.parametrize("arch", LMS)
 def test_prefill_and_decode_logits_match_reference(arch):
     """Prefill, a scalar-pos decode step, then a ragged per-slot decode
     step (the continuous-batching layout), all within 1e-4; every cache
