@@ -22,12 +22,17 @@ Phases, each fatal on failure:
    N 6,144, bf16 out), equal to its plain version bit for bit, beside
    ``torch._int_mm`` + the same epilogue and its bound at the int8 rate.
    Flash's bidirectional form at whisper-small's shapes (B 8, H = KVH
-   12, D 64, 1,500 keys; Sq 1,500, 1 and 4) beside SDPA.
+   12, D 64, 1,500 keys; Sq 1,500, 1 and 4) beside SDPA.  Each flash
+   shape prints the route it took (bf16: the tensor-core tile kernel
+   for more than 16 query rows per KV head, else split-KV + merge) and,
+   beside the per-call event time, the kernel-only device time per
+   call from ``torch.profiler`` (both grids of the split route).
    Then every build the wrappers can launch (float32 and bfloat16,
-   D 64 and 128, G 1/2/4/8, flash in both forms; the scan at dh
-   32/64/128; the int8 GEMM at the reference test's shapes and ragged
-   edges, both outputs) once at a small shape against its plain
-   version.
+   D 64 and 128, G 1/2/4/8, flash in both forms and, in bf16, through
+   both routes: causal Sq 3 over 3 and 300 keys (whole splits masked),
+   a ragged last split, 77 x 300 tiles; the scan at dh 32/64/128; the
+   int8 GEMM at the reference test's shapes and ragged edges, both
+   outputs) once at a small shape against its plain version.
 4. Full-width engine: qwen3-1.7b (28 layers, d_model 2048, 16/8 heads,
    padded vocab 153,600, bf16, seeded random weights) behind
    ``ContinuousBatchingEngine(n_slots=8, max_len=2048, chunk_steps=8)``
@@ -127,6 +132,14 @@ TOLS = {"bfloat16": dict(rtol=2e-2, atol=2e-2),
 # rounding of the same float32 value to bf16 moves it by under 2^-9.
 REL_NORM_TOL = {"bfloat16": 5e-3, "float32": 1e-5}
 
+# Phase 3b's extra flash shapes (causal, Sq, Skv), each at D 64/128 and
+# G 1/2/4/8, so that bf16 reaches both routes: a causal 3-row case over
+# 3 keys and over 300 (whose splits past the first are wholly masked),
+# 4 rows over 777 keys (a ragged last split: 12 x 64 + 9), and 77 x 300
+# tiles in the causal form.
+FLASH_ROUTE_CASES = ((True, 3, 3), (True, 3, 300), (False, 4, 777),
+                     (True, 77, 300))
+
 # The linear scan in float32: the plain version's chunked form takes
 # exp of differences of within-chunk cumulative log decays (up to ~300
 # in magnitude, float32 ulp ~3e-5) where the kernel multiplies the
@@ -164,6 +177,33 @@ TINY_REL_TOL = 1e-5
 INT8_REL_ERR_MAX = 0.02
 
 
+def ptxas_report(log: str) -> list[str]:
+    """One entry per kernel of ``nvcc -Xptxas -v`` output: its name
+    (demangled by ``c++filt`` where the machine has it), registers and
+    spill bytes."""
+    rows, name, spill = [], "?", ""
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1] if "'" in ln else ln.strip()
+        elif "spill stores" in ln:
+            spill = ln.strip().split(",", 1)[1].strip()
+        elif "Used" in ln and "registers" in ln:
+            regs = ln.split("Used", 1)[1].split("registers")[0].strip()
+            rows.append((name, regs, spill))
+    try:
+        names = subprocess.run(
+            ["c++filt"], input="\n".join(n for n, _, _ in rows),
+            capture_output=True, text=True, check=True).stdout.splitlines()
+    except (OSError, subprocess.CalledProcessError):
+        names = []
+    if len(names) != len(rows):
+        names = [n for n, _, _ in rows]
+    names = [n.replace("(anonymous namespace)::", "").split("(")[0]
+             .removeprefix("void ") for n in names]
+    return [f"{n}: {regs} registers, {spill}"
+            for n, (_, regs, spill) in zip(names, rows)]
+
+
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr)
     sys.exit(1)
@@ -190,6 +230,31 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
         times.append(a.elapsed_time(b))
     times.sort()
     return times[len(times) // 2]
+
+
+def device_ms(torch, fn, reps: int = 10):
+    """Kernel-only device time per call of ``fn()`` in ms: the durations
+    of the CUDA kernels ``torch.profiler`` records over ``reps`` calls
+    (both grids of flash's split route), summed, over ``reps``; and the
+    kernels' names.  (None, []) where the profiler records no kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kern:
+        return None, []
+    us = sum(e.time_range.elapsed_us() for e in kern)
+    return us / 1e3 / reps, sorted({e.name.split("(")[0] for e in kern})
+
+
+def fmt_ms(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f} ms"
 
 
 def bound(nbytes: float, flops: float,
@@ -254,7 +319,7 @@ def phase_kernels(torch, dev):
     from repro_torch.kernels.decode_attention.ops import (
         decode_attention, decode_attention_plain)
     from repro_torch.kernels.flash_attention.ops import (
-        flash_attention, flash_attention_plain)
+        _route, flash_attention, flash_attention_plain)
     from repro_torch.kernels.linear_scan.ops import (linear_scan,
                                                      linear_scan_plain)
     from repro_torch.kernels.paged_decode_attention.ops import (
@@ -315,14 +380,17 @@ def phase_kernels(torch, dev):
         q = torch.randn((1, sq, h, d), generator=gen, device=dev).to(bf16)
         k = torch.randn((1, sq, kvh, d), generator=gen, device=dev).to(bf16)
         v = torch.randn((1, sq, kvh, d), generator=gen, device=dev).to(bf16)
+        route = _route(sq, sq, h, kvh, d, bf16)
         got = flash_attention(q, k, v, causal=True)
         want = flash_attention_plain(q, k, v, causal=True)
-        err, rel = compare(f"flash_attention (S={sq})", got, want)
+        err, rel = compare(f"flash_attention (S={sq}, {route})", got, want)
         errs.append(err)
         rels.append(rel)
-        print(f"  flash_attention S={sq}: max |kernel - plain| {err:.3e}, "
-              f"||kernel - plain|| / ||plain|| {rel:.3e}")
+        print(f"  flash_attention S={sq} route {route}: max |kernel - "
+              f"plain| {err:.3e}, ||kernel - plain|| / ||plain|| {rel:.3e}")
     ms = time_ms(lambda: flash_attention(q, k, v, causal=True))
+    dev_ms, names = device_ms(torch,
+                              lambda: flash_attention(q, k, v, causal=True))
     plain_ms = time_ms(lambda: flash_attention_plain(q, k, v, causal=True))
     library_ms = time_ms(lambda: F.scaled_dot_product_attention(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
@@ -334,10 +402,13 @@ def phase_kernels(torch, dev):
     out["flash_attention"] = dict(
         max_abs_err=max(errs), rel_norm_err=max(rels), ms=ms,
         plain_ms=plain_ms, bound_ms=bound_ms,
-        bound_by=bound_by, library_ms=library_ms)
-    print(f"  flash_attention S={sq} H={h} KVH={kvh} D={d}: kernel "
-          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA {library_ms:.4f} "
-          f"ms, bound {bound_ms * 1e3:.2f} us ({bound_by}, {flops} flop)")
+        bound_by=bound_by, library_ms=library_ms,
+        kernel_route=_route(sq, sq, h, kvh, d, bf16), device_ms=dev_ms)
+    print(f"  flash_attention S={sq} H={h} KVH={kvh} D={d} route "
+          f"{out['flash_attention']['kernel_route']}: kernel {ms:.4f} ms "
+          f"(kernel-only {fmt_ms(dev_ms)}: {', '.join(names)}), plain "
+          f"{plain_ms:.4f} ms, SDPA {library_ms:.4f} ms, bound "
+          f"{bound_ms * 1e3:.2f} us ({bound_by}, {flops} flop)")
 
     # --- paged: decode's K/V scattered into a pool of 16-row pages ------
     # handed out in a shuffled order; page 0 holds large finite garbage
@@ -502,10 +573,11 @@ def phase_flash_bidir(torch, dev):
     at decode (Sq 1) and at prefill (Sq 4, the start-of-transcript
     prefix), each against its plain version, timed beside it, beside
     SDPA (``is_causal=False``, a yardstick the port never calls) and
-    beside its bound.  Returns one record per shape."""
+    beside its bound, with the route it took and its kernel-only device
+    time.  Returns one record per shape."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention.ops import (
-        flash_attention, flash_attention_plain)
+        _route, flash_attention, flash_attention_plain)
 
     bf16 = torch.bfloat16
     gen = torch.Generator(device=dev)
@@ -517,10 +589,13 @@ def phase_flash_bidir(torch, dev):
     for tag, sq in (("encoder", 1500), ("cross_decode", 1),
                     ("cross_prefill", 4)):
         q = torch.randn((b, sq, h, d), generator=gen, device=dev).to(bf16)
-        err, rel = compare(f"flash_attention bidirectional {tag}",
+        route = _route(sq, skv, h, kvh, d, bf16)
+        err, rel = compare(f"flash_attention bidirectional {tag} ({route})",
                            flash_attention(q, k, v, causal=False),
                            flash_attention_plain(q, k, v, causal=False))
         ms = time_ms(lambda: flash_attention(q, k, v, causal=False))
+        dev_ms, names = device_ms(
+            torch, lambda: flash_attention(q, k, v, causal=False))
         plain_ms = time_ms(lambda: flash_attention_plain(q, k, v,
                                                          causal=False))
         library_ms = time_ms(lambda: F.scaled_dot_product_attention(
@@ -533,10 +608,12 @@ def phase_flash_bidir(torch, dev):
         bound_ms, bound_by = bound(nbytes, flops)
         out[tag] = dict(sq=sq, skv=skv, max_abs_err=err, rel_norm_err=rel,
                         ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                        bound_by=bound_by, library_ms=library_ms)
+                        bound_by=bound_by, library_ms=library_ms,
+                        kernel_route=route, device_ms=dev_ms)
         print(f"  flash_attention bidirectional {tag} B={b} Sq={sq} "
-              f"Skv={skv} H={h} KVH={kvh} D={d}: max |kernel - plain| "
-              f"{err:.3e}, rel {rel:.3e}; kernel {ms:.4f} ms, plain "
+              f"Skv={skv} H={h} KVH={kvh} D={d} route {route}: max |kernel "
+              f"- plain| {err:.3e}, rel {rel:.3e}; kernel {ms:.4f} ms "
+              f"(kernel-only {fmt_ms(dev_ms)}: {', '.join(names)}), plain "
               f"{plain_ms:.4f} ms, SDPA {library_ms:.4f} ms, bound "
               f"{bound_ms * 1e3:.2f} us ({bound_by}, {nbytes} B, {flops} "
               f"flop)")
@@ -548,12 +625,15 @@ def phase_builds(torch, dev):
     kernels are templates on dtype, D and, for decode, G), once each at
     a small ragged shape against the plain version: both verify kernels
     with a 5-token window (across a page boundary for paged verify),
-    which must agree bit for bit."""
+    which must agree bit for bit.  Flash also at the shapes that reach
+    both bf16 routes (``FLASH_ROUTE_CASES``); a split-route case is held
+    against the split algorithm's plain version too."""
     import itertools
     from repro_torch.kernels.decode_attention.ops import (
         decode_attention, decode_attention_plain)
     from repro_torch.kernels.flash_attention.ops import (
-        flash_attention, flash_attention_plain)
+        _route, _sm_count, _splits, flash_attention, flash_attention_plain,
+        flash_attention_split_plain)
     from repro_torch.kernels.paged_decode_attention.ops import (
         paged_decode_attention, paged_decode_attention_plain)
     from repro_torch.kernels.paged_verify_attention.ops import (
@@ -620,8 +700,26 @@ def phase_builds(torch, dev):
                 f"flash_attention bidirectional {name} Sq={bsq} "
                 f"Skv={bskv}", flash_attention(q, k, v, causal=False),
                 flash_attention_plain(q, k, v, causal=False)))
+        routes = []
+        for causal, rsq, rskv in FLASH_ROUTE_CASES:
+            q = randn(2, rsq, h, d)
+            k, v = randn(2, rskv, kvh, d), randn(2, rskv, kvh, d)
+            route = _route(rsq, rskv, h, kvh, d, dtype)
+            form = "causal" if causal else "bidirectional"
+            label = f"flash_attention {name} {form} Sq={rsq} Skv={rskv}"
+            got = flash_attention(q, k, v, causal=causal)
+            err, rel = compare(f"{label} ({route})", got,
+                               flash_attention_plain(q, k, v, causal=causal))
+            if route == "split":
+                per = _splits(2 * kvh, rskv, _sm_count(dev.index))[1]
+                compare(f"{label} vs the split plain version", got,
+                        flash_attention_split_plain(q, k, v, causal=causal,
+                                                    keys_per_split=per))
+            routes.append(f"{form[0]}{rsq}x{rskv} {route} "
+                          f"{err:.2e}/{rel:.2e}")
         print(f"  {name}: decode max err {dec[0]:.2e} rel {dec[1]:.2e}; "
-              f"flash {fl[0]:.2e}/{fl[1]:.2e}; bidirectional "
+              f"flash {fl[0]:.2e}/{fl[1]:.2e}; {'; '.join(routes)}; "
+              f"bidirectional "
               f"{sq}x{s} {bi[0][0]:.2e}/{bi[0][1]:.2e}, 1x1500 "
               f"{bi[1][0]:.2e}/{bi[1][1]:.2e}; paged decode "
               f"{pdec[0]:.2e}/{pdec[1]:.2e} (= decode); verify "
@@ -1574,9 +1672,8 @@ def main() -> int:
     build.build_all()
     print(f"  built in {time.perf_counter() - t0:.2f} s")
     for name, (secs, log) in build.build_log.items():
-        report = [ln.strip() for ln in log.splitlines()
-                  if "registers" in ln or "spill" in ln]
-        print(f"  {name}.cu: nvcc {secs:.2f} s; " + " | ".join(report[:4]))
+        print(f"  {name}.cu: nvcc {secs:.2f} s; " + " | ".join(
+            ptxas_report(log)))
 
     phase("phase 3: kernels vs plain versions (bf16, main-path shapes)")
     kernels = phase_kernels(torch, dev)

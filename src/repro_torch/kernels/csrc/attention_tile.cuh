@@ -1,6 +1,8 @@
-// One CTA's tile of multi-row attention with an f32 online softmax,
-// shared by the flash kernel (flash_attention.cu, both forms) and the two
-// verify kernels (verify_attention.cu, paged_verify_attention.cu).
+// One CTA's tile of multi-row attention with an f32 online softmax on
+// CUDA cores, shared by the two verify kernels (verify_attention.cu,
+// paged_verify_attention.cu) and by flash's float32 route
+// (flash_attention.cu, both forms); flash's bfloat16 routes are
+// flash_mma.cuh and flash_split.cuh.
 //
 // The CTA owns kBQ query rows.  A row map (``Rows``) says, for CTA-local
 // row rr, whether it exists (``valid``), where its query and output

@@ -13,33 +13,43 @@
 // keys at 0..Skv-1 in both forms, as in the reference.
 //
 // What bounds it on the H100: at prefill lengths (S = 128..1500, H
-// 12..16, D 64..128) the bf16 tensor-core bound is operations (4 D S^2
-// flop per head vs ~4 D S bytes); at Sq = 1 (cross-attention of one
-// decoded token) it is the bytes of K/V.  This first version does NOT
-// reach for the tensor cores: it is the simple, right kernel that later
-// work makes fast (wgmma/mma.sync tiles, TMA loads, a K/V ring; a
-// split-KV grid for Sq = 1).  Its design choices:
-//   * one CTA of 128 threads per (32-row query tile, batch*head); the
-//     CTA streams 16-row K/V tiles through shared memory, in the causal
-//     form only up to the diagonal (the reference skips the same blocks
-//     with pl.when);
-//   * q/k/v/o are read and written in the model's (B, S, heads, D)
-//     layout through strides: the wrapper neither transposes nor pads,
-//     so a strided per-layer view of a stacked cross K/V goes in as is;
-//   * the ragged tail is masked in the kernel: rows past Sq are never
-//     stored, keys past Skv never score (the reference's wrapper pads
-//     both to block multiples instead, and takes no Skv % 128 != 0 in
-//     the bidirectional form, e.g. whisper's 1,500 frames);
-//   * each group of 4 threads owns one query row: its scores, its
-//     (m, l) and a D/4 slice of its f32 accumulator stay in registers;
-//     row max and row sum are two xor-shuffles inside the group.
-// The tile loop is attention_tile.cuh, shared with the verify kernels;
-// this file supplies its row map (one head's query positions; in the
-// bidirectional form every row sits at Skv - 1, so it sees every key)
-// and the contiguous K/V address map.  Key 0 stays visible to every
-// row, the tile loop's invariant, whenever Skv >= 1.
+// 12..16, D 64..128) operations (4 D S^2 flop per head against ~4 D S
+// bytes), which only the bf16 tensor cores can meet; at a few query
+// rows (cross-attention of one decoded token, Sq 1) the bytes of K/V.
+// So the wrapper (kernels/flash_attention/ops.py:_route) picks one of
+// three routes, by dtype and by the rows G * Sq that share a KV head:
+//   * bf16, G * Sq > 16: the tensor-core tile kernel of flash_mma.cuh
+//     (mma.sync bf16 tiles, a cp.async K/V ring) through
+//     flash_attention_launch -- the prefill, whisper's encoder, every
+//     speculative admission;
+//   * bf16, G * Sq <= 16: the split-KV kernel of flash_split.cuh and the
+//     log-sum-exp merge of split_merge.cuh through
+//     flash_attention_split_launch -- whisper's cross-attention (Sq 1
+//     and 4) and its decoder's 4-row causal prefill;
+//   * float32, any shape: the CUDA-core tile loop of attention_tile.cuh
+//     below, through flash_attention_launch.  TF32 tensor cores would
+//     miss float32's 1e-4 / 1e-5 gates, and the models run bf16 on the
+//     card, so this is a build the chip smoke test holds against the
+//     plain version, not a main-path route.
+// Every route masks the ragged tail itself: rows past Sq are never
+// stored, keys past Skv never score (the reference's wrapper pads both
+// to block multiples instead, and takes no Skv % 128 != 0 in the
+// bidirectional form, e.g. whisper's 1,500 frames).  q/k/v/o are read
+// and written in the model's (B, S, heads, D) layout through strides:
+// the wrapper neither transposes nor pads, so a strided per-layer view
+// of a stacked cross K/V goes in as is.
+//
+// The float32 route: one CTA of 128 threads per (32-row query tile,
+// batch*head) streams 16-row K/V tiles through shared memory, 4 threads
+// per query row; the tile loop is attention_tile.cuh, shared with the
+// verify kernels.  This file supplies its row map (one head's query
+// positions; in the bidirectional form every row sits at Skv - 1, so it
+// sees every key) and the contiguous K/V address map.  Key 0 stays
+// visible to every row, the tile loop's invariant, whenever Skv >= 1.
 
 #include "attention_tile.cuh"
+#include "flash_mma.cuh"
+#include "flash_split.cuh"
 
 namespace {
 
@@ -105,23 +115,48 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int dispatch_d(int D, const void* q, const void* k, const void* v, void* o,
-               int B, int Sq, int Skv, int H, int G, const long long* st,
-               float scale, bool causal, cudaStream_t stream) {
+int dispatch_f32(int D, const void* q, const void* k, const void* v,
+                 void* o, int B, int Sq, int Skv, int H, int G,
+                 const long long* st, float scale, bool causal,
+                 cudaStream_t stream) {
   switch (D) {
-    case 64: return launch<T, 64>(q, k, v, o, B, Sq, Skv, H, G, st, scale, causal, stream);
-    case 128: return launch<T, 128>(q, k, v, o, B, Sq, Skv, H, G, st, scale, causal, stream);
+    case 64: return launch<float, 64>(q, k, v, o, B, Sq, Skv, H, G, st, scale, causal, stream);
+    case 128: return launch<float, 128>(q, k, v, o, B, Sq, Skv, H, G, st, scale, causal, stream);
     default: return repro::kUnsupported;
   }
 }
+
+using repro::mma_tile::bf16;
+
+int dispatch_mma(int D, const void* q, const void* k, const void* v,
+                 void* o, int B, int Sq, int Skv, int H, int G,
+                 const long long* st, float scale_log2, bool causal,
+                 cudaStream_t stream) {
+  const bf16* qq = static_cast<const bf16*>(q);
+  const bf16* kk = static_cast<const bf16*>(k);
+  const bf16* vv = static_cast<const bf16*>(v);
+  bf16* oo = static_cast<bf16*>(o);
+  switch (D) {
+    case 64:
+      return repro::mma_tile::launch<64>(qq, kk, vv, oo, B, Sq, Skv, H, G,
+                                         st, scale_log2, causal, stream);
+    case 128:
+      return repro::mma_tile::launch<128>(qq, kk, vv, oo, B, Sq, Skv, H, G,
+                                          st, scale_log2, causal, stream);
+    default: return repro::kUnsupported;
+  }
+}
+
+constexpr float kLog2e = 1.4426950408889634f;
 
 }  // namespace
 
 // q, o: (B, Sq, H, D); k, v: (B, Skv, KVH, D), all with unit stride on
 // D and element strides (batch, seq, head) given in that order for q,
 // k, v, o.  Both sequences start at position 0; ``causal`` != 0 lets
-// query row i see keys j <= i, 0 every key j < Skv.
+// query row i see keys j <= i, 0 every key j < Skv.  bfloat16 runs the
+// tensor-core tile kernel (every row start 16-byte aligned), float32
+// the CUDA-core tile loop.
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* o, int B, int Sq,
     int Skv, int H, int KVH, int D, long long q_sb, long long q_ss,
@@ -137,12 +172,51 @@ extern "C" int flash_attention_launch(
   const int G = H / KVH;
   switch (dtype) {
     case repro::kFloat32:
-      return dispatch_d<float>(D, q, k, v, o, B, Sq, Skv, H, G, st, scale,
-                               causal != 0, s);
+      return dispatch_f32(D, q, k, v, o, B, Sq, Skv, H, G, st, scale,
+                          causal != 0, s);
     case repro::kBFloat16:
-      return dispatch_d<__nv_bfloat16>(D, q, k, v, o, B, Sq, Skv, H, G, st,
-                                       scale, causal != 0, s);
+      return dispatch_mma(D, q, k, v, o, B, Sq, Skv, H, G, st,
+                          scale * kLog2e, causal != 0, s);
     default:
       return repro::kUnsupported;
+  }
+}
+
+// The split-KV route, bfloat16 only, for G * Sq <= 16 rows per KV head:
+// the same arguments as flash_attention_launch, plus float32 scratch
+// o_part (B * KVH, n_split, G * Sq, D) and ml_part (B * KVH, n_split,
+// G * Sq, 2) and the split count and keys per split, with n_split *
+// keys_per_split >= Skv.  Launches the split grid, then the merge grid.
+extern "C" int flash_attention_split_launch(
+    const void* q, const void* k, const void* v, void* o, void* o_part,
+    void* ml_part, int B, int Sq, int Skv, int H, int KVH, int D,
+    long long q_sb, long long q_ss, long long q_sh, long long k_sb,
+    long long k_ss, long long k_sh, long long v_sb, long long v_ss,
+    long long v_sh, long long o_sb, long long o_ss, long long o_sh,
+    int n_split, int keys_per_split, float scale, int causal, int dtype,
+    void* stream) {
+  const long long st[12] = {q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
+                            v_sb, v_ss, v_sh, o_sb, o_ss, o_sh};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (KVH <= 0 || H % KVH || Skv <= 0 || dtype != repro::kBFloat16)
+    return repro::kUnsupported;
+  if (B <= 0 || Sq <= 0) return 0;
+  const bf16* qq = static_cast<const bf16*>(q);
+  const bf16* kk = static_cast<const bf16*>(k);
+  const bf16* vv = static_cast<const bf16*>(v);
+  bf16* oo = static_cast<bf16*>(o);
+  float* op = static_cast<float*>(o_part);
+  float* ml = static_cast<float*>(ml_part);
+  switch (D) {
+    case 64:
+      return repro::split_kv::launch<64>(qq, kk, vv, oo, op, ml, B, Sq, Skv,
+                                         H, KVH, st, n_split, keys_per_split,
+                                         scale * kLog2e, causal != 0, s);
+    case 128:
+      return repro::split_kv::launch<128>(qq, kk, vv, oo, op, ml, B, Sq, Skv,
+                                          H, KVH, st, n_split,
+                                          keys_per_split, scale * kLog2e,
+                                          causal != 0, s);
+    default: return repro::kUnsupported;
   }
 }

@@ -1,20 +1,35 @@
-"""Flash attention, causal or bidirectional: the CUDA kernel's wrapper
-and its plain versions.
+"""Flash attention, causal or bidirectional: the CUDA kernels' wrapper
+and their plain versions.
 
 ``flash_attention`` is the model-layout entry point that the prefill
 (causal), whisper's encoder and its cross-attention (bidirectional,
 Sq != Skv there) use.
 A CPU tensor goes to ``flash_attention_plain`` (the copy of the
-reference's ``flash_attention_jnp``); a CUDA tensor launches the
-hand-written kernel in ``csrc/flash_attention.cu`` or raises.
-``flash_attention.launches`` counts kernel launches.
+reference's ``flash_attention_jnp``); a CUDA tensor launches one of
+three hand-written routes (``_route``, by dtype and by the G * Sq query
+rows that share a KV head) or raises:
+
+* bfloat16, G * Sq > 16: the tensor-core tile kernel
+  (``csrc/flash_mma.cuh``) -- the LM prefill, whisper's encoder, every
+  speculative admission;
+* bfloat16, G * Sq <= 16: the split-KV kernel and its log-sum-exp merge
+  (``csrc/flash_split.cuh``, ``csrc/split_merge.cuh``) -- whisper's
+  cross-attention at decode (Sq 1) and prefill (Sq 4) and its decoder's
+  4-row causal prefill; ``flash_attention_split_plain`` is its plain
+  version;
+* float32: the CUDA-core tile loop (``csrc/attention_tile.cuh``), a
+  build the models do not run on the card.
+
+No route is taken because another failed.  ``flash_attention.launches``
+counts calls that launched a kernel (one per call, although the split
+route runs two grids).
 
 Replaces ``src/repro/kernels/flash_attention/flash_attention.py:
 flash_attention_kernel`` (wrapper ``ops.py:flash_attention``) in both
 forms of its ``causal`` switch.  The reference model runs its prefill,
 encoder and cross-attention through the jnp ``flash_attention_jnp``;
-the port runs this kernel there instead, held against that function.
-The kernel masks the ragged tail itself, so unlike the reference
+the port runs these kernels there instead, held against that function.
+The kernels mask the ragged tail themselves, so unlike the reference
 wrapper this one pads nothing, and it takes whisper's 1,500 keys in the
 bidirectional form, where the reference wrapper asserts
 ``causal or Skv % block_k == 0``.
@@ -22,6 +37,7 @@ bidirectional form, where the reference wrapper asserts
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -29,6 +45,14 @@ import torch
 from repro_torch.kernels import build
 
 MASK_VALUE = -1e30
+
+# The split-KV route takes a (batch, KV head)'s query rows when there are
+# at most SPLIT_MAX_ROWS of them (one CTA holds them all); it streams keys
+# in SPLIT_CHUNK-key chunks and aims at SPLIT_CTAS_PER_SM CTAs per SM.
+SPLIT_MAX_ROWS = 16
+SPLIT_CHUNK = 64
+SPLIT_CTAS_PER_SM = 8
+LOG2E = 1.4426950408889634
 
 
 def flash_attention_ref(q, k, v, *, causal: bool = True):
@@ -97,6 +121,105 @@ def flash_attention_plain(q, k, v, *, causal: bool, chunk: int = 1024):
     return torch.cat(outs, dim=1)
 
 
+def split_partials(q, k, v, *, causal: bool, keys_per_split: int):
+    """The split route's first pass, as the kernel computes it: the keys
+    of each (batch, KV head) cut into ranges of ``keys_per_split``, and
+    per range and query row the unnormalised f32 output o, the running
+    max m of the scores in log2 units (times scale * log2(e)) and l =
+    sum exp2(score - m).  A range with no visible key has m = -inf,
+    l = 0, o = 0.
+
+    q: (B, Sq, H, D); k, v: (B, Skv, KVH, D).  Rows are ordered (query
+    t, head g) as r = t * G + g, at position t.  Returns o (B, KVH,
+    n_split, G * Sq, D), m and l (B, KVH, n_split, G * Sq)."""
+    b, sq, h, d = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    scale = LOG2E / math.sqrt(d)
+    qr = q.float().reshape(b, sq, kvh, g, d).permute(0, 2, 1, 3, 4)
+    qr = qr.reshape(b, kvh, sq * g, d) * scale
+    pos = torch.arange(sq, device=q.device).repeat_interleave(g)  # row -> t
+    os_, ms, ls = [], [], []
+    for k0 in range(0, skv, keys_per_split):
+        kk = k[:, k0:k0 + keys_per_split].float().transpose(1, 2)
+        vv = v[:, k0:k0 + keys_per_split].float().transpose(1, 2)
+        s = torch.einsum("bhrd,bhkd->bhrk", qr, kk)
+        if causal:
+            keys = k0 + torch.arange(kk.shape[2], device=q.device)
+            s = torch.where(keys[None, :] <= pos[:, None], s, -math.inf)
+        m = s.amax(-1)
+        p = torch.exp2(s - torch.where(m == -math.inf, 0.0, m)[..., None])
+        os_.append(torch.einsum("bhrk,bhkd->bhrd", p, vv))
+        ms.append(m)
+        ls.append(p.sum(-1))
+    return torch.stack(os_, 2), torch.stack(ms, 2), torch.stack(ls, 2)
+
+
+def merge_partials(o, m, l):
+    """The split route's second pass (``csrc/split_merge.cuh``): M = max
+    m, w = exp2(m - M), out = sum w o / max(sum w l, 1e-30) over the
+    split axis (2).  Returns (B, KVH, R, D) in float32."""
+    mx = m.amax(2, keepdim=True)
+    w = torch.exp2(m - torch.where(mx == -math.inf, 0.0, mx))
+    num = (w[..., None] * o).sum(2)
+    return num / (w * l).sum(2).clamp_min(1e-30)[..., None]
+
+
+def flash_attention_split_plain(q, k, v, *, causal: bool,
+                                keys_per_split: int):
+    """The split route's plain version: ``split_partials``, then
+    ``merge_partials``, back in the model layout and ``q``'s dtype.
+    q: (B, Sq, H, D); k, v: (B, Skv, KVH, D)."""
+    b, sq, h, d = q.shape
+    kvh = k.shape[2]
+    o = merge_partials(*split_partials(q, k, v, causal=causal,
+                                       keys_per_split=keys_per_split))
+    o = o.reshape(b, kvh, sq, h // kvh, d).permute(0, 2, 1, 3, 4)
+    return o.reshape(b, sq, h, d).to(q.dtype)
+
+
+def _route(sq: int, skv: int, h: int, kvh: int, d: int, dtype) -> str:
+    """The device route of a call: ``"tile_f32"`` for float32, for
+    bfloat16 ``"mma"`` (the tensor-core tile kernel) when more than
+    ``SPLIT_MAX_ROWS`` query rows G * Sq share a KV head, else
+    ``"split"`` (split-KV + merge).  Raises on what no route takes."""
+    if d not in (64, 128):
+        raise ValueError(f"flash_attention: D = {d} not in (64, 128)")
+    if dtype == torch.float32:
+        return "tile_f32"
+    if dtype != torch.bfloat16:
+        raise TypeError(f"flash_attention takes float32 or bfloat16, got "
+                        f"{dtype}")
+    return "mma" if (h // kvh) * sq > SPLIT_MAX_ROWS else "split"
+
+
+def _splits(n_sets: int, skv: int, n_sm: int = 132) -> tuple[int, int]:
+    """(split count, keys per split) of the split route for ``n_sets``
+    (batch, KV head) pairs over ``skv`` keys: keys per split a multiple
+    of ``SPLIT_CHUNK``, enough splits that the grid reaches
+    ``SPLIT_CTAS_PER_SM`` CTAs per SM where the keys allow."""
+    chunks = -(-skv // SPLIT_CHUNK)
+    want = max(1, -(-SPLIT_CTAS_PER_SM * n_sm // n_sets))
+    per = -(-chunks // min(want, chunks))
+    return -(-chunks // per), per * SPLIT_CHUNK
+
+
+def _check_aligned(*tensors) -> None:
+    """Every (batch, seq, head) row start 16-byte aligned, as the
+    kernels' 16-byte loads need; raises where one is not."""
+    for x in tensors:
+        step = x.element_size()
+        if x.data_ptr() % 16 or any(s * step % 16 for s in x.stride()[:3]):
+            raise ValueError(
+                f"flash_attention: rows of a {tuple(x.shape)} tensor with "
+                f"strides {x.stride()} are not 16-byte aligned")
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
@@ -112,13 +235,25 @@ def _lib():
     return fn
 
 
+def _split_lib():
+    lib = build.library("flash_attention")
+    fn = lib.flash_attention_split_launch
+    if fn.argtypes is None:
+        fn.argtypes = ([_P] * 6 + [_I] * 6 + [_L] * 12
+                       + [_I, _I, ctypes.c_float, _I, _I, _P])
+        fn.restype = _I
+    return fn
+
+
 def flash_attention(q, k, v, *, causal: bool = True):
     """q: (B, Sq, H, D); k, v: (B, Skv, KVH, D) with H % KVH == 0 and
     Skv >= 1; both sequences start at position 0.  ``causal`` lets query
     row i see keys j <= i; otherwise every row sees all Skv keys.
     Returns (B, Sq, H, D).  CPU tensors take the plain version; CUDA
-    tensors launch the kernel (D in {64, 128}, float32 or bfloat16) or
-    raise."""
+    tensors (D in {64, 128}, float32 or bfloat16, every row start
+    16-byte aligned) launch the route ``_route`` names -- the
+    tensor-core tile kernel, the split-KV kernel or the float32 tile
+    loop -- or raise."""
     if k.shape[1] < 1:
         raise ValueError("flash_attention: no keys (Skv = 0)")
     if q.device.type == "cpu":
@@ -136,13 +271,29 @@ def flash_attention(q, k, v, *, causal: bool = True):
         if x.device != q.device or x.stride(-1) != 1:
             raise ValueError("flash_attention: q, k, v must share a "
                              "device and have unit stride on D")
+    route = _route(sq, skv, h, kvh, d, q.dtype)
+    _check_aligned(q, k, v)
     o = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
-    err = _lib()(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        b, sq, skv, h, kvh, d,
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
-        1.0 / math.sqrt(d), int(causal), build.dtype_code(q),
-        torch.cuda.current_stream(q.device).cuda_stream)
+    strides = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+               *o.stride()[:3])
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if route == "split":
+        n_split, per = _splits(b * kvh, skv, _sm_count(q.device.index))
+        rows = (h // kvh) * sq
+        o_part = torch.empty((b * kvh, n_split, rows, d),
+                             dtype=torch.float32, device=q.device)
+        ml_part = torch.empty((b * kvh, n_split, rows, 2),
+                              dtype=torch.float32, device=q.device)
+        err = _split_lib()(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            o_part.data_ptr(), ml_part.data_ptr(), b, sq, skv, h, kvh, d,
+            *strides, n_split, per, 1.0 / math.sqrt(d), int(causal),
+            build.dtype_code(q), stream)
+    else:
+        err = _lib()(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            b, sq, skv, h, kvh, d, *strides, 1.0 / math.sqrt(d),
+            int(causal), build.dtype_code(q), stream)
     build.check(err, "flash_attention")
     flash_attention.launches += 1
     return o

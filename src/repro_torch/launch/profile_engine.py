@@ -1,6 +1,7 @@
 """Where the engine's time goes on the card: decode and prefill profiled.
 
   python -m repro_torch.launch.profile_engine [--arch rwkv6-3b]
+  python -m repro_torch.launch.profile_engine --arch whisper-small
 
 Fills every slot of the full-width ``--arch`` (default qwen3-1.7b)
 ``ContinuousBatchingEngine`` (the engine shape ``chip_smoke.py`` serves
@@ -17,6 +18,13 @@ tokens), then, after one warm-up chunk, measures:
   draft, the target's layers past 2 damped to 0.001: ``chip_smoke.py``
   phase 8's pair), its slots filled the same way, per round; only for
   an architecture with a verify path (not rwkv6-3b).
+
+whisper-small (an encoder-decoder, which the slot engine refuses) is
+profiled as ``chip_smoke.py`` phase 14 serves it through ``ServeEngine``:
+``SLOTS`` windows of frames with ``ENC_PROMPT``-token prompts and a
+``ENC_MAX_LEN``-row cache; its encoder, its prefill (encoder, cross
+K/V, decoder) and one decode step with the engine's per-step host read
+of the next tokens, each timed on the host and profiled the same way.
 
 Prints one JSON object as its last line.  Needs a CUDA device; the
 numbers are the card's and are printed beside its name and power limit.
@@ -46,6 +54,8 @@ CHUNK_STEPS = 8
 PROMPT_LEN = 1024
 SPEC_K = 4
 SEED = 0
+ENC_PROMPT = 4          # whisper's start-of-transcript prefix
+ENC_MAX_LEN = 448       # whisper's text context
 
 
 def _wall_ms(fn, reps: int) -> float:
@@ -110,11 +120,73 @@ def _profile_spec(model, params, rng) -> dict:
     return rounds
 
 
+@torch.no_grad()
+def _profile_encdec(model, params) -> dict:
+    """Encoder, prefill and one decode step of ``SLOTS`` whisper windows
+    (frames and prompt tokens from numpy seed ``SEED``)."""
+    cfg = model.cfg
+    rng = np.random.default_rng(SEED)
+    frames = torch.as_tensor(rng.standard_normal(
+        (SLOTS, cfg.encdec.enc_len, cfg.d_model), dtype=np.float32),
+        device="cuda")
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                          (SLOTS, ENC_PROMPT)), device="cuda")
+    inputs = {"frames": frames, "tokens": tokens}
+
+    def encode():
+        model.encode(params, frames)
+
+    def prefill():
+        return model.prefill(params, inputs, max_len=ENC_MAX_LEN)
+
+    logits, cache = prefill()
+    tok = torch.argmax(logits[:, -1], -1)[:, None]
+
+    def step():                 # ServeEngine.run_batch's loop body
+        lg, _ = model.decode_step(params, cache, tok)
+        torch.argmax(lg[:, -1], -1).tolist()
+
+    encode()
+    step()                                            # warm-up
+    return {"encoder": _profiled(encode, _wall_ms(encode, 3)),
+            "prefill": _profiled(prefill, _wall_ms(prefill, 3)),
+            "decode": _profiled(step, _wall_ms(step, 10))}
+
+
+def _smi() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+
+
+def main_encdec(cfg) -> dict:
+    model = build_model(cfg, "cuda")
+    parts = _profile_encdec(model, model.init(SEED))
+    smi = _smi()
+    print(f"{smi}: {cfg.name}, {SLOTS} windows of {cfg.encdec.enc_len} "
+          f"frames, {ENC_PROMPT}-token prompts")
+    for name, part in parts.items():
+        print(f"  {name}: {part['wall_ms']:.3f} ms host wall, "
+              f"{part['kernel_ms']:.3f} ms of kernels, busy "
+              f"{part['busy_share']:.1%}, {part['n_kernels']} kernels")
+    for name, part in parts.items():
+        for t in part["top"]:
+            print(f"  {name} {t['ms']:9.3f} ms x{t['count']:<5} "
+                  f"{t['kernel']}")
+    out = {"device": smi, "arch": cfg.name, "windows": SLOTS,
+           "prompt_len": ENC_PROMPT, **parts}
+    print(json.dumps(out))
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", default=ARCH, choices=list_archs())
     args = ap.parse_args(argv)
     cfg = get_config(args.arch)
+    if cfg.encdec is not None:
+        return main_encdec(cfg)
     model = build_model(cfg, "cuda")
     params = model.init(SEED)
     eng = ContinuousBatchingEngine(model, params, max_len=MAX_LEN,
@@ -144,10 +216,7 @@ def main(argv=None):
     rounds = _profile_spec(model, params, rng) \
         if model.kind == "attn_dense" else None
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
+    smi = _smi()
     depth = int(eng.state["cache"]["pos"].max())
     print(f"{smi}: {cfg.name}, {SLOTS} slots at depth ~{depth}")
     print(f"  decode: {decode['wall_ms_per_step']:.3f} ms/step host wall, "
