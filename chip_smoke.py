@@ -14,7 +14,11 @@ Phases, each fatal on failure:
    never calls) and the least time the card could take (its bound).
    Paged decode must also equal contiguous decode bit for bit on the
    same values, through a shuffled page table, and likewise paged
-   verify and contiguous verify.
+   verify and contiguous verify, at T 5 (the speculative window), 8 and
+   9 (both sides of the split route's 16-row line at G 2) and 200 (a
+   prefix hit's suffix).  Each verify call prints its route (bf16: the
+   split-KV kernel + merge for at most 16 rows T * G per KV head, else
+   the tensor-core tile kernel) and, timed, its kernel-only time.
    The linear scan (rwkv6-3b's prefill: B 1, T 1,024 and a ragged
    1,000, H 48, dh 64) against its plain chunked version, y and state.
    The W8A8 int8 GEMM at the tiny model's shape (M 12,544, K = N = 64,
@@ -30,7 +34,8 @@ Phases, each fatal on failure:
    Then every build the wrappers can launch (float32 and bfloat16,
    D 64 and 128, G 1/2/4/8, flash in both forms and, in bf16, through
    both routes: causal Sq 3 over 3 and 300 keys (whole splits masked),
-   a ragged last split, 77 x 300 tiles; the scan at dh 32/64/128; the
+   a ragged last split, 77 x 300 tiles; both verify kernels at windows
+   of 5, 8, 9 and 200, bit for bit; the scan at dh 32/64/128; the
    int8 GEMM at the reference test's shapes and ragged edges, both
    outputs) once at a small shape against its plain version.
 4. Full-width engine: qwen3-1.7b (28 layers, d_model 2048, 16/8 heads,
@@ -140,6 +145,16 @@ REL_NORM_TOL = {"bfloat16": 5e-3, "float32": 1e-5}
 FLASH_ROUTE_CASES = ((True, 3, 3), (True, 3, 300), (False, 4, 777),
                      (True, 77, 300))
 
+# Phase 3b's verify windows (T, starts of 3 slots) over phase 3b's 304
+# cache positions (19 pages of 16), each at D 64/128 and G 1/2/4/8, so
+# that bf16 reaches both routes: T 5 (split up to G 2, tiles from G 4),
+# T 8 and 9 (16 and 18 rows at G 2: both sides of the split route's
+# line), T 200 (tiles).  Each set has a slot at 0 and one whose window
+# ends on the last position (pos + T = 304); windows at 14 cross a page
+# boundary.
+VERIFY_WINDOWS = ((5, (0, 290, 133)), (5, (14, 299, 0)), (8, (14, 296, 0)),
+                  (9, (14, 295, 0)), (200, (14, 104, 0)))
+
 # The linear scan in float32: the plain version's chunked form takes
 # exp of differences of within-chunk cumulative log decays (up to ~300
 # in magnitude, float32 ulp ~3e-5) where the kernel multiplies the
@@ -235,8 +250,9 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
 def device_ms(torch, fn, reps: int = 10):
     """Kernel-only device time per call of ``fn()`` in ms: the durations
     of the CUDA kernels ``torch.profiler`` records over ``reps`` calls
-    (both grids of flash's split route), summed, over ``reps``; and the
-    kernels' names.  (None, []) where the profiler records no kernel."""
+    (both grids of a split route), summed, over ``reps``; and a text of
+    each kernel's name with its own ms per call.  (None, "") where the
+    profiler records no kernel."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -246,11 +262,16 @@ def device_ms(torch, fn, reps: int = 10):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    if not kern:
-        return None, []
-    us = sum(e.time_range.elapsed_us() for e in kern)
-    return us / 1e3 / reps, sorted({e.name.split("(")[0] for e in kern})
+    per = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            name = e.name.split("(")[0].removeprefix("void ")
+            per[name] = per.get(name, 0.0) + e.time_range.elapsed_us()
+    if not per:
+        return None, ""
+    return (sum(per.values()) / 1e3 / reps,
+            ", ".join(f"{n} {us / 1e3 / reps:.4f} ms"
+                      for n, us in sorted(per.items())))
 
 
 def fmt_ms(ms) -> str:
@@ -319,7 +340,7 @@ def phase_kernels(torch, dev):
     from repro_torch.kernels.decode_attention.ops import (
         decode_attention, decode_attention_plain)
     from repro_torch.kernels.flash_attention.ops import (
-        _route, flash_attention, flash_attention_plain)
+        _route, _sm_count, flash_attention, flash_attention_plain, plan)
     from repro_torch.kernels.linear_scan.ops import (linear_scan,
                                                      linear_scan_plain)
     from repro_torch.kernels.paged_decode_attention.ops import (
@@ -389,7 +410,7 @@ def phase_kernels(torch, dev):
         print(f"  flash_attention S={sq} route {route}: max |kernel - "
               f"plain| {err:.3e}, ||kernel - plain|| / ||plain|| {rel:.3e}")
     ms = time_ms(lambda: flash_attention(q, k, v, causal=True))
-    dev_ms, names = device_ms(torch,
+    dev_ms, kerns = device_ms(torch,
                               lambda: flash_attention(q, k, v, causal=True))
     plain_ms = time_ms(lambda: flash_attention_plain(q, k, v, causal=True))
     library_ms = time_ms(lambda: F.scaled_dot_product_attention(
@@ -406,7 +427,7 @@ def phase_kernels(torch, dev):
         kernel_route=_route(sq, sq, h, kvh, d, bf16), device_ms=dev_ms)
     print(f"  flash_attention S={sq} H={h} KVH={kvh} D={d} route "
           f"{out['flash_attention']['kernel_route']}: kernel {ms:.4f} ms "
-          f"(kernel-only {fmt_ms(dev_ms)}: {', '.join(names)}), plain "
+          f"(kernel-only {fmt_ms(dev_ms)}: {kerns}), plain "
           f"{plain_ms:.4f} ms, SDPA {library_ms:.4f} ms, bound "
           f"{bound_ms * 1e3:.2f} us ({bound_by}, {flops} flop)")
 
@@ -457,21 +478,52 @@ def phase_kernels(torch, dev):
                       (200, [15, 1031, 1030, 0, 511, 1500, 300, 1848])):
         pos = torch.tensor(starts, dtype=torch.int32, device=dev)
         q = torch.randn((b, t, h, d), generator=gen, device=dev).to(bf16)
-        err, rel = compare(f"paged_verify_attention (T={t})",
+        route = _route(t, nb * ps, h, kvh, d, bf16)
+        err, rel = compare(f"paged_verify_attention (T={t}, {route})",
                            paged_verify_attention(q, kp, vp, pages, pos),
                            paged_verify_attention_plain(q, kp, vp, pages,
                                                         pos))
         errs.append(err)
         rels.append(rel)
-        print(f"  paged_verify_attention T={t}: max |kernel - plain| "
-              f"{err:.3e}, ||kernel - plain|| / ||plain|| {rel:.3e}")
+        print(f"  paged_verify_attention T={t} route {route}: max |kernel - "
+              f"plain| {err:.3e}, ||kernel - plain|| / ||plain|| {rel:.3e}")
+    # verify and paged verify on the same values (the decode cache and its
+    # shuffled pages), bit for bit, on both sides of the 16-row line (T 8
+    # and 9 at G 2) and at a prefix hit's T 200
+    for t, starts in ((8, [15, 1031, 1030, 0, 511, 1500, 300, 2040]),
+                      (9, [15, 1031, 1030, 0, 511, 1500, 300, 2039]),
+                      (200, [15, 1031, 1030, 0, 511, 1500, 300, 1848])):
+        pos = torch.tensor(starts, dtype=torch.int32, device=dev)
+        q = torch.randn((b, t, h, d), generator=gen, device=dev).to(bf16)
+        n_sm = _sm_count(dev.index)
+        vplan = plan("verify_attention", t, h, kvh, d, bf16, s, b * kvh,
+                     n_sm)
+        check(vplan == plan("paged_verify_attention", t, h, kvh, d, bf16,
+                            nb * ps, b * kvh, n_sm),
+              f"verify and paged verify take different routes or split "
+              f"layouts at T={t}")
+        route = vplan[0]
+        got = verify_attention(q, kc, vc, pos)
+        err, rel = compare(f"verify_attention (T={t}, {route})", got,
+                           verify_attention_plain(q, kc, vc, pos))
+        check(torch.equal(got, paged_verify_attention(q, kp, vp, pages,
+                                                      pos)),
+              f"verify_attention T={t} ({route}) is not bit-identical to "
+              f"paged_verify_attention on the same values through a "
+              f"shuffled page table")
+        print(f"  verify_attention T={t} route {route}: max |kernel - plain|"
+              f" {err:.3e}, ||kernel - plain|| / ||plain|| {rel:.3e}, "
+              f"torch.equal to paged_verify_attention: True")
     # timed at a prefix hit's shape: one slot, a 200-token suffix behind
     # 1,024 cached tokens
     t, start = 200, 1024
     q = torch.randn((1, t, h, d), generator=gen, device=dev).to(bf16)
     pos = torch.tensor([start], dtype=torch.int32, device=dev)
     pg1 = pages[:1]
+    route = _route(t, nb * ps, h, kvh, d, bf16)
     ms = time_ms(lambda: paged_verify_attention(q, kp, vp, pg1, pos))
+    dev_ms, kerns = device_ms(
+        torch, lambda: paged_verify_attention(q, kp, vp, pg1, pos))
     plain_ms = time_ms(lambda: paged_verify_attention_plain(
         q, kp, vp, pg1, pos))
     skv = start + t
@@ -490,9 +542,10 @@ def phase_kernels(torch, dev):
     out["paged_verify_attention"] = dict(
         max_abs_err=max(errs), rel_norm_err=max(rels), ms=ms,
         plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-        library_ms=library_ms)
+        library_ms=library_ms, kernel_route=route, device_ms=dev_ms)
     print(f"  paged_verify_attention B=1 T={t} at pos {start} H={h} "
-          f"KVH={kvh} D={d}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"KVH={kvh} D={d} route {route}: kernel {ms:.4f} ms (kernel-only "
+          f"{fmt_ms(dev_ms)}: {kerns}), plain {plain_ms:.4f} ms, "
           f"SDPA (contiguous, no gather) {library_ms:.4f} ms, bound "
           f"{bound_ms * 1e3:.2f} us ({bound_by}, {flops} flop, {nbytes} B)")
 
@@ -501,13 +554,16 @@ def phase_kernels(torch, dev):
     t = 5
     pos = ragged.clamp(max=s - t)
     q = torch.randn((b, t, h, d), generator=gen, device=dev).to(bf16)
+    route = _route(t, s, h, kvh, d, bf16)
     got = verify_attention(q, kc, vc, pos)
-    err, rel = compare("verify_attention", got,
+    err, rel = compare(f"verify_attention ({route})", got,
                        verify_attention_plain(q, kc, vc, pos))
     check(torch.equal(got, paged_verify_attention(q, kp, vp, pages, pos)),
           "verify_attention is not bit-identical to paged_verify_attention "
           "on the same values through a shuffled page table")
     ms = time_ms(lambda: verify_attention(q, kc, vc, pos))
+    dev_ms, kerns = device_ms(torch,
+                              lambda: verify_attention(q, kc, vc, pos))
     plain_ms = time_ms(lambda: verify_attention_plain(q, kc, vc, pos))
     q_pos = pos[:, None] + torch.arange(t, device=dev)[None, :]   # (B, T)
     vmask = (torch.arange(s, device=dev)[None, None, :]
@@ -519,16 +575,26 @@ def phase_kernels(torch, dev):
     nbytes = rows * kvh * d * 2 * 2 + 2 * q.numel() * 2 + b * 4
     flops = int((q_pos.long() + 1).sum()) * h * d * 4   # visible pairs
     bound_ms, bound_by = bound(nbytes, flops)
+    # the paged speculative window (phase 9) at the same shape and values
+    p_ms = time_ms(lambda: paged_verify_attention(q, kp, vp, pages, pos))
+    p_dev_ms, _ = device_ms(
+        torch, lambda: paged_verify_attention(q, kp, vp, pages, pos))
     out["verify_attention"] = dict(
         max_abs_err=err, rel_norm_err=rel, ms=ms, plain_ms=plain_ms,
-        bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+        kernel_route=route, device_ms=dev_ms)
+    out["paged_verify_attention"]["window"] = dict(
+        t=t, kernel_route=route, ms=p_ms, device_ms=p_dev_ms)
     print(f"  verify_attention max |kernel - plain| {err:.3e}, "
           f"||kernel - plain|| / ||plain|| {rel:.3e}, torch.equal to "
           f"paged_verify_attention: True")
     print(f"  verify_attention B={b} T={t} KVH={kvh} G={g} D={d} S={s} "
-          f"ragged pos: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
-          f"(boolean (B, H, T, S) mask) {library_ms:.4f} ms, bound "
+          f"ragged pos route {route}: kernel {ms:.4f} ms (kernel-only "
+          f"{fmt_ms(dev_ms)}: {kerns}), plain {plain_ms:.4f} ms, "
+          f"SDPA (boolean (B, H, T, S) mask) {library_ms:.4f} ms, bound "
           f"{bound_ms * 1e3:.2f} us ({bound_by}, {nbytes} B, {flops} flop)")
+    print(f"  paged_verify_attention at the same window (T={t}, route "
+          f"{route}): kernel {p_ms:.4f} ms (kernel-only {fmt_ms(p_dev_ms)})")
 
     # --- linear scan: rwkv6-3b's prefill of 1,024 tokens (48 padded
     # heads of 64), then a ragged 1,000
@@ -594,7 +660,7 @@ def phase_flash_bidir(torch, dev):
                            flash_attention(q, k, v, causal=False),
                            flash_attention_plain(q, k, v, causal=False))
         ms = time_ms(lambda: flash_attention(q, k, v, causal=False))
-        dev_ms, names = device_ms(
+        dev_ms, kerns = device_ms(
             torch, lambda: flash_attention(q, k, v, causal=False))
         plain_ms = time_ms(lambda: flash_attention_plain(q, k, v,
                                                          causal=False))
@@ -613,7 +679,7 @@ def phase_flash_bidir(torch, dev):
         print(f"  flash_attention bidirectional {tag} B={b} Sq={sq} "
               f"Skv={skv} H={h} KVH={kvh} D={d} route {route}: max |kernel "
               f"- plain| {err:.3e}, rel {rel:.3e}; kernel {ms:.4f} ms "
-              f"(kernel-only {fmt_ms(dev_ms)}: {', '.join(names)}), plain "
+              f"(kernel-only {fmt_ms(dev_ms)}: {kerns}), plain "
               f"{plain_ms:.4f} ms, SDPA {library_ms:.4f} ms, bound "
               f"{bound_ms * 1e3:.2f} us ({bound_by}, {nbytes} B, {flops} "
               f"flop)")
@@ -624,16 +690,17 @@ def phase_builds(torch, dev):
     """Phase 3, second part: every build the wrappers can launch (the
     kernels are templates on dtype, D and, for decode, G), once each at
     a small ragged shape against the plain version: both verify kernels
-    with a 5-token window (across a page boundary for paged verify),
-    which must agree bit for bit.  Flash also at the shapes that reach
-    both bf16 routes (``FLASH_ROUTE_CASES``); a split-route case is held
+    at every window of ``VERIFY_WINDOWS`` (both bf16 routes, across a
+    page boundary, up to the last position), which must agree bit for
+    bit.  Flash also at the shapes that reach both bf16 routes
+    (``FLASH_ROUTE_CASES``).  A split-route case of either kernel is held
     against the split algorithm's plain version too."""
     import itertools
     from repro_torch.kernels.decode_attention.ops import (
         decode_attention, decode_attention_plain)
     from repro_torch.kernels.flash_attention.ops import (
         _route, _sm_count, _splits, flash_attention, flash_attention_plain,
-        flash_attention_split_plain)
+        flash_attention_split_plain, plan)
     from repro_torch.kernels.paged_decode_attention.ops import (
         paged_decode_attention, paged_decode_attention_plain)
     from repro_torch.kernels.paged_verify_attention.ops import (
@@ -646,7 +713,6 @@ def phase_builds(torch, dev):
     b, kvh, s, sq = 3, 2, 300, 77       # sq: not a multiple of a tile
     ps, nb = 16, 19                     # 304 rows of pages hold s
     pos = torch.tensor([0, s - 1, 137], dtype=torch.int32, device=dev)
-    starts = torch.tensor([0, 290, 133], dtype=torch.int32, device=dev)
     pages = (torch.randperm(b * nb, generator=gen, device=dev) + 1).reshape(
         b, nb).to(torch.int32)
     for dtype, d, g in itertools.product((torch.float32, torch.bfloat16),
@@ -675,16 +741,32 @@ def phase_builds(torch, dev):
         check(torch.equal(got, decode_attention(q, kc, vc, pos)),
               f"paged_decode_attention {name} is not bit-identical to "
               f"decode_attention")
-        q = randn(b, 5, h, d)
-        got = paged_verify_attention(q, kp, vp, pages, starts)
-        pver = compare(f"paged_verify_attention {name}", got,
-                       paged_verify_attention_plain(q, kp, vp, pages,
-                                                    starts))
-        ver = verify_attention(q, kc, vc, starts)
-        cver = compare(f"verify_attention {name}", ver,
-                       verify_attention_plain(q, kc, vc, starts))
-        check(torch.equal(ver, got), f"verify_attention {name} is not "
-              f"bit-identical to paged_verify_attention")
+        # both verify kernels on the same values at every window of
+        # VERIFY_WINDOWS, bit for bit; a split-route window against the
+        # split algorithm's plain version too
+        vers = []
+        for t, starts in VERIFY_WINDOWS:
+            vpos = torch.tensor(starts, dtype=torch.int32, device=dev)
+            q = randn(b, t, h, d)
+            route, _, per = plan("verify_attention", t, h, kvh, d, dtype,
+                                 nb * ps, b * kvh, _sm_count(dev.index))
+            label = f"{name} T={t} ({route})"
+            got = paged_verify_attention(q, kp, vp, pages, vpos)
+            pver = compare(f"paged_verify_attention {label}", got,
+                           paged_verify_attention_plain(q, kp, vp, pages,
+                                                        vpos))
+            ver = verify_attention(q, kc, vc, vpos)
+            cver = compare(f"verify_attention {label}", ver,
+                           verify_attention_plain(q, kc, vc, vpos))
+            check(torch.equal(ver, got), f"verify_attention {label} is not "
+                  f"bit-identical to paged_verify_attention")
+            if route == "split":
+                compare(f"verify_attention {label} vs the split plain "
+                        f"version", ver, flash_attention_split_plain(
+                            q, kc, vc, causal=True, keys_per_split=per,
+                            offsets=vpos))
+            vers.append(f"T{t}@{starts[1]} {route} {cver[0]:.2e}/"
+                        f"{cver[1]:.2e}, paged {pver[0]:.2e}/{pver[1]:.2e}")
         q = randn(2, sq, h, d)
         k, v = randn(2, sq, kvh, d), randn(2, sq, kvh, d)
         fl = compare(f"flash_attention {name}",
@@ -722,9 +804,8 @@ def phase_builds(torch, dev):
               f"bidirectional "
               f"{sq}x{s} {bi[0][0]:.2e}/{bi[0][1]:.2e}, 1x1500 "
               f"{bi[1][0]:.2e}/{bi[1][1]:.2e}; paged decode "
-              f"{pdec[0]:.2e}/{pdec[1]:.2e} (= decode); verify "
-              f"{cver[0]:.2e}/{cver[1]:.2e}; paged verify "
-              f"{pver[0]:.2e}/{pver[1]:.2e} (= verify)")
+              f"{pdec[0]:.2e}/{pdec[1]:.2e} (= decode); verify and paged "
+              f"verify (bit-equal): {'; '.join(vers)}")
     # the scan: B 2, T 77 (no multiple of a staged block), H 3
     for dtype, dh in itertools.product((torch.float32, torch.bfloat16),
                                        (32, 64, 128)):

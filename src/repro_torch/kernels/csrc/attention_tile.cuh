@@ -1,8 +1,7 @@
 // One CTA's tile of multi-row attention with an f32 online softmax on
-// CUDA cores, shared by the two verify kernels (verify_attention.cu,
-// paged_verify_attention.cu) and by flash's float32 route
-// (flash_attention.cu, both forms); flash's bfloat16 routes are
-// flash_mma.cuh and flash_split.cuh.
+// CUDA cores: the float32 route of flash (flash_attention.cu, both forms)
+// and of both verify kernels (window_attention.cuh); their bfloat16
+// routes are flash_mma.cuh and flash_split.cuh.
 //
 // The CTA owns kBQ query rows.  A row map (``Rows``) says, for CTA-local
 // row rr, whether it exists (``valid``), where its query and output
@@ -117,10 +116,10 @@ __device__ __forceinline__ void attend_tile(const Rows& rows, const Map& kv,
   }
 }
 
-// The verify kernels' row map: the tile's rows are flattened (window
-// row t, head g) pairs of one (slot, KV head), row index t * G + g, so
-// the G heads that share a KV head share every K/V tile the CTA loads.
-// Window row t sits at absolute position pos[b] + t.  Both verify
+// The verify kernels' float32 row map: the tile's rows are flattened
+// (window row t, head g) pairs of one (slot, KV head), row index t * G +
+// g, so the G heads that share a KV head share every K/V tile the CTA
+// loads.  Window row t sits at absolute position pos[b] + t.  Both verify
 // kernels use this one map, so on the same K/V values they differ only
 // in their address map and return the same bits.
 template <typename T>

@@ -128,26 +128,32 @@ int dispatch_f32(int D, const void* q, const void* k, const void* v,
 
 using repro::mma_tile::bf16;
 
+// flash's keys: (B, Skv, KVH, D) from strides st[3..8]
+repro::ContiguousCache<bf16> bf16_cache(const void* k, const void* v,
+                                        const long long* st) {
+  return {static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+          st[3], st[4], st[5], st[6], st[7], st[8]};
+}
+
 int dispatch_mma(int D, const void* q, const void* k, const void* v,
                  void* o, int B, int Sq, int Skv, int H, int G,
                  const long long* st, float scale_log2, bool causal,
                  cudaStream_t stream) {
   const bf16* qq = static_cast<const bf16*>(q);
-  const bf16* kk = static_cast<const bf16*>(k);
-  const bf16* vv = static_cast<const bf16*>(v);
+  const auto kv = bf16_cache(k, v, st);
   bf16* oo = static_cast<bf16*>(o);
   switch (D) {
     case 64:
-      return repro::mma_tile::launch<64>(qq, kk, vv, oo, B, Sq, Skv, H, G,
-                                         st, scale_log2, causal, stream);
+      return repro::mma_tile::launch<64>(qq, kv, nullptr, oo, B, Sq, Skv, H,
+                                         G, st, st + 9, scale_log2, causal,
+                                         stream);
     case 128:
-      return repro::mma_tile::launch<128>(qq, kk, vv, oo, B, Sq, Skv, H, G,
-                                          st, scale_log2, causal, stream);
+      return repro::mma_tile::launch<128>(qq, kv, nullptr, oo, B, Sq, Skv,
+                                          H, G, st, st + 9, scale_log2,
+                                          causal, stream);
     default: return repro::kUnsupported;
   }
 }
-
-constexpr float kLog2e = 1.4426950408889634f;
 
 }  // namespace
 
@@ -176,7 +182,7 @@ extern "C" int flash_attention_launch(
                           causal != 0, s);
     case repro::kBFloat16:
       return dispatch_mma(D, q, k, v, o, B, Sq, Skv, H, G, st,
-                          scale * kLog2e, causal != 0, s);
+                          scale * repro::kLog2e, causal != 0, s);
     default:
       return repro::kUnsupported;
   }
@@ -202,21 +208,23 @@ extern "C" int flash_attention_split_launch(
     return repro::kUnsupported;
   if (B <= 0 || Sq <= 0) return 0;
   const bf16* qq = static_cast<const bf16*>(q);
-  const bf16* kk = static_cast<const bf16*>(k);
-  const bf16* vv = static_cast<const bf16*>(v);
+  const auto kv = bf16_cache(k, v, st);
   bf16* oo = static_cast<bf16*>(o);
   float* op = static_cast<float*>(o_part);
   float* ml = static_cast<float*>(ml_part);
   switch (D) {
     case 64:
-      return repro::split_kv::launch<64>(qq, kk, vv, oo, op, ml, B, Sq, Skv,
-                                         H, KVH, st, n_split, keys_per_split,
-                                         scale * kLog2e, causal != 0, s);
+      return repro::split_kv::launch<64>(qq, kv, nullptr, oo, op, ml, B, Sq,
+                                         Skv, H, KVH, st, st + 9, n_split,
+                                         keys_per_split,
+                                         scale * repro::kLog2e, causal != 0,
+                                         s);
     case 128:
-      return repro::split_kv::launch<128>(qq, kk, vv, oo, op, ml, B, Sq, Skv,
-                                          H, KVH, st, n_split,
-                                          keys_per_split, scale * kLog2e,
-                                          causal != 0, s);
+      return repro::split_kv::launch<128>(qq, kv, nullptr, oo, op, ml, B,
+                                          Sq, Skv, H, KVH, st, st + 9,
+                                          n_split, keys_per_split,
+                                          scale * repro::kLog2e, causal != 0,
+                                          s);
     default: return repro::kUnsupported;
   }
 }

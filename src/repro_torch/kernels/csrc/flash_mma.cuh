@@ -1,11 +1,15 @@
-// The tensor-core tile route of flash attention (bf16, more than 16 query
-// rows per KV head): FlashAttention-2's loop on mma.sync for sm_90a.
+// The tensor-core tile route of attention (bf16, more than 16 query rows
+// per KV head): FlashAttention-2's loop on mma.sync for sm_90a, shared
+// by flash attention (prefill, whisper's encoder) and by both verify
+// kernels (a prefix-cache hit's suffix, T 200 behind 1,024 cached rows).
 //
-// Query row i of head h attends to keys j < Skv of KV head h // G, only
-// j <= i in the causal form; both sequences start at position 0; out =
-// acc / max(l, 1e-30).  What bounds this work on the H100 is operations
-// (4 D Sq Skv flop per head against ~4 D (Sq + Skv) bytes), so the
-// products run on the bf16 tensor cores:
+// Query row i of head h sits at position off[b] + i (flash: off = 0;
+// verify: off = pos[b], the window start) and attends to keys j < cap of
+// KV head h // G, only j <= off[b] + i in the causal form; keys are
+// reached through an address map of common.cuh (``Cache``: contiguous
+// rows or pages); out = acc / max(l, 1e-30).  What bounds this work on
+// the H100 is operations (4 D Sq Skv flop per head against ~4 D (Sq +
+// Skv) bytes), so the products run on the bf16 tensor cores:
 //   * one CTA of 4 warps per (64 MT-row query tile, batch * head); each
 //     warp owns MT m-tiles of 16 query rows (rows mt * 64 + warp * 16 ..
 //     + 15 of the tile).  Its Q fragments, its 16 x 64 score tiles and
@@ -15,25 +19,31 @@
 //     D 128 (twice the accumulator) MT 1;
 //   * S = Q K^T and O += P V are mma.sync.m16n8k16 bf16 -> f32, their
 //     operands read from shared memory by ldmatrix (.trans for V, whose
-//     rows are keys);
+//     rows are keys); each 16-wide step issues all its ldmatrix loads
+//     before its mma's, so their shared-memory latency overlaps;
 //   * K and V arrive in 64-row tiles through a kStages-deep ring of
 //     16-byte cp.async.cg copies in dynamic shared memory: tile k + 1
-//     and k + 2 are in flight while tile k is multiplied.  Rows are
-//     XOR-swizzled in 16-byte chunks (chunk ^ (row & 7)), so the eight
-//     rows one ldmatrix reads sit in eight distinct bank groups;
+//     and k + 2 are in flight while tile k is multiplied.  Each thread
+//     copies one 16-byte chunk of K and of V from each of its rows and
+//     looks the row up once (one page-table read per row for pages).
+//     Rows are XOR-swizzled in 16-byte chunks (chunk ^ (row & 7)), so
+//     the eight rows one ldmatrix reads sit in eight distinct bank groups;
 //   * the online softmax is f32 in registers: a row's max and sum are
 //     reduced over the four threads of a quad by two shuffles; exps are
 //     exp2 of scores pre-multiplied by scale * log2(e).  P is rounded to
 //     bf16 for the P V product (as FlashAttention does), the row sum l
 //     is taken from the f32 P;
-//   * causal: key tiles above the diagonal are never loaded, only tiles
-//     that cross it are masked, and the q-tiles launch in reverse order
-//     so the longest rows start first;
+//   * causal: key tiles past the tile's last live row (off[b] + min(Sq,
+//     q0 + rows) - 1) are never loaded, only tiles that cross the shifted
+//     diagonal are masked, and the q-tiles launch in reverse order so the
+//     longest rows start first;
 //   * ragged edges: query rows past Sq are zero-filled and never stored;
-//     key rows past Skv are zero-filled by cp.async's src-size operand
-//     and score -inf, so whisper's 1,500 keys need no padding;
-//   * q, k, v, o are read and written through their (B, S, heads, D)
-//     strides; the wrapper checks that every row start is 16-byte
+//     key rows past the last one any row sees (cap, or the causal k_end)
+//     are zero-filled by cp.async's src-size operand, never read, and
+//     score -inf, so whisper's 1,500 keys need no padding and no page
+//     past a verify window is touched;
+//   * q and o are read and written through their (B, S, heads, D)
+//     strides; the wrappers check that every row start is 16-byte
 //     aligned.
 // Key 0 is visible to every row and sits in the first tile, so each
 // row's running max is finite from the first tile on.
@@ -46,6 +56,12 @@
 
 namespace repro {
 namespace mma_tile {
+// Internal linkage: each library that includes this header (flash's and
+// both verify kernels') gets its own kernel and its own ``configured``
+// flag in ``launch``.  With vague linkage the flag would be one symbol
+// for the whole process, and a library whose kernel never had its
+// shared-memory attribute set would find it already "configured".
+namespace {
 
 using bf16 = __nv_bfloat16;
 
@@ -75,28 +91,6 @@ __host__ __device__ constexpr int smem_bytes() {
 template <int D>
 __device__ __forceinline__ int swz(int row, int chunk) {
   return row * D + ((chunk ^ (row & 7)) << 3);
-}
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes from global to shared memory; with ``in`` false nothing is
-// read and the 16 bytes are zero-filled
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool in) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(in ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
@@ -133,7 +127,8 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 }
 
 // Rows r0 .. r0 + ROWS - 1 of a (rows, D) matrix with row stride ``ss``
-// into a swizzled tile; rows at or past ``n_rows`` are zero-filled.
+// into a swizzled tile; rows at or past ``n_rows`` are zero-filled (the
+// Q tile).
 template <int D, int ROWS>
 __device__ __forceinline__ void load_tile(bf16* tile, const bf16* g,
                                           long long ss, int r0, int n_rows) {
@@ -148,14 +143,35 @@ __device__ __forceinline__ void load_tile(bf16* tile, const bf16* g,
   }
 }
 
-template <int D>
+// Key rows r0 .. r0 + kBK - 1 of one (slot, KV head) through its address
+// map into swizzled K and V tiles; rows at or past ``n_rows`` are
+// zero-filled.  Thread i copies chunk i % (D / 8) of rows i / (D / 8) +
+// kThreads / (D / 8) * it: one ``at`` lookup per row it touches.
+template <int D, typename Map>
+__device__ __forceinline__ void load_kv_tile(bf16* kt, bf16* vt,
+                                             const Map& rows, int r0,
+                                             int n_rows) {
+  constexpr int kChunks = D / 8;
+  constexpr int kPass = kThreads / kChunks;      // rows per pass
+  static_assert(kBK % kPass == 0, "whole passes of copies");
+  const int c = threadIdx.x % kChunks;
+#pragma unroll
+  for (int it = 0; it < kBK / kPass; ++it) {
+    const int r = threadIdx.x / kChunks + it * kPass;
+    const bool in = r0 + r < n_rows;
+    const bf16 *kp, *vp;
+    rows.at(in ? r0 + r : 0, kp, vp);
+    cp_async16(kt + swz<D>(r, c), kp + c * 8, in);
+    cp_async16(vt + swz<D>(r, c), vp + c * 8, in);
+  }
+}
+
+template <int D, typename Cache>
 __global__ void __launch_bounds__(kThreads)
-flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ o, int Sq,
-                 int Skv, int H, int G, long long q_sb, long long q_ss,
-                 long long q_sh, long long k_sb, long long k_ss,
-                 long long k_sh, long long v_sb, long long v_ss,
-                 long long v_sh, long long o_sb, long long o_ss,
+flash_mma_kernel(const bf16* __restrict__ q, Cache kv,
+                 const int* __restrict__ off, bf16* __restrict__ o, int Sq,
+                 int cap, int H, int G, long long q_sb, long long q_ss,
+                 long long q_sh, long long o_sb, long long o_ss,
                  long long o_sh, float scale_log2, bool causal) {
   constexpr int MT = m_tiles<D>();
   constexpr int kBQ = block_q<D>();
@@ -171,10 +187,11 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int h = blockIdx.y - b * H;
   const int kvh = h / G;
   const bf16* qb = q + b * q_sb + h * q_sh;
-  const bf16* kb = k + b * k_sb + kvh * k_sh;
-  const bf16* vb = v + b * v_sb + kvh * v_sh;
-  // causal: the tile's last row sits at q0 + kBQ - 1; no key past it counts
-  const int k_end = causal ? min(Skv, q0 + kBQ) : Skv;
+  const auto rows = kv.slot(b, kvh);
+  const int pos0 = off ? off[b] : 0;             // row i sits at pos0 + i
+  // causal: the tile's last live row sits at pos0 + min(Sq, q0 + kBQ) -
+  // 1; no key past it counts
+  const int k_end = causal ? min(cap, pos0 + min(Sq, q0 + kBQ)) : cap;
   const int n_tiles = (k_end + kBK - 1) / kBK;
 
   const int warp = threadIdx.x >> 5;
@@ -191,10 +208,9 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   load_tile<D, kBQ>(qs, qb, q_ss, q0, Sq);
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
-    if (s < n_tiles) {
-      load_tile<D, kBK>(ks + s * kBK * D, kb, k_ss, s * kBK, Skv);
-      load_tile<D, kBK>(vs + s * kBK * D, vb, v_ss, s * kBK, Skv);
-    }
+    if (s < n_tiles)
+      load_kv_tile<D>(ks + s * kBK * D, vs + s * kBK * D, rows, s * kBK,
+                      k_end);
     cp_async_commit();
   }
 
@@ -218,8 +234,8 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       const int nt = kt + kStages - 1;
       if (nt < n_tiles) {
         const int st = nt % kStages;
-        load_tile<D, kBK>(ks + st * kBK * D, kb, k_ss, nt * kBK, Skv);
-        load_tile<D, kBK>(vs + st * kBK * D, vb, v_ss, nt * kBK, Skv);
+        load_kv_tile<D>(ks + st * kBK * D, vs + st * kBK * D, rows,
+                        nt * kBK, k_end);
       }
       cp_async_commit();
     }
@@ -249,15 +265,17 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         for (int e = 0; e < 4; ++e) s[mt][j][e] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t r[kBK / 16][4];                   // the step's fragments,
+#pragma unroll                                   // all in flight first
+      for (int np = 0; np < kBK / 16; ++np)
+        ldsm_x4(r[np], kst + swz<D>(np * 16 + (lane & 7) + (lane >> 4) * 8,
+                                    kk * 2 + ((lane >> 3) & 1)));
 #pragma unroll
       for (int np = 0; np < kBK / 16; ++np) {
-        uint32_t r[4];
-        ldsm_x4(r, kst + swz<D>(np * 16 + (lane & 7) + (lane >> 4) * 8,
-                                kk * 2 + ((lane >> 3) & 1)));
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt) {
-          mma_bf16(s[mt][2 * np], qf[mt][kk], r[0], r[1]);
-          mma_bf16(s[mt][2 * np + 1], qf[mt][kk], r[2], r[3]);
+          mma_bf16(s[mt][2 * np], qf[mt][kk], r[np][0], r[np][1]);
+          mma_bf16(s[mt][2 * np + 1], qf[mt][kk], r[np][2], r[np][3]);
         }
       }
     }
@@ -266,17 +284,19 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     uint32_t pf[MT][kBK / 16][4];
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt) {
-      const int row0 = q0 + mrow[mt] + gq, row1 = row0 + 8;
-      // mask: keys past Skv, and in the causal form keys past the row;
-      // only a tile that reaches past Skv or past the m-tile's first row
-      if (k0 + kBK > Skv || (causal && k0 + kBK - 1 > q0 + mrow[mt])) {
+      // this thread's two rows' positions
+      const int row0 = pos0 + q0 + mrow[mt] + gq, row1 = row0 + 8;
+      // mask: keys past cap, and in the causal form keys past the row;
+      // only a tile that reaches past cap or past the m-tile's first row
+      if (k0 + kBK > cap ||
+          (causal && k0 + kBK - 1 > pos0 + q0 + mrow[mt])) {
 #pragma unroll
         for (int j = 0; j < kBK / 8; ++j)
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             const int key = k0 + j * 8 + tq * 2 + (e & 1);
             const int row = e < 2 ? row0 : row1;
-            if (key >= Skv || (causal && key > row))
+            if (key >= cap || (causal && key > row))
               s[mt][j][e] = -INFINITY;
           }
       }
@@ -329,16 +349,18 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     // (0-7, 8-15), (8-15, 8-15) of a 16-key x 16-d block
 #pragma unroll
     for (int i = 0; i < kBK / 16; ++i) {
+      uint32_t r[D / 16][4];                     // the step's fragments,
+#pragma unroll                                   // all in flight first
+      for (int np = 0; np < D / 16; ++np)
+        ldsm_x4_trans(r[np], vst + swz<D>(i * 16 + (lane & 7) +
+                                              ((lane >> 3) & 1) * 8,
+                                          np * 2 + (lane >> 4)));
 #pragma unroll
       for (int np = 0; np < D / 16; ++np) {
-        uint32_t r[4];
-        ldsm_x4_trans(r, vst + swz<D>(i * 16 + (lane & 7) +
-                                          ((lane >> 3) & 1) * 8,
-                                      np * 2 + (lane >> 4)));
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt) {
-          mma_bf16(acc[mt][2 * np], pf[mt][i], r[0], r[1]);
-          mma_bf16(acc[mt][2 * np + 1], pf[mt][i], r[2], r[3]);
+          mma_bf16(acc[mt][2 * np], pf[mt][i], r[np][0], r[np][1]);
+          mma_bf16(acc[mt][2 * np + 1], pf[mt][i], r[np][2], r[np][3]);
         }
       }
     }
@@ -368,24 +390,29 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <int D>
-int launch(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B,
-           int Sq, int Skv, int H, int G, const long long* st,
-           float scale_log2, bool causal, cudaStream_t stream) {
-  static bool configured = false;                // once per instantiation
+// q, o: (B, Sq, H, D) with element strides qs, os (batch, seq, head);
+// keys through ``kv`` up to ``cap``; off: (B,) int32 position of each
+// slot's query row 0, or null for 0.
+template <int D, typename Cache>
+int launch(const bf16* q, const Cache& kv, const int* off, bf16* o, int B,
+           int Sq, int cap, int H, int G, const long long* qs,
+           const long long* os, float scale_log2, bool causal,
+           cudaStream_t stream) {
+  static bool configured = false;  // once per library and instantiation
   if (!configured) {
     const cudaError_t e = cudaFuncSetAttribute(
-        flash_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem_bytes<D>());
+        flash_mma_kernel<D, Cache>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes<D>());
     if (e != cudaSuccess) return static_cast<int>(e);
     configured = true;
   }
   dim3 grid((Sq + block_q<D>() - 1) / block_q<D>(), B * H);
-  flash_mma_kernel<D><<<grid, kThreads, smem_bytes<D>(), stream>>>(
-      q, k, v, o, Sq, Skv, H, G, st[0], st[1], st[2], st[3], st[4], st[5],
-      st[6], st[7], st[8], st[9], st[10], st[11], scale_log2, causal);
+  flash_mma_kernel<D, Cache><<<grid, kThreads, smem_bytes<D>(), stream>>>(
+      q, kv, off, o, Sq, cap, H, G, qs[0], qs[1], qs[2], os[0], os[1],
+      os[2], scale_log2, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
+}  // namespace
 }  // namespace mma_tile
 }  // namespace repro

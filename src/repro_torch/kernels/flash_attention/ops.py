@@ -121,7 +121,8 @@ def flash_attention_plain(q, k, v, *, causal: bool, chunk: int = 1024):
     return torch.cat(outs, dim=1)
 
 
-def split_partials(q, k, v, *, causal: bool, keys_per_split: int):
+def split_partials(q, k, v, *, causal: bool, keys_per_split: int,
+                   offsets=None):
     """The split route's first pass, as the kernel computes it: the keys
     of each (batch, KV head) cut into ranges of ``keys_per_split``, and
     per range and query row the unnormalised f32 output o, the running
@@ -130,8 +131,10 @@ def split_partials(q, k, v, *, causal: bool, keys_per_split: int):
     l = 0, o = 0.
 
     q: (B, Sq, H, D); k, v: (B, Skv, KVH, D).  Rows are ordered (query
-    t, head g) as r = t * G + g, at position t.  Returns o (B, KVH,
-    n_split, G * Sq, D), m and l (B, KVH, n_split, G * Sq)."""
+    t, head g) as r = t * G + g, at position t, or offsets[b] + t with
+    ``offsets`` (B,) (a verify window's starts; the causal form then
+    lets row r see keys <= offsets[b] + t).  Returns o (B, KVH, n_split,
+    G * Sq, D), m and l (B, KVH, n_split, G * Sq)."""
     b, sq, h, d = q.shape
     skv, kvh = k.shape[1], k.shape[2]
     g = h // kvh
@@ -139,6 +142,9 @@ def split_partials(q, k, v, *, causal: bool, keys_per_split: int):
     qr = q.float().reshape(b, sq, kvh, g, d).permute(0, 2, 1, 3, 4)
     qr = qr.reshape(b, kvh, sq * g, d) * scale
     pos = torch.arange(sq, device=q.device).repeat_interleave(g)  # row -> t
+    pos = pos.expand(b, -1)
+    if offsets is not None:
+        pos = pos + torch.as_tensor(offsets, device=q.device).reshape(b, 1)
     os_, ms, ls = [], [], []
     for k0 in range(0, skv, keys_per_split):
         kk = k[:, k0:k0 + keys_per_split].float().transpose(1, 2)
@@ -146,7 +152,8 @@ def split_partials(q, k, v, *, causal: bool, keys_per_split: int):
         s = torch.einsum("bhrd,bhkd->bhrk", qr, kk)
         if causal:
             keys = k0 + torch.arange(kk.shape[2], device=q.device)
-            s = torch.where(keys[None, :] <= pos[:, None], s, -math.inf)
+            seen = keys[None, None, :] <= pos[:, :, None]     # (B, R, K)
+            s = torch.where(seen[:, None], s, -math.inf)
         m = s.amax(-1)
         p = torch.exp2(s - torch.where(m == -math.inf, 0.0, m)[..., None])
         os_.append(torch.einsum("bhrk,bhkd->bhrd", p, vv))
@@ -166,52 +173,57 @@ def merge_partials(o, m, l):
 
 
 def flash_attention_split_plain(q, k, v, *, causal: bool,
-                                keys_per_split: int):
+                                keys_per_split: int, offsets=None):
     """The split route's plain version: ``split_partials``, then
     ``merge_partials``, back in the model layout and ``q``'s dtype.
-    q: (B, Sq, H, D); k, v: (B, Skv, KVH, D)."""
+    q: (B, Sq, H, D); k, v: (B, Skv, KVH, D); ``offsets`` (B,): each
+    slot's position of query row 0 (the verify kernels' window starts,
+    with ``causal``), 0 without."""
     b, sq, h, d = q.shape
     kvh = k.shape[2]
     o = merge_partials(*split_partials(q, k, v, causal=causal,
-                                       keys_per_split=keys_per_split))
+                                       keys_per_split=keys_per_split,
+                                       offsets=offsets))
     o = o.reshape(b, kvh, sq, h // kvh, d).permute(0, 2, 1, 3, 4)
     return o.reshape(b, sq, h, d).to(q.dtype)
 
 
-def _route(sq: int, skv: int, h: int, kvh: int, d: int, dtype) -> str:
-    """The device route of a call: ``"tile_f32"`` for float32, for
-    bfloat16 ``"mma"`` (the tensor-core tile kernel) when more than
-    ``SPLIT_MAX_ROWS`` query rows G * Sq share a KV head, else
+def _route(sq: int, skv: int, h: int, kvh: int, d: int, dtype,
+           name: str = "flash_attention") -> str:
+    """The device route of a call of ``name`` (flash, or either verify
+    kernel with its window length T as ``sq``): ``"tile_f32"`` for
+    float32, for bfloat16 ``"mma"`` (the tensor-core tile kernel) when
+    more than ``SPLIT_MAX_ROWS`` query rows G * Sq share a KV head, else
     ``"split"`` (split-KV + merge).  Raises on what no route takes."""
     if d not in (64, 128):
-        raise ValueError(f"flash_attention: D = {d} not in (64, 128)")
+        raise ValueError(f"{name}: D = {d} not in (64, 128)")
     if dtype == torch.float32:
         return "tile_f32"
     if dtype != torch.bfloat16:
-        raise TypeError(f"flash_attention takes float32 or bfloat16, got "
-                        f"{dtype}")
+        raise TypeError(f"{name} takes float32 or bfloat16, got {dtype}")
     return "mma" if (h // kvh) * sq > SPLIT_MAX_ROWS else "split"
 
 
 def _splits(n_sets: int, skv: int, n_sm: int = 132) -> tuple[int, int]:
     """(split count, keys per split) of the split route for ``n_sets``
-    (batch, KV head) pairs over ``skv`` keys: keys per split a multiple
-    of ``SPLIT_CHUNK``, enough splits that the grid reaches
-    ``SPLIT_CTAS_PER_SM`` CTAs per SM where the keys allow."""
+    (batch, KV head) pairs over ``skv`` keys (a verify call's cache
+    capacity): keys per split a multiple of ``SPLIT_CHUNK``, enough
+    splits that the grid reaches ``SPLIT_CTAS_PER_SM`` CTAs per SM where
+    the keys allow.  Shapes only: the layout never reads a position."""
     chunks = -(-skv // SPLIT_CHUNK)
     want = max(1, -(-SPLIT_CTAS_PER_SM * n_sm // n_sets))
     per = -(-chunks // min(want, chunks))
     return -(-chunks // per), per * SPLIT_CHUNK
 
 
-def _check_aligned(*tensors) -> None:
+def _check_aligned(*tensors, name: str = "flash_attention") -> None:
     """Every (batch, seq, head) row start 16-byte aligned, as the
     kernels' 16-byte loads need; raises where one is not."""
     for x in tensors:
         step = x.element_size()
         if x.data_ptr() % 16 or any(s * step % 16 for s in x.stride()[:3]):
             raise ValueError(
-                f"flash_attention: rows of a {tuple(x.shape)} tensor with "
+                f"{name}: rows of a {tuple(x.shape)} tensor with "
                 f"strides {x.stride()} are not 16-byte aligned")
 
 
@@ -225,24 +237,72 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 
 
-def _lib():
-    lib = build.library("flash_attention")
-    fn = lib.flash_attention_launch
+def plan(name: str, sq: int, h: int, kvh: int, d: int, dtype,
+         capacity: int, n_sets: int, n_sm: int) -> tuple[str, int, int]:
+    """(route, split count, keys per split) of a call of ``name`` (flash,
+    or either verify kernel with its window length T as ``sq``): the
+    route ``_route`` names and, on the split route, the layout
+    ``_splits`` gives for ``n_sets`` = B * KVH over ``capacity`` keys
+    (Skv, or a verify call's cache capacity) on ``n_sm`` SMs (0, 0 on the
+    other routes).  Shapes only: two calls of either verify kernel with
+    equal shapes and capacity take the same route and split
+    identically, whatever their positions."""
+    route = _route(sq, capacity, h, kvh, d, dtype, name=name)
+    if route != "split":
+        return route, 0, 0
+    return (route, *_splits(n_sets, capacity, n_sm))
+
+
+def _entry(name: str, split: bool, n_ptr: int, n_int: int, n_flag: int):
+    """The C entry point ``<name>_launch`` (``<name>_split_launch`` for
+    the split route) with its argument types: ``n_ptr`` tensors ending
+    in o (then o_part and ml_part), ``n_int`` sizes, 12 strides (the
+    split count and keys per split), scale, ``n_flag`` ints (flash's
+    causal), dtype, stream."""
+    fn = getattr(build.library(name),
+                 f"{name}_split_launch" if split else f"{name}_launch")
     if fn.argtypes is None:
-        fn.argtypes = ([_P] * 4 + [_I] * 6 + [_L] * 12
-                       + [ctypes.c_float, _I, _I, _P])
+        fn.argtypes = ([_P] * (n_ptr + 2 * split) + [_I] * n_int
+                       + [_L] * 12 + [_I] * (2 * split)
+                       + [ctypes.c_float] + [_I] * (n_flag + 1) + [_P])
         fn.restype = _I
     return fn
 
 
-def _split_lib():
-    lib = build.library("flash_attention")
-    fn = lib.flash_attention_split_launch
-    if fn.argtypes is None:
-        fn.argtypes = ([_P] * 6 + [_I] * 6 + [_L] * 12
-                       + [_I, _I, ctypes.c_float, _I, _I, _P])
-        fn.restype = _I
-    return fn
+def launch(name: str, q, kvh: int, capacity: int, kv, ptrs, sizes,
+           kv_strides, flags=()):
+    """Launch kernel ``name`` (``flash_attention``, ``verify_attention``
+    or ``paged_verify_attention``) on q (B, Sq, H, D) and return o: the
+    route and split layout of ``plan``, the 16-byte row alignment of q
+    and the K/V tensors ``kv`` checked, float32 scratch on the split
+    route.  ``ptrs``: the pointers between q and o in the C signature
+    (a verify window's ``pos`` among them: never read here); ``sizes``:
+    its ints; ``kv_strides``: its six K/V strides; ``flags``: its ints
+    after the scale.  Raises where no route takes the call or a launch
+    fails."""
+    b, sq, h, d = q.shape
+    route, n_split, per = plan(name, sq, h, kvh, d, q.dtype, capacity,
+                               b * kvh, _sm_count(q.device.index))
+    _check_aligned(q, *kv, name=name)
+    o = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    head = (q.data_ptr(), *ptrs, o.data_ptr())
+    strides = (*q.stride()[:3], *kv_strides, *o.stride()[:3])
+    tail = (1.0 / math.sqrt(d), *flags, build.dtype_code(q),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    split = route == "split"
+    fn = _entry(name, split, len(head), len(sizes), len(flags))
+    if split:
+        rows = sq * (h // kvh)
+        o_part = torch.empty((b * kvh, n_split, rows, d),
+                             dtype=torch.float32, device=q.device)
+        ml_part = torch.empty((b * kvh, n_split, rows, 2),
+                              dtype=torch.float32, device=q.device)
+        err = fn(*head, o_part.data_ptr(), ml_part.data_ptr(), *sizes,
+                 *strides, n_split, per, *tail)
+    else:
+        err = fn(*head, *sizes, *strides, *tail)
+    build.check(err, name)
+    return o
 
 
 def flash_attention(q, k, v, *, causal: bool = True):
@@ -271,30 +331,9 @@ def flash_attention(q, k, v, *, causal: bool = True):
         if x.device != q.device or x.stride(-1) != 1:
             raise ValueError("flash_attention: q, k, v must share a "
                              "device and have unit stride on D")
-    route = _route(sq, skv, h, kvh, d, q.dtype)
-    _check_aligned(q, k, v)
-    o = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
-    strides = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-               *o.stride()[:3])
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    if route == "split":
-        n_split, per = _splits(b * kvh, skv, _sm_count(q.device.index))
-        rows = (h // kvh) * sq
-        o_part = torch.empty((b * kvh, n_split, rows, d),
-                             dtype=torch.float32, device=q.device)
-        ml_part = torch.empty((b * kvh, n_split, rows, 2),
-                              dtype=torch.float32, device=q.device)
-        err = _split_lib()(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            o_part.data_ptr(), ml_part.data_ptr(), b, sq, skv, h, kvh, d,
-            *strides, n_split, per, 1.0 / math.sqrt(d), int(causal),
-            build.dtype_code(q), stream)
-    else:
-        err = _lib()(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            b, sq, skv, h, kvh, d, *strides, 1.0 / math.sqrt(d),
-            int(causal), build.dtype_code(q), stream)
-    build.check(err, "flash_attention")
+    o = launch("flash_attention", q, kvh, skv, (k, v),
+               (k.data_ptr(), v.data_ptr()), (b, sq, skv, h, kvh, d),
+               (*k.stride()[:3], *v.stride()[:3]), flags=(int(causal),))
     flash_attention.launches += 1
     return o
 

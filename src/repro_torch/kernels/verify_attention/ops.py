@@ -3,26 +3,37 @@
 ``verify_attention`` is the model-layout entry point of a T-token window
 against a contiguous KV cache: the target's verify step in speculative
 decoding.  A CPU tensor goes to ``verify_attention_plain`` (the copy of
-the reference's ``verify_attention_jnp``); a CUDA tensor launches the
-hand-written kernel in ``csrc/verify_attention.cu`` or raises -- there
-is no fall-back.  ``verify_attention.launches`` counts kernel launches.
+the reference's ``verify_attention_jnp``); a CUDA tensor launches one of
+the hand-written routes of ``csrc/verify_attention.cu`` or raises --
+there is no fall-back.  Flash's ``launch``, which the paged verify
+and flash wrappers call too, picks the route with ``_route`` (dtype,
+and the T * G window rows that share a KV head):
+
+* bfloat16, T * G <= 16 (the speculative window, T 5 at G 2): the
+  split-KV kernel and its log-sum-exp merge, the splits laid out from
+  (B * KVH, S, SM count) alone, never from ``pos``;
+* bfloat16, T * G > 16: the tensor-core tile kernel;
+* float32: the CUDA-core tile loop.
+
+``verify_attention.launches`` counts calls that launched a kernel (one
+per call, although the split route runs two grids).
 
 Replaces ``src/repro/kernels/decode_attention/decode_attention.py:
 verify_attention_kernel`` (wrapper ``ops.py:verify_attention``).  The
 kernel reads the cache in its (B, S, KVH, D) layout through strides,
 where the reference wrapper transposes it to (B*KVH, S, D) and pads S
-first, and it runs the paged verify kernel's tile loop and row map: on
-the card the two agree bit for bit on the same values.
+first, and it runs the paged verify kernel's code on every route with
+only the address map different: on the card the two agree bit for bit
+on the same values.
 """
 from __future__ import annotations
 
-import ctypes
 import math
 
 import torch
 
-from repro_torch.kernels import build
 from repro_torch.kernels.decode_attention.ops import MASK_VALUE
+from repro_torch.kernels.flash_attention.ops import launch
 
 
 def verify_attention_plain(q, k_cache, v_cache, pos):
@@ -52,26 +63,13 @@ def verify_attention_plain(q, k_cache, v_cache, pos):
     return o.reshape(b, t, h, d).to(q.dtype)
 
 
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-_L = ctypes.c_longlong
-
-
-def _lib():
-    lib = build.library("verify_attention")
-    fn = lib.verify_attention_launch
-    if fn.argtypes is None:
-        fn.argtypes = ([_P] * 5 + [_I] * 6 + [_L] * 12
-                       + [ctypes.c_float, _I, _P])
-        fn.restype = _I
-    return fn
-
-
 def verify_attention(q, k_cache, v_cache, pos):
     """q: (B, T, H, D); caches: (B, S, KVH, D); pos: () or (B,) int
     window starts.  Returns (B, T, H, D).  CPU tensors take the plain
-    version; CUDA tensors launch the kernel (D in {64, 128}, float32 or
-    bfloat16, any T >= 1 and G = H / KVH) or raise."""
+    version; CUDA tensors (D in {64, 128}, float32 or bfloat16, any T >=
+    1 and G = H / KVH, every row start 16-byte aligned) launch the route
+    ``_route`` names -- the split-KV kernel, the tensor-core tile kernel
+    or the float32 tile loop -- or raise."""
     if q.device.type == "cpu":
         return verify_attention_plain(q, k_cache, v_cache, pos)
     if q.device.type != "cuda":
@@ -95,14 +93,11 @@ def verify_attention(q, k_cache, v_cache, pos):
     pos = pos.to(torch.int32).expand(b).contiguous()
     if q.stride(-1) != 1:
         q = q.contiguous()
-    o = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
-    err = _lib()(
-        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), pos.data_ptr(),
-        o.data_ptr(), b, t, s, h, kvh, d, *q.stride()[:3],
-        *k_cache.stride()[:3], *v_cache.stride()[:3], *o.stride()[:3],
-        1.0 / math.sqrt(d), build.dtype_code(q),
-        torch.cuda.current_stream(q.device).cuda_stream)
-    build.check(err, "verify_attention")
+    o = launch(
+        "verify_attention", q, kvh, s, (k_cache, v_cache),
+        (k_cache.data_ptr(), v_cache.data_ptr(), pos.data_ptr()),
+        (b, t, s, h, kvh, d),
+        (*k_cache.stride()[:3], *v_cache.stride()[:3]))
     verify_attention.launches += 1
     return o
 

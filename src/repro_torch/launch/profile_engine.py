@@ -17,7 +17,13 @@ tokens), then, after one warm-up chunk, measures:
   of the speculative engine (``SPEC_K`` drafts from a 2-layer truncated
   draft, the target's layers past 2 damped to 0.001: ``chip_smoke.py``
   phase 8's pair), its slots filled the same way, per round; only for
-  an architecture with a verify path (not rwkv6-3b).
+  an architecture with a verify path (not rwkv6-3b);
+- prefix hit: the same for one admission of a ``PROMPT_LEN +
+  SUFFIX_LEN``-token prompt into the paged engine (pages of
+  ``PAGE_SIZE``, the radix prefix cache on, ``chip_smoke.py`` phase 6's
+  engine) whose first ``PROMPT_LEN`` tokens are cached: the
+  ``SUFFIX_LEN``-token suffix runs through paged verify attention behind
+  them; for the same architectures.
 
 whisper-small (an encoder-decoder, which the slot engine refuses) is
 profiled as ``chip_smoke.py`` phase 14 serves it through ``ServeEngine``:
@@ -44,7 +50,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.configs import get_config, list_archs
 from repro_torch.models import build_model
-from repro_torch.serving import (ContinuousBatchingEngine,
+from repro_torch.serving import (ContinuousBatchingEngine, Request,
                                  damp_upper_layers, truncate_draft)
 
 ARCH = "qwen3-1.7b"     # the engine shape chip_smoke.py serves at
@@ -53,6 +59,8 @@ SLOTS = 8
 CHUNK_STEPS = 8
 PROMPT_LEN = 1024
 SPEC_K = 4
+PAGE_SIZE = 16
+SUFFIX_LEN = 200        # a prefix hit's uncached tail
 SEED = 0
 ENC_PROMPT = 4          # whisper's start-of-transcript prefix
 ENC_MAX_LEN = 448       # whisper's text context
@@ -118,6 +126,38 @@ def _profile_spec(model, params, rng) -> dict:
                   kernel_ms_per_round=rounds["kernel_ms"] / CHUNK_STEPS,
                   depth=int(spec.state["cache"]["pos"].max()))
     return rounds
+
+
+def _profile_prefix_hit(model, params, rng) -> dict:
+    """One prefix-hit admission: a miss first interns a
+    ``PROMPT_LEN``-token prefix's pages, then a prompt of that prefix
+    and a ``SUFFIX_LEN``-token tail is admitted into slot 0 through
+    ``_extend_slot`` (its suffix through paged verify), profiled."""
+    cfg = model.cfg
+    eng = ContinuousBatchingEngine(
+        model, params, max_len=MAX_LEN, n_slots=SLOTS,
+        chunk_steps=CHUNK_STEPS, kv_page_size=PAGE_SIZE,
+        prefix_caching=True, device=model.device)
+    prefix = rng.integers(0, cfg.vocab_size, PROMPT_LEN)
+    eng.serve([Request(rid=0, prompt=np.concatenate(
+        [prefix, rng.integers(0, cfg.vocab_size, 8)]), max_new_tokens=1)],
+        honor_arrivals=False)
+    toks = tuple(int(x) for x in np.concatenate(
+        [prefix, rng.integers(0, cfg.vocab_size, SUFFIX_LEN)]))
+    budget = MAX_LEN - len(toks)
+    row, start = eng._acquire_pages(toks, len(toks), budget)
+    if start != PROMPT_LEN:
+        raise RuntimeError(f"prefix hit covered {start} of {PROMPT_LEN} "
+                           f"tokens")
+    suffix = torch.as_tensor(toks[start:], device=eng.device)[None]
+
+    def admit():
+        eng._extend_slot(params, eng.state, suffix, 0, row, start, budget)
+
+    admit()                                           # warm-up
+    hit = _profiled(admit, _wall_ms(admit, 3))
+    hit.update(cached_tokens=start, suffix_tokens=int(suffix.shape[1]))
+    return hit
 
 
 @torch.no_grad()
@@ -213,8 +253,9 @@ def main(argv=None):
                   kernel_ms_per_step=decode["kernel_ms"] / steps)
     prefill = _profiled(lambda: admit(0), _wall_ms(lambda: admit(0), 2))
 
-    rounds = _profile_spec(model, params, rng) \
-        if model.kind == "attn_dense" else None
+    dense = model.kind == "attn_dense"
+    rounds = _profile_spec(model, params, rng) if dense else None
+    hit = _profile_prefix_hit(model, params, rng) if dense else None
 
     smi = _smi()
     depth = int(eng.state["cache"]["pos"].max())
@@ -232,14 +273,19 @@ def main(argv=None):
               f"{rounds['kernel_ms_per_round']:.3f} ms/round of kernels, "
               f"busy {rounds['busy_share']:.1%}, "
               f"{rounds['n_kernels'] // steps} kernels/round")
+    if hit is not None:
+        print(f"  prefix hit ({hit['suffix_tokens']} tokens behind "
+              f"{hit['cached_tokens']} cached): {hit['wall_ms']:.3f} ms "
+              f"wall, {hit['kernel_ms']:.3f} ms of kernels, busy "
+              f"{hit['busy_share']:.1%}, {hit['n_kernels']} kernels")
     for name, part in (("decode", decode), ("prefill", prefill),
-                       ("speculative", rounds)):
+                       ("speculative", rounds), ("prefix hit", hit)):
         for t in (part or {}).get("top", []):
             print(f"  {name} {t['ms']:9.3f} ms x{t['count']:<5} "
                   f"{t['kernel']}")
     out = {"device": smi, "arch": cfg.name, "slots": SLOTS,
            "prompt_len": PROMPT_LEN, "decode": decode,
-           "prefill": prefill, "speculative": rounds}
+           "prefill": prefill, "speculative": rounds, "prefix_hit": hit}
     print(json.dumps(out))
     return out
 
