@@ -12,6 +12,15 @@ Phases, each fatal on failure:
    main paths' shapes; each kernel's median time beside its plain
    version's, one PyTorch library call's (SDPA, a yardstick the port
    never calls) and the least time the card could take (its bound).
+   Decode and paged decode (bf16: the split-KV kernel + merge, split
+   layout printed) are also held against the split algorithm's plain
+   version and timed by events, kernel-only (``torch.profiler``, both
+   grids; with the L2 warm from the last call, and cold: flushed before
+   each call, as the engine's layers find it) and host work per call,
+   beside SDPA by events and kernel-only, warm and cold;
+   beside them the T = 1 yardstick (verify's split route at the same
+   shape) and decode at whisper-small's decoder shape (B 8, KVH 12, G 1,
+   D 64, 448 rows, depths up to 68).
    Paged decode must also equal contiguous decode bit for bit on the
    same values, through a shuffled page table, and likewise paged
    verify and contiguous verify, at T 5 (the speculative window), 8 and
@@ -34,10 +43,12 @@ Phases, each fatal on failure:
    Then every build the wrappers can launch (float32 and bfloat16,
    D 64 and 128, G 1/2/4/8, flash in both forms and, in bf16, through
    both routes: causal Sq 3 over 3 and 300 keys (whole splits masked),
-   a ragged last split, 77 x 300 tiles; both verify kernels at windows
-   of 5, 8, 9 and 200, bit for bit; the scan at dh 32/64/128; the
-   int8 GEMM at the reference test's shapes and ragged edges, both
-   outputs) once at a small shape against its plain version.
+   a ragged last split, 77 x 300 tiles; decode and paged decode bit for
+   bit, in bf16 also against the split plain version; both verify
+   kernels at windows of 5, 8, 9 and 200, bit for bit; the scan at dh
+   32/64/128; the int8 GEMM at the reference test's shapes and ragged
+   edges, both outputs) once at a small shape against its plain
+   version.
 4. Full-width engine: qwen3-1.7b (28 layers, d_model 2048, 16/8 heads,
    padded vocab 153,600, bf16, seeded random weights) behind
    ``ContinuousBatchingEngine(n_slots=8, max_len=2048, chunk_steps=8)``
@@ -247,24 +258,37 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return times[len(times) // 2]
 
 
-def device_ms(torch, fn, reps: int = 10):
+# Bytes written before each call of a cold timing: five times the H100's
+# 50 MB L2, so that a kernel finds its inputs in device memory, as the
+# engine's decode step does (each layer reads another layer's cache).
+L2_FLUSH_BYTES = 256 << 20
+
+
+def device_ms(torch, fn, reps: int = 10, cold: bool = False):
     """Kernel-only device time per call of ``fn()`` in ms: the durations
     of the CUDA kernels ``torch.profiler`` records over ``reps`` calls
     (both grids of a split route), summed, over ``reps``; and a text of
-    each kernel's name with its own ms per call.  (None, "") where the
-    profiler records no kernel."""
+    each kernel's name with its own ms per call.  With ``cold`` a fill
+    of ``L2_FLUSH_BYTES`` runs before every call, its own kernel left
+    out of the sums.  (None, "") where the profiler records no
+    kernel."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    flush = (torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+             if cold else None)
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
+            if cold:
+                flush.fill_(1)
             fn()
         torch.cuda.synchronize()
     per = {}
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
+        if (e.device_type == DeviceType.CUDA
+                and not (cold and "FillFunctor<unsigned char>" in e.name)):
             name = e.name.split("(")[0].removeprefix("void ")
             per[name] = per.get(name, 0.0) + e.time_range.elapsed_us()
     if not per:
@@ -272,6 +296,20 @@ def device_ms(torch, fn, reps: int = 10):
     return (sum(per.values()) / 1e3 / reps,
             ", ".join(f"{n} {us / 1e3 / reps:.4f} ms"
                       for n, us in sorted(per.items())))
+
+
+def host_us(torch, fn, reps: int = 200) -> float:
+    """Host time per call of ``fn()`` in us: the wrapper's Python,
+    allocations and launches, timed while the device keeps up (the
+    launch queue never fills at these counts)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / reps * 1e6
 
 
 def fmt_ms(ms) -> str:
@@ -334,13 +372,58 @@ def scan_inputs(torch, gen, dev, b, t, h, dh, dtype):
     return r, k, v, logw, randn(h, dh) * 0.3
 
 
+def decode_times(torch, label, F, kernel, plain, q, kc, vc, mask, pos,
+                 extra_bytes: int = 0) -> dict:
+    """Time a decode call at a phase-3 shape: the kernel by events, its
+    kernel-only device time (both grids of the split route) with the L2
+    warm from the last call and cold, and its host work per call; the
+    plain version by events; SDPA on the contiguous cache with the
+    boolean (B, 1, 1, S) mask of ``pos`` (a yardstick the port never
+    calls) by events and kernel-only, warm and cold; and the bound: the K/V
+    rows up to each slot's ``pos`` read once, q read and o written once,
+    plus ``extra_bytes`` (a page table's entries)."""
+    b, _, h, d = q.shape
+    kvh = kc.shape[2]
+    ms = time_ms(kernel)
+    dev_ms, kerns = device_ms(torch, kernel)
+    cold_ms, cold_kerns = device_ms(torch, kernel, cold=True)
+    h_us = host_us(torch, kernel)
+    plain_ms = time_ms(plain)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2),
+            attn_mask=mask, enable_gqa=True)
+
+    library_ms = time_ms(sdpa)
+    lib_dev_ms, lib_kerns = device_ms(torch, sdpa)
+    lib_cold_ms, _ = device_ms(torch, sdpa, cold=True)
+    rows = int((pos.long() + 1).sum())              # positions read
+    nbytes = rows * kvh * d * 2 * 2 + 2 * q.numel() * 2 + extra_bytes
+    bound_ms, bound_by = bound(nbytes, rows * h * d * 4)
+    print(f"  {label} B={b} KVH={kvh} G={h // kvh} D={d} S={kc.shape[1]}: "
+          f"kernel {ms:.4f} ms (kernel-only {fmt_ms(dev_ms)}: {kerns}; "
+          f"L2 cold {fmt_ms(cold_ms)}: {cold_kerns}; host {h_us:.1f} us a "
+          f"call), plain {plain_ms:.4f} ms, SDPA {library_ms:.4f} ms "
+          f"(kernel-only {fmt_ms(lib_dev_ms)}, L2 cold {fmt_ms(lib_cold_ms)}"
+          f": {lib_kerns}), bound {bound_ms * 1e3:.2f} us ({bound_by}, "
+          f"{nbytes} B)")
+    return dict(ms=ms, device_ms=dev_ms, device_cold_ms=cold_ms,
+                host_us=h_us, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=library_ms,
+                library_device_ms=lib_dev_ms,
+                library_device_cold_ms=lib_cold_ms)
+
+
 def phase_kernels(torch, dev):
     """Phase 3: each kernel against its plain version, then timed."""
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attention.ops import (
         decode_attention, decode_attention_plain)
+    from repro_torch.kernels.decode_attention.ops import plan as decode_plan
     from repro_torch.kernels.flash_attention.ops import (
-        _route, _sm_count, flash_attention, flash_attention_plain, plan)
+        _route, _sm_count, flash_attention, flash_attention_plain,
+        flash_attention_split_plain, plan)
     from repro_torch.kernels.linear_scan.ops import (linear_scan,
                                                      linear_scan_plain)
     from repro_torch.kernels.paged_decode_attention.ops import (
@@ -358,11 +441,15 @@ def phase_kernels(torch, dev):
     # --- decode: 8 slots, KVH 8, G 2, D 128, S 2048 ---------------------
     b, kvh, g, d, s = 8, 8, 2, 128, 2048
     h = kvh * g
+    n_sm = _sm_count(dev.index)
     q = torch.randn((b, 1, h, d), generator=gen, device=dev).to(bf16)
     kc = torch.randn((b, s, kvh, d), generator=gen, device=dev).to(bf16)
     vc = torch.randn((b, s, kvh, d), generator=gen, device=dev).to(bf16)
     ragged = torch.tensor([0, 2047, 1024, 17, 511, 1500, 300, 2000],
                           dtype=torch.int32, device=dev)
+    dplan = decode_plan("decode_attention", h, kvh, d, bf16, s, b * kvh,
+                        n_sm)
+    route, n_split, per = dplan
     errs, rels = [], []
     for name, pos in (("ragged", ragged),
                       ("scalar", torch.tensor(1023, dtype=torch.int32,
@@ -370,29 +457,90 @@ def phase_kernels(torch, dev):
         got = decode_attention(q, kc, vc, pos)
         want = decode_attention_plain(q, kc, vc, pos)
         err, rel = compare(f"decode_attention ({name} pos)", got, want)
+        serr, srel = compare(
+            f"decode_attention ({name} pos) vs the split plain version", got,
+            flash_attention_split_plain(q, kc, vc, causal=True,
+                                        keys_per_split=per,
+                                        offsets=pos.expand(b)))
         errs.append(err)
         rels.append(rel)
-        print(f"  decode_attention pos={name}: max |kernel - plain| "
-              f"{err:.3e}, ||kernel - plain|| / ||plain|| {rel:.3e}")
+        print(f"  decode_attention pos={name} route {route} ({n_split} "
+              f"splits of {per}): max |kernel - plain| {err:.3e}, "
+              f"||kernel - plain|| / ||plain|| {rel:.3e}; vs the split "
+              f"plain version {serr:.3e} / {srel:.3e}")
     mask = (torch.arange(s, device=dev)[None, :]
             <= ragged[:, None])[:, None, None, :]       # (B, 1, 1, S)
-    ms = time_ms(lambda: decode_attention(q, kc, vc, ragged))
-    plain_ms = time_ms(lambda: decode_attention_plain(q, kc, vc, ragged))
-    library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        q.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2),
-        attn_mask=mask, enable_gqa=True))
-    rows = int((ragged.long() + 1).sum())           # positions read
-    nbytes = rows * kvh * d * 2 * 2 + 2 * q.numel() * 2
-    flops = rows * h * d * 4
-    bound_ms, bound_by = bound(nbytes, flops)
-    out["decode_attention"] = dict(
-        max_abs_err=max(errs), rel_norm_err=max(rels), ms=ms,
-        plain_ms=plain_ms, bound_ms=bound_ms,
-        bound_by=bound_by, library_ms=library_ms)
-    print(f"  decode_attention B={b} KVH={kvh} G={g} D={d} S={s} ragged "
-          f"pos: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
-          f"{library_ms:.4f} ms, bound {bound_ms * 1e3:.2f} us "
-          f"({bound_by}, {nbytes} B)")
+    dec = out["decode_attention"] = dict(
+        max_abs_err=max(errs), rel_norm_err=max(rels), kernel_route=route,
+        n_split=n_split, keys_per_split=per,
+        **decode_times(torch, "decode_attention", F,
+                       lambda: decode_attention(q, kc, vc, ragged),
+                       lambda: decode_attention_plain(q, kc, vc, ragged),
+                       q, kc, vc, mask, ragged))
+    # the same call through the float32 loop (one grid, no scratch): what
+    # the split route's merge launch and scratch add to the host's work
+    qf, kf, vf = q.float(), kc.float(), vc.float()
+    dec["loop_f32_host_us"] = host_us(
+        torch, lambda: decode_attention(qf, kf, vf, ragged))
+    del qf, kf, vf
+    print(f"  decode_attention host work per call: split (bf16) "
+          f"{dec['host_us']:.1f} us, loop (f32: one grid, no scratch) "
+          f"{dec['loop_f32_host_us']:.1f} us")
+    # the yardstick: verify's split route (flash_split.cuh) at T = 1 with
+    # pos as the window start computes the same function
+    vroute, vn, vper = plan("verify_attention", 1, h, kvh, d, bf16, s,
+                            b * kvh, n_sm)
+    verr, vrel = compare(f"verify_attention (T=1, {vroute})",
+                         verify_attention(q, kc, vc, ragged),
+                         decode_attention_plain(q, kc, vc, ragged))
+    v_ms = time_ms(lambda: verify_attention(q, kc, vc, ragged))
+    v_dev, v_kerns = device_ms(torch,
+                               lambda: verify_attention(q, kc, vc, ragged))
+    v_cold, _ = device_ms(torch, lambda: verify_attention(q, kc, vc, ragged),
+                          cold=True)
+    dec["t1_verify"] = dict(kernel_route=vroute, n_split=vn,
+                            keys_per_split=vper, ms=v_ms, device_ms=v_dev,
+                            device_cold_ms=v_cold, max_abs_err=verr,
+                            rel_norm_err=vrel)
+    faster = (v_dev is not None and dec["device_ms"] is not None
+              and dec["device_ms"] < v_dev)
+    print(f"  yardstick verify_attention T=1 route {vroute} ({vn} splits of "
+          f"{vper}): max |kernel - plain| {verr:.3e}; kernel {v_ms:.4f} ms "
+          f"(kernel-only {fmt_ms(v_dev)}, L2 cold {fmt_ms(v_cold)}: "
+          f"{v_kerns}); decode's kernel-only {fmt_ms(dec['device_ms'])}, "
+          f"L2 cold {fmt_ms(dec['device_cold_ms'])}: "
+          + ("the split-KV decode body is faster" if faster else
+             "the T = 1 route is at least as fast"))
+
+    # --- decode at whisper-small's decoder shape: 8 windows, KVH 12, G 1,
+    # D 64, a 448-row cache at ragged depths up to 68
+    wb, wkvh, wd, ws = 8, 12, 64, 448
+    wq = torch.randn((wb, 1, wkvh, wd), generator=gen, device=dev).to(bf16)
+    wk = torch.randn((wb, ws, wkvh, wd), generator=gen, device=dev).to(bf16)
+    wv = torch.randn((wb, ws, wkvh, wd), generator=gen, device=dev).to(bf16)
+    wpos = torch.tensor([68, 3, 40, 0, 67, 17, 55, 30], dtype=torch.int32,
+                        device=dev)
+    wroute, wn, wper = decode_plan("decode_attention", wkvh, wkvh, wd, bf16,
+                                   ws, wb * wkvh, n_sm)
+    got = decode_attention(wq, wk, wv, wpos)
+    werr, wrel = compare("decode_attention (whisper shape)", got,
+                         decode_attention_plain(wq, wk, wv, wpos))
+    compare("decode_attention (whisper shape) vs the split plain version",
+            got, flash_attention_split_plain(wq, wk, wv, causal=True,
+                                             keys_per_split=wper,
+                                             offsets=wpos))
+    print(f"  decode_attention whisper shape route {wroute} ({wn} splits of "
+          f"{wper}): max |kernel - plain| {werr:.3e}, ||kernel - plain|| / "
+          f"||plain|| {wrel:.3e}")
+    wmask = (torch.arange(ws, device=dev)[None, :]
+             <= wpos[:, None])[:, None, None, :]
+    dec["whisper"] = dict(
+        max_abs_err=werr, rel_norm_err=wrel, kernel_route=wroute,
+        n_split=wn, keys_per_split=wper,
+        **decode_times(torch, "decode_attention (whisper shape)", F,
+                       lambda: decode_attention(wq, wk, wv, wpos),
+                       lambda: decode_attention_plain(wq, wk, wv, wpos),
+                       wq, wk, wv, wmask, wpos))
 
     # --- flash: Sq = Skv in {17, 511, 1024}, H 16, KVH 8, D 128 ----------
     h, kvh = 16, 8
@@ -442,34 +590,35 @@ def phase_kernels(torch, dev):
     kp[pages.long()] = kc.reshape(b, nb, ps, kvh, d)
     vp[pages.long()] = vc.reshape(b, nb, ps, kvh, d)
     q = torch.randn((b, 1, h, d), generator=gen, device=dev).to(bf16)
+    pplan = decode_plan("paged_decode_attention", h, kvh, d, bf16, nb * ps,
+                        b * kvh, n_sm)
+    check(pplan == dplan,
+          "decode and paged decode take different routes or split layouts")
     got = paged_decode_attention(q, kp, vp, pages, ragged)
     err, rel = compare("paged_decode_attention", got,
                        paged_decode_attention_plain(q, kp, vp, pages,
                                                     ragged))
+    compare("paged_decode_attention vs the split plain version", got,
+            flash_attention_split_plain(q, kc, vc, causal=True,
+                                        keys_per_split=pplan[2],
+                                        offsets=ragged))
     check(torch.equal(got, decode_attention(q, kc, vc, ragged)),
           "paged_decode_attention is not bit-identical to decode_attention "
           "on the same values through a shuffled page table")
-    ms = time_ms(lambda: paged_decode_attention(q, kp, vp, pages, ragged))
-    plain_ms = time_ms(lambda: paged_decode_attention_plain(
-        q, kp, vp, pages, ragged))
-    library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        q.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2),
-        attn_mask=mask, enable_gqa=True))
+    print(f"  paged_decode_attention route {pplan[0]}: max |kernel - plain| "
+          f"{err:.3e}, ||kernel - plain|| / ||plain|| {rel:.3e}, "
+          f"torch.equal to decode_attention: True")
     blocks = int(((ragged.long() + ps) // ps).sum())   # table entries read
-    nbytes = (rows * kvh * d * 2 * 2 + 2 * q.numel() * 2 + blocks * 4
-              + b * 4)
-    flops = rows * h * d * 4
-    bound_ms, bound_by = bound(nbytes, flops)
     out["paged_decode_attention"] = dict(
-        max_abs_err=err, rel_norm_err=rel, ms=ms, plain_ms=plain_ms,
-        bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
-    print(f"  paged_decode_attention max |kernel - plain| {err:.3e}, "
-          f"||kernel - plain|| / ||plain|| {rel:.3e}, torch.equal to "
-          f"decode_attention: True")
-    print(f"  paged_decode_attention B={b} KVH={kvh} G={g} D={d} page {ps} "
-          f"x {nb} ragged pos: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-          f"ms, SDPA (contiguous, no gather) {library_ms:.4f} ms, bound "
-          f"{bound_ms * 1e3:.2f} us ({bound_by}, {nbytes} B)")
+        max_abs_err=err, rel_norm_err=rel, kernel_route=pplan[0],
+        **decode_times(torch, "paged_decode_attention (SDPA: contiguous, "
+                       "no gather)", F,
+                       lambda: paged_decode_attention(q, kp, vp, pages,
+                                                      ragged),
+                       lambda: paged_decode_attention_plain(q, kp, vp, pages,
+                                                            ragged),
+                       q, kc, vc, mask, ragged,
+                       extra_bytes=blocks * 4 + b * 4))
 
     # --- paged verify: windows at ragged starts, across page boundaries
     errs, rels = [], []
@@ -495,7 +644,6 @@ def phase_kernels(torch, dev):
                       (200, [15, 1031, 1030, 0, 511, 1500, 300, 1848])):
         pos = torch.tensor(starts, dtype=torch.int32, device=dev)
         q = torch.randn((b, t, h, d), generator=gen, device=dev).to(bf16)
-        n_sm = _sm_count(dev.index)
         vplan = plan("verify_attention", t, h, kvh, d, bf16, s, b * kvh,
                      n_sm)
         check(vplan == plan("paged_verify_attention", t, h, kvh, d, bf16,
@@ -693,11 +841,13 @@ def phase_builds(torch, dev):
     at every window of ``VERIFY_WINDOWS`` (both bf16 routes, across a
     page boundary, up to the last position), which must agree bit for
     bit.  Flash also at the shapes that reach both bf16 routes
-    (``FLASH_ROUTE_CASES``).  A split-route case of either kernel is held
-    against the split algorithm's plain version too."""
+    (``FLASH_ROUTE_CASES``).  A split-route case of flash, of either
+    verify kernel and of either decode kernel is held against the split
+    algorithm's plain version too."""
     import itertools
     from repro_torch.kernels.decode_attention.ops import (
         decode_attention, decode_attention_plain)
+    from repro_torch.kernels.decode_attention.ops import plan as decode_plan
     from repro_torch.kernels.flash_attention.ops import (
         _route, _sm_count, _splits, flash_attention, flash_attention_plain,
         flash_attention_split_plain, plan)
@@ -712,6 +862,7 @@ def phase_builds(torch, dev):
     gen.manual_seed(4321)
     b, kvh, s, sq = 3, 2, 300, 77       # sq: not a multiple of a tile
     ps, nb = 16, 19                     # 304 rows of pages hold s
+    n_sm = _sm_count(dev.index)
     pos = torch.tensor([0, s - 1, 137], dtype=torch.int32, device=dev)
     pages = (torch.randperm(b * nb, generator=gen, device=dev) + 1).reshape(
         b, nb).to(torch.int32)
@@ -725,9 +876,16 @@ def phase_builds(torch, dev):
 
         q = randn(b, 1, h, d)
         kc, vc = randn(b, s, kvh, d), randn(b, s, kvh, d)
-        dec = compare(f"decode_attention {name}",
-                      decode_attention(q, kc, vc, pos),
+        got = decode_attention(q, kc, vc, pos)
+        dec = compare(f"decode_attention {name}", got,
                       decode_attention_plain(q, kc, vc, pos))
+        droute, _, per = decode_plan("decode_attention", h, kvh, d, dtype, s,
+                                     b * kvh, n_sm)
+        if droute == "split":
+            compare(f"decode_attention {name} vs the split plain version",
+                    got, flash_attention_split_plain(
+                        q, kc, vc, causal=True, keys_per_split=per,
+                        offsets=pos))
         # the same rows, padded to whole pages, in a shuffled pool
         kc = torch.cat([kc, randn(b, nb * ps - s, kvh, d)], 1)
         vc = torch.cat([vc, randn(b, nb * ps - s, kvh, d)], 1)
@@ -738,6 +896,13 @@ def phase_builds(torch, dev):
         got = paged_decode_attention(q, kp, vp, pages, pos)
         pdec = compare(f"paged_decode_attention {name}", got,
                        paged_decode_attention_plain(q, kp, vp, pages, pos))
+        if droute == "split":
+            per = decode_plan("paged_decode_attention", h, kvh, d, dtype,
+                              nb * ps, b * kvh, n_sm)[2]
+            compare(f"paged_decode_attention {name} vs the split plain "
+                    f"version", got, flash_attention_split_plain(
+                        q, kc, vc, causal=True, keys_per_split=per,
+                        offsets=pos))
         check(torch.equal(got, decode_attention(q, kc, vc, pos)),
               f"paged_decode_attention {name} is not bit-identical to "
               f"decode_attention")
@@ -749,7 +914,7 @@ def phase_builds(torch, dev):
             vpos = torch.tensor(starts, dtype=torch.int32, device=dev)
             q = randn(b, t, h, d)
             route, _, per = plan("verify_attention", t, h, kvh, d, dtype,
-                                 nb * ps, b * kvh, _sm_count(dev.index))
+                                 nb * ps, b * kvh, n_sm)
             label = f"{name} T={t} ({route})"
             got = paged_verify_attention(q, kp, vp, pages, vpos)
             pver = compare(f"paged_verify_attention {label}", got,
@@ -793,7 +958,7 @@ def phase_builds(torch, dev):
             err, rel = compare(f"{label} ({route})", got,
                                flash_attention_plain(q, k, v, causal=causal))
             if route == "split":
-                per = _splits(2 * kvh, rskv, _sm_count(dev.index))[1]
+                per = _splits(2 * kvh, rskv, n_sm)[1]
                 compare(f"{label} vs the split plain version", got,
                         flash_attention_split_plain(q, k, v, causal=causal,
                                                     keys_per_split=per))

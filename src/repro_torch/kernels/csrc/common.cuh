@@ -59,11 +59,11 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
 // Address maps of a (slot, KV head)'s K and V rows: ``at(t, kp, vp)``
 // points kp and vp at the first element of logical position t's K and
 // V head vectors.  The attention bodies (decode_body.cuh,
-// attention_tile.cuh, flash_split.cuh, flash_mma.cuh) are templates over
-// them, so a contiguous and a paged kernel run the same float code.  A
-// 16-byte loader calls ``at`` once per key row it copies and adds its
-// chunk offsets to the row start, so a paged map reads its page table
-// once per row, never once per chunk.
+// decode_split.cuh, attention_tile.cuh, flash_split.cuh, flash_mma.cuh)
+// are templates over them, so a contiguous and a paged kernel run the
+// same float code.  A 16-byte loader calls ``at`` once per key row it
+// copies and adds its chunk offsets to the row start, so a paged map
+// reads its page table once per row, never once per chunk.
 
 // Contiguous rows: position t sits at k + t * k_ss (and likewise v).
 template <typename T>

@@ -1,6 +1,8 @@
-// The per-(slot, KV head) body of one-token GQA decode attention,
-// shared by the contiguous kernel (decode_attention.cu) and the paged
-// kernel (paged_decode_attention.cu).
+// The per-(slot, KV head) CUDA-core body of one-token GQA decode
+// attention, the float32 route of the contiguous kernel
+// (decode_attention.cu) and of the paged kernel
+// (paged_decode_attention.cu); bf16 takes the split-KV body of
+// decode_split.cuh.
 //
 // The body is a template over an address map (common.cuh): ``kv.at(t)``
 // gives position t's K and V head vectors for this CTA's (slot, KV

@@ -1,25 +1,40 @@
-"""Decode attention: the CUDA kernel's wrapper and its plain versions.
+"""Decode attention: the CUDA kernels' wrapper and its plain versions.
 
 ``decode_attention`` is the model-layout entry point.  A CPU tensor
 goes to ``decode_attention_plain`` (the copy of the reference's
-``decode_attention_jnp``); a CUDA tensor launches the hand-written
-kernel in ``csrc/decode_attention.cu`` or raises -- there is no
-fall-back.  ``decode_attention.launches`` counts kernel launches.
+``decode_attention_jnp``); a CUDA tensor launches one of the
+hand-written routes of ``csrc/decode_attention.cu`` or raises -- there
+is no fall-back.  ``plan`` picks the route by dtype:
+
+* bfloat16: the split-KV kernel (``csrc/decode_split.cuh``) and its
+  log-sum-exp merge (``csrc/split_merge.cuh``), a grid of (slot x KV
+  head, split) CTAs whose layout is flash's ``_splits`` over (B * KVH,
+  S, SM count), never over ``pos``; its plain version is flash's
+  ``flash_attention_split_plain`` at Sq = 1 with ``offsets=pos``;
+* float32: the CUDA-core loop (``csrc/decode_body.cuh``), one CTA per
+  (slot, KV head).
+
+``decode_attention.launches`` counts calls that launched a kernel (one
+per call, although the split route runs two grids).
 
 Replaces ``src/repro/kernels/decode_attention/decode_attention.py:
 decode_attention_kernel`` (wrapper ``ops.py:decode_attention``).  The
-kernel reads K/V in the cache's own (B, S, KVH, D) layout through
+kernels read K/V in the cache's own (B, S, KVH, D) layout through
 strides, where the reference wrapper transposes the cache to
-(B*KVH, S, D) first; see the source for its bound and design.
+(B*KVH, S, D) first; see the sources for their bound and design.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.flash_attention.ops import (
+    _check_aligned, _sm_count, _splits,
+)
 
 MASK_VALUE = -1e30
 
@@ -70,23 +85,93 @@ def decode_attention_plain(q, k_cache, v_cache, pos):
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+GROUPS = (1, 2, 4, 8)       # G = H / KVH the kernels are built for
 
 
-def _lib():
-    lib = build.library("decode_attention")
-    fn = lib.decode_attention_launch
+@functools.lru_cache(maxsize=None)
+def plan(name: str, h: int, kvh: int, d: int, dtype, capacity: int,
+         n_sets: int, n_sm: int) -> tuple[str, int, int]:
+    """(route, split count, keys per split) of a call of ``name``
+    (either decode kernel): ``"split"`` for bfloat16, with the layout
+    flash's ``_splits`` gives for ``n_sets`` = B * KVH over ``capacity``
+    keys (S, or a pool's NB * page_size) on ``n_sm`` SMs; ``"loop"``
+    (0, 0) for float32.  Shapes only: two calls with equal shapes take
+    the same route and split identically, whatever their positions.
+    Raises on what no kernel takes."""
+    if d not in (64, 128):
+        raise ValueError(f"{name}: D = {d} not in (64, 128)")
+    if h % kvh or h // kvh not in GROUPS:
+        raise ValueError(f"{name}: G = H / KVH = {h} / {kvh} not in "
+                         f"{GROUPS}")
+    if dtype == torch.float32:
+        return "loop", 0, 0
+    if dtype != torch.bfloat16:
+        raise TypeError(f"{name} takes float32 or bfloat16, got {dtype}")
+    return ("split", *_splits(n_sets, capacity, n_sm))
+
+
+def scratch(n_rows: int, d: int, device) -> tuple[torch.Tensor, int, int]:
+    """One float32 buffer for the split route's partials of ``n_rows``
+    (set, split, head) rows: o_part (n_rows, D), then ml_part (n_rows,
+    2).  Returns it (keep it until the launch is queued) and the two
+    pointers."""
+    buf = torch.empty(n_rows * (d + 2), dtype=torch.float32, device=device)
+    return buf, buf.data_ptr(), buf.data_ptr() + n_rows * d * 4
+
+
+def _entry(name: str, split: bool, n_ptr: int, n_int: int, n_after: int):
+    """The C entry point ``<name>_launch`` (``<name>_split_launch`` for
+    the split route) with its argument types: ``n_ptr`` tensors ending
+    in o (then o_part and ml_part), ``n_int`` sizes, 6 K/V strides,
+    ``n_after`` ints (the contiguous kernel's pos stride), the split
+    count and keys per split, scale, dtype, stream."""
+    fn = getattr(build.library(name),
+                 f"{name}_split_launch" if split else f"{name}_launch")
     if fn.argtypes is None:
-        fn.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                       _L, _L, _L, _L, _L, _L, _I, ctypes.c_float, _I, _P]
+        fn.argtypes = ([_P] * (n_ptr + 2 * split) + [_I] * n_int
+                       + [_L] * 6 + [_I] * (n_after + 2 * split)
+                       + [ctypes.c_float, _I, _P])
         fn.restype = _I
     return fn
+
+
+def launch(name: str, q, kvh: int, capacity: int, kv, ptrs, sizes,
+           after=()):
+    """Launch decode kernel ``name`` (``decode_attention`` or
+    ``paged_decode_attention``) on q (B, 1, H, D) and return o: the
+    route and split layout of ``plan`` over ``capacity`` keys, on the
+    split route the 16-byte row alignment of q and the K/V tensors
+    ``kv`` checked and float32 scratch allocated.  ``ptrs``: the
+    pointers between q and o in the C signature (``pos`` among them:
+    never read here); ``sizes``: its ints and six K/V strides;
+    ``after``: its ints after them.  Raises where no route takes the
+    call or a launch fails."""
+    b, _, h, d = q.shape
+    route, n_split, per = plan(name, h, kvh, d, q.dtype, capacity, b * kvh,
+                               _sm_count(q.device.index))
+    split = route == "split"
+    q = q.contiguous()
+    if split:
+        _check_aligned(q, *kv, name=name)
+    o = torch.empty_like(q)
+    head = [q.data_ptr(), *ptrs, o.data_ptr()]
+    fn = _entry(name, split, len(head), len(sizes) - 6, len(after))
+    if split:
+        buf, o_part, ml_part = scratch(b * n_split * h, d, q.device)
+        head += [o_part, ml_part]
+        after = (*after, n_split, per)
+    err = fn(*head, *sizes, *after, 1.0 / math.sqrt(d), build.dtype_code(q),
+             torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(err, name)
+    return o
 
 
 def decode_attention(q, k_cache, v_cache, pos):
     """q: (B, 1, H, D); caches: (B, S, KVH, D); pos: () or (B,) int.
     Returns (B, 1, H, D).  CPU tensors take the plain version; CUDA
-    tensors launch the kernel (G in {1, 2, 4, 8}, D in {64, 128},
-    float32 or bfloat16) or raise."""
+    tensors (G in {1, 2, 4, 8}, D in {64, 128}, float32 or bfloat16;
+    in bfloat16 every row start 16-byte aligned) launch the route
+    ``plan`` names or raise."""
     if q.device.type == "cpu":
         return decode_attention_plain(q, k_cache, v_cache, pos)
     if q.device.type != "cuda":
@@ -109,15 +194,11 @@ def decode_attention(q, k_cache, v_cache, pos):
         pos = pos.to(torch.int32)
     if pos.ndim not in (0, 1) or (pos.ndim == 1 and pos.shape[0] != b):
         raise ValueError(f"decode_attention: pos shape {tuple(pos.shape)}")
-    q = q.contiguous()
-    o = torch.empty_like(q)
-    err = _lib()(
-        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        pos.data_ptr(), o.data_ptr(), b, s, kvh, h // kvh, d,
-        *k_cache.stride()[:3], *v_cache.stride()[:3],
-        pos.stride(0) if pos.ndim else 0, 1.0 / math.sqrt(d),
-        build.dtype_code(q), torch.cuda.current_stream(q.device).cuda_stream)
-    build.check(err, "decode_attention")
+    o = launch("decode_attention", q, kvh, s, (k_cache, v_cache),
+               (k_cache.data_ptr(), v_cache.data_ptr(), pos.data_ptr()),
+               (b, s, kvh, h // kvh, d, *k_cache.stride()[:3],
+                *v_cache.stride()[:3]),
+               after=(pos.stride(0) if pos.ndim else 0,))
     decode_attention.launches += 1
     return o
 

@@ -1,30 +1,33 @@
-"""Paged decode attention: the CUDA kernel's wrapper and its plain version.
+"""Paged decode attention: the CUDA kernels' wrapper and its plain
+version.
 
 ``paged_decode_attention`` is the model-layout entry point of the paged
 engine's decode step.  A CPU tensor goes to
 ``paged_decode_attention_plain`` (the reference's jnp path: gather the
 slot-contiguous view through the page table, then
-``decode_attention_jnp``); a CUDA tensor launches the hand-written
-kernel in ``csrc/paged_decode_attention.cu`` or raises -- there is no
-fall-back.  ``paged_decode_attention.launches`` counts kernel launches.
+``decode_attention_jnp``); a CUDA tensor launches one of the
+hand-written routes of ``csrc/paged_decode_attention.cu`` or raises --
+there is no fall-back.  The route and split layout are decode's
+``plan`` over the pool's capacity NB * page_size: bfloat16 the split-KV
+kernel and its merge, float32 the CUDA-core loop.
+``paged_decode_attention.launches`` counts calls that launched a kernel
+(one per call on either route).
 
 Replaces ``src/repro/kernels/decode_attention/decode_attention.py:
 paged_decode_attention_kernel`` (wrapper ``ops.py:
-paged_decode_attention``).  The kernel reads the pool in the model's
+paged_decode_attention``).  The kernels read the pool in the model's
 (P, page_size, KVH, D) layout through strides, where the reference
 wrapper transposes the whole pool to (KVH, P, page_size, D) first, and
-it shares its body with ``decode_attention``: on the card the two agree
-bit for bit on the same values.
+they share their bodies with ``decode_attention``: on the card the two
+agree bit for bit on the same values and equal capacity.
 """
 from __future__ import annotations
 
-import ctypes
-import math
-
 import torch
 
-from repro_torch.kernels import build
-from repro_torch.kernels.decode_attention.ops import decode_attention_plain
+from repro_torch.kernels.decode_attention.ops import (
+    decode_attention_plain, launch,
+)
 
 
 def paged_view(pool, pages):
@@ -46,21 +49,6 @@ def paged_decode_attention_plain(q, k_pool, v_pool, pages, pos):
     pos: () or (B,).  Returns (B, 1, H, D)."""
     return decode_attention_plain(q, paged_view(k_pool, pages),
                                   paged_view(v_pool, pages), pos)
-
-
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-_L = ctypes.c_longlong
-
-
-def _lib():
-    lib = build.library("paged_decode_attention")
-    fn = lib.paged_decode_attention_launch
-    if fn.argtypes is None:
-        fn.argtypes = ([_P] * 6 + [_I] * 6 + [_L] * 6
-                       + [ctypes.c_float, _I, _P])
-        fn.restype = _I
-    return fn
 
 
 def check_paged_args(name, q, k_pool, v_pool, pages, pos):
@@ -91,8 +79,9 @@ def check_paged_args(name, q, k_pool, v_pool, pages, pos):
 def paged_decode_attention(q, k_pool, v_pool, pages, pos):
     """q: (B, 1, H, D); pools: (P, page_size, KVH, D); pages: (B, NB)
     int; pos: () or (B,) int.  Returns (B, 1, H, D).  CPU tensors take
-    the plain version; CUDA tensors launch the kernel (G in {1, 2, 4,
-    8}, D in {64, 128}, float32 or bfloat16) or raise."""
+    the plain version; CUDA tensors (G in {1, 2, 4, 8}, D in {64, 128},
+    float32 or bfloat16; in bfloat16 every row start 16-byte aligned)
+    launch the route ``plan`` names or raise."""
     if q.device.type == "cpu":
         return paged_decode_attention_plain(q, k_pool, v_pool, pages, pos)
     if q.device.type != "cuda":
@@ -104,14 +93,12 @@ def paged_decode_attention(q, k_pool, v_pool, pages, pos):
                                   v_pool, pages, pos)
     b, _, h, d = q.shape
     _, ps, kvh, _ = k_pool.shape
-    q = q.contiguous()
-    o = torch.empty_like(q)
-    err = _lib()(
-        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), pages.data_ptr(),
-        pos.data_ptr(), o.data_ptr(), b, kvh, h // kvh, d, pages.shape[1],
-        ps, *k_pool.stride()[:3], *v_pool.stride()[:3], 1.0 / math.sqrt(d),
-        build.dtype_code(q), torch.cuda.current_stream(q.device).cuda_stream)
-    build.check(err, "paged_decode_attention")
+    nb = pages.shape[1]
+    o = launch("paged_decode_attention", q, kvh, nb * ps, (k_pool, v_pool),
+               (k_pool.data_ptr(), v_pool.data_ptr(), pages.data_ptr(),
+                pos.data_ptr()),
+               (b, kvh, h // kvh, d, nb, ps, *k_pool.stride()[:3],
+                *v_pool.stride()[:3]))
     paged_decode_attention.launches += 1
     return o
 

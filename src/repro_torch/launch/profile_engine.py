@@ -76,7 +76,7 @@ def _wall_ms(fn, reps: int) -> float:
     return (time.perf_counter() - t0) * 1e3 / reps
 
 
-def _profiled(fn, wall_ms: float, top: int = 8) -> dict:
+def _profiled(fn, wall_ms: float, top: int = 16) -> dict:
     """Run ``fn`` once under the profiler: its kernels' device time, the
     busy share against ``wall_ms`` (measured with the profiler off, which
     itself slows the host) and the top kernels by device time."""
