@@ -29,7 +29,12 @@ Phases, each fatal on failure:
    split-KV kernel + merge for at most 16 rows T * G per KV head, else
    the tensor-core tile kernel) and, timed, its kernel-only time.
    The linear scan (rwkv6-3b's prefill: B 1, T 1,024 and a ragged
-   1,000, H 48, dh 64) against its plain chunked version, y and state.
+   1,000, H 48, dh 64) against its plain chunked version, y and state:
+   bf16 takes the chunked tensor-core route (an intra-chunk grid, then
+   a carry grid: chunk, state columns a carry CTA and both grids' CTAs
+   printed), timed by events, kernel-only (each grid) with the L2 warm
+   and flushed, and host work per call, beside the carry grid's other
+   value split (equal bits) and the registers and spills ptxas reported.
    The W8A8 int8 GEMM at the tiny model's shape (M 12,544, K = N = 64,
    float32 out) and a qwen3-1.7b FFN up-projection (M 1,024, K 2,048,
    N 6,144, bf16 out), equal to its plain version bit for bit, beside
@@ -46,7 +51,9 @@ Phases, each fatal on failure:
    a ragged last split, 77 x 300 tiles; decode and paged decode bit for
    bit, in bf16 also against the split plain version; both verify
    kernels at windows of 5, 8, 9 and 200, bit for bit; the scan at dh
-   32/64/128; the int8 GEMM at the reference test's shapes and ragged
+   32/64/128 on both routes (float32 loop, bf16 chunked) at T 1, 40, 77
+   and 77 under strong decay (logw down to -30 a step); the int8 GEMM
+   at the reference test's shapes and ragged
    edges, both outputs) once at a small shape against its plain
    version.
 4. Full-width engine: qwen3-1.7b (28 layers, d_model 2048, 16/8 heads,
@@ -230,6 +237,24 @@ def ptxas_report(log: str) -> list[str]:
             for n, (_, regs, spill) in zip(names, rows)]
 
 
+def sass_mma_counts(lib: str) -> dict:
+    """HMMA (tensor-core mma) instructions per kernel in the SASS of the
+    shared library ``lib``, by mangled kernel name (``cuobjdump -sass``
+    beside ``nvcc``)."""
+    from repro_torch.kernels import build
+    tool = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", lib], capture_output=True,
+                          text=True, check=True).stdout
+    counts, name = {}, None
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            name = ln.split("Function :", 1)[1].strip()
+            counts[name] = 0
+        elif name and "HMMA" in ln:
+            counts[name] += 1
+    return counts
+
+
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr)
     sys.exit(1)
@@ -289,7 +314,8 @@ def device_ms(torch, fn, reps: int = 10, cold: bool = False):
     for e in prof.events():
         if (e.device_type == DeviceType.CUDA
                 and not (cold and "FillFunctor<unsigned char>" in e.name)):
-            name = e.name.split("(")[0].removeprefix("void ")
+            name = (e.name.replace("(anonymous namespace)::", "")
+                     .split("(")[0].removeprefix("void "))
             per[name] = per.get(name, 0.0) + e.time_range.elapsed_us()
     if not per:
         return None, ""
@@ -360,15 +386,19 @@ def compare_scan(torch, label: str, r, k, v, logw, u):
     return err, rel, serr
 
 
-def scan_inputs(torch, gen, dev, b, t, h, dh, dtype):
+def scan_inputs(torch, gen, dev, b, t, h, dh, dtype, strong=False):
     """The reference's scan test inputs (tests/test_kernels.py:151-156)
     from ``gen``: r, k, v ~ N(0, 0.25) in ``dtype``, logw = -exp(N(0,
-    0.25)) and u ~ N(0, 0.09) in float32."""
+    0.25)) and u ~ N(0, 0.09) in float32.  ``strong``: logw uniform in
+    (-30, 0) instead, a decay that sums to hundreds within a chunk."""
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=dev)
 
     r, k, v = ((randn(b, t, h, dh) * 0.5).to(dtype) for _ in range(3))
-    logw = -torch.exp(randn(b, t, h, dh) * 0.5)
+    if strong:
+        logw = -30 * torch.rand((b, t, h, dh), generator=gen, device=dev)
+    else:
+        logw = -torch.exp(randn(b, t, h, dh) * 0.5)
     return r, k, v, logw, randn(h, dh) * 0.3
 
 
@@ -424,8 +454,6 @@ def phase_kernels(torch, dev):
     from repro_torch.kernels.flash_attention.ops import (
         _route, _sm_count, flash_attention, flash_attention_plain,
         flash_attention_split_plain, plan)
-    from repro_torch.kernels.linear_scan.ops import (linear_scan,
-                                                     linear_scan_plain)
     from repro_torch.kernels.paged_decode_attention.ops import (
         paged_decode_attention, paged_decode_attention_plain)
     from repro_torch.kernels.paged_verify_attention.ops import (
@@ -744,40 +772,117 @@ def phase_kernels(torch, dev):
     print(f"  paged_verify_attention at the same window (T={t}, route "
           f"{route}): kernel {p_ms:.4f} ms (kernel-only {fmt_ms(p_dev_ms)})")
 
-    # --- linear scan: rwkv6-3b's prefill of 1,024 tokens (48 padded
-    # heads of 64), then a ragged 1,000
+    return out
+
+
+def phase_scan(torch, dev):
+    """Phase 3, the linear scan at rwkv6-3b's prefill (bf16, B 1, H 48
+    padded heads, dh 64; T 1,024 and a ragged 1,000): the chunked route
+    against the plain version (y and state), then timed by events, kernel
+    only (``torch.profiler``: both grids, each printed) with the L2 warm
+    and flushed, and host work per call, beside the plain version, the
+    bound and the registers and spills ptxas reported."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention.ops import _sm_count
+    from repro_torch.kernels.linear_scan.ops import (chunk_steps,
+                                                     linear_scan,
+                                                     linear_scan_plain,
+                                                     plan)
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2468)
     b, h, dh = 1, 48, 64
+    # the chunk as built, and a carry CTA's state columns (kVB in
+    # scan_chunked.cuh)
+    route, chunk, vb = plan(bf16, dh), chunk_steps(dh), 32
     errs, rels, serrs = [], [], []
     for t in (1024, 1000):
         r, k, v, logw, u = scan_inputs(torch, gen, dev, b, t, h, dh, bf16)
-        err, rel, serr = compare_scan(torch, f"linear_scan (T={t})", r, k,
-                                      v, logw, u)
+        err, rel, serr = compare_scan(torch, f"linear_scan (T={t}, {route})",
+                                      r, k, v, logw, u)
         errs.append(err)
         rels.append(rel)
         serrs.append(serr)
-        print(f"  linear_scan T={t}: max |kernel - plain| {err:.3e}, "
-              f"||kernel - plain|| / ||plain|| {rel:.3e}, state max err "
-              f"{serr:.3e}")
+        print(f"  linear_scan T={t} route {route}: max |kernel - plain| "
+              f"{err:.3e}, ||kernel - plain|| / ||plain|| {rel:.3e}, state "
+              f"max err {serr:.3e}")
     r, k, v, logw, u = scan_inputs(torch, gen, dev, b, 1024, h, dh, bf16)
-    ms = time_ms(lambda: linear_scan(r, k, v, logw, u))
+    t = r.shape[1]
+
+    def kernel():
+        return linear_scan(r, k, v, logw, u)
+
+    ms = time_ms(kernel)
+    dev_ms, kerns = device_ms(torch, kernel)
+    cold_ms, cold_kerns = device_ms(torch, kernel, cold=True)
+    h_us = host_us(torch, kernel)
     plain_ms = time_ms(lambda: linear_scan_plain(r, k, v, logw, u,
                                                  return_state=True))
-    t = r.shape[1]
     # r, k, v, y in bf16, logw in f32, read or written once; u and the
     # f32 state; the recurrence's 5 dh^2 flop per step and head
     nbytes = (4 * r.numel() * 2 + logw.numel() * 4 + u.numel() * 4
               + b * h * dh * dh * 4)
     flops = 5 * b * t * h * dh * dh
     bound_ms, bound_by = bound(nbytes, flops)
-    out["linear_scan"] = dict(
-        max_abs_err=max(errs), rel_norm_err=max(rels),
-        state_max_abs_err=max(serrs), ms=ms, plain_ms=plain_ms,
-        bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
-    print(f"  linear_scan B={b} T={t} H={h} dh={dh}: kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms, no library call, bound "
+    regs = [ln for ln in ptxas_report(build.build_log.get(
+        "linear_scan", (0, ""))[1]) if "scan" in ln]
+    # the chunked route's two grids run on the tensor cores
+    counts = sass_mma_counts(build.library_path("linear_scan"))
+    mma = {}
+    for grid in ("intra", "carry"):
+        hits = [n for name, n in counts.items()
+                if f"scan_{grid}_kernelILi{dh}ELi{chunk}EE" in name]
+        mma[grid] = hits[0] if len(hits) == 1 else 0
+    check(all(mma.values()),
+          f"linear_scan: no HMMA in the chunked route's SASS: {mma}")
+    ctas = b * h * -(-t // chunk), b * h * (dh // vb)
+    print(f"  linear_scan B={b} T={t} H={h} dh={dh} route {route} (chunk "
+          f"{chunk}: intra-chunk grid {ctas[0]} CTAs, carry grid {ctas[1]} "
+          f"CTAs of {vb} state columns, on {_sm_count(dev.index)} SMs): "
+          f"kernel {ms:.4f} ms (kernel-only "
+          f"{fmt_ms(dev_ms)}: {kerns}; L2 cold {fmt_ms(cold_ms)}: "
+          f"{cold_kerns}; host {h_us:.1f} us a call), plain "
+          f"{plain_ms:.4f} ms, no library call, bound "
           f"{bound_ms * 1e3:.2f} us ({bound_by}, {nbytes} B, {flops} flop; "
           f"{flops / 67e12 * 1e6:.2f} us at float32's 67 TFLOP/s)")
-    return out
+    print("  ptxas: " + (" | ".join(regs) or "no report (library cached)"))
+    print("  SASS HMMA instructions: " + ", ".join(
+        f"scan_{k}_kernel {n}" for k, n in mma.items()))
+    return dict(
+        max_abs_err=max(errs), rel_norm_err=max(rels),
+        state_max_abs_err=max(serrs), ms=ms, plain_ms=plain_ms,
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+        kernel_route=route, chunk=chunk, value_block=vb,
+        ctas=dict(intra=ctas[0], carry=ctas[1]), sass_hmma=mma,
+        device_ms=dev_ms, device_cold_ms=cold_ms, host_us=h_us,
+        ptxas=regs)
+
+
+def phase_scan_builds(torch, dev):
+    """Phase 3b, every build of the scan (B 2, H 3, dh 32/64/128) against
+    the plain version: the float32 loop and the bfloat16 chunked route,
+    at T 1, 40 (under a chunk), 77 (a ragged tail) and 77 under strong
+    decay (logw down to -30 a step)."""
+    import itertools
+
+    from repro_torch.kernels.linear_scan.ops import plan
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1357)
+    for dtype, dh in itertools.product((torch.float32, torch.bfloat16),
+                                       (32, 64, 128)):
+        route = plan(dtype, dh)
+        name = f"{str(dtype).removeprefix('torch.')} dh={dh} ({route})"
+        res = []
+        for t, strong in ((1, False), (40, False), (77, False), (77, True)):
+            r, k, v, logw, u = scan_inputs(torch, gen, dev, 2, t, 3, dh,
+                                           dtype, strong=strong)
+            err, rel, serr = compare_scan(
+                torch, f"linear_scan {name} T={t}"
+                f"{' strong decay' if strong else ''}", r, k, v, logw, u)
+            res.append(f"T{t}{'s' if strong else ''} {err:.2e}/{rel:.2e}/"
+                       f"{serr:.2e}")
+        print(f"  linear_scan {name}: y max err / norm err / state max err: "
+              + "; ".join(res))
 
 
 def phase_flash_bidir(torch, dev):
@@ -971,15 +1076,6 @@ def phase_builds(torch, dev):
               f"{bi[1][0]:.2e}/{bi[1][1]:.2e}; paged decode "
               f"{pdec[0]:.2e}/{pdec[1]:.2e} (= decode); verify and paged "
               f"verify (bit-equal): {'; '.join(vers)}")
-    # the scan: B 2, T 77 (no multiple of a staged block), H 3
-    for dtype, dh in itertools.product((torch.float32, torch.bfloat16),
-                                       (32, 64, 128)):
-        name = f"{str(dtype).removeprefix('torch.')} dh={dh}"
-        r, k, v, logw, u = scan_inputs(torch, gen, dev, 2, 77, 3, dh, dtype)
-        err, rel, serr = compare_scan(torch, f"linear_scan {name}", r, k,
-                                      v, logw, u)
-        print(f"  linear_scan {name}: y max err {err:.2e} rel {rel:.2e}, "
-              f"state {serr:.2e}")
 
 
 def int8_inputs(torch, gen, dev, m, k, n):
@@ -1928,9 +2024,11 @@ def main() -> int:
     flash["max_abs_err"] = max([flash["max_abs_err"]]
                                + [r["max_abs_err"] for r in bidir.values()])
     flash["bidirectional"] = bidir
+    kernels["linear_scan"] = phase_scan(torch, dev)
     kernels["int8_matmul"] = phase_int8(torch, dev)
     phase("phase 3b: every kernel build vs its plain version (small shapes)")
     phase_builds(torch, dev)
+    phase_scan_builds(torch, dev)
     phase_int8_builds(torch, dev)
 
     phase("phase 4: full-width qwen3-1.7b engine")

@@ -45,7 +45,9 @@ def nvcc() -> str:
     return found
 
 
-def _library_path(name: str) -> str:
+def library_path(name: str) -> str:
+    """The path of ``csrc/<name>.cu``'s library for the current sources
+    and flags (built or not)."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for path in sorted(glob.glob(os.path.join(CSRC, "*.cuh"))) + [
             os.path.join(CSRC, f"{name}.cu")]:
@@ -60,7 +62,7 @@ def build_all() -> dict[str, tuple[float, str]]:
     os.makedirs(BUILD_DIR, exist_ok=True)
     jobs = []
     for name in SOURCES:
-        so = _library_path(name)
+        so = library_path(name)
         if os.path.exists(so):
             continue
         tmp = f"{so}.{os.getpid()}.tmp"
@@ -87,7 +89,7 @@ def library(name: str) -> ctypes.CDLL:
     use, together with every other source)."""
     with _lock:
         if name not in _libs:
-            so = _library_path(name)
+            so = library_path(name)
             if not os.path.exists(so):
                 build_all()
             _libs[name] = ctypes.CDLL(so)

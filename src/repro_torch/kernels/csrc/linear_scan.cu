@@ -9,12 +9,15 @@
 // from S_0 = 0, returning every y_t and the final S, a (dh x dh)
 // float32 matrix.
 //
+// Two routes, chosen in Python by ``kernels/linear_scan/ops.py:plan``:
+//   * bfloat16 (rwkv6-3b's prefill): the chunked form on the tensor
+//     cores, ``scan_chunked.cuh`` (entry ``linear_scan_chunked_launch``);
+//   * float32: the CUDA-core loop below (entry ``linear_scan_launch``).
+//
 // What bounds it on the H100: bytes, in principle.  At the prefill shape
 // (B 1, T 1,024, H 48, dh 64, bf16 r/k/v, f32 logw) it reads r, k, v and
 // logw once and writes y and S once, ~38.5 MB (~11.5 us at 3.35 TB/s),
-// against ~1 GFLOP of state updates.  The Pallas kernel runs the chunked
-// form (intra-chunk pairwise decay on the matrix unit, the state carried
-// across a sequential grid axis).  This first version runs the plain
+// against ~1 GFLOP of state updates.  The float32 loop runs the plain
 // recurrence on CUDA cores, so its time is set by the per-step latency
 // of one (slot, head) rather than by either bound:
 //   * one CTA per (slot, head) walks time in order; thread e owns
@@ -33,10 +36,10 @@
 //     (B, T, H, dh) layout through strides, and the sequence stops at T:
 //     nothing is transposed or padded (the reference wrapper folds to
 //     (B*H, T, dh) and needs T to be a multiple of its chunk).
-// The chunked form on the tensor cores is later work; its float order
-// differs from the plain version's, as this kernel's does.
+// Its float order differs from the plain version's chunked form.
 
 #include "common.cuh"
+#include "scan_chunked.cuh"
 
 namespace {
 
@@ -48,10 +51,7 @@ using repro::to_f32;
 // beside its column of S
 constexpr int kStageFloats = 1024;
 
-struct Strides {
-  long long r_sb, r_st, r_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh,
-      w_sb, w_st, w_sh, y_sb, y_st, y_sh;
-};
+using Strides = repro::ScanStrides;
 
 // Thread e's element of rows [t0, t0 + nt) of r, k, v and logw, into
 // registers: the loads of a whole block are issued together and stay in
@@ -191,10 +191,11 @@ int dispatch_d(int D, const void* r, const void* k, const void* v,
 
 }  // namespace
 
-// r, k, v, y: (B, T, H, D) in the dtype; logw: (B, T, H, D) float32, all
+// r, k, v, y: (B, T, H, D) float32; logw: (B, T, H, D) float32, all
 // with unit stride on D and element strides (batch, time, head) given in
 // the order r, k, v, logw, y.  u: (H, D) float32 contiguous.  s_out:
-// (B, H, D, D) float32 contiguous, s[d][e].
+// (B, H, D, D) float32 contiguous, s[d][e].  ``dtype`` must be float32:
+// bfloat16 takes linear_scan_chunked_launch.
 extern "C" int linear_scan_launch(
     const void* r, const void* k, const void* v, const void* logw,
     const void* u, void* y, void* s_out, int B, int Tn,
@@ -205,17 +206,54 @@ extern "C" int linear_scan_launch(
     int dtype, void* stream) {
   const Strides st{r_sb, r_st, r_sh, k_sb, k_st, k_sh, v_sb, v_st,
                    v_sh, w_sb, w_st, w_sh, y_sb, y_st, y_sh};
+  if (dtype != repro::kFloat32) return repro::kUnsupported;
+  if (B <= 0 || H <= 0 || Tn < 0) return 0;
+  return dispatch_d<float>(D, r, k, v, static_cast<const float*>(logw),
+                           static_cast<const float*>(u), y,
+                           static_cast<float*>(s_out), B, Tn, H, st,
+                           static_cast<cudaStream_t>(stream));
+}
+
+// Steps of the chunked route's chunk at head dim D (0 where no kernel
+// is built): the wrapper sizes the scratch by it.
+extern "C" int linear_scan_chunked_steps(int D) {
+  namespace sc = repro::scan_chunked;
+  switch (D) {
+    case 32: return sc::chunk_steps<32>();
+    case 64: return sc::chunk_steps<64>();
+    case 128: return sc::chunk_steps<128>();
+    default: return 0;
+  }
+}
+
+// The chunked route (scan_chunked.cuh): r, k, v, y bfloat16, logw
+// float32, in the same layouts; every row start 16-byte aligned.  Chunks
+// of C = linear_scan_chunked_steps(D) steps: the intra-chunk grid
+// (B * H, chunks), then the carry grid (B * H, D / 32), 32 state columns
+// a CTA.  ``scratch``: float32, B * H * chunks * (2 * C * D + D * D + D)
+// values, 16-byte aligned.
+extern "C" int linear_scan_chunked_launch(
+    const void* r, const void* k, const void* v, const void* logw,
+    const void* u, void* y, void* s_out, int B, int Tn, int H, int D,
+    long long r_sb, long long r_st, long long r_sh, long long k_sb,
+    long long k_st, long long k_sh, long long v_sb, long long v_st,
+    long long v_sh, long long w_sb, long long w_st, long long w_sh,
+    long long y_sb, long long y_st, long long y_sh, void* scratch,
+    void* stream) {
+  namespace sc = repro::scan_chunked;
+  const repro::ScanStrides st{r_sb, r_st, r_sh, k_sb, k_st, k_sh, v_sb,
+                              v_st, v_sh, w_sb, w_st, w_sh, y_sb, y_st,
+                              y_sh};
   const float* lw = static_cast<const float*>(logw);
   const float* uu = static_cast<const float*>(u);
   float* so = static_cast<float*>(s_out);
+  float* scr = static_cast<float*>(scratch);
   cudaStream_t cs = static_cast<cudaStream_t>(stream);
   if (B <= 0 || H <= 0 || Tn < 0) return 0;
-  switch (dtype) {
-    case repro::kFloat32:
-      return dispatch_d<float>(D, r, k, v, lw, uu, y, so, B, Tn, H, st, cs);
-    case repro::kBFloat16:
-      return dispatch_d<__nv_bfloat16>(D, r, k, v, lw, uu, y, so, B, Tn, H, st, cs);
-    default:
-      return repro::kUnsupported;
+  switch (D) {
+    case 32: return sc::launch<32>(r, k, v, lw, uu, y, so, scr, B, Tn, H, st, cs);
+    case 64: return sc::launch<64>(r, k, v, lw, uu, y, so, scr, B, Tn, H, st, cs);
+    case 128: return sc::launch<128>(r, k, v, lw, uu, y, so, scr, B, Tn, H, st, cs);
+    default: return repro::kUnsupported;
   }
 }

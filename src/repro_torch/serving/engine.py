@@ -138,6 +138,14 @@ class ServeEngine:
         if len(requests) > self.batch:
             raise ValueError(f"{len(requests)} requests > batch size "
                              f"{self.batch}")
+        # the batch decodes at positions s .. s + max(budget) - 2, each
+        # inside the cache's max_len rows
+        for r in requests:
+            s = np.asarray(r.prompt).size
+            if s + r.max_new_tokens > self.max_len + 1:
+                raise ValueError(f"request {r.rid}: prompt {s} + budget "
+                                 f"{r.max_new_tokens} tokens exceed "
+                                 f"max_len {self.max_len} + 1")
         prompts = torch.cat([_prompt_tensor(r.prompt, self.device)
                              for r in requests])
         inputs = {"tokens": prompts}

@@ -101,6 +101,27 @@ def test_serve_engine_token_identical_to_reference():
     assert got == want
 
 
+def test_serve_engine_refuses_a_batch_past_max_len():
+    """A fixed batch decodes at positions s .. s + max(budget) - 2, so s
+    + budget may reach max_len + 1 and no further.  At that boundary the
+    port's tokens are the reference's; one token more is refused before
+    prefill, naming the request (past it the reference attends to rows
+    it no longer writes)."""
+    jm, jp, tm, tp = _both()
+    budgets = [5, 3]                     # prompt 8: 8 + 5 = max_len + 1
+    want = [r.output for r in JaxServeEngine(
+        jm, jp, max_len=12, batch_size=2).run_batch(
+            _requests(JaxRequest, budgets))]
+    eng = ServeEngine(tm, tp, max_len=12, batch_size=2, device="cpu")
+    got = [r.output for r in eng.run_batch(_requests(Request, budgets))]
+    assert got == want
+    assert [len(o) for o in got] == budgets
+    reqs = _requests(Request, [5, 6])
+    with pytest.raises(ValueError, match="request 1: prompt 8 \\+ budget 6"):
+        eng.run_batch(reqs)
+    assert all(r.first_token_s is None and r.output is None for r in reqs)
+
+
 def test_engine_honors_arrivals_on_its_clock():
     """Requests admitted at their arrival times (fake clock): a request
     arriving after the first finished still completes, TTFT >= 0."""

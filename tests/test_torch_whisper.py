@@ -226,6 +226,27 @@ def test_serve_engine_token_identical_to_reference(use_pallas):
         jeng.tokens_per_request(jreqs) == sum(budgets)
 
 
+def test_serve_engine_refuses_a_batch_past_max_len():
+    """4-token prompts behind max_len 8: a budget of 5 decodes up to the
+    cache's last row and emits the JAX engine's tokens; a budget of 6
+    would reach past it (on a card, past the position table) and is
+    refused before prefill, naming the request."""
+    jm, jp, tm, tp = _models()
+    budgets = [5, 2, 5]
+    f = _frames(tm.cfg, 3, seed=6)
+    jreqs = JaxServeEngine(jm, jp, max_len=8, batch_size=3).run_batch(
+        _serve_requests(JaxRequest, budgets, 512),
+        extra_inputs={"frames": jnp.asarray(f)})
+    eng = ServeEngine(tm, tp, max_len=8, batch_size=3, device="cpu")
+    treqs = eng.run_batch(_serve_requests(Request, budgets, 512),
+                          extra_inputs={"frames": torch.from_numpy(f)})
+    assert [r.output for r in treqs] == [r.output for r in jreqs]
+    assert [len(r.output) for r in treqs] == budgets
+    with pytest.raises(ValueError, match="request 2: prompt 4 \\+ budget 6"):
+        eng.run_batch(_serve_requests(Request, [5, 2, 6], 512),
+                      extra_inputs={"frames": torch.from_numpy(f)})
+
+
 def test_kernels_flag_off_is_the_same_model_on_cpu():
     """``kernels=False`` calls the plain versions directly; on the CPU
     the wrappers route to them too, so the logits are identical."""
