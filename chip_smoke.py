@@ -37,8 +37,16 @@ Phases, each fatal on failure:
    value split (equal bits) and the registers and spills ptxas reported.
    The W8A8 int8 GEMM at the tiny model's shape (M 12,544, K = N = 64,
    float32 out) and a qwen3-1.7b FFN up-projection (M 1,024, K 2,048,
-   N 6,144, bf16 out), equal to its plain version bit for bit, beside
-   ``torch._int_mm`` + the same epilogue and its bound at the int8 rate.
+   N 6,144, bf16 out): both take the wgmma route (route, tile, CTAs and
+   waves printed), equal to the plain version bit for bit on it and on
+   the mma.sync route (called through its own entry point); each route
+   timed by events, kernel-only warm and L2-cold, and host work per
+   call (the wgmma route's TMA descriptor encoding also alone), beside
+   ``torch._int_mm`` alone (kernel-only) and with the same
+   epilogue, and the bound at the int8 rate; the registers, spills and
+   SASS opcodes of both routes' kernels (the wgmma kernel must hold
+   warpgroup MMAs, TMA loads and mbarrier operations, the sync kernel
+   IMMAs).
    Flash's bidirectional form at whisper-small's shapes (B 8, H = KVH
    12, D 64, 1,500 keys; Sq 1,500, 1 and 4) beside SDPA.  Each flash
    shape prints the route it took (bf16: the tensor-core tile kernel
@@ -53,9 +61,9 @@ Phases, each fatal on failure:
    kernels at windows of 5, 8, 9 and 200, bit for bit; the scan at dh
    32/64/128 on both routes (float32 loop, bf16 chunked) at T 1, 40, 77
    and 77 under strong decay (logw down to -30 a step); the int8 GEMM
-   at the reference test's shapes and ragged
-   edges, both outputs) once at a small shape against its plain
-   version.
+   at the reference test's shapes and ragged edges on both routes,
+   K 8,192 among them, both outputs, each shape's route printed) once
+   at a small shape against its plain version.
 4. Full-width engine: qwen3-1.7b (28 layers, d_model 2048, 16/8 heads,
    padded vocab 153,600, bf16, seeded random weights) behind
    ``ContinuousBatchingEngine(n_slots=8, max_len=2048, chunk_steps=8)``
@@ -237,10 +245,11 @@ def ptxas_report(log: str) -> list[str]:
             for n, (_, regs, spill) in zip(names, rows)]
 
 
-def sass_mma_counts(lib: str) -> dict:
-    """HMMA (tensor-core mma) instructions per kernel in the SASS of the
-    shared library ``lib``, by mangled kernel name (``cuobjdump -sass``
-    beside ``nvcc``)."""
+def sass_ops(lib: str) -> dict:
+    """Opcode counts per kernel in the SASS of the shared library
+    ``lib`` (``cuobjdump -sass`` beside ``nvcc``), by mangled kernel
+    name: {name: {opcode: n}}, the opcode without its modifiers (HMMA,
+    IMMA, HGMMA, IGMMA, UTMALDG, SYNCS, ...)."""
     from repro_torch.kernels import build
     tool = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
     sass = subprocess.run([tool, "-sass", lib], capture_output=True,
@@ -249,10 +258,21 @@ def sass_mma_counts(lib: str) -> dict:
     for ln in sass.splitlines():
         if "Function :" in ln:
             name = ln.split("Function :", 1)[1].strip()
-            counts[name] = 0
-        elif name and "HMMA" in ln:
-            counts[name] += 1
+            counts[name] = {}
+        elif name and "*/" in ln:
+            words = ln.split("*/", 1)[1].split()
+            if words and words[0].startswith("@"):
+                words = words[1:]
+            if words and words[0][:1].isalpha():
+                op = words[0].split(".")[0]
+                counts[name][op] = counts[name].get(op, 0) + 1
     return counts
+
+
+def sass_mma_counts(lib: str) -> dict:
+    """HMMA (tensor-core mma) instructions per kernel in the SASS of the
+    shared library ``lib``, by mangled kernel name."""
+    return {name: ops.get("HMMA", 0) for name, ops in sass_ops(lib).items()}
 
 
 def fail(msg: str) -> None:
@@ -1106,67 +1126,189 @@ def compare_int8(torch, label, xq, wq, sx, sw, out_dtype):
     return err
 
 
+# The int8 GEMM's kernels in cuobjdump's SASS, by a piece of their
+# mangled names: the wgmma route's and the mma.sync route's
+INT8_KERNELS = {"wgmma": "int8_wgmma_kernel", "sync": "int8_matmul_kernel"}
+
+
+def int8_sass() -> dict:
+    """Opcode counts of the int8 library's kernels that tell its routes
+    apart: warpgroup MMAs (*GMMA), mma.sync's IMMA, TMA loads (UTMALDG)
+    and mbarrier operations (SYNCS), summed over each kernel's output
+    types.  Fails unless the wgmma kernel has warpgroup MMAs, TMA loads
+    and mbarrier waits, and the sync kernel IMMAs."""
+    from repro_torch.kernels import build
+    per = {}
+    for name, ops in sass_ops(build.library_path("int8_matmul")).items():
+        for tag, key in INT8_KERNELS.items():
+            if key in name:
+                acc = per.setdefault(tag, {"IMMA": 0, "UTMALDG": 0,
+                                           "SYNCS": 0})
+                for op, n in ops.items():
+                    if op in acc or op.endswith("GMMA"):
+                        acc[op] = acc.get(op, 0) + n
+    for tag in INT8_KERNELS:
+        c = per.get(tag, {})
+        if tag == "wgmma":
+            gmma = sum(n for op, n in c.items() if op.endswith("GMMA"))
+            check(gmma > 0 and c.get("UTMALDG", 0) > 0
+                  and c.get("SYNCS", 0) > 0,
+                  f"int8_matmul {tag}: SASS lacks warpgroup MMAs, TMA "
+                  f"loads or mbarrier operations: {c}")
+        else:
+            check(c.get("IMMA", 0) > 0,
+                  f"int8_matmul {tag}: no IMMA in its SASS: {c}")
+    return per
+
+
 def phase_int8(torch, dev):
     """Phase 3, int8 GEMM: the tiny keyword spotter's pointwise GEMM (M
     12,544, K = N = 64, float32 out; the main path's shape) and a
-    qwen3-1.7b FFN up-projection (M 1,024, K 2,048, N 6,144, bf16 out),
-    each equal to its plain version and timed beside it, beside
-    ``torch._int_mm`` + the same epilogue (a yardstick the port never
-    calls) and beside its bound at the int8 rate."""
-    from repro_torch.kernels.int8_matmul import int8_matmul, int8_matmul_plain
+    qwen3-1.7b FFN up-projection (M 1,024, K 2,048, N 6,144, bf16 out).
+    Both take the wgmma route (route, tile, CTAs and waves printed); each
+    is held bit for bit against its plain version, on that route and on
+    the mma.sync route called through its own entry point at the same
+    shape, then timed: the wrapper by events, kernel-only
+    (``torch.profiler``) with the L2 warm and flushed, and its host work
+    per call; the sync route the same way (the before-number); beside
+    ``torch._int_mm`` alone kernel-only and ``_int_mm`` + the same
+    epilogue (yardsticks the port never calls), the plain version and
+    the bound at the int8 rate.  Then the registers, spills and SASS
+    opcodes of both routes' kernels."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention.ops import _sm_count
+    from repro_torch.kernels.int8_matmul.ops import (
+        WGMMA_STAGES, WGMMA_TILE, int8_matmul, int8_matmul_plain, launch,
+        plan, wgmma_encode_us)
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(8)
+    n_sm = _sm_count(dev.index)
     rec = {}
     for tag, (m, k, n), out_dtype in (
             ("tiny", (12544, 64, 64), torch.float32),
             ("lm", (1024, 2048, 6144), torch.bfloat16)):
         xq, wq, sx, sw = int8_inputs(torch, gen, dev, m, k, n)
+        route = plan(m, k, n, out_dtype)
+        check(route == "wgmma", f"int8_matmul {tag}: route {route}")
+        bm, bn = WGMMA_TILE
+        ctas = -(-m // bm) * -(-n // bn)
+        waves = ctas / n_sm                 # one CTA an SM
         name = f"int8_matmul {tag} M={m} K={k} N={n} " \
                f"{str(out_dtype).removeprefix('torch.')}"
-        err = compare_int8(torch, name, xq, wq, sx, sw, out_dtype)
-        ms = time_ms(lambda: int8_matmul(xq, wq, sx, sw,
-                                         out_dtype=out_dtype))
+        err = compare_int8(torch, f"{name} ({route})", xq, wq, sx, sw,
+                           out_dtype)
+        want = int8_matmul_plain(xq, wq, sx, sw, out_dtype)
+        check(torch.equal(launch(xq, wq, sx, sw, out_dtype, "sync"), want),
+              f"{name}: the sync route is not bit-equal to plain")
+
+        def kernel():
+            return int8_matmul(xq, wq, sx, sw, out_dtype=out_dtype)
+
+        def sync():
+            return launch(xq, wq, sx, sw, out_dtype, "sync")
+
+        def int_mm():
+            return torch._int_mm(xq, wq)
+
+        def int_mm_epilogue():
+            return ((torch._int_mm(xq, wq).float() * sx) * sw).to(out_dtype)
+
+        ms = time_ms(kernel)
+        dev_ms, kerns = device_ms(torch, kernel)
+        cold_ms, _ = device_ms(torch, kernel, cold=True)
+        h_us = host_us(torch, kernel)
+        enc_us = wgmma_encode_us(xq, wq, kernel())
+        s_ms = time_ms(sync)
+        s_dev_ms, s_kerns = device_ms(torch, sync)
+        s_cold_ms, _ = device_ms(torch, sync, cold=True)
+        s_h_us = host_us(torch, sync)
         plain_ms = time_ms(lambda: int8_matmul_plain(xq, wq, sx, sw,
                                                      out_dtype))
-        library_ms = time_ms(lambda: ((torch._int_mm(xq, wq).float() * sx)
-                                      * sw).to(out_dtype))
+        library_ms = time_ms(int_mm_epilogue)
+        lib_dev_ms, _ = device_ms(torch, int_mm_epilogue)
+        mm_ms = time_ms(int_mm)
+        mm_dev_ms, mm_kerns = device_ms(torch, int_mm)
+        mm_cold_ms, _ = device_ms(torch, int_mm, cold=True)
         # x, w read once, the scales once, the output written once
         out_bytes = 4 if out_dtype == torch.float32 else 2
         nbytes = m * k + k * n + 4 * (m + n) + m * n * out_bytes
         ops = 2 * m * n * k
         bound_ms, bound_by = bound(nbytes, ops, INT8_OP_PER_S)
-        print(f"  {name}: equal to plain (max err {err}); kernel "
-              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, torch._int_mm + "
-              f"epilogue {library_ms:.4f} ms, bound {bound_ms * 1e3:.2f} us "
+        print(f"  {name}: route {route}, tile {bm}x{bn} ({WGMMA_STAGES} "
+              f"stages, one CTA an SM): {ctas} CTAs on {n_sm} SMs, "
+              f"{waves:.2f} waves; bit-equal to plain on both routes")
+        print(f"    wgmma: {ms:.4f} ms by events, kernel-only "
+              f"{fmt_ms(dev_ms)} ({kerns}), L2 cold {fmt_ms(cold_ms)}, host "
+              f"{h_us:.1f} us a call ({enc_us:.2f} us of it encoding the "
+              f"TMA descriptors)")
+        print(f"    sync (mma.sync, 128x64): {s_ms:.4f} ms by events, "
+              f"kernel-only {fmt_ms(s_dev_ms)} ({s_kerns}), L2 cold "
+              f"{fmt_ms(s_cold_ms)}, host {s_h_us:.1f} us a call")
+        print(f"    torch._int_mm alone {mm_ms:.4f} ms by events, "
+              f"kernel-only {fmt_ms(mm_dev_ms)} ({mm_kerns}), L2 cold "
+              f"{fmt_ms(mm_cold_ms)}; _int_mm + epilogue {library_ms:.4f} "
+              f"ms (kernel-only {fmt_ms(lib_dev_ms)}); plain "
+              f"{plain_ms:.4f} ms; bound {bound_ms * 1e3:.2f} us "
               f"({bound_by}, {nbytes} B, {ops} int8 op)")
-        rec[tag] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                        bound_ms=bound_ms, bound_by=bound_by,
-                        library_ms=library_ms)
+        rec[tag] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+            bound_by=bound_by, library_ms=library_ms, kernel_route=route,
+            tile=[bm, bn], stages=WGMMA_STAGES, ctas=ctas, waves=waves,
+            device_ms=dev_ms, device_cold_ms=cold_ms, host_us=h_us,
+            encode_us=enc_us, sync_ms=s_ms, sync_device_ms=s_dev_ms,
+            sync_device_cold_ms=s_cold_ms, sync_host_us=s_h_us,
+            library_device_ms=lib_dev_ms, int_mm_ms=mm_ms,
+            int_mm_device_ms=mm_dev_ms, int_mm_device_cold_ms=mm_cold_ms)
+    regs = [ln for ln in ptxas_report(build.build_log.get(
+        "int8_matmul", (0, ""))[1]) if "int8" in ln]
+    sass = int8_sass()
+    print("  ptxas: " + (" | ".join(regs) or "no report (library cached)"))
+    print("  SASS: " + "; ".join(f"{tag} {c}" for tag, c in sass.items()))
     # the record's numbers are the main path's (tiny) shape; the LM
     # shape's ride along under lm_*
     out = dict(rec["tiny"])
     out.update({f"lm_{key}": v for key, v in rec["lm"].items()
                 if key != "max_abs_err"})
+    out.update(ptxas=regs, sass=sass)
     return out
 
 
+# Phase 3b's int8 shapes: the reference test's (256^3, 300 x 500 x 260,
+# 128 x 1,024 x 512), ragged edges on the sync route (every dimension
+# off the 128 / 64 / 64 tiles, K off 16 and 4, N off 4), and on the
+# wgmma route: ragged M, N and K tiles (300 x 272 x 528), a lone row
+# and the smallest K and N (1 x 16 x 16), one whole stage (65 x 128 x
+# 80) and 64 stages, 16 turns of the ring (200 x 8,192 x 400).
+INT8_SHAPES = ((256, 256, 256), (300, 500, 260), (128, 1024, 512),
+               (1, 1, 1), (17, 500, 9), (130, 77, 65), (129, 64, 63),
+               (300, 272, 528), (1, 16, 16), (65, 128, 80),
+               (200, 8192, 400))
+
+
 def phase_int8_builds(torch, dev):
-    """Phase 3b, int8 GEMM: the reference test's shapes (256^3, 300 x
-    500 x 260, 128 x 1,024 x 512) and ragged edges (every dimension off
-    the 128 / 64 / 64 tiles, K off 16 and 4, N off 4), each with float32
-    and bf16 output, equal to the plain version."""
+    """Phase 3b, int8 GEMM: every shape of ``INT8_SHAPES``, float32 and
+    bf16 out, bit-equal to the plain version through the wrapper (its
+    route printed); a wgmma-route shape also through the sync route."""
+    from repro_torch.kernels.int8_matmul.ops import (
+        int8_matmul_plain, launch, plan)
     gen = torch.Generator(device=dev)
     gen.manual_seed(9)
-    shapes = ((256, 256, 256), (300, 500, 260), (128, 1024, 512),
-              (1, 1, 1), (17, 500, 9), (130, 77, 65), (129, 64, 63))
-    for (m, k, n) in shapes:
+    for (m, k, n) in INT8_SHAPES:
         xq, wq, sx, sw = int8_inputs(torch, gen, dev, m, k, n)
+        route = plan(m, k, n, torch.float32)
         for out_dtype in (torch.float32, torch.bfloat16):
-            compare_int8(torch, f"int8_matmul M={m} K={k} N={n} "
-                         f"{out_dtype}", xq, wq, sx, sw, out_dtype)
-        print(f"  int8_matmul M={m} K={k} N={n}: float32 and bf16 equal "
-              f"to plain")
+            label = f"int8_matmul M={m} K={k} N={n} {out_dtype}"
+            compare_int8(torch, f"{label} ({route})", xq, wq, sx, sw,
+                         out_dtype)
+            if route == "wgmma":
+                check(torch.equal(
+                    launch(xq, wq, sx, sw, out_dtype, "sync"),
+                    int8_matmul_plain(xq, wq, sx, sw, out_dtype)),
+                    f"{label}: the sync route is not bit-equal to plain")
+        tile = " (sync route too)" if route == "wgmma" else ""
+        print(f"  int8_matmul M={m} K={k} N={n} route {route}{tile}: "
+              f"float32 and bf16 equal to plain")
 
 
 def phase_tiny(torch, dev):

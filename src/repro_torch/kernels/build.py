@@ -111,5 +111,8 @@ def check(err: int, what: str) -> None:
     """Raise on a non-zero return of a C entry point."""
     if err == -1:
         raise ValueError(f"{what}: shape or dtype not instantiated")
+    if err == -2:
+        raise RuntimeError(f"{what}: cuTensorMapEncodeTiled refused a TMA "
+                           f"descriptor")
     if err:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")

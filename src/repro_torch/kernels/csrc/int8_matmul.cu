@@ -1,5 +1,9 @@
 // W8A8 int8 GEMM with a fused per-row / per-column dequant epilogue, for
-// sm_90a.
+// sm_90a: the mma.sync route, for the shapes off TMA's 16-byte rule (K
+// or N not a multiple of 16, e.g. 300 x 500 x 260 or 17 x 500 x 9).
+// Every other shape, the tiny keyword spotter's and the LM shapes
+// included, takes the wgmma route of int8_wgmma.cuh, whose C entry point
+// (int8_matmul_wgmma_launch) this file also exports; ops.py:plan chooses.
 //
 // Replaces the TPU kernel
 //   src/repro/kernels/int8_matmul/int8_matmul.py: int8_matmul_kernel
@@ -12,20 +16,19 @@
 // multiplies rounded to nearest in that order (__fmul_rn: no contraction
 // can change it), and the result stored as float32 or, through
 // __float2bfloat16_rn, bfloat16.  Since the integer sum is exact and the
-// epilogue's order is fixed, the kernel agrees with its plain version
+// epilogue's order is fixed, both routes agree with the plain version
 // (an exact int32 product, then the same two multiplies) bit for bit.
 //
-// What bounds it on the H100: at the tiny keyword spotter's shape (M
-// 12,544, K = N = 64, float32 out) bytes: ~4 MB to move (~1.2 us at
-// 3.35 TB/s) against 0.1 GOP, so one launch is set by launch latency and
-// the time to fill the card; at an LM shape (M 1,024, K 2,048, N 6,144)
-// operations: 25.8 GOP (~13 us at 1,979 dense int8 TOP/s).  The Pallas
-// kernel keeps a 256 x 256 int32 accumulator in VMEM across a
-// sequential K grid axis; here each CTA walks K itself.  This first
-// version:
-//   * one CTA of 256 threads (8 warps, 4 x 2) per 128 x 64 output tile,
-//     so the tiny shape's 98 row tiles each get an SM; each warp owns a
-//     32 x 32 sub-tile: 2 x 4 tensor-core products
+// What bounds it on the H100: bytes where K and N are small (the tiny
+// shape's ~4 MB, 1.21 us at 3.35 TB/s), operations where they are large
+// (an LM shape's 25.8 GOP, 13.02 us at 1,979 dense int8 TOP/s).  This
+// route reaches neither: called through its own entry point at those
+// shapes (chip_smoke.py phase 3, kernel-only, NVIDIA H100 80GB HBM3 at
+// 700.00 W) it takes 0.0041 ms (tiny) and 0.1145 ms (LM, 8.8x the
+// bound), where the wgmma route takes 0.0038 and 0.0330.  The Pallas kernel keeps a 256 x 256 int32 accumulator in VMEM
+// across a sequential K grid axis; here each CTA walks K itself:
+//   * one CTA of 256 threads (8 warps, 4 x 2) per 128 x 64 output tile;
+//     each warp owns a 32 x 32 sub-tile: 2 x 4 tensor-core products
 //     mma.sync.m16n8k32.row.col.s32.s8.s8.s32 per 32-deep K step, with
 //     its 32 int32 accumulators in registers;
 //   * K advances 64 at a time through two shared-memory stages: the next
@@ -37,9 +40,7 @@
 //     moves 16-bit elements).  Each thread therefore reads a 4 (K) x 4
 //     (N) byte block of w as four 32-bit words, transposes it in
 //     registers with four byte permutes, and stores it N-major into
-//     shared memory, where every fragment is one aligned 32-bit load.
-//     The wrapper takes w as the reference lays it out, so no caller
-//     transposes or re-quantizes anything;
+//     shared memory, where every fragment is one aligned 32-bit load;
 //   * rows of shared memory are 80 bytes (64 + 16), so the eight rows a
 //     fragment load touches fall in eight distinct bank groups;
 //   * ragged shapes: x is read 16 bytes at a time when K is a multiple of
@@ -48,11 +49,12 @@
 //     lies past M, N or K is zero-filled, so it adds nothing to the
 //     sums, and the epilogue reads sx[m] and sw[n] only for m < M and
 //     n < N.
-// wgmma.s8 with TMA and a deeper pipeline is later work.
 
+#include <chrono>
 #include <cstdint>
 
 #include "common.cuh"
+#include "int8_wgmma.cuh"
 
 namespace {
 
@@ -318,3 +320,62 @@ extern "C" int int8_matmul_launch(const void* x, const void* w,
       return repro::kUnsupported;
   }
 }
+
+// The wgmma route (int8_wgmma.cuh): the same arguments, with K and N
+// multiples of 16 and x and w 16-byte aligned.  Returns kUnsupported for
+// what the route does not take, kTensorMapFailed if a TMA descriptor
+// cannot be encoded.
+extern "C" int int8_matmul_wgmma_launch(const void* x, const void* w,
+                                        const void* sx, const void* sw,
+                                        void* out, int M, int N, int K,
+                                        int out_dtype, void* stream) {
+  namespace iw = repro::int8_wgmma;
+  const int8_t* xp = static_cast<const int8_t*>(x);
+  const int8_t* wp = static_cast<const int8_t*>(w);
+  const float* sxp = static_cast<const float*>(sx);
+  const float* swp = static_cast<const float*>(sw);
+  cudaStream_t cs = static_cast<cudaStream_t>(stream);
+  if (M <= 0 || N <= 0 || K <= 0 || K % 16 || N % 16)
+    return repro::kUnsupported;
+  if ((N + iw::kBN - 1) / iw::kBN > 65535) return repro::kUnsupported;
+  if (reinterpret_cast<uintptr_t>(x) % 16 ||
+      reinterpret_cast<uintptr_t>(w) % 16)
+    return repro::kUnsupported;
+  switch (out_dtype) {
+    case repro::kFloat32:
+      return iw::launch<float>(xp, wp, sxp, swp, out, M, N, K, cs);
+    case repro::kBFloat16:
+      return iw::launch<__nv_bfloat16>(xp, wp, sxp, swp, out, M, N, K, cs);
+    default:
+      return repro::kUnsupported;
+  }
+}
+
+// Host microseconds per call that the wgmma route spends encoding its
+// TMA descriptors at this shape and output type (the mean over ``reps``
+// encodings into the 16-byte-aligned addresses given; nothing is read
+// there).  Negative: the code of the failure.
+extern "C" double int8_matmul_wgmma_encode_us(const void* x, const void* w,
+                                              void* out, int M, int N, int K,
+                                              int out_dtype, int reps) {
+  namespace iw = repro::int8_wgmma;
+  const int8_t* xp = static_cast<const int8_t*>(x);
+  const int8_t* wp = static_cast<const int8_t*>(w);
+  if (reps <= 0 || (out_dtype != repro::kFloat32 &&
+                    out_dtype != repro::kBFloat16))
+    return repro::kUnsupported;
+  CUtensorMap tx, tw, to;
+  const auto t0 = std::chrono::steady_clock::now();
+  for (int i = 0; i < reps; ++i) {
+    const int err =
+        out_dtype == repro::kFloat32
+            ? iw::encode_maps<float>(xp, wp, out, M, N, K, &tx, &tw, &to)
+            : iw::encode_maps<__nv_bfloat16>(xp, wp, out, M, N, K, &tx,
+                                             &tw, &to);
+    if (err) return err;
+  }
+  const std::chrono::duration<double, std::micro> dt =
+      std::chrono::steady_clock::now() - t0;
+  return dt.count() / reps;
+}
+
