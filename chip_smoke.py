@@ -11,7 +11,8 @@ Phases, each fatal on failure:
 3. Kernels vs their plain PyTorch versions on the card, bf16, at the
    main paths' shapes; each kernel's median time beside its plain
    version's, one PyTorch library call's (SDPA, a yardstick the port
-   never calls) and the least time the card could take (its bound).
+   never calls; by events and kernel-only at every attention shape) and
+   the least time the card could take (its bound).
    Decode and paged decode (bf16: the split-KV kernel + merge, split
    layout printed) are also held against the split algorithm's plain
    version and timed by events, kernel-only (``torch.profiler``, both
@@ -122,6 +123,21 @@ Phases, each fatal on failure:
    counts exact (flash 36 + 12 x 63, decode 12 x 63); the kernel path
    against the plain path on the same weights (first-token logits
    within phase 5's limit, tokens equal except from a near-tie on).
+15. The main path under ``PowerRun`` with the card's own energy (run
+   after phase 9, while phase 4's qwen3-1.7b weights and engine are
+   loaded): the NVML energy counter's update period, 2 s of idle draw
+   beside the H100 spec's estimate; ``ContinuousBatchingSUT(phase 4's
+   engine, energy_meter=NVML)`` under ``Server(mode="queue",
+   target_qps=8, min_queries=16, latency_slo_s=10)`` over phase 4's
+   prompts and budgets: the review must ACCEPT, the stack's measured
+   accelerator energy must lie within 3 % of the counter's delta over
+   the serve, its average watts between half the idle draw and 1.05 x
+   the enforced limit, launches exact (flash 28 per admission, decode
+   28 per decode step); tok/s, TTFT, TPOT, Joules by channel (measured
+   or modeled), tok/J at the accelerator and at the wall.  Then
+   ``serving_throughput.metrics(smoke=True)`` on the card (both SUTs
+   ACCEPT) and the launcher's fixed engine under Offline through
+   ``ServeEngineSUT`` (ACCEPT).
 
 The line before the last holds the kernels' JSON record; the last line
 is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside
@@ -216,6 +232,18 @@ F32_LOGIT_REL_TOL = 5e-3
 # under the reference test's own gate (tests/test_kernels.py:130-141).
 TINY_REL_TOL = 1e-5
 INT8_REL_ERR_MAX = 0.02
+
+# Phase 15: the stack's accelerator channel samples the counter-derived
+# trace at 100 Hz with the telemetry channel's noise (2.5 % a sample,
+# independent) and integrates it over the run's window; the counter's
+# own delta spans the serve.  The two must agree within 3 %.  That gate
+# sees a trace read off the engine's t = 0 only where the draw changes
+# across the shift, so time alignment is gated directly as well: the
+# serve's window (the engine's t = 0 to the loadgen's duration) must lie
+# inside the sampler's readings, within one sampling period of each end
+# (MeasuredTrace.gaps_s; tests/test_torch_serving_sut.py plants a late
+# t = 0 and a shifted trace and sees these gates fail).
+ENERGY_ALIGN_TOL = 0.03
 
 
 def ptxas_report(log: str) -> list[str]:
@@ -609,9 +637,14 @@ def phase_kernels(torch, dev):
     dev_ms, kerns = device_ms(torch,
                               lambda: flash_attention(q, k, v, causal=True))
     plain_ms = time_ms(lambda: flash_attention_plain(q, k, v, causal=True))
-    library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-        is_causal=True, enable_gqa=True))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=True, enable_gqa=True)
+
+    library_ms = time_ms(sdpa)
+    lib_dev_ms, lib_kerns = device_ms(torch, sdpa)
     sq = q.shape[1]
     flops = 4 * h * d * sq * (sq + 1) // 2          # causal pairs only
     nbytes = (2 * sq * h * d + 2 * sq * kvh * d) * 2
@@ -620,11 +653,13 @@ def phase_kernels(torch, dev):
         max_abs_err=max(errs), rel_norm_err=max(rels), ms=ms,
         plain_ms=plain_ms, bound_ms=bound_ms,
         bound_by=bound_by, library_ms=library_ms,
+        library_device_ms=lib_dev_ms,
         kernel_route=_route(sq, sq, h, kvh, d, bf16), device_ms=dev_ms)
     print(f"  flash_attention S={sq} H={h} KVH={kvh} D={d} route "
           f"{out['flash_attention']['kernel_route']}: kernel {ms:.4f} ms "
           f"(kernel-only {fmt_ms(dev_ms)}: {kerns}), plain "
-          f"{plain_ms:.4f} ms, SDPA {library_ms:.4f} ms, bound "
+          f"{plain_ms:.4f} ms, SDPA {library_ms:.4f} ms (kernel-only "
+          f"{fmt_ms(lib_dev_ms)}: {lib_kerns}), bound "
           f"{bound_ms * 1e3:.2f} us ({bound_by}, {flops} flop)")
 
     # --- paged: decode's K/V scattered into a pool of 16-row pages ------
@@ -727,9 +762,14 @@ def phase_kernels(torch, dev):
     vc1 = vp[pg1.long()].reshape(1, nb * ps, kvh, d)[:, :skv]
     vmask = (torch.arange(skv, device=dev)[None, :]
              <= start + torch.arange(t, device=dev)[:, None])[None, None]
-    library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        q.transpose(1, 2), kc1.transpose(1, 2), vc1.transpose(1, 2),
-        attn_mask=vmask, enable_gqa=True))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), kc1.transpose(1, 2), vc1.transpose(1, 2),
+            attn_mask=vmask, enable_gqa=True)
+
+    library_ms = time_ms(sdpa)
+    lib_dev_ms, lib_kerns = device_ms(torch, sdpa)
     pairs = t * start + t * (t + 1) // 2            # visible (query, key)
     flops = 4 * h * d * pairs
     nbytes = (skv * kvh * d * 2 * 2 + 2 * q.numel() * 2
@@ -738,11 +778,13 @@ def phase_kernels(torch, dev):
     out["paged_verify_attention"] = dict(
         max_abs_err=max(errs), rel_norm_err=max(rels), ms=ms,
         plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-        library_ms=library_ms, kernel_route=route, device_ms=dev_ms)
+        library_ms=library_ms, library_device_ms=lib_dev_ms,
+        kernel_route=route, device_ms=dev_ms)
     print(f"  paged_verify_attention B=1 T={t} at pos {start} H={h} "
           f"KVH={kvh} D={d} route {route}: kernel {ms:.4f} ms (kernel-only "
           f"{fmt_ms(dev_ms)}: {kerns}), plain {plain_ms:.4f} ms, "
-          f"SDPA (contiguous, no gather) {library_ms:.4f} ms, bound "
+          f"SDPA (contiguous, no gather) {library_ms:.4f} ms (kernel-only "
+          f"{fmt_ms(lib_dev_ms)}: {lib_kerns}), bound "
           f"{bound_ms * 1e3:.2f} us ({bound_by}, {flops} flop, {nbytes} B)")
 
     # --- verify: the speculative window (T = k + 1 = 5) on the decode
@@ -764,9 +806,14 @@ def phase_kernels(torch, dev):
     q_pos = pos[:, None] + torch.arange(t, device=dev)[None, :]   # (B, T)
     vmask = (torch.arange(s, device=dev)[None, None, :]
              <= q_pos[:, :, None])[:, None].expand(b, h, t, s)
-    library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        q.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2),
-        attn_mask=vmask, enable_gqa=True))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2),
+            attn_mask=vmask, enable_gqa=True)
+
+    library_ms = time_ms(sdpa)
+    lib_dev_ms, lib_kerns = device_ms(torch, sdpa)
     rows = int((pos.long() + t).sum())              # positions read
     nbytes = rows * kvh * d * 2 * 2 + 2 * q.numel() * 2 + b * 4
     flops = int((q_pos.long() + 1).sum()) * h * d * 4   # visible pairs
@@ -778,19 +825,23 @@ def phase_kernels(torch, dev):
     out["verify_attention"] = dict(
         max_abs_err=err, rel_norm_err=rel, ms=ms, plain_ms=plain_ms,
         bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
-        kernel_route=route, device_ms=dev_ms)
+        library_device_ms=lib_dev_ms, kernel_route=route, device_ms=dev_ms)
+    # SDPA on the contiguous cache is the paged window's yardstick too
     out["paged_verify_attention"]["window"] = dict(
-        t=t, kernel_route=route, ms=p_ms, device_ms=p_dev_ms)
+        t=t, kernel_route=route, ms=p_ms, device_ms=p_dev_ms,
+        library_ms=library_ms, library_device_ms=lib_dev_ms)
     print(f"  verify_attention max |kernel - plain| {err:.3e}, "
           f"||kernel - plain|| / ||plain|| {rel:.3e}, torch.equal to "
           f"paged_verify_attention: True")
     print(f"  verify_attention B={b} T={t} KVH={kvh} G={g} D={d} S={s} "
           f"ragged pos route {route}: kernel {ms:.4f} ms (kernel-only "
           f"{fmt_ms(dev_ms)}: {kerns}), plain {plain_ms:.4f} ms, "
-          f"SDPA (boolean (B, H, T, S) mask) {library_ms:.4f} ms, bound "
+          f"SDPA (boolean (B, H, T, S) mask) {library_ms:.4f} ms "
+          f"(kernel-only {fmt_ms(lib_dev_ms)}: {lib_kerns}), bound "
           f"{bound_ms * 1e3:.2f} us ({bound_by}, {nbytes} B, {flops} flop)")
     print(f"  paged_verify_attention at the same window (T={t}, route "
-          f"{route}): kernel {p_ms:.4f} ms (kernel-only {fmt_ms(p_dev_ms)})")
+          f"{route}): kernel {p_ms:.4f} ms (kernel-only {fmt_ms(p_dev_ms)}),"
+          f" SDPA on the contiguous cache kernel-only {fmt_ms(lib_dev_ms)}")
 
     return out
 
@@ -937,9 +988,14 @@ def phase_flash_bidir(torch, dev):
             torch, lambda: flash_attention(q, k, v, causal=False))
         plain_ms = time_ms(lambda: flash_attention_plain(q, k, v,
                                                          causal=False))
-        library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            is_causal=False))
+
+        def sdpa():
+            return F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                is_causal=False)
+
+        library_ms = time_ms(sdpa)
+        lib_dev_ms, lib_kerns = device_ms(torch, sdpa)
         # q, k, v read once and o written once, bf16; every (query, key)
         # pair scores: 2 D flop for q.k and 2 D for p.v
         nbytes = (2 * b * sq * h * d + 2 * b * skv * kvh * d) * 2
@@ -948,12 +1004,14 @@ def phase_flash_bidir(torch, dev):
         out[tag] = dict(sq=sq, skv=skv, max_abs_err=err, rel_norm_err=rel,
                         ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                         bound_by=bound_by, library_ms=library_ms,
-                        kernel_route=route, device_ms=dev_ms)
+                        library_device_ms=lib_dev_ms, kernel_route=route,
+                        device_ms=dev_ms)
         print(f"  flash_attention bidirectional {tag} B={b} Sq={sq} "
               f"Skv={skv} H={h} KVH={kvh} D={d} route {route}: max |kernel "
               f"- plain| {err:.3e}, rel {rel:.3e}; kernel {ms:.4f} ms "
               f"(kernel-only {fmt_ms(dev_ms)}: {kerns}), plain "
-              f"{plain_ms:.4f} ms, SDPA {library_ms:.4f} ms, bound "
+              f"{plain_ms:.4f} ms, SDPA {library_ms:.4f} ms (kernel-only "
+              f"{fmt_ms(lib_dev_ms)}: {lib_kerns}), bound "
               f"{bound_ms * 1e3:.2f} us ({bound_by}, {nbytes} B, {flops} "
               f"flop)")
     return out
@@ -2004,6 +2062,144 @@ def phase_spec_tokens(torch, dev, model, params, make, requests):
           "the paged speculative engine launched contiguous verify")
 
 
+def phase_power(torch, dev, model, engine, requests) -> dict:
+    """Phase 15: the main path under ``PowerRun`` with the card's own
+    energy.  (a) 2 s of idle draw from the NVML energy counter beside
+    the H100 spec's estimate, and the counter's update period.  (b)
+    ``PowerRun(ContinuousBatchingSUT(phase 4's engine, energy_meter=
+    NVML), Server(mode="queue", target_qps=8, min_queries=16,
+    latency_slo_s=10))`` over phase 4's prompts and budgets: the review
+    must ACCEPT, the stack's accelerator energy lie within
+    ``ENERGY_ALIGN_TOL`` of the counter's delta over the serve, the
+    accelerator's average watts between half the idle draw and 1.05 x
+    the enforced limit, and the launches be exact.  (c)
+    ``serving_throughput.metrics(smoke=True)`` on the card: both SUTs
+    ACCEPT.  (d) the launcher's fixed engine under Offline through
+    ``ServeEngineSUT``: ACCEPT.  Returns (b)'s launches."""
+    import numpy as np
+    from repro_torch.benchmarks import serving_throughput
+    from repro_torch.harness import ContinuousBatchingSUT, PowerRun, Server
+    from repro_torch.hw import H100_SXM
+    from repro_torch.launch import serve as tserve
+    from repro_torch.power.nvml import NVML
+    from repro_torch.serving import Request
+
+    cfg = model.cfg
+    with NVML(dev) as nvml:
+        limit_w = nvml.power_limit_w()
+        meter = nvml.energy_meter()
+        period = nvml.counter_period_s
+        print(f"  NVML: {nvml.name()} at {nvml.bus_id}, enforced limit "
+              f"{limit_w:.2f} W; energy counter moves every "
+              f"{period * 1e3:.3f} ms (median), so read every "
+              f"{meter.keywords['period_s'] * 1e3:.3f} ms")
+        # (a) idle draw
+        torch.cuda.synchronize()
+        with meter() as idle:
+            time.sleep(2.0)
+        idle_w = idle.energy_j() / idle.window_s()
+        print(f"  (a) idle: {idle_w:.2f} W measured over "
+              f"{idle.window_s():.3f} s ({idle.n_samples} readings); "
+              f"H100_SXM.idle_watts {H100_SXM.idle_watts:.1f} W "
+              f"(estimate); power reading now {nvml.power_w():.2f} W")
+
+        # (b) the main path
+        def make_request(i, s, a):
+            qid = s["qid"]
+            r = requests[qid % len(requests)]
+            return Request(rid=qid, prompt=r.prompt,
+                           max_new_tokens=r.max_new_tokens, arrival_s=a)
+
+        engine.serve([Request(rid=-1, prompt=np.arange(64),
+                              max_new_tokens=9)], honor_arrivals=False)
+        sut = ContinuousBatchingSUT(engine, cfg, name="qwen3-1.7b-continuous",
+                                    make_request=make_request,
+                                    energy_meter=meter)
+        torch.cuda.synchronize()
+        kernels = launch_counters()
+        for k in kernels.values():
+            k.launches = 0
+        r = PowerRun(sut, Server(mode="queue", target_qps=8.0,
+                                 min_queries=16, latency_slo_s=10.0,
+                                 min_duration_s=1.0), seed=0).run()
+        launches = {name: k.launches for name, k in kernels.items()}
+    print("  " + r.render().replace("\n", "\n  "))
+    m = r.outcome.server
+    n = r.outcome.result.n_queries
+    check(r.passed, "phase 15 main path: the review REJECTED the run")
+    check(launches["decode_attention"] == cfg.n_layers * engine.decode_steps,
+          f"phase 15 decode launches {launches['decode_attention']} != "
+          f"{cfg.n_layers} layers x {engine.decode_steps} decode steps")
+    check(launches["flash_attention"] == cfg.n_layers * n,
+          f"phase 15 flash launches {launches['flash_attention']} != "
+          f"{cfg.n_layers} layers x {n} admissions")
+    dom = r.per_domain_energy_j
+    sampler = sut.trace.segments[0][1]
+    counter_j = sut.trace.energy_j()
+    acc_j = dom["accelerator"]
+    err = abs(acc_j - counter_j) / counter_j
+    window = r.summary.window_s
+    lead, tail = sut.trace.gaps_s(r.outcome.result.duration_s)
+    acc_w = acc_j / window
+    tokens = m.total_tokens
+    print(f"  (b) {n} requests, {tokens} tokens in {window:.3f} s: "
+          f"{m.tokens_per_s:.1f} tok/s, TTFT p50/p99 "
+          f"{m.ttft_p(50) * 1e3:.1f}/{m.ttft_p(99) * 1e3:.1f} ms, TPOT "
+          f"mean {m.tpot_mean * 1e3:.2f} ms; launches: decode "
+          f"{launches['decode_attention']} (28 x {engine.decode_steps} "
+          f"steps), flash {launches['flash_attention']} (28 x {n})")
+    print("  (b) energy: " + "; ".join(
+        f"{k} {v:.3f} J ({'measured, NVML counter' if k == 'accelerator' else 'derived: PSU of the rails' if k == 'wall' else 'modeled'})"
+        for k, v in sorted(dom.items()))
+          + f"; accelerator {acc_w:.2f} W average")
+    print(f"  (b) {tokens / acc_j:.4f} tok/J at the accelerator "
+          f"(measured), {tokens / r.summary.energy_j:.4f} tok/J at the "
+          f"wall; the counter's delta over the serve {counter_j:.3f} J in "
+          f"{sampler.window_s():.3f} s, {sampler.n_samples} readings every "
+          f"{sampler.period_s * 1e3:.3f} ms; stack vs counter "
+          f"{err * 100:.3f} %; the sampler read {lead * 1e3:.3f} ms "
+          f"before the serve's t = 0 and {tail * 1e3:.3f} ms after its "
+          f"window")
+    check(0 <= lead <= sampler.period_s and 0 <= tail <= sampler.period_s,
+          f"phase 15: the serve's window is not inside the sampler's "
+          f"readings to within one period ({sampler.period_s * 1e3:.3f} "
+          f"ms): {lead * 1e3:.3f} ms before, {tail * 1e3:.3f} ms after")
+    check(err <= ENERGY_ALIGN_TOL,
+          f"phase 15: the stack's accelerator energy {acc_j:.3f} J is "
+          f"{err * 100:.2f} % off the counter's delta {counter_j:.3f} J")
+    check(0.5 * idle_w <= acc_w <= 1.05 * limit_w,
+          f"phase 15: accelerator {acc_w:.2f} W outside [{0.5 * idle_w:.2f},"
+          f" {1.05 * limit_w:.2f}] W")
+
+    # (c) the serving-throughput benchmark on the card
+    st = serving_throughput.metrics(device=dev, smoke=True)
+    for name in ("fixed", "continuous"):
+        p = st[name]
+        check(p["review_passed"],
+              f"phase 15 serving_throughput: the {name} run was REJECTED")
+        print(f"  (c) serving_throughput {name}: {p['tokens_per_s']:.1f} "
+              f"tok/s, {p['tok_per_j']:.4f} tok/J at the wall, "
+              f"{p['tok_per_j_accelerator']:.4f} tok/J at the accelerator "
+              f"({p['accelerator_j']:.3f} J measured); review ACCEPTED")
+    print(f"  (c) speedup {st['speedup']:.3f}x, chunk_syncs "
+          f"{st['chunk_syncs']}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) the launcher's fixed engine under Offline
+    fixed = tserve.main(["--arch", "qwen3-1.7b", "--engine", "fixed",
+                         "--scenario", "offline", "--min-duration", "2"])
+    check(fixed["review_passed"],
+          "phase 15 launcher: the fixed engine's Offline run was REJECTED")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(launches=launches, idle_w=idle_w, limit_w=limit_w,
+                counter_period_s=period, tokens_per_s=m.tokens_per_s,
+                accelerator_j=acc_j, counter_j=counter_j,
+                tok_per_j_accelerator=tokens / acc_j,
+                tok_per_j_wall=tokens / r.summary.energy_j)
+
+
 def phase_rwkv_engine(torch, dev, requests):
     """Phase 10: phase 4's requests (arrivals, prompt lengths, budgets),
     their tokens redrawn in rwkv6-3b's vocabulary, through the
@@ -2200,6 +2396,9 @@ def main() -> int:
     phase("phase 9: speculative tokens: verify_step, near-ties, paged")
     phase_spec_tokens(torch, dev, model, params, make, requests)
 
+    phase("phase 15: the main path under PowerRun with the card's energy")
+    power = phase_power(torch, dev, model, engine, requests)
+
     # the qwen3 weights, engines and damped copy go before rwkv6-3b
     del engine, make, model, params
     gc.collect()
@@ -2224,15 +2423,17 @@ def main() -> int:
     phase("phase 14: full-width whisper-small through ServeEngine")
     whisper_launches = phase_whisper(torch, dev)
 
-    # launches: each kernel's count on its own paths' runs (phases 4 and
-    # 14 for decode and flash, phase 6 for the paged kernels, phase 8
+    # launches: each kernel's count on its own paths' runs (phases 4, 14
+    # and 15 for decode and flash, phase 6 for the paged kernels, phase 8
     # for the verify kernel, phase 10 for the scan, phase 12 for the
     # int8 GEMM)
     dec = "src/repro/kernels/decode_attention/decode_attention.py"
-    both = {k: launches[k] + whisper_launches[k] for k in launches}
+    both = {k: launches[k] + whisper_launches[k] + power["launches"][k]
+            for k in launches}
     for name in ("decode_attention", "flash_attention"):
         kernels[name]["launches_by_phase"] = {
-            "4": launches[name], "14": whisper_launches[name]}
+            "4": launches[name], "14": whisper_launches[name],
+            "15": power["launches"][name]}
     sources = {
         "decode_attention": (f"{dec}:351", both),
         "flash_attention": (

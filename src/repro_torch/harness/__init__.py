@@ -1,5 +1,6 @@
 """``repro_torch.harness`` — the public measurement API (PyTorch port
-of ``src/repro/harness``; the engine SUTs wait for ROADMAP §A.4).
+of ``src/repro/harness``; the multi-engine SUTs wait for ROADMAP §A.8
+and §A.9).
 
 One measurement protocol, uniformly applied (the paper's core
 contribution): wrap any system behind the ``SUT`` protocol, pick a
@@ -32,8 +33,10 @@ that only provides ``power_source`` is wrapped into a single-domain
 wall-only stack with a ``DeprecationWarning``.
 """
 from repro_torch.harness.sut import (  # noqa: F401
-    SUT, BaseSUT, CallableSUT, TinySUT, constant_power, rail_domains,
-    throughput_watts, throughput_work,
+    SUT, BaseSUT, CallableSUT, ContinuousBatchingSUT, MeasuredTrace,
+    ServeEngineSUT, TinySUT, constant_power, measured_domains,
+    measured_sysdesc,
+    rail_domains, throughput_watts, throughput_work,
 )
 from repro_torch.harness.scenarios import (  # noqa: F401
     SCENARIOS, MultiStream, Offline, Scenario, ScenarioOutcome, Server,

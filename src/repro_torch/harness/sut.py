@@ -1,20 +1,25 @@
 """The SUT (system under test) protocol and adapters (PyTorch port).
 
 A copy of the reference ``src/repro/harness/sut.py`` restricted to the
-protocol and the adapters that need no serving engine.  A ``SUT`` is
-the one surface the harness measures: how to run queries (``issue`` /
-``issue_batch`` / ``serve_queue``), what the system draws while doing
-it (``meter_stack`` — the multi-channel power-domain surface), and
-what it claims to be (``system_description``).
+protocol and the adapters the port has.  A ``SUT`` is the one surface
+the harness measures: how to run queries (``issue`` / ``issue_batch``
+/ ``serve_queue``), what the system draws while doing it
+(``meter_stack`` — the multi-channel power-domain surface), and what
+it claims to be (``system_description``).
 
 - ``CallableSUT`` — plain functions + a power figure; the universal
   adapter for analytic workloads and hand-timed calls.
+- ``ServeEngineSUT`` — the fixed-batch ``ServeEngine`` (blocking
+  batches; SingleStream / MultiStream / Offline / sync Server).
+- ``ContinuousBatchingSUT`` — the slot-based
+  ``ContinuousBatchingEngine`` behind ``serve_queue`` (queue-driven
+  Server with per-request TTFT/TPOT and energy attribution).
 - ``TinySUT`` — a pin-demarcated duty-cycled MCU workload (the µW end
   of the paper's range) measured on the ``pin`` channel.
 
-The engine adapters (``ServeEngineSUT``, ``ContinuousBatchingSUT``,
-``ShardedSUT``, ``ReplicatedSUT``, ``DisaggregatedSUT``) wait for
-ROADMAP §A.4, §A.8 and §A.9: each is held against a port engine.
+The reference's multi-engine adapters (``ShardedSUT``,
+``ReplicatedSUT``, ``DisaggregatedSUT``) wait for ROADMAP §A.8 and
+§A.9.
 
 Power surface: every adapter implements ``domains(outcome) ->
 list[PowerDomain]`` — its per-component measurement boundaries
@@ -25,6 +30,16 @@ derived through the PSU loss model, ``pin`` for tiny) — and
 Director.  The legacy scalar ``power_source(outcome)`` surface still
 works: a SUT that only provides it is wrapped into a single-channel
 wall-only stack with a ``DeprecationWarning``.
+
+Measured energy (the port's addition): the two engine SUTs take an
+``energy_meter``, a factory of ``repro_torch.power.nvml.EnergySampler``
+over the card's energy counter.  Without one (the default) their
+domains are the reference's modeled rails, value for value.  With one,
+each ``serve_queue`` / ``issue_batch`` runs inside a sampler and the
+domains are the *measured* ``accelerator`` rail (board power, HBM
+included, so no ``dram`` rail), the modeled ``host`` rail and the
+PSU-derived ``wall`` (``measured_domains``), declared as a datacenter
+system read through node telemetry (``measured_sysdesc``).
 """
 from __future__ import annotations
 
@@ -36,8 +51,9 @@ import numpy as np
 
 from repro_torch.core.compliance import SystemDescription
 from repro_torch.core.power_model import StepWork, SystemPowerModel, TinyPowerModel
-from repro_torch.power import (ACCELERATOR, PIN, WALL, MeterStack,
-                         PowerDomain, build_stack, wall_domain)
+from repro_torch.hw import DATACENTER_H100, EDGE_SYSTEM, SystemSpec
+from repro_torch.power import (ACCELERATOR, HOST, PIN, WALL, MeterStack,
+                               PowerDomain, build_stack, wall_domain)
 
 PowerSource = Callable[[np.ndarray], np.ndarray]
 
@@ -227,6 +243,70 @@ def rail_domains(meter: SystemPowerModel, work: StepWork, *,
     return rails + [wall]
 
 
+# NVML documents its power reading as accurate to within +/-5 % of the
+# draw (nvmlDeviceGetPowerUsage); the energy counter integrates the same
+# sensor.  The figure a datacenter submission documents for R4.
+NVML_ACCURACY = 0.05
+
+# Stack sampling rate of a measured run: the counter-derived trace is
+# piecewise constant between the counter's updates, and 100 Hz resolves
+# a serve's first and last tenth of a second, which 10 Hz telemetry
+# would integrate away on a sub-minute run.
+MEASURED_SAMPLE_HZ = 100.0
+
+
+def measured_domains(meter: SystemPowerModel, work: StepWork,
+                     accelerator: PowerSource, *,
+                     util: Optional[Callable] = None) -> list[PowerDomain]:
+    """The measured stack: the card's ``accelerator`` rail as measured
+    (board power, which includes its HBM, so no modeled ``dram`` rail is
+    added), the system's modeled ``host`` rail (utilization-shaped when
+    ``util(t)`` is given, as in ``rail_domains``) and the ``wall``
+    boundary derived from both through the system's PSU."""
+    host = _shaped(meter.rail_watts(None)[HOST], meter.rail_watts(work)[HOST],
+                   util)
+    rails = [PowerDomain(ACCELERATOR, accelerator), PowerDomain(HOST, host)]
+    wall = PowerDomain(WALL, meter.psu().wall_source([accelerator, host]),
+                       boundary=True)
+    return rails + [wall]
+
+
+def measured_sysdesc(meter: SystemPowerModel) -> SystemDescription:
+    """What a measured run declares: a datacenter system (telemetry
+    channels, no range-mode rule) read through NVML, not a
+    SPEC-approved analyzer, with NVML's documented accuracy, the
+    modeled host rail disclosed as an estimate, and the system's peak
+    and idle envelope."""
+    return SystemDescription(
+        scale="datacenter", n_chips=meter.n_chips,
+        instrument="nvml-energy-counter", instrument_spec_approved=False,
+        telemetry_accuracy=NVML_ACCURACY,
+        estimated_components={HOST: "modeled: the SystemSpec's host "
+                              "idle/active watts"},
+        max_system_watts=_system_peak_watts(meter),
+        idle_system_watts=meter.system_watts(None))
+
+
+def spliced_source(segments: list[tuple[float, PowerSource]]) -> PowerSource:
+    """One trace from ``(start_s, source)`` segments sorted by start:
+    ``t`` reads the last segment starting at or before it (the first
+    before them all) at ``t - start_s``."""
+    starts = np.asarray([start for start, _ in segments], float)
+
+    def source(t):
+        t = np.asarray(t, float)
+        idx = np.clip(np.searchsorted(starts, t, side="right") - 1, 0,
+                      len(segments) - 1)
+        out = np.empty_like(t)
+        for k, (start, src) in enumerate(segments):
+            sel = idx == k
+            if sel.any():
+                out[sel] = src(t[sel] - start)
+        return out
+
+    return source
+
+
 class CallableSUT(BaseSUT):
     """Wrap plain functions + a power figure into a SUT.
 
@@ -303,6 +383,303 @@ class CallableSUT(BaseSUT):
         if p is None:
             return super().power_source(outcome)
         return p if callable(p) else constant_power(float(p))
+
+
+class MeasuredTrace:
+    """The card's measured draw over one run, as segments on the run's
+    clock.
+
+    ``energy_meter()`` makes a fresh ``EnergySampler``.  ``run(start_s,
+    fn)`` calls ``fn(now)`` inside one: ``now`` reads the sampler's
+    clock, its first reading is the segment's t = 0, and the segment
+    sits at ``start_s`` on the run's clock.  ``source()`` splices the
+    segments into the run's accelerator trace; the first ``run`` after
+    it starts the next run's segments."""
+
+    def __init__(self, energy_meter: Callable):
+        self.energy_meter = energy_meter
+        # (start_s on the run's clock, sampler, sampler clock at t = 0)
+        self.segments: list = []
+        self._read = False
+
+    @property
+    def fresh(self) -> bool:
+        """Whether the next ``run`` starts a new run's segments."""
+        return self._read or not self.segments
+
+    def reset(self) -> None:
+        self.segments, self._read = [], False
+
+    def run(self, start_s: float, fn: Callable[[Callable], Any]):
+        if self._read:
+            self.reset()
+        sampler = self.energy_meter()
+        first: list[float] = []
+
+        def now():
+            t = sampler.clock()
+            if not first:
+                first.append(t)
+            return t
+
+        with sampler:
+            out = fn(now)
+        if not first:
+            raise RuntimeError("MeasuredTrace.run: fn never read now(), "
+                               "so its t = 0 is unknown")
+        self.segments.append((start_s, sampler, first[0]))
+        return out
+
+    def gaps_s(self, window_s: float) -> tuple[float, float]:
+        """For a run of one segment whose window is ``window_s`` seconds
+        from its t = 0: how long the sampler read before t = 0 and after
+        the window's end.  Both lie within one sampling period when the
+        counter's delta is the window's energy, so the trace's t = 0 is
+        the run's to within a reading; an engine whose t = 0 comes after
+        its first ``now()`` shows as a longer gap after the window."""
+        if len(self.segments) != 1:
+            raise ValueError(f"MeasuredTrace.gaps_s: {len(self.segments)} "
+                             f"segments, not one run's")
+        _, sampler, t0 = self.segments[0]
+        return t0 - sampler.t_s[0], sampler.t_s[-1] - (t0 + window_s)
+
+    def energy_j(self) -> float:
+        """The counter's delta summed over this run's segments."""
+        return sum(s.energy_j() for _, s, _ in self.segments)
+
+    def source(self) -> PowerSource:
+        if not self.segments:
+            raise RuntimeError("MeasuredTrace.source: nothing was "
+                               "measured (no run inside a sampler)")
+        self._read = True
+        return spliced_source([(start, s.source(t0))
+                               for start, s, t0 in self.segments])
+
+
+class _MeteredSUT(BaseSUT):
+    """The engine SUTs' shared measured surface: with an
+    ``energy_meter`` (a factory of ``EnergySampler``) the SUT keeps a
+    ``MeasuredTrace`` of its serves, declares ``measured_sysdesc`` and
+    samples its stack at ``MEASURED_SAMPLE_HZ`` unless told otherwise."""
+
+    def __init__(self, name, sysdesc, meter: SystemPowerModel,
+                 energy_meter: Optional[Callable] = None):
+        if energy_meter is not None and sysdesc is None:
+            sysdesc = measured_sysdesc(meter)
+        super().__init__(name, sysdesc)
+        self.meter = meter
+        self.trace = (MeasuredTrace(energy_meter)
+                      if energy_meter is not None else None)
+
+    def meter_stack(self, outcome, *, seed: int = 0,
+                    sample_hz: Optional[float] = None) -> MeterStack:
+        if self.trace is not None and sample_hz is None:
+            sample_hz = MEASURED_SAMPLE_HZ
+        return super().meter_stack(outcome, seed=seed, sample_hz=sample_hz)
+
+
+class ServeEngineSUT(_MeteredSUT):
+    """Fixed-batch ``ServeEngine`` behind the SUT surface.
+
+    ``make_requests(samples) -> list[Request]`` builds the engine's
+    batch from loadgen samples; latency is real wall time of
+    ``run_batch``.  The meter stack is the analytic system draw at the
+    measured throughput, decomposed into accelerator/dram/host rails
+    under one PSU-derived wall (same roofline-fed recipe as before,
+    now per domain).
+
+    With ``energy_meter`` each batch is a measured segment, laid end to
+    end from t = 0 as the loadgen's clock advances by each batch's
+    latency (Offline, SingleStream, MultiStream).  The synchronous
+    Server is refused: its clock also counts modeled queueing waits
+    the card never ran, so no batch's measured draw has a place on it.
+    ``system`` defaults to the edge SoC, and with a meter to the H100
+    datacenter system.
+    """
+
+    def __init__(self, engine, cfg, *, name: str = "serve-engine",
+                 make_requests: Callable[[list[dict]], list],
+                 system: Optional[SystemSpec] = None, n_chips: int = 1,
+                 sysdesc: Optional[SystemDescription] = None,
+                 energy_meter: Optional[Callable] = None):
+        system = system or (DATACENTER_H100 if energy_meter else EDGE_SYSTEM)
+        super().__init__(name, sysdesc, SystemPowerModel(system, n_chips),
+                         energy_meter)
+        self.engine = engine
+        self.cfg = cfg
+        self.make_requests = make_requests
+        self._busy_s = 0.0
+
+    def issue(self, sample: dict) -> float:
+        return self.issue_batch([sample])
+
+    def issue_batch(self, samples: list[dict]) -> float:
+        reqs = self.make_requests(samples)
+        if self.trace is None:
+            t0 = time.perf_counter()
+            self.engine.run_batch(reqs)
+            return time.perf_counter() - t0
+        if self.trace.fresh:
+            self._busy_s = 0.0          # a new run's first batch
+
+        def run(now):
+            t0 = now()
+            self.engine.run_batch(reqs)
+            return now() - t0
+
+        dt = self.trace.run(self._busy_s, run)
+        self._busy_s += dt
+        return dt
+
+    def domains(self, outcome) -> list[PowerDomain]:
+        work = throughput_work(self.cfg, outcome.result.qps)
+        if self.trace is None:
+            return rail_domains(self.meter, work)
+        if outcome.scenario == "Server":
+            raise ValueError(
+                f"{self.name}: a measured energy_meter cannot run the "
+                f"synchronous Server, whose clock counts modeled queueing "
+                f"waits the card never ran; serve through "
+                f"ContinuousBatchingSUT, or drop the meter")
+        return measured_domains(self.meter, work, self.trace.source())
+
+    def _psu(self):
+        return self.meter.psu()
+
+    def power_source(self, outcome) -> PowerSource:
+        return constant_power(
+            throughput_watts(self.meter, self.cfg, outcome.result.qps))
+
+
+class ContinuousBatchingSUT(_MeteredSUT):
+    """Slot-based ``ContinuousBatchingEngine`` behind ``serve_queue``.
+
+    ``make_request(i, sample, arrival_s) -> Request`` builds each
+    admission-queue entry.  Every domain trace is shaped by engine
+    occupancy (idle floor + per-slot share of the busy draw over the
+    completed requests' spans), so per-request energy attribution sees
+    a realistic trace on every rail.
+
+    ``draft``: the draft model's config when the engine decodes
+    speculatively.  It switches per-request energy attribution to
+    compute-weighted splitting: a request's share of each interval is
+    proportional to the work it triggered — target token-forwards
+    (``verify_tokens``: a low-acceptance request burns more verify
+    forwards per emitted token) plus its draft-model forwards scaled
+    by the draft/target parameter ratio — so both models' work is
+    billed to the request that caused it and the per-request energies
+    still sum to the fleet total.
+
+    Prefix caching (an engine with ``prefix_caching`` on): a
+    prefix-cache hit skipped the shared pages' prefill, so its energy
+    weight counts only the *unique-suffix* prefill it actually
+    computed (``prefill_tokens``) plus its decoded tokens — cached
+    prompt tokens are free, and the J they would have cost stays
+    billed to the requests that did the work.  (In speculative mode
+    ``verify_tokens`` already counts only computed prompt tokens, so
+    the draft weighting above composes with prefix hits unchanged.)
+
+    With ``energy_meter`` the serve runs inside one sampler whose t = 0
+    is the engine's own (the first reading of the ``now`` it stamps
+    requests with, which ``run_server_queue`` times the run on): the
+    accelerator rail is the card's measured draw, the host rail keeps
+    the occupancy shape.  ``system`` defaults to the edge SoC, and with
+    a meter to the H100 datacenter system.
+    """
+
+    def __init__(self, engine, cfg, *, name: str = "continuous-engine",
+                 make_request: Callable[[int, dict, float], Any],
+                 system: Optional[SystemSpec] = None, n_chips: int = 1,
+                 draft: Any = None,
+                 sysdesc: Optional[SystemDescription] = None,
+                 energy_meter: Optional[Callable] = None):
+        system = system or (DATACENTER_H100 if energy_meter else EDGE_SYSTEM)
+        super().__init__(name, sysdesc, SystemPowerModel(system, n_chips),
+                         energy_meter)
+        self.engine = engine
+        self.cfg = cfg
+        self.make_request = make_request
+        self.completed: list = []
+        self.draft_cfg = draft
+        if draft is not None:
+            ratio = draft.param_count() / max(1, cfg.param_count())
+
+            def request_energy_weight(r, _ratio=ratio):
+                target = (getattr(r, "verify_tokens", 0)
+                          or len(r.output or []))
+                return target + _ratio * getattr(r, "draft_tokens", 0)
+
+            # picked up by PowerRun via getattr; absent -> equal split
+            self.request_energy_weight = request_energy_weight
+        elif getattr(engine, "prefix_caching", False):
+            def request_energy_weight(r):
+                return (getattr(r, "prefill_tokens", 0)
+                        + len(r.output or []))
+
+            self.request_energy_weight = request_energy_weight
+
+    def serve_queue(self, arrivals: list[tuple[dict, float]]) -> list:
+        reqs = [self.make_request(i, s, a)
+                for i, (s, a) in enumerate(arrivals)]
+        if self.trace is None:
+            self.completed = self.engine.serve(reqs)
+        else:
+            self.trace.reset()
+            self.completed = self.trace.run(
+                0.0, lambda now: self.engine.serve(reqs, now=now))
+        return self.completed
+
+    def supports_serve_queue(self) -> bool:
+        return True
+
+    def completed_requests(self) -> Optional[list]:
+        return self.completed or None
+
+    def _utilization(self) -> Callable:
+        """Slot occupancy over the completed requests' spans."""
+        spans = [(r.arrival_s, r.done_s) for r in self.completed
+                 if r.done_s is not None]
+        n_slots = self.engine.n_slots
+
+        def util(t):
+            t = np.asarray(t, float)
+            inflight = np.zeros_like(t)
+            for a, d in spans:
+                inflight += (t >= a) & (t < d)
+            return np.minimum(inflight / max(1, n_slots), 1.0)
+
+        return util
+
+    def _n_accel_channels(self) -> int:
+        return 1
+
+    def domains(self, outcome) -> list[PowerDomain]:
+        work = throughput_work(self.cfg, outcome.result.qps)
+        if self.trace is not None:
+            return measured_domains(self.meter, work, self.trace.source(),
+                                    util=self._utilization())
+        return rail_domains(
+            self.meter, work, util=self._utilization(),
+            n_accel_channels=self._n_accel_channels())
+
+    def _psu(self):
+        return self.meter.psu()
+
+    def power_source(self, outcome) -> PowerSource:
+        busy = throughput_watts(self.meter, self.cfg, outcome.result.qps)
+        idle = self.meter.system_watts(None)
+        return _shaped(idle, busy, self._utilization())
+
+
+def _system_peak_watts(meter: SystemPowerModel) -> float:
+    """Declared full-system envelope: every chip at peak + active hosts
+    + switches, through the PSU (the ``max_system_watts`` a submission
+    at this scale would state)."""
+    s = meter.system
+    w = (meter.n_chips * s.chip.peak_watts
+         + s.n_hosts(meter.n_chips) * s.host_active_watts
+         + s.n_switches(meter.n_chips) * s.switch_watts)
+    return w / s.psu_efficiency
 
 
 class TinySUT(BaseSUT):

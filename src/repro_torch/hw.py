@@ -1,12 +1,16 @@
 """Hardware models: chip specs and energy coefficients (PyTorch port).
 
-The non-TPU part of the reference ``src/repro/hw.py``: ``ChipSpec``,
-the edge SoC and its ``SystemSpec``, and the MLPerf-Tiny MCU.  All
-power/energy figures are the reference's documented engineering
-estimates.  They feed the analytical power model in
-``repro_torch.core``.  The reference's TPU chips and datacenter
-systems stay behind; an H100 spec with a measured power source is
-ROADMAP §A.4.
+The non-TPU part of the reference ``src/repro/hw.py`` (``ChipSpec``,
+the edge SoC and its ``SystemSpec``, the MLPerf-Tiny MCU) and the
+port's own target, the NVIDIA H100 SXM and its datacenter
+``SystemSpec``.  The edge and MCU power/energy figures are the
+reference's documented engineering estimates; the H100's peaks are
+NVIDIA's data sheet, its idle draw and energy coefficients are
+estimates (see ``H100_SXM``).  They feed the analytical power model in
+``repro_torch.core``.  On the H100 the accelerator rail is measured
+instead (``repro_torch.power.nvml``), and the spec's constants model
+only what is not measured (the host rail, the PSU) and the roofline.
+The reference's TPU chips and systems stay behind.
 """
 from __future__ import annotations
 
@@ -57,6 +61,34 @@ EDGE_SOC = ChipSpec(
     e_flop_int8=0.3e-12,
     e_hbm_byte=60e-12,
     e_ici_byte=0.0,
+)
+
+
+# NVIDIA H100 SXM5 80 GB, the port's target.  Peaks are the data sheet's
+# dense rates (989 TFLOP/s bf16, 1,979 TOP/s int8, 3.35 TB/s HBM3,
+# 80 GB, NVLink 4: 18 links of 50 GB/s = 900 GB/s, 700 W board power).
+# Idle draw and energy coefficients are estimates, in the reference's
+# manner:
+#   idle    ~ 75 W board power, powered and idle (chip_smoke.py phase 15
+#             prints the card's measured idle draw beside it)
+#   e_flop  = (peak_watts - idle_watts) / peak_flops  ~ 0.63 pJ/FLOP
+#   e_int8  = half of e_flop
+#   e_hbm   ~ 3.9 pJ/bit HBM3                          ~ 31  pJ/B
+#   e_ici   ~ 5 pJ/bit NVLink SerDes                    ~ 40  pJ/B
+H100_SXM = ChipSpec(
+    name="h100-sxm",
+    peak_flops_bf16=989e12,
+    peak_flops_int8=1979e12,
+    hbm_bandwidth=3.35e12,
+    hbm_capacity=80e9,
+    ici_bandwidth=50e9,
+    ici_links=18,
+    idle_watts=75.0,
+    peak_watts=700.0,
+    e_flop_bf16=0.63e-12,
+    e_flop_int8=0.32e-12,
+    e_hbm_byte=31e-12,
+    e_ici_byte=40e-12,
 )
 
 
@@ -126,5 +158,10 @@ EDGE_SYSTEM = SystemSpec(chip=EDGE_SOC, chips_per_host=1,
                          host_idle_watts=5.0, host_active_watts=8.0,
                          switch_watts=0.0, psu_efficiency=0.90)
 
-CHIPS = {c.name: c for c in (EDGE_SOC,)}
-SYSTEMS = {"edge": EDGE_SYSTEM}
+# Eight H100s a host; host, switch and PSU figures are the reference's
+# datacenter defaults (estimates), which model the host rail and the
+# wall of a measured H100 run.
+DATACENTER_H100 = SystemSpec(chip=H100_SXM)
+
+CHIPS = {c.name: c for c in (H100_SXM, EDGE_SOC)}
+SYSTEMS = {"datacenter-h100": DATACENTER_H100, "edge": EDGE_SYSTEM}

@@ -1,51 +1,75 @@
-"""Serving launcher of the port: one engine, seeded Poisson arrivals.
+"""Serving launcher of the port: ``--arch <id>``, a loadgen scenario,
+Director-measured Samples/Joule through the ``repro_torch.harness``
+API.
 
   python -m repro_torch.launch.serve --arch qwen3-1.7b \\
-      --engine continuous --qps 8 --min-duration 5
+      --scenario server --engine continuous --qps 8 --min-duration 5
 
-``--engine continuous`` (the default here) feeds a seeded Poisson
-arrival list to ``ContinuousBatchingEngine.serve``; ``--engine fixed``
-serves the same requests in ``--batch``-sized groups through
-``ServeEngine``.  ``--kv-page-size N`` gives the continuous engine a
-paged KV cache of N-row pages, and ``--prefix-cache`` adds the radix
-prefix cache over it.  ``--speculative`` turns on speculative decoding:
-a draft model proposes ``--k`` tokens per slot and round and the target
-verifies them in one forward; ``--draft truncate`` (the default) drafts
-with the target's first ``--draft-layers`` blocks, an arch name drafts
-with that model (fresh weights, same vocabulary).  The run prints TTFT
-p50/p99, TPOT mean, tokens/s, the engine's host syncs, the kernels'
-launch counts and, with the prefix cache, its hits, with
-``--speculative`` the acceptance rate.  Weights are random, made from
-``--seed``; prompts are random tokens.  ``--device`` defaults to
-``cuda``.
+Two engines, four scenarios, one call path (the reference launcher's):
+the engine is wrapped in a SUT adapter, the scenario is a config
+dataclass, and ``PowerRun(sut, scenario).run()`` does loadgen +
+Director protocol + summarizer + compliance review in one shot.
 
-  python -m repro_torch.launch.serve --arch qwen3-1.7b --reduce \
+- ``--engine continuous`` (the default): the slot-based
+  ``ContinuousBatchingEngine`` behind ``ContinuousBatchingSUT`` under
+  ``--scenario server`` (the default): the seeded Poisson arrival
+  schedule feeds the engine's admission queue, and every request is
+  attributed its share of the Joules.
+- ``--engine fixed``: the fixed-batch ``ServeEngine`` behind
+  ``ServeEngineSUT`` under any ``--scenario``: ``offline``
+  (``--batch``-sized batches), ``single-stream``, ``multi-stream``
+  (``--streams`` samples a burst) or the synchronous ``server``
+  (on ``cpu`` only: its queueing waits are modeled, so the card's
+  measured draw has no place on its clock).
+
+On ``cuda`` (the default ``--device``) the SUT reads the card's NVML
+energy counter: the accelerator rail is measured, the host rail is the
+H100 system's model, the wall is derived through its PSU, and the run
+is reviewed as a datacenter submission.  On ``cpu`` every rail is the
+reference's model.  The run prints the review, which channels were
+measured and which modeled, the Joules of each, tokens/J at the
+accelerator and at the wall, TTFT p50/p99, TPOT mean, tokens/s, the
+engine's host syncs and the kernels' launch counts.
+
+``--kv-page-size N`` gives the continuous engine a paged KV cache of
+N-row pages, and ``--prefix-cache`` adds the radix prefix cache over
+it.  ``--speculative`` turns on speculative decoding: a draft model
+proposes ``--k`` tokens per slot and round and the target verifies them
+in one forward; ``--draft truncate`` (the default) drafts with the
+target's first ``--draft-layers`` blocks, an arch name drafts with that
+model (fresh weights, same vocabulary).  With the prefix cache the run
+prints its hits, with ``--speculative`` the acceptance rate.  Weights
+are random, made from ``--seed``; prompts are random tokens.
+
+  python -m repro_torch.launch.serve --arch qwen3-1.7b --reduce \\
       --device cpu --speculative --k 4 --qps 20 --min-duration 0.5
+  python -m repro_torch.launch.serve --arch qwen3-1.7b --reduce \\
+      --device cpu --engine fixed --scenario offline --min-duration 1
 
 ``--arch rwkv6-3b`` serves the RWKV-6 stack through the same engines;
 its prefill runs the linear-scan kernel and its cache is a fixed-size
 recurrent state, so ``--kv-page-size``, ``--prefix-cache`` and
 ``--speculative`` are refused for it (as the reference refuses them).
 
-  python -m repro_torch.launch.serve --arch rwkv6-3b --reduce \
+  python -m repro_torch.launch.serve --arch rwkv6-3b --reduce \\
       --device cpu --qps 20 --min-duration 0.5
 
-Director-measured energy (``PowerRun``, tok/J) needs the engine SUTs
-and a measured H100 power source, which are not ported yet (ROADMAP
-§A.4; ``repro_torch.harness`` has the protocol itself), and the
-options of the reference launcher for chunked prefill, preemption,
+The reference launcher's options for chunked prefill, preemption,
 tensor parallelism and replicas are refused until their ROADMAP items
 land.
 """
 from __future__ import annotations
 
 import argparse
-import time
 
 import numpy as np
 import torch
 
 from repro_torch.configs import get_config, list_archs, reduce_config
+from repro_torch.core.loadgen import qid_of
+from repro_torch.harness import (ContinuousBatchingSUT, MultiStream, Offline,
+                                 PowerRun, ServeEngineSUT, Server,
+                                 SingleStream)
 from repro_torch.kernels.decode_attention.ops import decode_attention
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.linear_scan.ops import linear_scan
@@ -55,6 +79,8 @@ from repro_torch.kernels.paged_verify_attention.ops import (
     paged_verify_attention)
 from repro_torch.kernels.verify_attention.ops import verify_attention
 from repro_torch.models import build_model
+from repro_torch.power import ACCELERATOR
+from repro_torch.power.nvml import NVML
 from repro_torch.serving import (ContinuousBatchingEngine, Request,
                                  ServeEngine, truncate_draft)
 
@@ -63,8 +89,11 @@ UNPORTED = {
     "prefill_chunk": "ROADMAP §A.6 (chunked prefill)",
     "preemption": "ROADMAP §A.6 (preemption)",
     "tp": "ROADMAP §A.8 (tensor parallel)",
-    "replicas": "ROADMAP §A.4 (replicas behind one queue)",
+    "replicas": "ROADMAP §A.8 (replicas behind one queue)",
 }
+
+KERNELS = (decode_attention, flash_attention, paged_decode_attention,
+           paged_verify_attention, verify_attention, linear_scan)
 
 
 def poisson_arrivals(qps: float, min_duration_s: float, seed: int,
@@ -77,14 +106,6 @@ def poisson_arrivals(qps: float, min_duration_s: float, seed: int,
         t += rng.exponential(1.0 / qps)
         out.append(t)
     return np.asarray(out)
-
-
-def make_requests(arrivals, vocab: int, prompt_len: int, new_tokens: int,
-                  seed: int) -> list[Request]:
-    rng = np.random.default_rng(seed)
-    return [Request(rid=i, prompt=rng.integers(0, vocab, prompt_len),
-                    max_new_tokens=new_tokens, arrival_s=float(a))
-            for i, a in enumerate(arrivals)]
 
 
 def summarize(done: list[Request], wall_s: float) -> dict:
@@ -103,22 +124,26 @@ def summarize(done: list[Request], wall_s: float) -> dict:
             else float("nan")}
 
 
-def _serve_fixed(engine, requests, honor_arrivals):
-    """Serve ``requests`` in arrival-order batches; a batch starts once
-    its last request has arrived (times on the serve clock)."""
-    t0 = time.perf_counter()
+def _request(args, vocab: int, rid: int, arrival_s: float = 0.0) -> Request:
+    """Request ``rid``: ``--prompt-len`` random tokens drawn from
+    (``--seed``, ``rid``), ``--new-tokens`` to generate."""
+    rng = np.random.default_rng((args.seed, rid))
+    return Request(rid=rid, prompt=rng.integers(0, vocab, args.prompt_len),
+                   max_new_tokens=args.new_tokens, arrival_s=float(arrival_s))
 
-    def now():
-        return time.perf_counter() - t0
 
-    done = []
-    for i in range(0, len(requests), engine.batch):
-        group = requests[i:i + engine.batch]
-        wait_s = max(r.arrival_s for r in group) - now()
-        if honor_arrivals and wait_s > 0:
-            time.sleep(wait_s)
-        done += engine.run_batch(group, now=now)
-    return done
+def _scenario_for(args):
+    if args.scenario == "offline":
+        return Offline(batch=args.batch, min_duration_s=args.min_duration)
+    if args.scenario == "server":
+        return Server(target_qps=args.qps, latency_slo_s=10.0,
+                      mode="queue" if args.engine == "continuous"
+                      else "sync", min_duration_s=args.min_duration,
+                      seed=args.seed)
+    if args.scenario == "multi-stream":
+        return MultiStream(n_streams=args.streams,
+                           min_duration_s=args.min_duration)
+    return SingleStream(min_duration_s=args.min_duration)
 
 
 def build_draft(args, cfg, model, params):
@@ -140,14 +165,110 @@ def build_draft(args, cfg, model, params):
     return dmodel, dmodel.init(args.seed + 2)
 
 
+def _continuous_sut(args, cfg, model, params, energy_meter):
+    spec_kw, draft_cfg = {}, None
+    if args.speculative:
+        dmodel, dparams = build_draft(args, cfg, model, params)
+        spec_kw = dict(draft_model=dmodel, draft_params=dparams,
+                       spec_k=args.k)
+        draft_cfg = dmodel.cfg
+    engine = ContinuousBatchingEngine(
+        model, params, max_len=args.max_len, n_slots=args.slots,
+        chunk_steps=args.chunk_steps, device=args.device,
+        kv_page_size=args.kv_page_size, prefix_caching=args.prefix_cache,
+        **spec_kw)
+    # warm-up outside the measurement: one request end to end
+    engine.serve([_request(args, cfg.vocab_size, 10 ** 6)],
+                 honor_arrivals=False)
+
+    def make_request(i, s, a):
+        # rid from the loadgen query id (unique even when samples wrap)
+        return _request(args, cfg.vocab_size, qid_of(s, i), a)
+
+    name = f"{args.arch}-continuous" + (
+        f"-k{args.k}" if args.speculative else "")
+    return ContinuousBatchingSUT(engine, cfg, name=name,
+                                 make_request=make_request, draft=draft_cfg,
+                                 energy_meter=energy_meter), engine
+
+
+def _fixed_sut(args, cfg, model, params, energy_meter):
+    batch_cap = max(args.batch, args.streams
+                    if args.scenario == "multi-stream" else 1)
+    engine = ServeEngine(model, params, max_len=args.max_len,
+                         batch_size=batch_cap, device=args.device)
+
+    def make_requests(samples):
+        return [_request(args, cfg.vocab_size, s["idx"]) for s in samples]
+
+    # warm-up outside the measurement: the batch shape the scenario issues
+    warm_n = {"offline": args.batch,
+              "multi-stream": args.streams}.get(args.scenario, 1)
+    engine.run_batch(make_requests([{"idx": j} for j in range(warm_n)]))
+    return ServeEngineSUT(engine, cfg, name=f"{args.arch}-fixed",
+                          make_requests=make_requests,
+                          energy_meter=energy_meter), engine
+
+
+def _report(args, r, engine, measured: bool) -> dict:
+    """Print the run and return its figures."""
+    server = r.outcome.server
+    if server is not None:
+        tokens, n = server.total_tokens, r.outcome.result.n_queries
+        m = {"ttft_p50_s": server.ttft_p(50), "ttft_p99_s": server.ttft_p(99),
+             "tpot_mean_s": server.tpot_mean}
+    else:
+        n = r.outcome.samples_processed
+        tokens = n * args.new_tokens
+        m = {"ttft_p50_s": float("nan"), "ttft_p99_s": float("nan"),
+             "tpot_mean_s": float("nan")}
+    dur = r.outcome.result.duration_s
+    dom = r.per_domain_energy_j
+    acc_j = dom.get(ACCELERATOR, 0.0)
+    m.update(requests=n, tokens=tokens, duration_s=dur,
+             tokens_per_s=tokens / max(dur, 1e-9),
+             review_passed=r.passed, energy_j=r.summary.energy_j,
+             accelerator_j=acc_j, domain_energy_j=dict(dom),
+             tok_per_j=tokens / max(r.summary.energy_j, 1e-12),
+             tok_per_j_accelerator=tokens / max(acc_j, 1e-12),
+             measured=[ACCELERATOR] if measured else [])
+    print(r.render())
+    device = (torch.cuda.get_device_name(engine.device)
+              if engine.device.type == "cuda" else "cpu")
+    print(f"{args.arch}{' (reduced)' if args.reduce else ''} {args.engine} "
+          f"{args.scenario} on {device}: {n} requests, {tokens} tokens in "
+          f"{dur:.3f} s, {m['tokens_per_s']:.1f} tokens/s")
+    print(f"  TTFT p50/p99: {m['ttft_p50_s'] * 1e3:.1f}/"
+          f"{m['ttft_p99_s'] * 1e3:.1f} ms, TPOT mean: "
+          f"{m['tpot_mean_s'] * 1e3:.2f} ms, host syncs: "
+          f"{getattr(engine, 'host_syncs', 'n/a')}")
+    print("  energy by channel: " + "; ".join(
+        f"{k} {v:.3f} J ("
+        + ("measured, NVML" if k == ACCELERATOR and measured else
+           "derived: PSU of the rails" if k == "wall" else "modeled")
+        + ")" for k, v in sorted(dom.items())))
+    print(f"  {m['tok_per_j_accelerator']:.3f} tok/J at the accelerator "
+          f"({'measured' if measured else 'modeled'}), "
+          f"{m['tok_per_j']:.3f} tok/J at the wall; review "
+          f"{'ACCEPTED' if r.passed else 'REJECTED'}")
+    print("  kernel launches: " + ", ".join(
+        f"{k.__name__} {k.launches}" for k in KERNELS))
+    return m
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", required=True, choices=list_archs())
     ap.add_argument("--reduce", action="store_true")
+    ap.add_argument("--scenario", default="server",
+                    choices=["offline", "server", "single-stream",
+                             "multi-stream"])
     ap.add_argument("--engine", default="continuous",
                     choices=["fixed", "continuous"])
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--streams", type=int, default=4,
+                    help="samples per MultiStream burst")
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--chunk-steps", type=int, default=8)
     ap.add_argument("--max-len", type=int, default=64)
@@ -183,9 +304,17 @@ def main(argv=None):
     if args.prompt_len + args.new_tokens + spec_k > args.max_len:
         ap.error("--prompt-len + --new-tokens (+ --k with --speculative) "
                  "must fit --max-len")
+    if args.engine == "continuous" and args.scenario != "server":
+        ap.error("--engine continuous drives the server scenario (its "
+                 "admission queue is the point); use --scenario server")
     if args.speculative and args.engine != "continuous":
         ap.error("--speculative is a continuous-engine decode mode; add "
                  "--engine continuous")
+    if (args.engine == "fixed" and args.scenario == "server"
+            and torch.device(args.device).type == "cuda"):
+        ap.error("--engine fixed --scenario server is the synchronous "
+                 "Server, whose queueing waits are modeled and have no "
+                 "measured draw; on cuda serve with --engine continuous")
     if args.prefix_cache and not args.kv_page_size:
         ap.error("--prefix-cache needs --kv-page-size")
     if args.kv_page_size and args.engine != "continuous":
@@ -196,58 +325,24 @@ def main(argv=None):
         cfg = reduce_config(cfg)
     model = build_model(cfg, args.device)
     params = model.init(args.seed)
-    if args.engine == "continuous":
-        spec_kw, draft_name = {}, None
-        if args.speculative:
-            dmodel, dparams = build_draft(args, cfg, model, params)
-            spec_kw = dict(draft_model=dmodel, draft_params=dparams,
-                           spec_k=args.k)
-            draft_name = dmodel.cfg.name
-        engine = ContinuousBatchingEngine(
-            model, params, max_len=args.max_len, n_slots=args.slots,
-            chunk_steps=args.chunk_steps, device=args.device,
-            kv_page_size=args.kv_page_size,
-            prefix_caching=args.prefix_cache, **spec_kw)
-    else:
-        engine = ServeEngine(model, params, max_len=args.max_len,
-                             batch_size=args.batch, device=args.device)
-    arrivals = poisson_arrivals(args.qps, args.min_duration, args.seed)
-
-    def run(reqs, honor_arrivals):
-        if args.engine == "continuous":
-            return engine.serve(reqs, honor_arrivals=honor_arrivals)
-        return _serve_fixed(engine, reqs, honor_arrivals)
-
-    # warm-up outside the measurement: one request end to end
-    run(make_requests([0.0], cfg.vocab_size, args.prompt_len,
-                      args.new_tokens, args.seed + 1), False)
-    requests = make_requests(arrivals, cfg.vocab_size, args.prompt_len,
-                             args.new_tokens, args.seed + 2)
-    kernels = (decode_attention, flash_attention, paged_decode_attention,
-               paged_verify_attention, verify_attention, linear_scan)
-    for k in kernels:
-        k.launches = 0
-    if model.device.type == "cuda":
-        torch.cuda.synchronize(model.device)
-    t0 = time.perf_counter()
-    done = run(requests, True)
-    wall_s = time.perf_counter() - t0
-    m = summarize(done, wall_s)
-    device = (torch.cuda.get_device_name(model.device)
-              if model.device.type == "cuda" else "cpu")
-    print(f"{args.arch}{' (reduced)' if args.reduce else ''} "
-          f"{args.engine} on {device}: {m['requests']} requests, "
-          f"{m['tokens']} tokens in {wall_s:.3f} s")
-    print(f"  TTFT p50/p99: {m['ttft_p50_s'] * 1e3:.1f}/"
-          f"{m['ttft_p99_s'] * 1e3:.1f} ms, TPOT mean: "
-          f"{m['tpot_mean_s'] * 1e3:.2f} ms, "
-          f"{m['tokens_per_s']:.1f} tokens/s, host syncs: "
-          f"{getattr(engine, 'host_syncs', 'n/a')}")
-    print("  kernel launches: " + ", ".join(
-        f"{k.__name__} {k.launches}" for k in kernels))
+    measured = model.device.type == "cuda"
+    nvml = NVML(model.device) if measured else None
+    try:
+        energy_meter = nvml.energy_meter() if measured else None
+        make = (_continuous_sut if args.engine == "continuous"
+                else _fixed_sut)
+        sut, engine = make(args, cfg, model, params, energy_meter)
+        for k in KERNELS:
+            k.launches = 0
+        r = PowerRun(sut, _scenario_for(args), seed=0).run()
+    finally:
+        if nvml is not None:
+            nvml.close()
+    m = _report(args, r, engine, measured)
     if args.speculative:
         st = engine.spec_stats
-        print(f"  speculative k={args.k} (draft {draft_name}): acceptance "
+        print(f"  speculative k={args.k} (draft "
+              f"{sut.draft_cfg.name}): acceptance "
               f"{engine.acceptance_rate():.2f}, {st['rounds']} verified "
               f"slot-rounds")
     if getattr(engine, "prefix_caching", False):

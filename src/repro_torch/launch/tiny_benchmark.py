@@ -24,8 +24,9 @@ What is measured and what is modeled:
   (``TinyPowerModel``): the µJ/inference is that modeled MCU's, not
   the H100's draw.  The I/O manager cross-checks it on the
   pin-demarcated waveform.  ``multi`` times 8-sample bursts under
-  ``CallableSUT`` with a flat modeled 1 W edge power figure.  A
-  measured accelerator power source is ROADMAP §A.4.
+  ``CallableSUT`` with a flat modeled 1 W edge power figure.  The
+  card's measured energy (``repro_torch.power.nvml``) is the serving
+  SUTs'; an H100's board draw is not the µW MCU this scale models.
 
 ``--device`` defaults to ``cuda`` and raises without a GPU.
 

@@ -263,7 +263,9 @@ def test_port_imports_neither_jax_nor_the_reference_package():
                 "__init__", "mlperf_log", "loadgen", "analyzer", "director",
                 "summarizer", "compliance", "power_model", "efficiency")),
             *(f"repro_torch/power/{m}.py" for m in (
-                "__init__", "domains", "psu", "stack")),
+                "__init__", "domains", "psu", "stack", "nvml")),
+            "repro_torch/benchmarks/common.py",
+            "repro_torch/benchmarks/serving_throughput.py",
             *(f"repro_torch/harness/{m}.py" for m in (
                 "__init__", "scenarios", "power_run", "sut")),
             os.path.join("..", "chip_smoke.py")} <= seen

@@ -171,6 +171,17 @@ def test_fault_plan_is_not_ported_yet():
 
 
 def test_port_hw_holds_no_tpu_figures():
+    """The port's chips are the edge SoC and its own H100 (data-sheet
+    peaks); none of the reference's TPU chips or systems came along."""
     import repro_torch.hw as thw
-    assert set(thw.CHIPS) == {"edge-soc"} and set(thw.SYSTEMS) == {"edge"}
+    assert set(thw.CHIPS) == {"edge-soc", "h100-sxm"}
+    assert set(thw.SYSTEMS) == {"edge", "datacenter-h100"}
     assert not [n for n in dir(thw) if "TPU" in n or "V5E" in n]
+    assert not [n for n in list(thw.CHIPS) + list(thw.SYSTEMS)
+                if "tpu" in n or "v5" in n or "v4" in n]
+    h100 = thw.CHIPS["h100-sxm"]
+    assert (h100.peak_flops_bf16, h100.peak_flops_int8, h100.hbm_bandwidth,
+            h100.hbm_capacity, h100.peak_watts) == (989e12, 1979e12,
+                                                    3.35e12, 80e9, 700.0)
+    assert h100.ici_bandwidth * h100.ici_links == 900e9
+    assert thw.SYSTEMS["datacenter-h100"].chip is h100
