@@ -138,6 +138,28 @@ Phases, each fatal on failure:
    ``serving_throughput.metrics(smoke=True)`` on the card (both SUTs
    ACCEPT) and the launcher's fixed engine under Offline through
    ``ServeEngineSUT`` (ACCEPT).
+16. SLO-aware serving (run after phase 15, on phase 4's weights), in
+   ``repro_torch.benchmarks.slo_sweep``'s geometry (64-row pages, 832
+   rows a slot, 27 pages, chunks of 64): (a) paged verify at the chunk
+   shapes (T 64 at window starts 0, 64 and 704: the tile route; T 8 at
+   64, a 72-token prompt's tail, and T 5 at 768, a parked long's resume
+   suffix: the split route) against its plain version under phase 3b's
+   tolerances, each with its route, kernel time by events and
+   kernel-only, the plain version's, SDPA's and the bound; (b) the
+   sweep's bimodal mix (longs of 768, shorts of 16, mids of 72, 8 new
+   tokens) offline through its monolithic and chunked engines: tokens
+   equal except from a near-tie on, launches exact (chunked: paged
+   verify 28 per chunk, no flash; monolithic: flash 28 per admission;
+   paged decode 28 per step), and every non-final chunk runs with each
+   tensor-to-host conversion raising; (c) the reference's preemption
+   test at 64-row pages under its virtual clock: at least one
+   preemption and one resume, only priority 0 parked, tokens as an
+   uncontended run's except from a near-tie on; (d)
+   ``slo_sweep.metrics(smoke=True)`` with the NVML meter on all three
+   configurations: every review ACCEPTs; ``t_long``, the SLO, each
+   point's short-class attainment, ``qps_at_slo``, tok/s, tok/J at the
+   accelerator and the wall, preemptions, resumes, the interleave ratio
+   and ``speedup`` (reported, not gated) are printed.
 
 The line before the last holds the kernels' JSON record; the last line
 is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside
@@ -337,39 +359,76 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
 L2_FLUSH_BYTES = 256 << 20
 
 
+# Profiler windows a kernel-only time may take: a window that lacks a
+# kernel record of some call (every kernel's count must be a whole
+# multiple of the calls) is profiled again, and each such window is
+# printed with what it recorded.
+PROFILE_WINDOWS = 3
+# Untimed one-byte fills launched at the head of every profiler window:
+# on the H100, torch.profiler drops the first records of a window, more
+# of them the longer since the process's first window (none at first,
+# about 10 three minutes on; launch/profiler_check.py), so these take
+# the loss in place of the timed calls' kernels.
+PROFILE_LEAD_IN = 128
+
+
 def device_ms(torch, fn, reps: int = 10, cold: bool = False):
     """Kernel-only device time per call of ``fn()`` in ms: the durations
     of the CUDA kernels ``torch.profiler`` records over ``reps`` calls
     (both grids of a split route), summed, over ``reps``; and a text of
-    each kernel's name with its own ms per call.  With ``cold`` a fill
-    of ``L2_FLUSH_BYTES`` runs before every call, its own kernel left
-    out of the sums.  (None, "") where the profiler records no
-    kernel."""
+    each kernel's name with its own ms per call.  ``PROFILE_LEAD_IN``
+    one-byte fills open every window; with ``cold`` a fill of
+    ``L2_FLUSH_BYTES`` runs before every call; the fills' kernels are
+    left out of the sums.  Only a complete window counts: one where each
+    kernel's record count is a positive multiple of ``reps``.  Up to
+    ``PROFILE_WINDOWS`` windows are profiled; each incomplete one is
+    printed (its records per kernel, the launch calls the profiler saw
+    on the host and the fills' records), and so is a later window the
+    time comes from.
+    (None, "") where no window is complete."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     flush = (torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
              if cold else None)
+    lead = torch.empty(1, dtype=torch.uint8, device="cuda")
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            if cold:
-                flush.fill_(1)
-            fn()
-        torch.cuda.synchronize()
-    per = {}
-    for e in prof.events():
-        if (e.device_type == DeviceType.CUDA
-                and not (cold and "FillFunctor<unsigned char>" in e.name)):
-            name = (e.name.replace("(anonymous namespace)::", "")
-                     .split("(")[0].removeprefix("void "))
-            per[name] = per.get(name, 0.0) + e.time_range.elapsed_us()
-    if not per:
-        return None, ""
-    return (sum(per.values()) / 1e3 / reps,
-            ", ".join(f"{n} {us / 1e3 / reps:.4f} ms"
-                      for n, us in sorted(per.items())))
+    for window in range(1, PROFILE_WINDOWS + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(PROFILE_LEAD_IN):
+                lead.fill_(0)
+            for _ in range(reps):
+                if cold:
+                    flush.fill_(1)
+                fn()
+            torch.cuda.synchronize()
+        per, count, launches, fills = {}, {}, 0, 0
+        for e in prof.events():
+            if e.device_type != DeviceType.CUDA:
+                launches += e.name.startswith(("cudaLaunch", "cuLaunch"))
+            elif "FillFunctor<unsigned char>" in e.name:
+                fills += 1
+            else:
+                name = (e.name.replace("(anonymous namespace)::", "")
+                         .split("(")[0].removeprefix("void "))
+                per[name] = per.get(name, 0.0) + e.time_range.elapsed_us()
+                count[name] = count.get(name, 0) + 1
+        if per and all(n % reps == 0 for n in count.values()):
+            if window > 1:
+                print(f"  torch.profiler window {window} of "
+                      f"{PROFILE_WINDOWS} complete: the kernel-only time "
+                      f"below comes from it")
+            return (sum(per.values()) / 1e3 / reps,
+                    ", ".join(f"{n} {us / 1e3 / reps:.4f} ms"
+                              for n, us in sorted(per.items())))
+        n_fills = PROFILE_LEAD_IN + (reps if cold else 0)
+        print(f"  torch.profiler window {window} of {PROFILE_WINDOWS} "
+              f"incomplete over {reps} calls: kernel records "
+              f"{dict(sorted(count.items())) or 'none'} ({launches - n_fills}"
+              f" launch calls on the host), {fills} of its {n_fills} fills' "
+              f"records")
+    return None, ""
 
 
 def host_us(torch, fn, reps: int = 200) -> float:
@@ -2017,29 +2076,11 @@ def phase_spec_tokens(torch, dev, model, params, make, requests):
     same = sum(spec[rid] == plain[rid] for rid in plain)
     print(f"  {same}/{len(plain)} requests token-identical (speculative vs "
           f"plain, offline), acceptance {spec_eng.acceptance_rate():.4f}")
-    damped = spec_eng.params
     by_rid = {r.rid: r for r in requests}
     for rid in sorted(plain):
-        a, b = plain[rid], spec[rid]
-        if a == b:
-            continue
-        check(len(a) == len(b), f"request {rid}: {len(b)} speculative "
-              f"tokens vs {len(a)} plain")
-        j = next(i for i in range(len(a)) if a[i] != b[i])
-        prompt = np.concatenate([np.asarray(by_rid[rid].prompt), a[:j]])
-        with torch.no_grad():
-            toks = torch.as_tensor(prompt, device=dev)[None]
-            lg, c = model.prefill(damped, {"tokens": toks[:, :-1]},
-                                  max_len=toks.shape[1])
-            lg, _ = model.decode_step(damped, c, toks[:, -1:])
-        row = lg[0, -1].float()
-        gap = float(row[a[j]] - row[b[j]])
-        tol = LOGIT_REL_TOL * float(row.abs().max())
-        print(f"  request {rid} diverges at token {j}: logit(plain "
-              f"{a[j]}) - logit(speculative {b[j]}) = {gap:.4f}, "
-              f"near-tie limit {tol:.4f}")
-        check(gap <= tol, f"request {rid}: divergence at token {j} is not "
-              f"a near-tie ({gap} > {tol})")
+        near_tie(torch, model, spec_eng.params, by_rid[rid].prompt,
+                 plain[rid], spec[rid], f"request {rid} (plain vs "
+                 f"speculative)")
 
     # (3) paged speculative vs contiguous speculative: the same bits
     paged = make(kv_page_size=16)
@@ -2198,6 +2239,412 @@ def phase_power(torch, dev, model, engine, requests) -> dict:
                 accelerator_j=acc_j, counter_j=counter_j,
                 tok_per_j_accelerator=tokens / acc_j,
                 tok_per_j_wall=tokens / r.summary.energy_j)
+
+
+# Phase 16 (a): paged verify at the chunk shapes of the sweep's geometry
+# (benchmarks/slo_sweep.py: 64-row pages, 13-page rows, chunks of 64):
+# (T, window start) for a long's first, second and last chunk, a 72-token
+# prompt's 8-token tail, and a parked long's resume suffix (768 cached
+# tokens + a 5-token tail).  T 64 at G 2 is 128 rows per KV head (the tile
+# route); T 8 and T 5 are 16 and 10 (the split route).
+SLO_CHUNK_SHAPES = ((64, 0), (64, 64), (64, 704), (8, 64), (5, 768))
+
+# Phase 16 (a): paged decode in the sweep's pool: 8 slots at ragged
+# positions up to the last row of their 13-page rows (832 rows), taking
+# 13 + 1 + 2 + 1 + 1 + 5 + 1 + 2 = 26 pages, all of the 27-page pool but
+# the garbage page, which the rest of each table row points at.
+SLO_DECODE_POS = (831, 23, 79, 15, 0, 300, 63, 127)
+
+
+def near_tie(torch, model, params, prompt, a, b, label) -> None:
+    """Two token lists of one request must be equal or part at a
+    near-tie: at the first index j where they differ, the logits after
+    ``prompt + a[:j]`` (a prefill and one decode step) may rank a[j]
+    above b[j] by at most ``LOGIT_REL_TOL`` of the largest |logit|."""
+    import numpy as np
+    if a == b:
+        return
+    check(len(a) == len(b), f"{label}: {len(b)} tokens vs {len(a)}")
+    j = next(i for i in range(len(a)) if a[i] != b[i])
+    toks = torch.as_tensor(np.concatenate([np.asarray(prompt), a[:j]]),
+                           device=model.device)[None]
+    with torch.no_grad():
+        lg, c = model.prefill(params, {"tokens": toks[:, :-1]},
+                              max_len=toks.shape[1])
+        lg, _ = model.decode_step(params, c, toks[:, -1:])
+    row = lg[0, -1].float()
+    gap = float(row[a[j]] - row[b[j]])
+    tol = LOGIT_REL_TOL * float(row.abs().max())
+    print(f"  {label} diverges at token {j}: logit({a[j]}) - "
+          f"logit({b[j]}) = {gap:.4f}, near-tie limit {tol:.4f}")
+    check(gap <= tol, f"{label}: divergence at token {j} is not a "
+          f"near-tie ({gap} > {tol})")
+
+
+def phase_slo_kernel(torch, dev) -> dict:
+    """Phase 16 (a): ``paged_verify_attention`` at ``SLO_CHUNK_SHAPES``
+    (qwen3-1.7b's heads: H 16, KVH 8, D 128, bf16; one slot of 13
+    shuffled 64-row pages in a 27-page pool, page 0 large finite
+    garbage) against its plain version under phase 3b's tolerances;
+    each shape's route, kernel time by events and kernel-only, the plain
+    version's, SDPA's on the contiguous prefix (no gather) and the
+    bound.  Then ``paged_decode_attention`` in the sweep's pool (8 slots
+    at ``SLO_DECODE_POS``, 13-page rows of 64 rows, 27 pages) against
+    its plain version and the split algorithm's plain version under the
+    same tolerances, and bit for bit against ``decode_attention`` on the
+    gathered rows; its route, split layout, times and bound as phase 3's
+    decode rows.  Returns (the chunk shapes' figures, the decode
+    figures)."""
+    import torch.nn.functional as F
+    from repro_torch.benchmarks import slo_sweep as sw
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.decode_attention.ops import plan as decode_plan
+    from repro_torch.kernels.flash_attention.ops import (
+        _route, _sm_count, flash_attention_split_plain)
+    from repro_torch.kernels.paged_decode_attention.ops import (
+        paged_decode_attention, paged_decode_attention_plain, paged_view)
+    from repro_torch.kernels.paged_verify_attention.ops import (
+        paged_verify_attention, paged_verify_attention_plain)
+
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(16)
+    h, kvh, d = 16, 8, 128
+    ps, nb = sw.PAGE_SIZE, sw.MAX_LEN // sw.PAGE_SIZE
+    kp = torch.full((sw.KV_PAGES, ps, kvh, d), 1e4, dtype=bf16, device=dev)
+    vp = torch.full_like(kp, -1e4)
+    pages = (torch.randperm(sw.KV_PAGES - 1, generator=gen, device=dev)[:nb]
+             + 1).to(torch.int32)[None]
+    kp[pages[0].long()] = torch.randn((nb, ps, kvh, d), generator=gen,
+                                      device=dev).to(bf16)
+    vp[pages[0].long()] = torch.randn((nb, ps, kvh, d), generator=gen,
+                                      device=dev).to(bf16)
+    rows = {}
+    for t, start in SLO_CHUNK_SHAPES:
+        q = torch.randn((1, t, h, d), generator=gen, device=dev).to(bf16)
+        pos = torch.tensor([start], dtype=torch.int32, device=dev)
+        route = _route(t, nb * ps, h, kvh, d, bf16)
+
+        def kernel():
+            return paged_verify_attention(q, kp, vp, pages, pos)
+
+        def plain():
+            return paged_verify_attention_plain(q, kp, vp, pages, pos)
+
+        label = f"paged_verify_attention T={t} at {start} ({route})"
+        err, rel = compare(label, kernel(), plain())
+        skv = start + t
+        kc = kp[pages[0].long()].reshape(1, nb * ps, kvh, d)[:, :skv]
+        vc = vp[pages[0].long()].reshape(1, nb * ps, kvh, d)[:, :skv]
+        mask = (torch.arange(skv, device=dev)[None, :]
+                <= start + torch.arange(t, device=dev)[:, None])[None, None]
+
+        def sdpa():
+            return F.scaled_dot_product_attention(
+                q.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2),
+                attn_mask=mask, enable_gqa=True)
+
+        ms = time_ms(kernel)
+        dev_ms, kerns = device_ms(torch, kernel)
+        plain_ms = time_ms(plain)
+        library_ms = time_ms(sdpa)
+        lib_dev_ms, _ = device_ms(torch, sdpa)
+        pairs = t * start + t * (t + 1) // 2        # visible (query, key)
+        flops = 4 * h * d * pairs
+        nbytes = (skv * kvh * d * 2 * 2 + 2 * q.numel() * 2
+                  + -(-skv // ps) * 4 + 4)
+        bound_ms, bound_by = bound(nbytes, flops)
+        rows[f"T{t}@{start}"] = dict(
+            max_abs_err=err, rel_norm_err=rel, kernel_route=route, ms=ms,
+            device_ms=dev_ms, plain_ms=plain_ms, library_ms=library_ms,
+            library_device_ms=lib_dev_ms, bound_ms=bound_ms,
+            bound_by=bound_by)
+        print(f"  {label}: max |kernel - plain| {err:.3e}, ||kernel - "
+              f"plain|| / ||plain|| {rel:.3e}; kernel {ms:.4f} ms "
+              f"(kernel-only {fmt_ms(dev_ms)}: {kerns}), plain "
+              f"{plain_ms:.4f} ms, SDPA (contiguous, no gather) "
+              f"{library_ms:.4f} ms (kernel-only {fmt_ms(lib_dev_ms)}), "
+              f"bound {bound_ms * 1e3:.3f} us ({bound_by}, {nbytes} B, "
+              f"{flops} flop)")
+
+    # paged decode: every slot's table row filled to its position from a
+    # shuffled pool, the rest of the row the garbage page
+    b = sw.SLOTS
+    pos = torch.tensor(SLO_DECODE_POS, dtype=torch.int32, device=dev)
+    need = [p // ps + 1 for p in SLO_DECODE_POS]
+    free = (torch.randperm(sw.KV_PAGES - 1, generator=gen, device=dev)
+            + 1).tolist()
+    check(sum(need) <= len(free), "phase 16 (a): SLO_DECODE_POS needs more "
+          "pages than the sweep's pool holds")
+    table = torch.zeros((b, nb), dtype=torch.int32)
+    for i, n in enumerate(need):
+        table[i, :n] = torch.tensor(free[:n])
+        free = free[n:]
+    table = table.to(dev)
+    kp[1:] = torch.randn((sw.KV_PAGES - 1, ps, kvh, d), generator=gen,
+                         device=dev).to(bf16)
+    vp[1:] = torch.randn((sw.KV_PAGES - 1, ps, kvh, d), generator=gen,
+                         device=dev).to(bf16)
+    q = torch.randn((b, 1, h, d), generator=gen, device=dev).to(bf16)
+    kc, vc = paged_view(kp, table), paged_view(vp, table)
+    route, n_split, per = decode_plan("paged_decode_attention", h, kvh, d,
+                                      bf16, nb * ps, b * kvh,
+                                      _sm_count(dev.index))
+    got = paged_decode_attention(q, kp, vp, table, pos)
+    label = f"paged_decode_attention in the sweep's pool ({route})"
+    err, rel = compare(label, got, paged_decode_attention_plain(
+        q, kp, vp, table, pos))
+    split = compare(f"{label} vs the split plain version", got,
+                    flash_attention_split_plain(q, kc, vc, causal=True,
+                                                keys_per_split=per,
+                                                offsets=pos))
+    check(torch.equal(got, decode_attention(q, kc, vc, pos)),
+          f"{label} is not bit-identical to decode_attention on the "
+          f"gathered rows")
+    print(f"  {label}: {n_split} splits of {per} keys over {nb * ps} rows, "
+          f"positions {list(SLO_DECODE_POS)}; max |kernel - plain| "
+          f"{err:.3e}, ||kernel - plain|| / ||plain|| {rel:.3e}; vs the "
+          f"split plain version {split[0]:.3e} / {split[1]:.3e}; "
+          f"torch.equal to decode_attention: True")
+    mask = (torch.arange(nb * ps, device=dev)[None, :]
+            <= pos[:, None])[:, None, None]
+    decode = dict(
+        max_abs_err=err, rel_norm_err=rel, kernel_route=route,
+        n_split=n_split, keys_per_split=per,
+        **decode_times(torch, "paged_decode_attention (sweep's pool; SDPA: "
+                       "contiguous, no gather)", F,
+                       lambda: paged_decode_attention(q, kp, vp, table, pos),
+                       lambda: paged_decode_attention_plain(q, kp, vp, table,
+                                                            pos),
+                       q, kc, vc, mask, pos,
+                       extra_bytes=sum(need) * 4 + b * 4))
+    return rows, decode
+
+
+class _HostRead(AssertionError):
+    pass
+
+
+def guard_host_reads(torch, engine, method: str) -> list:
+    """Wrap ``engine.<method>`` so that every tensor-to-host conversion
+    raises while it runs; returns the list its calls are appended to."""
+    names = ("item", "tolist", "numpy", "cpu", "__bool__", "__int__",
+             "__float__", "__index__")
+    inner = getattr(engine, method)
+    calls = []
+
+    def raiser(name):
+        def f(*args, **kw):
+            raise _HostRead(f"Tensor.{name} inside {method}")
+        return f
+
+    def guarded(*args):
+        # the methods live on torch's C base class: shadow them on
+        # torch.Tensor for the call, then drop the shadows
+        for n in names:
+            setattr(torch.Tensor, n, raiser(n))
+        try:
+            out = inner(*args)
+        finally:
+            for n in names:
+                delattr(torch.Tensor, n)
+        calls.append(args[-1])
+        return out
+
+    setattr(engine, method, guarded)
+    return calls
+
+
+def phase_slo(torch, dev, model, params, kernels: dict) -> dict:
+    """Phase 16: SLO-aware serving at full width (qwen3-1.7b, phase 4's
+    weights).  (a) ``phase_slo_kernel``.  (b) slo_sweep's bimodal mix
+    (longs of 768, shorts of 16, mids of 72, 8 new tokens each) offline
+    through its monolithic and chunked engines: tokens equal except
+    from a near-tie on, launches exact (chunked: paged verify 28 per
+    chunk and no flash; monolithic: flash 28 per admission; both paged
+    decode 28 per step), no host read inside a non-final chunk.  (c)
+    the reference's preemption test at 64-row pages (two 240 + 16-token
+    best-effort requests fill the 8 usable pages; a priority-1 112 +
+    16-token one arrives at 10 ms of a virtual clock that ticks 2 ms a
+    read): a preemption and a resume, only priority 0 parked, tokens as
+    an uncontended run's except from a near-tie on.  (d)
+    ``slo_sweep.metrics(smoke=True)`` on the card with the NVML meter:
+    every review ACCEPTED.  Returns (b)'s launches."""
+    import numpy as np
+    from repro_torch.benchmarks import slo_sweep as sw
+    from repro_torch.serving import (ContinuousBatchingEngine, Request,
+                                     Scheduler)
+
+    t_phase = time.perf_counter()
+    cfg = model.cfg
+    layers = cfg.n_layers
+    print("  (a) paged verify at the chunk shapes, paged decode in the "
+          "sweep's pool:")
+    verify, decode = phase_slo_kernel(torch, dev)
+    pver, pdec = (kernels["paged_verify_attention"],
+                  kernels["paged_decode_attention"])
+    pver["chunk_shapes"], pdec["sweep_pool"] = verify, decode
+    pver["max_abs_err"] = max([pver["max_abs_err"]]
+                              + [r["max_abs_err"] for r in verify.values()])
+    pdec["max_abs_err"] = max(pdec["max_abs_err"], decode["max_abs_err"])
+
+    # (b) chunked vs monolithic on the bimodal mix
+    lens = (768, 16, 72, 16, 16, 768, 72, 16)
+    rng = np.random.default_rng(16)
+    requests = [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, n),
+                        max_new_tokens=sw.NEW_TOKENS)
+                for i, n in enumerate(lens)]
+
+    def engine(**kw):
+        return ContinuousBatchingEngine(
+            model, params, max_len=sw.MAX_LEN, n_slots=sw.SLOTS,
+            chunk_steps=sw.CHUNK_STEPS, kv_page_size=sw.PAGE_SIZE,
+            kv_pages=sw.KV_PAGES, device=dev, **kw)
+
+    runs, launches = {}, {}
+    for name, kw in (("monolithic", {}),
+                     ("chunked", dict(prefill_chunk_tokens=sw.PREFILL_CHUNK))):
+        eng = engine(**kw)
+        non_final = (guard_host_reads(torch, eng, "_prefill_chunk")
+                     if kw else [])
+        done, wall_s, counts = served_run(torch, eng, requests,
+                                          honor_arrivals=False)
+        st = eng.sched_stats
+        runs[name] = {r.rid: r.output for r in done}
+        launches[name] = counts
+        print(f"  (b) {name}: {len(done)} requests, "
+              f"{sum(len(r.output) for r in done)} tokens in {wall_s:.3f} "
+              f"s; {st['prefill_chunks']} prefill chunks, "
+              f"{st['decode_chunks']} decode chunks "
+              f"({st['interleaved_chunks']} interleaved), "
+              f"{eng.decode_steps} decode steps; launches: "
+              + ", ".join(f"{k} {n}" for k, n in counts.items() if n))
+        check(len(done) == len(requests) and all(
+            len(r.output) == r.max_new_tokens for r in done),
+            f"phase 16 {name}: not every request completed its budget")
+        check(counts["paged_decode_attention"] == layers * eng.decode_steps,
+              f"phase 16 {name}: paged decode launches "
+              f"{counts['paged_decode_attention']} != {layers} x "
+              f"{eng.decode_steps} steps")
+        if kw:
+            chunks = -(-np.asarray(lens) // sw.PREFILL_CHUNK)
+            check(st["prefill_chunks"] == int(chunks.sum()),
+                  f"phase 16 chunked: {st['prefill_chunks']} chunks != "
+                  f"{int(chunks.sum())}")
+            check(counts["paged_verify_attention"]
+                  == layers * st["prefill_chunks"],
+                  f"phase 16 chunked: paged verify launches "
+                  f"{counts['paged_verify_attention']} != {layers} x "
+                  f"{st['prefill_chunks']} chunks")
+            check(counts["flash_attention"] == 0,
+                  "phase 16 chunked: a prefill went through flash")
+            # the warm-up's 64-token prompt is one (final) chunk
+            check(len(non_final) == st["prefill_chunks"] - len(lens),
+                  f"phase 16 chunked: {len(non_final)} guarded non-final "
+                  f"chunks != {st['prefill_chunks'] - len(lens)}")
+            print(f"  (b) {len(non_final)} non-final chunks ran with every "
+                  f"tensor-to-host conversion raising: no host read")
+        else:
+            check(counts["flash_attention"] == layers * len(lens)
+                  and counts["paged_verify_attention"] == 0,
+                  f"phase 16 monolithic: flash {counts['flash_attention']} "
+                  f"!= {layers} x {len(lens)} admissions, or a paged "
+                  f"verify ran")
+        del eng
+    same = sum(runs["chunked"][i] == runs["monolithic"][i]
+               for i in range(len(lens)))
+    print(f"  (b) {same}/{len(lens)} requests token-identical (chunked vs "
+          f"monolithic prefill)")
+    for r in requests:
+        near_tie(torch, model, params, r.prompt, runs["monolithic"][r.rid],
+                 runs["chunked"][r.rid],
+                 f"(b) request {r.rid} ({len(r.prompt)} tokens)")
+
+    # (c) preemption, the reference test's geometry at 64-row pages
+    def contended():
+        g = np.random.default_rng(17)
+        return [Request(rid=0, prompt=g.integers(0, cfg.vocab_size, 240),
+                        max_new_tokens=16, priority=0),
+                Request(rid=1, prompt=g.integers(0, cfg.vocab_size, 240),
+                        max_new_tokens=16, priority=0),
+                Request(rid=2, prompt=g.integers(0, cfg.vocab_size, 112),
+                        max_new_tokens=16, arrival_s=0.01, priority=1,
+                        deadline_s=0.05)]
+
+    kw = dict(max_len=256, n_slots=3, chunk_steps=2, kv_page_size=64,
+              device=dev)
+    pre = ContinuousBatchingEngine(model, params, kv_pages=9,
+                                   prefix_caching=True,
+                                   scheduler=Scheduler(preemption=True), **kw)
+    pre.serve(contended(), honor_arrivals=False)           # warm-up
+    tick = [0.0]
+
+    def now():
+        tick[0] += 0.002
+        return tick[0]
+
+    def sleep(dt):
+        tick[0] += max(0.0, dt)
+
+    done = pre.serve(contended(), now=now, sleep=sleep)
+    st = pre.sched_stats
+    parked = sorted(r.rid for r in done if r.preemptions)
+    print(f"  (c) {st['preemptions']} preemptions, {st['resumes']} resumes, "
+          f"parked rids {parked}; prefix cache {pre.prefix_stats}")
+    check(st["preemptions"] >= 1 and st["resumes"] >= 1,
+          "phase 16 (c): no preemption or no resume")
+    check(sorted(r.rid for r in done) == [0, 1, 2]
+          and all(len(r.output) == 16 for r in done),
+          "phase 16 (c): a request was lost or cut short")
+    check(all(r.priority == 0 for r in done if r.preemptions),
+          "phase 16 (c): a priority-1 request was parked")
+    free = ContinuousBatchingEngine(model, params, kv_pages=33, **kw)
+    want = {r.rid: r.output for r in free.serve(contended(),
+                                                honor_arrivals=False)}
+    same = sum(r.output == want[r.rid] for r in done)
+    print(f"  (c) {same}/3 requests token-identical to the uncontended run")
+    for r in done:
+        near_tie(torch, model, params, r.prompt, want[r.rid], r.output,
+                 f"(c) request {r.rid} (parked {r.preemptions}x)")
+    del pre, free
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) the SLO sweep on the card
+    m = sw.metrics(device=dev, smoke=True)
+    cal = m["calibration"]
+    print(f"  (d) {cal['device']}: t_long {cal['t_long_ms']:.3f} ms, TTFT "
+          f"SLO {cal['ttft_slo_ms']:.3f} ms, grid {cal['grid_qps']} QPS, "
+          f"{24} queries a point")
+    for name in ("monolithic", "chunked", "chunked_preempt"):
+        p = m[name]
+        check(p["review_passed"],
+              f"phase 16 (d) slo_sweep {name}: a review REJECTED its run")
+        extra = "".join(
+            f", {k} {p[k]}" for k in ("preemptions", "resumes") if k in p)
+        if "interleave_ratio" in p:
+            extra += f", interleave ratio {p['interleave_ratio']:.4f}"
+        print(f"  (d) {name}: attainment " + ", ".join(
+            f"{k[7:]} {v:.3f}" for k, v in sorted(p.items())
+            if k.startswith("attain_"))
+              + f"; qps_at_slo {p['qps_at_slo']:.3f}, {p['tokens_per_s']:.1f}"
+              f" tok/s, {p['tok_per_j_accelerator']:.4f} tok/J at the "
+              f"accelerator ({p['accelerator_j']:.3f} J measured), "
+              f"{p['tok_per_j']:.4f} tok/J at the wall{extra}; reviews "
+              f"ACCEPTED")
+    if m["chunked_preempt"]["qps_at_slo"] or m["monolithic"]["qps_at_slo"]:
+        print(f"  (d) speedup (chunked_preempt / monolithic sustainable "
+              f"QPS, reported) {m['chunked_preempt']['speedup']:.3f}x")
+    else:
+        print(f"  (d) speedup undefined: both below the grid (no point "
+              f"sustains the SLO; the metrics' speedup, "
+              f"{m['chunked_preempt']['speedup']:.3f}, is the ratio of "
+              f"the two floors of half the lowest rate)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  phase 16 took {time.perf_counter() - t_phase:.1f} s")
+    return {k: launches["monolithic"][k] + launches["chunked"][k]
+            for k in launches["chunked"]}
 
 
 def phase_rwkv_engine(torch, dev, requests):
@@ -2399,6 +2846,11 @@ def main() -> int:
     phase("phase 15: the main path under PowerRun with the card's energy")
     power = phase_power(torch, dev, model, engine, requests)
 
+    phase("phase 16: SLO-aware serving (chunked prefill, preemption, the "
+          "SLO sweep)")
+    print(smi.strip())
+    slo_launches = phase_slo(torch, dev, model, params, kernels)
+
     # the qwen3 weights, engines and damped copy go before rwkv6-3b
     del engine, make, model, params
     gc.collect()
@@ -2424,23 +2876,30 @@ def main() -> int:
     whisper_launches = phase_whisper(torch, dev)
 
     # launches: each kernel's count on its own paths' runs (phases 4, 14
-    # and 15 for decode and flash, phase 6 for the paged kernels, phase 8
-    # for the verify kernel, phase 10 for the scan, phase 12 for the
-    # int8 GEMM)
+    # and 15 for decode and flash, and 16 for flash; phases 6 and 16 for
+    # the paged kernels, phase 8 for the verify kernel, phase 10 for the
+    # scan, phase 12 for the int8 GEMM)
     dec = "src/repro/kernels/decode_attention/decode_attention.py"
     both = {k: launches[k] + whisper_launches[k] + power["launches"][k]
+            + (slo_launches[k] if k == "flash_attention" else 0)
             for k in launches}
     for name in ("decode_attention", "flash_attention"):
         kernels[name]["launches_by_phase"] = {
             "4": launches[name], "14": whisper_launches[name],
             "15": power["launches"][name]}
+    kernels["flash_attention"]["launches_by_phase"]["16"] = slo_launches[
+        "flash_attention"]
+    paged = {k: paged_launches[k] + slo_launches[k] for k in paged_launches}
+    for name in ("paged_decode_attention", "paged_verify_attention"):
+        kernels[name]["launches_by_phase"] = {
+            "6": paged_launches[name], "16": slo_launches[name]}
     sources = {
         "decode_attention": (f"{dec}:351", both),
         "flash_attention": (
             "src/repro/kernels/flash_attention/flash_attention.py:77",
             both),
-        "paged_decode_attention": (f"{dec}:266", paged_launches),
-        "paged_verify_attention": (f"{dec}:308", paged_launches),
+        "paged_decode_attention": (f"{dec}:266", paged),
+        "paged_verify_attention": (f"{dec}:308", paged),
         "verify_attention": (f"{dec}:127", spec_launches),
         "linear_scan": ("src/repro/kernels/linear_scan/linear_scan.py:81",
                         rwkv_launches),

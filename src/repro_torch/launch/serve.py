@@ -33,11 +33,17 @@ engine's host syncs and the kernels' launch counts.
 
 ``--kv-page-size N`` gives the continuous engine a paged KV cache of
 N-row pages, and ``--prefix-cache`` adds the radix prefix cache over
-it.  ``--speculative`` turns on speculative decoding: a draft model
-proposes ``--k`` tokens per slot and round and the target verifies them
-in one forward; ``--draft truncate`` (the default) drafts with the
-target's first ``--draft-layers`` blocks, an arch name drafts with that
-model (fresh weights, same vocabulary).  With the prefix cache the run
+it.  ``--prefill-chunk C`` (needs ``--kv-page-size``) absorbs each
+prompt C tokens at a time, interleaved with decode chunks, and
+``--preemption`` (needs ``--prefix-cache``) admits through the
+deadline-slack ``Scheduler``, which may park a lower-priority running
+request under page-pool pressure; the run then prints the scheduler's
+preemptions, resumes and prefill chunks.  ``--speculative`` turns on
+speculative decoding: a draft model proposes ``--k`` tokens per slot
+and round and the target verifies them in one forward; ``--draft
+truncate`` (the default) drafts with the target's first
+``--draft-layers`` blocks, an arch name drafts with that model (fresh
+weights, same vocabulary).  With the prefix cache the run
 prints its hits, with ``--speculative`` the acceptance rate.  Weights
 are random, made from ``--seed``; prompts are random tokens.
 
@@ -45,6 +51,9 @@ are random, made from ``--seed``; prompts are random tokens.
       --device cpu --speculative --k 4 --qps 20 --min-duration 0.5
   python -m repro_torch.launch.serve --arch qwen3-1.7b --reduce \\
       --device cpu --engine fixed --scenario offline --min-duration 1
+  python -m repro_torch.launch.serve --arch qwen3-1.7b --reduce \\
+      --device cpu --kv-page-size 8 --prefill-chunk 8 --qps 20 \\
+      --min-duration 0.5
 
 ``--arch rwkv6-3b`` serves the RWKV-6 stack through the same engines;
 its prefill runs the linear-scan kernel and its cache is a fixed-size
@@ -54,9 +63,8 @@ recurrent state, so ``--kv-page-size``, ``--prefix-cache`` and
   python -m repro_torch.launch.serve --arch rwkv6-3b --reduce \\
       --device cpu --qps 20 --min-duration 0.5
 
-The reference launcher's options for chunked prefill, preemption,
-tensor parallelism and replicas are refused until their ROADMAP items
-land.
+The reference launcher's options for tensor parallelism and replicas
+are refused until ROADMAP §A.8 lands.
 """
 from __future__ import annotations
 
@@ -82,12 +90,10 @@ from repro_torch.models import build_model
 from repro_torch.power import ACCELERATOR
 from repro_torch.power.nvml import NVML
 from repro_torch.serving import (ContinuousBatchingEngine, Request,
-                                 ServeEngine, truncate_draft)
+                                 Scheduler, ServeEngine, truncate_draft)
 
 # reference-launcher options that wait for a later slice
 UNPORTED = {
-    "prefill_chunk": "ROADMAP §A.6 (chunked prefill)",
-    "preemption": "ROADMAP §A.6 (preemption)",
     "tp": "ROADMAP §A.8 (tensor parallel)",
     "replicas": "ROADMAP §A.8 (replicas behind one queue)",
 }
@@ -176,6 +182,8 @@ def _continuous_sut(args, cfg, model, params, energy_meter):
         model, params, max_len=args.max_len, n_slots=args.slots,
         chunk_steps=args.chunk_steps, device=args.device,
         kv_page_size=args.kv_page_size, prefix_caching=args.prefix_cache,
+        prefill_chunk_tokens=args.prefill_chunk,
+        scheduler=Scheduler(preemption=True) if args.preemption else None,
         **spec_kw)
     # warm-up outside the measurement: one request end to end
     engine.serve([_request(args, cfg.vocab_size, 10 ** 6)],
@@ -290,15 +298,22 @@ def main(argv=None):
                     help="layers kept by --draft truncate")
     ap.add_argument("--k", type=int, default=4,
                     help="draft tokens per verify round")
+    ap.add_argument("--prefill-chunk", type=int, default=0,
+                    help="SLO-aware chunked prefill: tokens per "
+                         "prefill chunk, interleaved with decode "
+                         "(needs --kv-page-size; 0 = whole-prompt "
+                         "prefill at admission)")
+    ap.add_argument("--preemption", action="store_true",
+                    help="priority scheduler with preemption: a "
+                         "high-priority arrival under page-pool "
+                         "pressure parks a best-effort request "
+                         "(needs --prefix-cache)")
     # refused until ported
-    ap.add_argument("--prefill-chunk", type=int, default=0)
-    ap.add_argument("--preemption", action="store_true")
     ap.add_argument("--tp", type=int, default=1)
     ap.add_argument("--replicas", type=int, default=1)
     args = ap.parse_args(argv)
     for name, item in UNPORTED.items():
-        value = getattr(args, name)
-        if value and not (name in ("tp", "replicas") and value == 1):
+        if getattr(args, name) != 1:
             ap.error(f"--{name.replace('_', '-')} is not ported yet: {item}")
     spec_k = args.k if args.speculative else 0
     if args.prompt_len + args.new_tokens + spec_k > args.max_len:
@@ -319,6 +334,13 @@ def main(argv=None):
         ap.error("--prefix-cache needs --kv-page-size")
     if args.kv_page_size and args.engine != "continuous":
         ap.error("--kv-page-size needs --engine continuous")
+    if args.prefill_chunk and not args.kv_page_size:
+        ap.error("--prefill-chunk needs --kv-page-size (chunks write "
+                 "through the paged verify path)")
+    if args.preemption and not args.prefix_cache:
+        ap.error("--preemption needs --prefix-cache (a parked "
+                 "request's KV pages survive as cache entries until "
+                 "resume)")
 
     cfg = get_config(args.arch)
     if args.reduce:
@@ -352,6 +374,13 @@ def main(argv=None):
               f"{st['evicted_pages']} pages evicted, peak "
               f"{engine.page_pool.peak_used} pages (page size "
               f"{args.kv_page_size})")
+    st = getattr(engine, "sched_stats", {})
+    if any(st.values()):
+        chunks = st["prefill_chunks"]
+        print(f"  scheduler: {st['preemptions']} preemptions, "
+              f"{st['resumes']} resumes, {chunks} prefill chunks "
+              f"({st['interleaved_chunks'] / max(1, chunks):.0%} "
+              f"interleaved with decode)")
     return m
 
 

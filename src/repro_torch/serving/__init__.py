@@ -1,5 +1,6 @@
 """Serving engines of the port: contiguous and paged KV, radix prefix
-caching and speculative decoding."""
+caching, speculative decoding, chunked prefill and the deadline-slack
+scheduler with preemption."""
 from repro_torch.serving.engine import (  # noqa: F401
     ContinuousBatchingEngine, Request, ServeEngine,
     attribute_request_energy,
@@ -8,6 +9,7 @@ from repro_torch.serving.kv_pages import (  # noqa: F401
     GARBAGE_PAGE, PagePool, PoolExhausted,
 )
 from repro_torch.serving.prefix_cache import PrefixCache  # noqa: F401
+from repro_torch.serving.scheduler import Scheduler  # noqa: F401
 from repro_torch.serving.speculative import (  # noqa: F401
     damp_upper_layers, greedy_verify, speculative_sample, truncate_draft,
 )

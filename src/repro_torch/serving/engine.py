@@ -13,11 +13,11 @@
     slot's cache rows.  Each decode chunk runs ``chunk_steps`` greedy
     steps with no host round trip inside; the host copies the chunk's
     (n_slots, chunk_steps) token buffer once (``host_syncs``).  Paged
-    KV with a radix prefix cache, and speculative decoding with a draft
-    model, are modes of the same engine.
-
-Chunked prefill and preemption are not ported yet (ROADMAP §A.6); the
-constructor refuses them.
+    KV with a radix prefix cache, speculative decoding with a draft
+    model, chunked prefill interleaved with decode chunks, and a
+    deadline-slack ``Scheduler`` that may park a running request under
+    page-pool pressure and resume it later are modes of the same
+    engine.
 """
 from __future__ import annotations
 
@@ -43,19 +43,28 @@ class Request:
 
     Caller-set: ``rid`` (unique per serve), ``prompt`` ((S,) int
     tokens), ``max_new_tokens``, ``arrival_s`` (seconds on the serve
-    clock).  Everything else is engine-stamped.  The reference's fields
-    for scheduling and preemption arrive with those features.
+    clock), and the SLO-aware fields ``priority`` (higher = more
+    urgent) and ``deadline_s`` (absolute completion deadline on the
+    serve clock; ``None`` = best-effort).  Everything else is
+    engine-stamped.  The reference's ``prefill_start_s`` is stamped
+    only by prefill/decode disaggregation, which the port does not
+    have yet (ROADMAP §A.9).
     """
 
     rid: int
     prompt: Any                       # (S,) int tokens
     max_new_tokens: int = 16
     arrival_s: float = 0.0
+    priority: int = 0                 # scheduler class (higher first)
+    deadline_s: Optional[float] = None   # completion deadline, serve
+                                         # clock (None = best effort)
     # filled by the engine:
     first_token_s: Optional[float] = None
     done_s: Optional[float] = None
     output: Optional[list] = None
     energy_j: Optional[float] = None  # filled by attribute_request_energy
+    preemptions: int = 0              # times this request was parked
+                                      # (pages evicted, state host-side)
     cached_tokens: int = 0            # prompt tokens served from the
                                       # prefix cache (no prefill compute)
     prefill_tokens: int = 0           # prompt tokens computed at admission
@@ -82,12 +91,33 @@ class Request:
 
 
 @dataclasses.dataclass
+class _PrefillProgress:
+    """Host cursor of one chunked prefill in flight: the slot is held,
+    its pages are pinned, and ``next_pos`` prompt tokens are absorbed
+    so far (the device table row stays garbage until the final chunk
+    installs the slot)."""
+
+    r: Request
+    prompt: torch.Tensor  # (1, S) device prompt (incl. resumed output)
+    toks: tuple           # host copy of the same tokens
+    row: list             # physical pages, position order
+    table: torch.Tensor   # (pages_per_slot,) padded device row
+    next_pos: int         # absolute position of the next chunk
+    budget: int           # decode budget at this admission
+    resume: bool          # parked-request resume (stamps differ)
+    cached: int           # prefix-cache tokens skipped at acquire
+
+
+@dataclasses.dataclass
 class _ServeCtx:
-    """Mutable host state of one ``serve`` call."""
+    """Mutable host state of one ``serve`` call, shared by the
+    admission/prefill/decode helpers."""
 
     slots: list          # per-slot in-flight Request (None = free)
     slot_left: list      # host shadow of the device `remaining` vector
+    filling: dict        # slot -> _PrefillProgress (chunked prefill)
     ready: Any           # deque of arrived, unadmitted requests
+    parked: set          # rids of preempted requests awaiting resume
     done: list           # completed requests
     now: Callable[[], float]
     t0: float
@@ -203,6 +233,22 @@ class ContinuousBatchingEngine:
     computes only the uncached suffix (``prefix_stats`` counts lookups,
     hits, cached tokens and evicted pages).
 
+    Chunked prefill (``prefill_chunk_tokens > 0``, paged only): an
+    admitted prompt is absorbed ``prefill_chunk_tokens`` at a time, one
+    chunk per filling slot per loop iteration, each through a batch-1
+    paged ``verify_step`` on the engine's pool, interleaved with the
+    decode chunks of the other slots; the final chunk installs the slot
+    and emits its first token (token-identical to a whole-prompt
+    prefill in float32).  ``scheduler`` (``Scheduler``) orders the
+    admission queue by priority and deadline slack; with
+    ``preemption`` (which needs ``prefix_caching``) an admission that
+    the page pool cannot cover parks a strictly lower-priority running
+    request: its history is interned into the prefix cache, its pages
+    released, and it is re-queued to resume later through the
+    prefix-cache extend path with the tokens it would have emitted.
+    ``sched_stats`` counts preemptions, resumes, prefill chunks, decode
+    chunks and decode chunks run while a prompt was filling.
+
     Speculative decoding (``spec_k > 0`` with a ``draft_model``): each
     chunk runs ``chunk_steps`` draft-and-verify rounds instead of
     single-token steps (``spec_rounds`` counts them).  Per round the
@@ -226,14 +272,6 @@ class ContinuousBatchingEngine:
                  kv_page_size: int = 0, kv_pages: Optional[int] = None,
                  prefix_caching: bool = False,
                  prefill_chunk_tokens: int = 0, scheduler=None):
-        refused = {
-            "prefill_chunk_tokens (chunked prefill, ROADMAP §A.6)":
-                prefill_chunk_tokens,
-            "scheduler (preemption, ROADMAP §A.6)": scheduler is not None,
-        }
-        for what, value in refused.items():
-            if value:
-                raise NotImplementedError(f"{what} is not ported yet")
         if model.cfg.family == "encdec":
             raise NotImplementedError(
                 "ContinuousBatchingEngine has no encoder-decoder path (nor "
@@ -297,6 +335,22 @@ class ContinuousBatchingEngine:
                 self.prefix_cache = PrefixCache(self.page_pool,
                                                 self.page_size)
         self.prefix_stats = self._zero_prefix_stats()
+        # SLO-aware serving: chunked prefill + pluggable admission
+        self.prefill_chunk_tokens = int(prefill_chunk_tokens)
+        self.chunked_prefill = self.prefill_chunk_tokens > 0
+        if self.chunked_prefill and not self.paged:
+            raise ValueError(
+                "prefill_chunk_tokens > 0 requires kv_page_size > 0 -- "
+                "chunked prefill writes each chunk's K/V through the "
+                "paged verify path at absolute positions")
+        self.scheduler = scheduler
+        if (scheduler is not None and scheduler.preemption
+                and not self.prefix_caching):
+            raise ValueError(
+                "Scheduler(preemption=True) requires "
+                "prefix_caching=True -- a parked request's KV pages "
+                "survive as prefix-cache entries until resume")
+        self.sched_stats = self._zero_sched_stats()
         self.reset()
 
     @staticmethod
@@ -309,6 +363,11 @@ class ContinuousBatchingEngine:
     def _zero_prefix_stats() -> dict:
         return {"lookups": 0, "hits": 0, "cached_tokens": 0,
                 "evicted_pages": 0}
+
+    @staticmethod
+    def _zero_sched_stats() -> dict:
+        return {"preemptions": 0, "resumes": 0, "prefill_chunks": 0,
+                "decode_chunks": 0, "interleaved_chunks": 0}
 
     def acceptance_rate(self) -> float:
         """Fraction of proposed draft tokens the target accepted."""
@@ -331,6 +390,12 @@ class ContinuousBatchingEngine:
             # host shadow of page ownership: pages each slot holds a
             # reference on (the device side only sees the table row)
             self._slot_pages: list[list[int]] = [[] for _ in range(n)]
+            # preemption shadows: the token history whose K/V occupies
+            # the slot (admitted prompt, incl. resumed output) and how
+            # many output tokens predate this admission -- enough to
+            # reconstruct the parked state host-side
+            self._slot_toks: list[tuple] = [()] * n
+            self._slot_base: list[int] = [0] * n
         else:
             cache = self.model.init_cache(n, self.max_len,
                                           per_slot_pos=True)
@@ -415,6 +480,31 @@ class ContinuousBatchingEngine:
         state["tok"][slot] = tok0
         state["remaining"][slot] = max(budget - 1, 0)
         return state, tok0
+
+    @torch.no_grad()
+    def _prefill_chunk(self, params, state, chunk, table, start: int):
+        """Absorb one prompt chunk into a slot's pages (chunked prefill).
+
+        ``chunk``: (1, C) prompt slice at absolute positions ``[start,
+        start + C)``; ``table``: the slot's padded device table row.  The
+        chunk runs through the batch-1 paged ``verify_step`` on the
+        engine's own pool tensors, so its K/V land post-RoPE at absolute
+        positions in place: after the last chunk the pages hold what one
+        whole-prompt prefill would have written.  Only the pool changes
+        here: the slot's table row, position, token and budget are
+        installed by the *final* chunk (an ``_extend_slot`` call), so
+        decode chunks running meanwhile never see a half-filled slot
+        (their writes for the still-inactive slot land on the garbage
+        page).  The logits are discarded, and nothing is read back to
+        the host.
+        """
+        cache = state["cache"]
+        mini = {"layers": cache["layers"],
+                "pos": torch.full((1,), start, dtype=torch.int32,
+                                  device=self.device),
+                "pages": table[None]}
+        self.model.verify_step(params, mini, chunk)
+        return state
 
     def _prefill_row(self, model, params, cache, tokens, slot: int):
         """Batch-1 prefill of ``tokens`` (1, S) by ``model`` into row
@@ -630,56 +720,168 @@ class ContinuousBatchingEngine:
         self.prefix_cache.insert(toks[:n_full * self.page_size],
                                  row[:n_full])
 
+    def _park(self, b: int, cx: _ServeCtx) -> Request:
+        """Preempt slot ``b``: evict its pages, park its state host-side.
+
+        The slot's decode-complete K/V -- its admitted token history
+        plus every emitted token but the pending one -- is interned
+        block-wise into the prefix cache, whose reference keeps those
+        pages alive after ``_release_slot`` drops the slot's own ones
+        (the partial last block frees at once).  ``_release_slot`` aims
+        the table row at the garbage page first, so the frozen chunk
+        loop's writes for the slot land there and never on a page that
+        is handed out again.  The device slot is frozen by an in-place
+        write of ``remaining[b] = 0`` (no host read).  Readmission
+        resumes the request through the prefix-cache extend path with
+        ``prompt' = prompt + output``, recomputing at most one block's
+        tail and emitting the continuation token.  Under later pool
+        pressure the parked pages may themselves be evicted (refcount
+        1, cache-only), which makes the resume recompute more, never
+        emit other tokens.
+        """
+        r = cx.slots[b]
+        emitted = r.output[self._slot_base[b]:]
+        # K/V exists for history + emitted[:-1]; emitted[-1] is the
+        # pending decode input (its K/V row is written next step)
+        hist = self._slot_toks[b] + tuple(emitted[:-1])
+        self._intern_prompt(hist, self._slot_pages[b])
+        self._release_slot(b)
+        self.state["remaining"][b] = 0
+        cx.slots[b] = None
+        cx.slot_left[b] = 0
+        r.preemptions += 1
+        self.sched_stats["preemptions"] += 1
+        return r
+
+    def _acquire_or_preempt(self, r: Request, toks: tuple, s: int,
+                            budget: int, cx: _ServeCtx):
+        """``_acquire_pages`` for ``r``; on ``PoolExhausted`` with a
+        preempting scheduler, park its victims one at a time (each
+        re-queued) until the pages fit.  Returns ``(row, start)``, or
+        ``None`` to defer when no victim frees enough."""
+        try:
+            return self._acquire_pages(toks, s, budget)
+        except PoolExhausted:
+            if self.scheduler is None:
+                return None
+        running = [(i, q) for i, q in enumerate(cx.slots) if q is not None]
+        while running:
+            v = self.scheduler.pick_victim(running, r)
+            if v is None:
+                break
+            victim = self._park(v, cx)
+            cx.parked.add(victim.rid)
+            cx.ready.append(victim)
+            running = [iq for iq in running if iq[0] != v]
+            try:
+                return self._acquire_pages(toks, s, budget)
+            except PoolExhausted:
+                continue
+        return None
+
     def _admit_slot(self, r: Request, b: int, cx: _ServeCtx) -> bool:
         """Admit ``r`` into free slot ``b``: prefill (or, on a prefix
-        hit, extend), stamp, route.  ``False`` = defer: the page pool
-        cannot cover the request until a slot retires."""
+        hit, extend), stamp, route; with chunked prefill only start the
+        prompt's chunk cursor.  ``False`` = defer: the page pool cannot
+        cover the request, even after preemption, until a slot retires.
+
+        A parked request (rid in ``cx.parked``) resumes with ``prompt' =
+        prompt + output`` and the remaining decode budget; the
+        prefix-cache lookup in ``_acquire_pages`` finds its parked full
+        blocks, so only the tail is computed again.
+        """
+        resume = r.rid in cx.parked
         toks = tuple(int(x) for x in np.asarray(r.prompt).reshape(-1))
+        budget = r.max_new_tokens
+        if resume:
+            toks += tuple(r.output)
+            budget -= len(r.output)
         prompt = _prompt_tensor(toks, self.device)
         s = len(toks)
-        budget = r.max_new_tokens
         # speculative verify windows write up to spec_k rows past the
         # last decoded position; keep them in the cache
         if s + budget + self.spec_k > self.max_len:
             raise ValueError(f"request {r.rid}: prompt {s} + budget "
                              f"{budget} + spec_k {self.spec_k} tokens "
                              f"exceed max_len {self.max_len}")
-        start = 0
-        if not self.paged:
-            self.state, tok0 = self._prefill_slot(self.params, self.state,
-                                                  prompt, b, budget)
-        else:
-            try:
-                row, start = self._acquire_pages(toks, s, budget)
-            except PoolExhausted:
+        start, row = 0, []
+        if self.paged:
+            got = self._acquire_or_preempt(r, toks, s, budget, cx)
+            if got is None:
                 return False
+            row, start = got
             self._slot_pages[b] = list(row)
+            self._slot_toks[b] = toks
+            self._slot_base[b] = len(r.output) if resume else 0
             r.cached_tokens += start
-            if start:
-                self.state, tok0 = self._extend_slot(
-                    self.params, self.state, prompt[:, start:], b, row,
-                    start, budget)
-            else:
-                self.state, tok0 = self._prefill_slot(
-                    self.params, self.state, prompt, b, budget, row)
-            self._intern_prompt(toks, row)
         r.prefill_tokens += s - start
+        if self.chunked_prefill:
+            cx.filling[b] = _PrefillProgress(
+                r=r, prompt=prompt, toks=toks, row=list(row),
+                table=self._table_row(row), next_pos=start, budget=budget,
+                resume=resume, cached=start)
+            return True
+        if start:
+            self.state, tok0 = self._extend_slot(
+                self.params, self.state, prompt[:, start:], b, row, start,
+                budget)
+        else:
+            self.state, tok0 = self._prefill_slot(
+                self.params, self.state, prompt, b, budget,
+                row if self.paged else None)
+        self._intern_prompt(toks, row)
         if self.speculative:
             self.state = self._prefill_draft(self.draft_params, self.state,
                                              prompt, b)
-        self._finish_admit(r, b, tok0, budget, s, start, cx)
+        self._finish_admit(r, b, tok0, resume, budget, s, start, cx)
         return True
 
-    def _finish_admit(self, r: Request, b: int, tok0, budget: int, s: int,
-                      start: int, cx: _ServeCtx) -> None:
-        """Emit the first token (a host read: the true TTFT), account
-        the speculative prefill work of a prompt of ``s`` tokens with
-        ``start`` served from the prefix cache, and either retire the
-        request or hand the slot to the decode loop."""
+    def _advance_prefill(self, b: int, cx: _ServeCtx) -> None:
+        """Run one prefill chunk for the filling slot ``b``: a non-final
+        chunk only writes the pool (no host read); the final one goes
+        through ``_extend_slot``, which installs the slot, and then, in
+        speculative mode, the draft prefills the *full* prompt; its
+        first (or continuation) token is the admission's one host
+        read."""
+        p = cx.filling[b]
+        c = self.prefill_chunk_tokens
+        s = len(p.toks)
+        self.sched_stats["prefill_chunks"] += 1
+        if s - p.next_pos > c:
+            self.state = self._prefill_chunk(
+                self.params, self.state,
+                p.prompt[:, p.next_pos:p.next_pos + c], p.table, p.next_pos)
+            p.next_pos += c
+            return
+        del cx.filling[b]
+        self.state, tok0 = self._extend_slot(
+            self.params, self.state, p.prompt[:, p.next_pos:], b, p.row,
+            p.next_pos, p.budget)
+        self._intern_prompt(p.toks, p.row)
+        if self.speculative:
+            self.state = self._prefill_draft(self.draft_params, self.state,
+                                             p.prompt, b)
+        self._finish_admit(p.r, b, tok0, p.resume, p.budget, s, p.cached,
+                           cx)
+
+    def _finish_admit(self, r: Request, b: int, tok0, resume: bool,
+                      budget: int, s: int, start: int,
+                      cx: _ServeCtx) -> None:
+        """Emit the first token (a host read: the true TTFT) or, on a
+        resume, the continuation token (``first_token_s`` keeps its
+        first stamp); account the speculative prefill work of a prompt
+        of ``s`` tokens with ``start`` served from the prefix cache; and
+        either retire the request or hand the slot to the decode
+        loop."""
         first = int(tok0)
         t_now = cx.now() - cx.t0
-        r.first_token_s = t_now
-        r.output = [first][: r.max_new_tokens]      # budget 0 -> []
+        if resume:
+            r.output.append(first)
+            cx.parked.discard(r.rid)
+            self.sched_stats["resumes"] += 1
+        else:
+            r.first_token_s = t_now
+            r.output = [first][: r.max_new_tokens]  # budget 0 -> []
         if self.speculative:
             # the draft prefilled the full prompt, the target only the
             # part the prefix cache did not hold
@@ -722,9 +924,16 @@ class ContinuousBatchingEngine:
         stragglers).  ``first_token_s`` and ``done_s`` are seconds since
         serve() start, the clock of ``arrival_s``.  With
         ``honor_arrivals=False`` the queue drains as fast as slots free
-        up (Offline scenario).  Admission is FIFO by arrival; in paged
-        mode a request the page pool cannot cover waits at the head of
-        the queue until a slot retires.
+        up (Offline scenario).  Admission is FIFO by arrival unless a
+        ``scheduler`` was given (priority, then deadline slack; with
+        preemption a high-priority request the page pool cannot cover
+        parks a lower-priority one); in paged mode a request the pool
+        cannot cover otherwise waits at the head of the queue until a
+        slot retires.  With ``prefill_chunk_tokens > 0`` each loop
+        iteration advances every filling prompt by one chunk *and* runs
+        one decode chunk, so decoding slots keep emitting while long
+        prompts fill.  ``sched_stats`` counts preemptions, resumes and
+        the chunks run, per serve.
         """
         counts = collections.Counter(r.rid for r in requests)
         dup = sorted(r for r, c in counts.items() if c > 1)
@@ -735,34 +944,49 @@ class ContinuousBatchingEngine:
         self.reset()
         self.spec_stats = self._zero_spec_stats()
         self.prefix_stats = self._zero_prefix_stats()
+        self.sched_stats = self._zero_sched_stats()
         self.host_syncs = 0
         self.decode_steps = 0
         self.spec_rounds = 0
         pending = collections.deque(
             sorted(requests, key=lambda r: (r.arrival_s, r.rid)))
         cx = _ServeCtx(slots=[None] * self.n_slots,
-                       slot_left=[0] * self.n_slots,
-                       ready=collections.deque(), done=[], now=now,
-                       t0=now())
-        while pending or cx.ready or any(s is not None for s in cx.slots):
+                       slot_left=[0] * self.n_slots, filling={},
+                       ready=collections.deque(), parked=set(), done=[],
+                       now=now, t0=now())
+        while (pending or cx.ready or cx.filling
+               or any(s is not None for s in cx.slots)):
             t = now() - cx.t0
             while pending and (not honor_arrivals
                                or pending[0].arrival_s <= t):
                 cx.ready.append(pending.popleft())
+            if self.scheduler is not None and len(cx.ready) > 1:
+                ordered = self.scheduler.order(cx.ready, t)
+                cx.ready.clear()
+                cx.ready.extend(ordered)
+            # admit arrived requests into free slots (prefill into the
+            # slot or, chunked, start the prompt's chunk cursor)
             for b in range(self.n_slots):
-                if cx.slots[b] is not None or not cx.ready:
+                if (cx.slots[b] is not None or b in cx.filling
+                        or not cx.ready):
                     continue
                 r = cx.ready.popleft()
                 if not self._admit_slot(r, b, cx):
                     # defer: a retiring slot will free its pages
                     cx.ready.appendleft(r)
-                    if not any(s is not None for s in cx.slots):
+                    if not cx.filling and not any(
+                            s is not None for s in cx.slots):
                         raise RuntimeError(
                             f"request {r.rid} needs more KV pages than "
                             f"eviction can ever free (pool of "
                             f"{self.page_pool.n_pages - 1} usable pages)")
                     break
+            # chunked prefill: one chunk per filling slot per iteration
+            for b in list(cx.filling):
+                self._advance_prefill(b, cx)
             if not any(s is not None for s in cx.slots):
+                if cx.filling:
+                    continue           # keep chunking the prompt(s)
                 if not cx.ready:
                     if not pending:
                         break
@@ -781,6 +1005,9 @@ class ContinuousBatchingEngine:
                                                      self.state)
                 slot_toks = buf.cpu().tolist()
             self.host_syncs += 1
+            self.sched_stats["decode_chunks"] += 1
+            if cx.filling:             # decode emitted while a prompt
+                self.sched_stats["interleaved_chunks"] += 1  # filled
             t_chunk = now() - cx.t0
             for b in range(self.n_slots):
                 r = cx.slots[b]

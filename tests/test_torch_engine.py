@@ -181,23 +181,12 @@ def test_launcher_runs_on_cpu():
     assert m["tokens"] == 3 * m["requests"]
 
 
-@pytest.mark.parametrize("flag", [
-    ["--prefill-chunk", "32"], ["--preemption"], ["--tp", "4"],
-    ["--replicas", "2"]])
+@pytest.mark.parametrize("flag", [["--tp", "4"], ["--replicas", "2"]])
 def test_launcher_refuses_unported_options(flag, capsys):
     with pytest.raises(SystemExit):
         tserve.main(["--arch", "qwen3-1.7b", "--reduce", "--device", "cpu",
                      *flag])
     assert "ROADMAP" in capsys.readouterr().err
-
-
-@pytest.mark.parametrize("kw", [dict(prefill_chunk_tokens=32),
-                                dict(scheduler=object())])
-def test_engine_refuses_unported_options(kw):
-    tm = build_model(tcfg.reduce_config(tcfg.get_config("qwen3-1.7b")),
-                     "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ContinuousBatchingEngine(tm, tm.init(0), device="cpu", **kw)
 
 
 def test_default_device_is_cuda_and_never_falls_back():
@@ -266,6 +255,8 @@ def test_port_imports_neither_jax_nor_the_reference_package():
                 "__init__", "domains", "psu", "stack", "nvml")),
             "repro_torch/benchmarks/common.py",
             "repro_torch/benchmarks/serving_throughput.py",
+            "repro_torch/benchmarks/slo_sweep.py",
+            "repro_torch/serving/scheduler.py",
             *(f"repro_torch/harness/{m}.py" for m in (
                 "__init__", "scenarios", "power_run", "sut")),
             os.path.join("..", "chip_smoke.py")} <= seen
