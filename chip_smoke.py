@@ -59,7 +59,8 @@ Phases, each fatal on failure:
    both routes: causal Sq 3 over 3 and 300 keys (whole splits masked),
    a ragged last split, 77 x 300 tiles; decode and paged decode bit for
    bit, in bf16 also against the split plain version; both verify
-   kernels at windows of 5, 8, 9 and 200, bit for bit; the scan at dh
+   kernels at windows of 5, 8, 9 and 200, bit for bit; the paged kernels
+   bit for bit between pools of 16-row and 8-row pages; the scan at dh
    32/64/128 on both routes (float32 loop, bf16 chunked) at T 1, 40, 77
    and 77 under strong decay (logw down to -30 a step); the int8 GEMM
    at the reference test's shapes and ragged edges on both routes,
@@ -160,6 +161,46 @@ Phases, each fatal on failure:
    point's short-class attainment, ``qps_at_slo``, tok/s, tok/J at the
    accelerator and the wall, preemptions, resumes, the interleave ratio
    and ``speedup`` (reported, not gated) are printed.
+17. Faults on the main path (after phase 16, phase 4's weights and
+   engine): (a) ``PowerRun(ContinuousBatchingSUT(engine, energy_meter=
+   NVML), Server(mode="queue"), fault_plan=FaultPlan([MeterDropout(
+   "wall", 0.5, 1.0)]))``: hardened (``meter_retry=RetryPolicy()``) the
+   review ACCEPTs with the wall's coverage 1.0 after re-measurement and
+   the stack within 3 % of the counter's delta; naive, R12 (coverage)
+   refuses it.  (b) A ``QueueOverload`` burst of 120 QPS for 0.5 s over
+   an 8-QPS Server with ``ShedPolicy(max_queue=8)`` and 5 s deadlines:
+   every offered qid completed, shed or timed out exactly once, some
+   shed, launches exact for what was served.  (c) ``ReplicatedSUT`` of
+   two ``ContinuousBatchingSUT``s (one set of weights, two engines,
+   modeled rails) with replica 1 crashing halfway through its share:
+   with ``retry`` no qid lost or duplicated, launches exact for every
+   serve of both replicas (each from its own thread), and every
+   request's tokens those of phase 4's engine serving them offline,
+   except from a near-tie on; without ``retry`` the run raises;
+   replicas with the NVML meter are refused (one card's counter billed
+   per replica).  In every part each serve's counts are first held to
+   what its request stream fixes (prefix hits exactly, decode steps
+   and speculative rounds between bounds from the budgets).
+18. The two benchmarks on the card at full width with the NVML meter:
+   (a) every kernel they launch at their own shapes against its plain
+   and split plain versions under phase 3b's tolerances, with route and
+   split layout: in prefix_cache's pool (4 slots of 16 8-row pages, a
+   shared 14-page prefix) paged decode at positions 120-127 and paged
+   verify of a hit's suffix (T 8 and T 5 at 112), both bit for bit
+   against the contiguous kernels on the gathered rows; verify at T 3,
+   5 and 9 and decode in speculative_efficiency's 4 x 128-row cache;
+   flash over both benchmarks' prompts (120 and 8 tokens).  (b) Each
+   benchmark on its own engines and seed-0 weights (phase 4's seed):
+   ``prefix_cache.metrics(smoke=True)`` (flash 28 per miss, paged
+   verify 28 per hit, paged decode 28 per step; hits, lookups and
+   cached tokens those of the CPU run) and
+   ``speculative_efficiency.metrics(smoke=True, n_reps=2)`` (k 0/2/4/8
+   and the random draft over the full 28-layer target; verify 28 a
+   round, the draft's decode k + 1 per round, flash 29 per admission):
+   launches exact, every review ACCEPTs; acceptance, speedup, draft
+   energy share, tok/s and tok/J at the accelerator and the wall, and
+   every repetition's tok/J beside its window in counter periods, are
+   printed (not gated).
 
 The line before the last holds the kernels' JSON record; the last line
 is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside
@@ -168,6 +209,7 @@ result.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -1082,7 +1124,7 @@ def phase_builds(torch, dev):
     a small ragged shape against the plain version: both verify kernels
     at every window of ``VERIFY_WINDOWS`` (both bf16 routes, across a
     page boundary, up to the last position), which must agree bit for
-    bit.  Flash also at the shapes that reach both bf16 routes
+    bit, and the paged kernels bit for bit between 16- and 8-row pages.  Flash also at the shapes that reach both bf16 routes
     (``FLASH_ROUTE_CASES``).  A split-route case of flash, of either
     verify kernel and of either decode kernel is held against the split
     algorithm's plain version too."""
@@ -1104,10 +1146,13 @@ def phase_builds(torch, dev):
     gen.manual_seed(4321)
     b, kvh, s, sq = 3, 2, 300, 77       # sq: not a multiple of a tile
     ps, nb = 16, 19                     # 304 rows of pages hold s
+    ps8, nb8 = 8, 38                    # the same rows in 8-row pages
     n_sm = _sm_count(dev.index)
     pos = torch.tensor([0, s - 1, 137], dtype=torch.int32, device=dev)
     pages = (torch.randperm(b * nb, generator=gen, device=dev) + 1).reshape(
         b, nb).to(torch.int32)
+    pages8 = (torch.randperm(b * nb8, generator=gen, device=dev)
+              + 1).reshape(b, nb8).to(torch.int32)
     for dtype, d, g in itertools.product((torch.float32, torch.bfloat16),
                                          (64, 128), (1, 2, 4, 8)):
         h = kvh * g
@@ -1148,6 +1193,17 @@ def phase_builds(torch, dev):
         check(torch.equal(got, decode_attention(q, kc, vc, pos)),
               f"paged_decode_attention {name} is not bit-identical to "
               f"decode_attention")
+        # and through a shuffled pool of 8-row pages (prefix_cache's):
+        # the same capacity, so the same splits, and the same bits
+        kp8 = randn(b * nb8 + 1, ps8, kvh, d)
+        vp8 = randn(b * nb8 + 1, ps8, kvh, d)
+        kp8[0], vp8[0] = 1e4, -1e4
+        kp8[pages8.long()] = kc.reshape(b, nb8, ps8, kvh, d)
+        vp8[pages8.long()] = vc.reshape(b, nb8, ps8, kvh, d)
+        check(torch.equal(got, paged_decode_attention(q, kp8, vp8, pages8,
+                                                      pos)),
+              f"paged_decode_attention {name} with 8-row pages is not "
+              f"bit-identical to 16-row pages")
         # both verify kernels on the same values at every window of
         # VERIFY_WINDOWS, bit for bit; a split-route window against the
         # split algorithm's plain version too
@@ -1167,6 +1223,10 @@ def phase_builds(torch, dev):
                            verify_attention_plain(q, kc, vc, vpos))
             check(torch.equal(ver, got), f"verify_attention {label} is not "
                   f"bit-identical to paged_verify_attention")
+            check(torch.equal(got, paged_verify_attention(q, kp8, vp8, pages8,
+                                                          vpos)),
+                  f"paged_verify_attention {label} with 8-row pages is not "
+                  f"bit-identical to 16-row pages")
             if route == "split":
                 compare(f"verify_attention {label} vs the split plain "
                         f"version", ver, flash_attention_split_plain(
@@ -2647,6 +2707,654 @@ def phase_slo(torch, dev, model, params, kernels: dict) -> dict:
             for k in launches["chunked"]}
 
 
+# Phase 17 (a): the wall channel's samples lost from 0.5 s to 1.5 s of
+# the serve (transient: a re-measured interval reads them).  At the
+# measured stack's 100 Hz that is 100 samples of a window of a few
+# seconds, far below R12's 95 % coverage without re-measurement.
+FAULT_DROPOUT = (0.5, 1.0)
+
+# Phase 17 (b): an arrival burst of 120 QPS for 0.5 s from 0.5 s of an
+# 8-QPS Server, past what the engine serves at these prompts; the
+# leaky-bucket shedder holds 8 queued requests, each request a 5 s
+# deadline.
+FAULT_BURST = dict(at_s=0.5, duration_s=0.5, qps=120.0)
+FAULT_SHED_QUEUE = 8
+FAULT_DEADLINE_S = 5.0
+
+# Phase 18: speculative_efficiency's repetitions (its N_REPS is 4).
+SPEC_BENCH_REPS = 2
+
+# Phase 18 (a): positions in the benchmarks' own pools.  prefix_cache's
+# 4 slots decode from 120 (a 112 + 8-token prompt) and the last slot
+# reads its row's last position; speculative_efficiency's 4 slots sit
+# at the end of an 8-token prompt, inside and near the end of an
+# 81-token budget and on the cache's last row (its verify windows start
+# at the first three and end on that row).
+PREFIX_DECODE_POS = (120, 122, 123, 127)
+SPEC_DECODE_POS = (8, 47, 88, 127)
+
+
+@dataclasses.dataclass
+class ServeTally:
+    """One ``ContinuousBatchingEngine.serve`` inside ``serve_tally``:
+    what its request stream and the engine's configuration fix (each
+    request's budget, the stream's prefix hits) beside the engine's own
+    counts (lookups, hits, decode steps, speculative rounds)."""
+    speculative: bool
+    draft_layers: int
+    spec_k: int
+    n_slots: int
+    chunk_steps: int
+    prefix_caching: bool
+    budgets: tuple
+    stream_hits: int
+    lookups: int
+    hits: int
+    decode_steps: int
+    spec_rounds: int
+
+    @property
+    def admissions(self) -> int:
+        return len(self.budgets)
+
+
+@contextlib.contextmanager
+def every_repetition():
+    """Records every repetition's result, by point, of the benchmarks'
+    ``interleaved_best_of`` inside the block (they report the best)."""
+    from repro_torch.benchmarks import common
+
+    best_of = common.interleaved_best_of
+    reps: dict = {}
+
+    def recorded(run_fns, n_reps=4):
+        def keep(name, run_once):
+            def run():
+                r = run_once()
+                reps.setdefault(name, []).append(r)
+                return r
+            return run
+        return best_of({name: keep(name, run_once)
+                        for name, run_once in run_fns.items()}, n_reps)
+
+    common.interleaved_best_of = recorded
+    try:
+        yield reps
+    finally:
+        common.interleaved_best_of = best_of
+
+
+def stream_hits(engine, requests) -> int:
+    """The prefix hits a serve's request stream fixes: in admission
+    order (arrival, then rid), each prompt longer than a page whose
+    first page an earlier prompt of the same serve began with (the
+    engine empties its cache at every serve; phase 18's pool never has
+    to evict a prefix a later request shares)."""
+    if engine.prefix_cache is None:
+        return 0
+    ps, seen, hits = engine.page_size, set(), 0
+    for r in sorted(requests, key=lambda r: (r.arrival_s, r.rid)):
+        head = tuple(int(t) for t in r.prompt[:ps])
+        hits += len(r.prompt) > ps and head in seen
+        seen.add(head)
+    return hits
+
+
+@contextlib.contextmanager
+def serve_tally():
+    """Records a ``ServeTally`` for every engine serve inside the block
+    (the benchmarks and ``ReplicatedSUT`` build or drive their engines
+    themselves), from any thread."""
+    from repro_torch.serving import ContinuousBatchingEngine
+
+    serve = ContinuousBatchingEngine.serve
+    log: list = []
+
+    def tallied(engine, requests, *args, **kwargs):
+        requests = list(requests)
+        out = serve(engine, requests, *args, **kwargs)
+        log.append(ServeTally(
+            speculative=engine.speculative,
+            draft_layers=(engine.draft_model.cfg.n_layers
+                          if engine.speculative else 0),
+            spec_k=engine.spec_k, n_slots=engine.n_slots,
+            chunk_steps=engine.chunk_steps,
+            prefix_caching=engine.prefix_cache is not None,
+            budgets=tuple(r.max_new_tokens for r in requests),
+            stream_hits=stream_hits(engine, requests),
+            lookups=engine.prefix_stats["lookups"],
+            hits=engine.prefix_stats["hits"],
+            decode_steps=engine.decode_steps,
+            spec_rounds=engine.spec_rounds))
+        return out
+
+    ContinuousBatchingEngine.serve = tallied
+    try:
+        yield log
+    finally:
+        ContinuousBatchingEngine.serve = serve
+
+
+def check_stream(label: str, s: ServeTally) -> None:
+    """Hold one serve's engine counts to what its request stream fixes:
+    a prefix-caching engine looks up every admission and hits the
+    stream's hits; the decode chunks (``chunk_steps`` plain steps or
+    speculative rounds each) lie between the fewest the slots could
+    share and one for every chunk of every request.  A request is
+    active for ceil((budget - 1) / chunk_steps) plain chunks, and for
+    ceil((budget - 1) / ((k + 1) chunk_steps)) to ceil((budget - 1) /
+    chunk_steps) speculative ones (a round emits 1 to k + 1 tokens a
+    slot); every chunk has one to ``n_slots`` active requests."""
+    want = ((s.admissions, s.stream_hits) if s.prefix_caching else (0, 0))
+    check((s.lookups, s.hits) == want,
+          f"{label}: {s.lookups} lookups, {s.hits} hits; the request "
+          f"stream fixes {want[0]} and {want[1]}")
+    left = [max(n - 1, 0) for n in s.budgets]
+    most = sum(-(-n // s.chunk_steps) for n in left)
+    per_chunk = s.chunk_steps * (s.spec_k + 1 if s.speculative else 1)
+    least = -(-sum(-(-n // per_chunk) for n in left) // s.n_slots)
+    steps = s.spec_rounds if s.speculative else s.decode_steps
+    chunks = steps // s.chunk_steps
+    check(steps % s.chunk_steps == 0 and least <= chunks <= most,
+          f"{label}: {steps} {'rounds' if s.speculative else 'steps'} "
+          f"({chunks} chunks of {s.chunk_steps}) outside the {least} to "
+          f"{most} chunks its {s.admissions} requests' budgets allow "
+          f"on {s.n_slots} slots")
+
+
+def check_launches(label: str, got: dict, layers: int, log: list,
+                   paged: bool) -> None:
+    """Each kernel's launches for the serves in ``log``, each serve's
+    counts first held to its request stream (``check_stream``): a paged
+    engine prefills the stream's misses through flash and its hits'
+    suffixes through paged verify, and decodes through paged decode; a
+    contiguous plain engine prefills through flash and decodes through
+    decode; a speculative one prefills target and draft through flash,
+    drafts k + 1 decode steps of the draft's layers a round and
+    verifies through verify."""
+    want = dict.fromkeys(launch_counters(), 0)
+    for i, s in enumerate(log):
+        check_stream(f"{label}, serve {i}", s)
+        if paged:
+            want["flash_attention"] += layers * (s.admissions
+                                                 - s.stream_hits)
+            want["paged_verify_attention"] += layers * s.stream_hits
+            want["paged_decode_attention"] += layers * s.decode_steps
+        elif s.speculative:
+            want["flash_attention"] += (layers + s.draft_layers) * s.admissions
+            want["decode_attention"] += (s.draft_layers * (s.spec_k + 1)
+                                         * s.spec_rounds)
+            want["verify_attention"] += layers * s.spec_rounds
+        else:
+            want["flash_attention"] += layers * s.admissions
+            want["decode_attention"] += layers * s.decode_steps
+    print(f"  {label} launches ({len(log)} serves): " + ", ".join(
+        f"{k} {n}" for k, n in got.items() if n or want[k]))
+    for k, n in got.items():
+        check(n == want[k], f"{label}: {k} launches {n} != {want[k]} "
+              f"expected from the serves' request streams and counts")
+
+
+def phase_faults(torch, dev, model, params, engine, requests) -> dict:
+    """Phase 17: fault injection on the main path at full width (phase
+    4's weights and engine).  (a) ``PowerRun(ContinuousBatchingSUT(
+    engine, energy_meter=NVML), Server(mode="queue"), fault_plan=
+    FaultPlan([MeterDropout("wall", ...)]))``: hardened (``meter_retry=
+    RetryPolicy()``) the review ACCEPTs with the wall's coverage 1.0
+    after re-measurement and the stack's accelerator energy within
+    ``ENERGY_ALIGN_TOL`` of the counter's delta; naive, R12 refuses.
+    (b) a ``QueueOverload`` burst with ``ShedPolicy`` and per-request
+    deadlines: every offered qid completed, shed or timed out exactly
+    once, some shed, launches exact for what was served.  (c)
+    ``ReplicatedSUT`` of two ``ContinuousBatchingSUT``s (one set of
+    weights, two engines, modeled rails) with replica 1 crashing halfway
+    through its share: with ``retry`` no qid lost or duplicated,
+    launches exact for every serve of both replicas, and every request's
+    tokens those of phase 4's engine serving the same requests offline,
+    except from a near-tie on; without it the run raises; a set of
+    measured replicas is refused.  Returns the launches of (a), (b) and
+    (c)'s crashed run."""
+    import numpy as np
+    from repro_torch.core.loadgen import ShedPolicy, poisson_arrivals
+    from repro_torch.faults import (FaultPlan, MeterDropout, QueueOverload,
+                                    ReplicaCrash, RetryPolicy)
+    from repro_torch.harness import (ContinuousBatchingSUT, PowerRun,
+                                     ReplicatedSUT, Server)
+    from repro_torch.power.nvml import NVML
+    from repro_torch.serving import ContinuousBatchingEngine, Request
+
+    t_phase = time.perf_counter()
+    cfg = model.cfg
+    layers = cfg.n_layers
+    kernels = launch_counters()
+
+    def counted(run):
+        torch.cuda.synchronize()
+        for k in kernels.values():
+            k.launches = 0
+        out = run()
+        torch.cuda.synchronize()
+        return out, {name: k.launches for name, k in kernels.items()}
+
+    def make_request(budget=None):
+        def make(i, s, a):
+            qid = s["qid"]
+            r = requests[qid % len(requests)]
+            return Request(rid=qid, prompt=r.prompt,
+                           max_new_tokens=budget(qid) if budget else
+                           r.max_new_tokens, arrival_s=a)
+        return make
+
+    def server(**kw):
+        return Server(mode="queue", target_qps=8.0, min_queries=16,
+                      latency_slo_s=10.0, min_duration_s=2.0, **kw)
+
+    launches = dict.fromkeys(kernels, 0)
+
+    # (a) meter dropout on the wall channel, hardened and naive
+    with NVML(dev) as nvml:
+        meter = nvml.energy_meter()
+        for label, kw in (("hardened", dict(meter_retry=RetryPolicy())),
+                          ("naive", {})):
+            sut = ContinuousBatchingSUT(
+                engine, cfg, name=f"qwen3-1.7b-{label}",
+                make_request=make_request(), energy_meter=meter)
+            plan = FaultPlan([MeterDropout("wall", *FAULT_DROPOUT)],
+                             seed=17)
+            with serve_tally() as log:
+                r, got = counted(lambda: PowerRun(
+                    sut, server(), seed=0, fault_plan=plan, **kw).run())
+            n = r.outcome.result.n_queries
+            check_launches(f"phase 17 (a) {label}", got, layers, log,
+                           paged=False)
+            for k in launches:
+                launches[k] += got[k]
+            h = r.channel_health["wall"]
+            counter_j = sut.trace.energy_j()
+            acc_j = r.per_domain_energy_j["accelerator"]
+            err = abs(acc_j - counter_j) / counter_j
+            failed = [c.rule for c in r.report.failures()]
+            print(f"  (a) {label}: {n} requests in "
+                  f"{r.outcome.result.duration_s:.3f} s; wall channel "
+                  f"{h.describe()} ({h.n_dropped} samples lost after "
+                  f"retries); review {'ACCEPTED' if r.passed else 'REJECTED'}"
+                  f"{': ' + ', '.join(failed) if failed else ''}; "
+                  f"accelerator {acc_j:.3f} J vs the counter's "
+                  f"{counter_j:.3f} J ({err * 100:.3f} %)")
+            if label == "hardened":
+                check(r.passed, "phase 17 (a): the hardened run was "
+                      "REJECTED: " + ", ".join(failed))
+                check(h.coverage == 1.0 and h.retries >= 1,
+                      f"phase 17 (a): the wall channel was not "
+                      f"re-measured to full coverage ({h.describe()})")
+                check(err <= ENERGY_ALIGN_TOL,
+                      f"phase 17 (a): the stack's accelerator energy is "
+                      f"{err * 100:.2f} % off the counter's delta")
+            else:
+                check(not r.passed and any(f.startswith("R12")
+                                           for f in failed),
+                      f"phase 17 (a): the naive run was not refused by "
+                      f"the R12 coverage check (failures: {failed})")
+                check(h.coverage < 0.95, f"phase 17 (a): the naive "
+                      f"wall coverage {h.coverage:.3f} is not degraded")
+
+    # (b) a queue-overload burst, shed and deadlined
+    plan = FaultPlan([QueueOverload(**FAULT_BURST)], seed=17)
+    scenario = server(deadline_s=FAULT_DEADLINE_S,
+                      shed=ShedPolicy(max_queue=FAULT_SHED_QUEUE))
+    sut = ContinuousBatchingSUT(
+        engine, cfg, name="qwen3-1.7b-overload",
+        make_request=make_request(lambda qid: 16 + 8 * (qid % 3)))
+    with serve_tally() as log:
+        r, got = counted(lambda: PowerRun(sut, scenario, seed=0,
+                                          fault_plan=plan).run())
+    m = r.outcome.server
+    offered = (len(poisson_arrivals(scenario.target_qps,
+                                    min_duration_s=scenario.min_duration_s,
+                                    seed=scenario.seed,
+                                    min_queries=scenario.min_queries))
+               + len(plan.burst_arrivals()))
+    rids = [q.rid for q in sut.completed]
+    print(f"  (b) offered {offered} ({len(plan.burst_arrivals())} in the "
+          f"burst): {m.n_admitted} admitted, {m.n_shed} shed, "
+          f"{m.result.n_queries} completed within {FAULT_DEADLINE_S} s, "
+          f"{m.n_timeout} timed out; SLO attainment "
+          f"{m.slo_attainment:.3f}; review "
+          f"{'ACCEPTED' if r.passed else 'REJECTED'}")
+    check(m.n_admitted + m.n_shed == offered,
+          f"phase 17 (b): {m.n_admitted} admitted + {m.n_shed} shed != "
+          f"{offered} offered")
+    check(len(rids) == len(set(rids)) == m.n_admitted,
+          f"phase 17 (b): {len(rids)} completions ({len(set(rids))} "
+          f"distinct) for {m.n_admitted} admitted")
+    check(m.result.n_queries + m.n_timeout == m.n_admitted,
+          "phase 17 (b): completed + timed out != admitted")
+    check(m.n_shed > 0, "phase 17 (b): the burst shed nothing")
+    check(sum(t.admissions for t in log) == m.n_admitted,
+          f"phase 17 (b): the engine served "
+          f"{sum(t.admissions for t in log)} of {m.n_admitted} admitted")
+    check_launches("phase 17 (b)", got, layers, log, paged=False)
+    for k in launches:
+        launches[k] += got[k]
+
+    # (c) two replicas, one crashing mid-serve
+    second = ContinuousBatchingEngine(model, params, max_len=2048,
+                                      n_slots=8, chunk_steps=8, device=dev)
+    second.serve([Request(rid=-1, prompt=np.arange(64), max_new_tokens=9)],
+                 honor_arrivals=False)
+    engines = (engine, second)
+    fleet_request = make_request(lambda qid: 16 + 8 * (qid % 4))
+
+    def fleet(retry=None, **kw):
+        return ReplicatedSUT(
+            [ContinuousBatchingSUT(e, cfg, name=f"replica{i}",
+                                   make_request=fleet_request, **kw)
+             for i, e in enumerate(engines)], name="qwen3-1.7b-fleet",
+            retry=retry)
+
+    free = fleet()
+    PowerRun(free, server(), seed=0).run()
+    done = sorted(q.done_s for q in free.replicas[1].completed)
+    at = (done[len(done) // 2 - 1] + done[len(done) // 2]) / 2
+    crash = FaultPlan([ReplicaCrash(1, at_s=at)], seed=17)
+    hard = fleet(retry=RetryPolicy())
+    with serve_tally() as log:
+        r, got = counted(lambda: PowerRun(hard, server(), seed=0,
+                                          fault_plan=crash).run())
+    kept = hard.replicas[1].completed
+    moved = [q for q in hard.replicas[0].completed if q.rid % 2]
+    rids = sorted(q.rid for q in hard.completed)
+    e = r.per_domain_energy_j
+    print(f"  (c) replica 1 crashes at {at:.3f} s (halfway through its "
+          f"share in a fault-free run): it kept {len(kept)}, "
+          f"{len(moved)} re-dispatched onto replica 0 after "
+          f"{RetryPolicy().delay_s(0) * 1e3:.0f} ms; {len(rids)} "
+          f"completed of {r.outcome.server.n_admitted}; review "
+          f"{'ACCEPTED' if r.passed else 'REJECTED'}; modeled energy "
+          f"r0/wall {e['r0/wall']:.3f} J, r1/wall {e['r1/wall']:.3f} J "
+          f"(billed through the crash), pdu {e['pdu']:.3f} J")
+    # both replicas' serves, the crashed one's whole share and the
+    # re-dispatch wave, each from its own thread
+    check_launches("phase 17 (c)", got, layers, log, paged=False)
+    for k in launches:
+        launches[k] += got[k]
+    check(r.passed, "phase 17 (c): the crashed fleet's run was REJECTED")
+    check(rids == sorted(set(rids)) and len(rids)
+          == r.outcome.server.n_admitted,
+          "phase 17 (c): a qid was lost or served twice")
+    check(kept and all(q.done_s < at for q in kept) and moved,
+          "phase 17 (c): the crash did not split replica 1's share")
+    alone = {q.rid: list(map(int, q.output)) for q in engine.serve(
+        [Request(rid=q.rid, prompt=q.prompt, max_new_tokens=q.max_new_tokens)
+         for q in hard.completed], honor_arrivals=False)}
+    for q in hard.completed:
+        near_tie(torch, model, params, q.prompt, alone[q.rid],
+                 list(map(int, q.output)), f"phase 17 (c) request {q.rid}")
+    naive = fleet()
+    try:
+        PowerRun(naive, server(), seed=0, fault_plan=crash).run()
+        raised = ""
+    except RuntimeError as exc:
+        raised = str(exc)
+    print(f"  (c) without retry: {raised or 'no error'}")
+    check("re-dispatch" in raised,
+          "phase 17 (c): a crash that lost queries did not raise without "
+          "retry")
+    with NVML(dev) as nvml:
+        try:
+            fleet(energy_meter=nvml.energy_meter())
+            refused = ""
+        except ValueError as exc:
+            refused = str(exc)
+    print(f"  (c) measured replicas: {refused or 'accepted'}")
+    check("replica 0" in refused, "phase 17 (c): replicas with a measured "
+          "meter on one card were not refused")
+    del second
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  phase 17 took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def phase_bench_kernels(torch, dev) -> dict:
+    """Phase 18 (a): each kernel the benchmarks launch, at their own
+    shapes (qwen3-1.7b's H 16, KVH 8, D 128, bf16), against its plain
+    version and, on the split route, the split algorithm's plain
+    version, under phase 3b's tolerances, printing route and split
+    layout.  prefix_cache: paged decode in its pool (4 slots of 16
+    8-row pages, 128 rows, 65 pages, page 0 large finite garbage; three
+    slots share the system prompt's 14 pages) at ``PREFIX_DECODE_POS``;
+    paged verify of a hit's 8-token suffix behind its 112 cached tokens
+    and of a 5-token one (batch 1, the row's pages past the window the
+    garbage page); both bit for bit against their contiguous kernels on
+    the gathered rows; flash over a miss's 120-token prompt.
+    speculative_efficiency: verify at T = k + 1 for k 2/4/8 in its 4
+    slots' 128-row cache, starting at ``SPEC_DECODE_POS``'s first three
+    and ending on the last row; decode (the draft's, and k0's target)
+    at ``SPEC_DECODE_POS``; flash over its 8-token prompt.  Returns
+    each kernel's figures by shape."""
+    from repro_torch.benchmarks import prefix_cache as pc
+    from repro_torch.benchmarks import speculative_efficiency as se
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention.ops import (
+        decode_attention, decode_attention_plain)
+    from repro_torch.kernels.decode_attention.ops import plan as decode_plan
+    from repro_torch.kernels.flash_attention.ops import (
+        _sm_count, flash_attention, flash_attention_plain,
+        flash_attention_split_plain, plan)
+    from repro_torch.kernels.paged_decode_attention.ops import (
+        paged_decode_attention, paged_decode_attention_plain, paged_view)
+    from repro_torch.kernels.paged_verify_attention.ops import (
+        paged_verify_attention, paged_verify_attention_plain)
+    from repro_torch.kernels.verify_attention.ops import (
+        verify_attention, verify_attention_plain)
+
+    cfg = get_config("qwen3-1.7b")
+    h, kvh, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    bf16, i32 = torch.bfloat16, torch.int32
+    n_sm = _sm_count(dev.index)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(18)
+    rows: dict = {}
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(bf16)
+
+    def hold(name, label, layout, got, plain, q, kc, vc, offsets,
+             same=None):
+        route, n_split, per = layout
+        err, rel = compare(f"{name} {label} ({route})", got, plain)
+        line = (f"  {name} {label}: {route}; max |kernel - plain| "
+                f"{err:.3e}, ||kernel - plain|| / ||plain|| {rel:.3e}")
+        if route == "split":
+            serr, srel = compare(
+                f"{name} {label} vs the split plain version", got,
+                flash_attention_split_plain(q, kc, vc, causal=True,
+                                            keys_per_split=per,
+                                            offsets=offsets))
+            line += (f"; {n_split} splits of {per} keys, vs the split "
+                     f"plain version {serr:.3e} / {srel:.3e}")
+        if same is not None:
+            check(torch.equal(got, same[1]), f"{name} {label} is not "
+                  f"bit-identical to {same[0]}")
+            line += f"; torch.equal to {same[0]}"
+        print(line)
+        rows.setdefault(name, {})[label] = dict(
+            max_abs_err=err, rel_norm_err=rel, kernel_route=route,
+            n_split=n_split, keys_per_split=per)
+
+    # prefix_cache's pool: three slots on the shared prompt's pages,
+    # the last on its own, each row filled to its position
+    ps, nb = pc.PAGE_SIZE, pc.MAX_LEN // pc.PAGE_SIZE
+    n_pages = pc.SLOTS * nb + 1                 # the engine's default
+    kp, vp = randn(n_pages, ps, kvh, d), randn(n_pages, ps, kvh, d)
+    kp[0], vp[0] = 1e4, -1e4
+    free = (torch.randperm(n_pages - 1, generator=gen, device=dev)
+            + 1).tolist()
+    n_shared = pc.SHARED_LEN // ps
+    shared, free = free[:n_shared], free[n_shared:]
+    table = torch.zeros((pc.SLOTS, nb), dtype=i32)
+    for b, p in enumerate(PREFIX_DECODE_POS):
+        own = shared if b < pc.SLOTS - 1 else []
+        n = p // ps + 1
+        table[b, :n] = torch.tensor(own + free[:n - len(own)])
+        free = free[n - len(own):]
+    table = table.to(dev)
+    pos = torch.tensor(PREFIX_DECODE_POS, dtype=i32, device=dev)
+    q = randn(pc.SLOTS, 1, h, d)
+    kc, vc = paged_view(kp, table), paged_view(vp, table)
+    hold("paged_decode_attention",
+         f"prefix_cache pool at {list(PREFIX_DECODE_POS)}",
+         decode_plan("paged_decode_attention", h, kvh, d, bf16, nb * ps,
+                     pc.SLOTS * kvh, n_sm),
+         paged_decode_attention(q, kp, vp, table, pos),
+         paged_decode_attention_plain(q, kp, vp, table, pos), q, kc, vc,
+         pos, same=("decode_attention on the gathered rows",
+                    decode_attention(q, kc, vc, pos)))
+    for t in (pc.SUFFIX_LEN, 5):
+        start = pc.SHARED_LEN
+        hit = table[:1].clone()
+        hit[:, (start + t - 1) // ps + 1:] = 0
+        vpos = torch.tensor([start], dtype=i32, device=dev)
+        q = randn(1, t, h, d)
+        kc, vc = paged_view(kp, hit), paged_view(vp, hit)
+        hold("paged_verify_attention", f"prefix_cache hit T={t} at {start}",
+             plan("paged_verify_attention", t, h, kvh, d, bf16, nb * ps,
+                  kvh, n_sm),
+             paged_verify_attention(q, kp, vp, hit, vpos),
+             paged_verify_attention_plain(q, kp, vp, hit, vpos), q, kc, vc,
+             vpos, same=("verify_attention on the gathered rows",
+                         verify_attention(q, kc, vc, vpos)))
+
+    # speculative_efficiency's contiguous 4 x 128-row cache
+    kc = randn(se.SLOTS, se.MAX_LEN, kvh, d)
+    vc = randn(se.SLOTS, se.MAX_LEN, kvh, d)
+    for t in sorted({k + 1 for k in se.K_SWEEP if k}):
+        vpos = torch.tensor(SPEC_DECODE_POS[:-1] + (se.MAX_LEN - t,),
+                            dtype=i32, device=dev)
+        q = randn(se.SLOTS, t, h, d)
+        hold("verify_attention", f"speculative_efficiency T={t} at "
+             f"{vpos.tolist()}",
+             plan("verify_attention", t, h, kvh, d, bf16, se.MAX_LEN,
+                  se.SLOTS * kvh, n_sm),
+             verify_attention(q, kc, vc, vpos),
+             verify_attention_plain(q, kc, vc, vpos), q, kc, vc, vpos)
+    pos = torch.tensor(SPEC_DECODE_POS, dtype=i32, device=dev)
+    q = randn(se.SLOTS, 1, h, d)
+    hold("decode_attention",
+         f"speculative_efficiency at {list(SPEC_DECODE_POS)}",
+         decode_plan("decode_attention", h, kvh, d, bf16, se.MAX_LEN,
+                     se.SLOTS * kvh, n_sm),
+         decode_attention(q, kc, vc, pos),
+         decode_attention_plain(q, kc, vc, pos), q, kc, vc, pos)
+
+    # flash over each benchmark's prompt (batch-1 prefills)
+    for label, n in (("prefix_cache miss", pc.PROMPT_LEN),
+                     ("speculative_efficiency prompt", se.PROMPT_LEN)):
+        q, k, v = randn(1, n, h, d), randn(1, n, kvh, d), randn(1, n, kvh, d)
+        hold("flash_attention", f"{label} S={n}",
+             plan("flash_attention", n, h, kvh, d, bf16, n, kvh, n_sm),
+             flash_attention(q, k, v, causal=True),
+             flash_attention_plain(q, k, v, causal=True), q, k, v, None)
+    return rows
+
+
+def phase_benchmarks(torch, dev, kernels: dict, period_s: float) -> dict:
+    """Phase 18: (a) ``phase_bench_kernels``, whose errors join the
+    JSON line's (``bench_shapes``).  (b) ``prefix_cache`` and
+    ``speculative_efficiency`` on the card at full width with the NVML
+    meter, each through its own engines on its own seeded weights (seed
+    0, as phase 4's).  Every review ACCEPTs and every kernel's launches
+    are those each serve's request stream and counts fix
+    (``check_launches``).  prefix_cache's hits,
+    lookups and cached tokens must be those of the same request stream
+    on the CPU (0/4/8 hits of 10 lookups at hit rates 0/0.5/0.9, 112
+    cached tokens a hit; tests/test_torch_prefix_cache_bench.py holds
+    the CPU run to the reference's).  Returns each benchmark's launches
+    and figures."""
+    from repro_torch.benchmarks import prefix_cache as pc
+    from repro_torch.benchmarks import speculative_efficiency as se
+    from repro_torch.configs import get_config
+
+    t_phase = time.perf_counter()
+    print("  (a) the benchmarks' kernel shapes:")
+    for name, shapes in phase_bench_kernels(torch, dev).items():
+        kernels[name]["bench_shapes"] = shapes
+        kernels[name]["max_abs_err"] = max(
+            [kernels[name]["max_abs_err"]]
+            + [r["max_abs_err"] for r in shapes.values()])
+    layers = get_config("qwen3-1.7b").n_layers
+    counters = launch_counters()
+    out = {}
+    # the speculative sweep at 2 interleaved repetitions, not its 4:
+    # at 4 it takes ~170 s of the script (its random-draft point emits
+    # one token a round)
+    for name, paged, reps, run in (
+            ("prefix_cache", True, pc.N_REPS,
+             lambda: pc.metrics(device=dev, smoke=True)),
+            ("speculative_efficiency", False, SPEC_BENCH_REPS,
+             lambda: se.metrics(device=dev, smoke=True,
+                                n_reps=SPEC_BENCH_REPS))):
+        t0 = time.perf_counter()
+        with serve_tally() as log, every_repetition() as runs:
+            torch.cuda.synchronize()
+            for k in counters.values():
+                k.launches = 0
+            m = run()
+            torch.cuda.synchronize()
+            got = {n: k.launches for n, k in counters.items()}
+        print(f"  (b) {name}: best of {reps} repetitions, {len(log)} serves "
+              f"in {time.perf_counter() - t0:.1f} s")
+        check_launches(f"phase 18 {name}", got, layers, log, paged)
+        # every repetition's window against the counter's period: the
+        # measured Joules of a window of n periods are good to ~1 / n
+        acc = {point: [r.outcome.server.total_tokens
+                       / r.per_domain_energy_j["accelerator"] for r in rs]
+               for point, rs in runs.items()}
+        for point, rs in runs.items():
+            print(f"  {point} repetitions: " + "; ".join(
+                f"{r.outcome.server.tokens_per_s:.1f} tok/s, {a:.4f} tok/J "
+                f"at the accelerator, window {r.outcome.result.duration_s:.3f}"
+                f" s = {r.outcome.result.duration_s / period_s:.1f} periods"
+                for r, a in zip(rs, acc[point])))
+        for point, p in m.items():
+            if point == "allocator":
+                print(f"  {point}: {p['page_alloc_ops_per_s']:.0f} ops/s")
+                continue
+            extra = "".join(
+                f", {k} {p[k]:.4f}" if isinstance(p[k], float)
+                else f", {k} {p[k]}" for k in (
+                    "acceptance", "speedup", "draft_energy_share",
+                    "hits", "lookups", "cached_tokens", "peak_pages",
+                    "capacity_ctx", "j_saved_per_cached_token") if k in p)
+            print(f"  {point}: {p['tokens_per_s']:.1f} tok/s, "
+                  f"{p['tok_per_j_accelerator']:.4f} tok/J at the "
+                  f"accelerator ({p['accelerator_j']:.3f} J measured), "
+                  f"{p['tok_per_j']:.4f} tok/J at the wall{extra}; review "
+                  f"{'ACCEPTED' if p['review_passed'] else 'REJECTED'}")
+            check(p["review_passed"],
+                  f"phase 18 {name} {point}: the review was REJECTED")
+        out[name] = dict(launches=got, metrics=m, tok_per_j_reps=acc)
+    pm = out["prefix_cache"]["metrics"]
+    for point, hits in (("hit0", 0), ("hit50", 4), ("hit90", 8)):
+        p = pm[point]
+        check((p["hits"], p["lookups"], p["cached_tokens"])
+              == (hits, 10, hits * pc.SHARED_LEN),
+              f"phase 18 prefix_cache {point}: hits/lookups/cached "
+              f"{p['hits']}/{p['lookups']}/{p['cached_tokens']} != the "
+              f"CPU's {hits}/10/{hits * pc.SHARED_LEN}")
+    reps = out["prefix_cache"]["tok_per_j_reps"]
+    print(f"  prefix_cache tok/J hit90 / hit0 (reported, not gated): wall "
+          f"{pm['hit90']['tok_per_j'] / pm['hit0']['tok_per_j']:.3f}, "
+          f"accelerator {pm['hit90']['tok_per_j_accelerator'] / pm['hit0']['tok_per_j_accelerator']:.3f}"
+          f"; at the accelerator by repetition " + ", ".join(
+              f"{a / b:.3f}" for a, b in zip(reps["hit90"], reps["hit0"])))
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  phase 18 took {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def phase_rwkv_engine(torch, dev, requests):
     """Phase 10: phase 4's requests (arrivals, prompt lengths, budgets),
     their tokens redrawn in rwkv6-3b's vocabulary, through the
@@ -2851,6 +3559,19 @@ def main() -> int:
     print(smi.strip())
     slo_launches = phase_slo(torch, dev, model, params, kernels)
 
+    phase("phase 17: faults on the main path (meter dropout, queue "
+          "overload, a replica crash)")
+    fault_launches = phase_faults(torch, dev, model, params, engine,
+                                  requests)
+
+    phase("phase 18: the prefix-cache and speculative benchmarks on the "
+          "card")
+    print(smi.strip())
+    bench = phase_benchmarks(torch, dev, kernels,
+                             power["counter_period_s"])
+    prefix_launches = bench["prefix_cache"]["launches"]
+    spec_bench_launches = bench["speculative_efficiency"]["launches"]
+
     # the qwen3 weights, engines and damped copy go before rwkv6-3b
     del engine, make, model, params
     gc.collect()
@@ -2875,32 +3596,35 @@ def main() -> int:
     phase("phase 14: full-width whisper-small through ServeEngine")
     whisper_launches = phase_whisper(torch, dev)
 
-    # launches: each kernel's count on its own paths' runs (phases 4, 14
-    # and 15 for decode and flash, and 16 for flash; phases 6 and 16 for
-    # the paged kernels, phase 8 for the verify kernel, phase 10 for the
-    # scan, phase 12 for the int8 GEMM)
+    # launches: each kernel's count on its own paths' runs (phases 4, 14,
+    # 15 and 17 for decode and flash, 16 and 18 for flash, 18 for decode;
+    # phases 6, 16 and 18 for the paged kernels, 8 and 18 for the verify
+    # kernel, phase 10 for the scan, phase 12 for the int8 GEMM)
     dec = "src/repro/kernels/decode_attention/decode_attention.py"
-    both = {k: launches[k] + whisper_launches[k] + power["launches"][k]
-            + (slo_launches[k] if k == "flash_attention" else 0)
-            for k in launches}
-    for name in ("decode_attention", "flash_attention"):
+    by_phase = {"4": launches, "14": whisper_launches,
+                "15": power["launches"], "16": slo_launches,
+                "17": fault_launches, "18": {
+                    k: prefix_launches[k] + spec_bench_launches[k]
+                    for k in prefix_launches}}
+    uses = {"decode_attention": ("4", "14", "15", "17", "18"),
+            "flash_attention": ("4", "14", "15", "16", "17", "18"),
+            "paged_decode_attention": ("6", "16", "18"),
+            "paged_verify_attention": ("6", "16", "18"),
+            "verify_attention": ("8", "18")}
+    by_phase["6"], by_phase["8"] = paged_launches, spec_launches
+    totals = {}
+    for name, phases in uses.items():
         kernels[name]["launches_by_phase"] = {
-            "4": launches[name], "14": whisper_launches[name],
-            "15": power["launches"][name]}
-    kernels["flash_attention"]["launches_by_phase"]["16"] = slo_launches[
-        "flash_attention"]
-    paged = {k: paged_launches[k] + slo_launches[k] for k in paged_launches}
-    for name in ("paged_decode_attention", "paged_verify_attention"):
-        kernels[name]["launches_by_phase"] = {
-            "6": paged_launches[name], "16": slo_launches[name]}
+            p: by_phase[p][name] for p in phases}
+        totals[name] = sum(kernels[name]["launches_by_phase"].values())
     sources = {
-        "decode_attention": (f"{dec}:351", both),
+        "decode_attention": (f"{dec}:351", totals),
         "flash_attention": (
             "src/repro/kernels/flash_attention/flash_attention.py:77",
-            both),
-        "paged_decode_attention": (f"{dec}:266", paged),
-        "paged_verify_attention": (f"{dec}:308", paged),
-        "verify_attention": (f"{dec}:127", spec_launches),
+            totals),
+        "paged_decode_attention": (f"{dec}:266", totals),
+        "paged_verify_attention": (f"{dec}:308", totals),
+        "verify_attention": (f"{dec}:127", totals),
         "linear_scan": ("src/repro/kernels/linear_scan/linear_scan.py:81",
                         rwkv_launches),
         "int8_matmul": ("src/repro/kernels/int8_matmul/int8_matmul.py:42",

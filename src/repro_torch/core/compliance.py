@@ -22,7 +22,7 @@ invariants:
   R11 PDU aggregation equals the sum of its member wall feeds
 
 Robustness invariants (what a fault the stack could not absorb looks
-like in the log — see ``repro.faults``):
+like in the log — see ``repro_torch.faults``):
 
   R12 per-boundary-channel sample coverage >= threshold (default 95%
       of the channel's own cadence over the window; telemetry dropout

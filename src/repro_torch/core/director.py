@@ -99,9 +99,9 @@ class Director:
         """Full protocol: NTP sync -> PTD connect -> (per-channel range
         probe) -> loadgen run with concurrent power logging.
 
-        ``fault_injector`` (``repro.faults.FaultInjector``) subjects the
+        ``fault_injector`` (``repro_torch.faults.FaultInjector``) subjects the
         stack's channels to the plan's metering hazards; ``meter_retry``
-        (``repro.faults.RetryPolicy``) bounds the stack's re-range /
+        (``repro_torch.faults.RetryPolicy``) bounds the stack's re-range /
         re-measure degradation loop.  Both default to off.
 
         ``sut_run(perf_log) -> duration_s`` executes the workload and

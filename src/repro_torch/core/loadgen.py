@@ -381,7 +381,7 @@ def run_server_queue(serve: Callable[[list[tuple[dict, float]]], list],
 
     Robustness knobs (all default off):
 
-    - ``fault_plan`` (``repro.faults.FaultPlan``): any ``QueueOverload``
+    - ``fault_plan`` (``repro_torch.faults.FaultPlan``): any ``QueueOverload``
       faults splice seeded burst arrivals into the Poisson schedule.
     - ``shed`` (``ShedPolicy``): overload-triggered load shedding at
       admission; shed queries never reach ``serve`` and are counted in

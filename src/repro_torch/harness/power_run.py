@@ -28,8 +28,7 @@ accuracy.  A SUT that only provides the legacy scalar
 
 Copied from the reference ``src/repro/harness/power_run.py``; besides
 its imports, per-request energy goes through the port's
-``repro_torch.serving.attribute_request_energy``, ``fault_plan`` raises
-until the fault package is ported (ROADMAP §A.4), and the default
+``repro_torch.serving.attribute_request_energy`` and the default
 ``software_id`` is ``repro-torch``.
 """
 from __future__ import annotations
@@ -157,13 +156,13 @@ class PowerRun:
 
     Robustness knobs:
 
-    - ``fault_plan`` (``repro.faults.FaultPlan``): the run's injected
+    - ``fault_plan`` (``repro_torch.faults.FaultPlan``): the run's injected
       hazards.  Metering faults are applied inside the stack; the plan
       is also handed to the scenario and SUT when they accept one
       (queue-overload bursts, replica crash/hang).
-    - ``meter_retry`` (``repro.faults.RetryPolicy``): bounds the
+    - ``meter_retry`` (``repro_torch.faults.RetryPolicy``): bounds the
       stack's re-range / re-measure degradation loop.
-    - ``retry_policy`` (``repro.faults.RetryPolicy``): an invalid
+    - ``retry_policy`` (``repro_torch.faults.RetryPolicy``): an invalid
       (REJECTED) run is re-executed up to ``max_attempts`` times;
       every attempt's rejection reasons land in ``result.attempts``.
     - ``watchdog_s``: wall-clock budget per attempt; an overrun
@@ -290,10 +289,9 @@ class PowerRun:
 
         injector = None
         if self.fault_plan is not None:
-            raise NotImplementedError(
-                "PowerRun(fault_plan=...): the fault-injection package "
-                "(the reference's repro.faults) is not ported yet, see "
-                "ROADMAP §A.4")
+            from repro_torch.faults import FaultInjector
+
+            injector = FaultInjector(self.fault_plan)
         perf_log, power_log = director.run_measurement(
             sut_run=sut_run, meter_stack=stack,
             range_mode=self.range_mode,

@@ -126,7 +126,7 @@ class Server(Scenario):
     The robustness knobs (queue mode only) pass straight through to
     ``run_server_queue``: ``deadline_s`` per-request deadlines,
     ``shed`` (a ``repro_torch.core.loadgen.ShedPolicy``) admission-control
-    load shedding, and ``fault_plan`` (``repro.faults.FaultPlan``)
+    load shedding, and ``fault_plan`` (``repro_torch.faults.FaultPlan``)
     queue-overload burst splicing.  ``ttft_slo_s``/``tpot_slo_s``
     (seconds, queue mode only) add per-token tail SLOs: ``slo_met``
     then also requires p99 TTFT/TPOT within bounds, and

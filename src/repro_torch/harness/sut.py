@@ -16,10 +16,15 @@ it claims to be (``system_description``).
   Server with per-request TTFT/TPOT and energy attribution).
 - ``TinySUT`` — a pin-demarcated duty-cycled MCU workload (the µW end
   of the paper's range) measured on the ``pin`` channel.
+- ``ReplicatedSUT`` — N independent engine replicas behind one
+  admission queue: arrivals dispatched round-robin, each replica
+  contributes its own meter stack (rails + wall) and the fleet
+  boundary is a PDU domain aggregating the replica walls.  Replicas
+  with a measured ``energy_meter`` are refused (one card's counter
+  cannot be split between replicas).
 
-The reference's multi-engine adapters (``ShardedSUT``,
-``ReplicatedSUT``, ``DisaggregatedSUT``) wait for ROADMAP §A.8 and
-§A.9.
+The reference's other multi-engine adapters (``ShardedSUT``,
+``DisaggregatedSUT``) wait for ROADMAP §A.8 and §A.9.
 
 Power surface: every adapter implements ``domains(outcome) ->
 list[PowerDomain]`` — its per-component measurement boundaries
@@ -52,8 +57,9 @@ import numpy as np
 from repro_torch.core.compliance import SystemDescription
 from repro_torch.core.power_model import StepWork, SystemPowerModel, TinyPowerModel
 from repro_torch.hw import DATACENTER_H100, EDGE_SYSTEM, SystemSpec
-from repro_torch.power import (ACCELERATOR, HOST, PIN, WALL, MeterStack,
-                               PowerDomain, build_stack, wall_domain)
+from repro_torch.power import (ACCELERATOR, HOST, PDU, PIN, WALL,
+                               MeterStack, PowerDomain, build_stack,
+                               wall_domain)
 
 PowerSource = Callable[[np.ndarray], np.ndarray]
 
@@ -680,6 +686,296 @@ def _system_peak_watts(meter: SystemPowerModel) -> float:
          + s.n_hosts(meter.n_chips) * s.host_active_watts
          + s.n_switches(meter.n_chips) * s.switch_watts)
     return w / s.psu_efficiency
+
+
+class ReplicatedSUT(BaseSUT):
+    """N independent engine replicas behind one admission queue.
+
+    ``replicas`` are queue-capable SUTs (``ContinuousBatchingSUT``,
+    ``CallableSUT(serve_queue=...)``); one admission queue dispatches
+    arrivals round-robin, each replica serves its share on the shared
+    t=0 clock, and the completed records merge into one fleet result.
+    Each replica contributes its whole meter stack under a ``r{i}/``
+    prefix (rails + wall, all non-boundary), and the fleet boundary is
+    a derived ``pdu`` domain summing the replica wall feeds — exactly
+    the paper's PDU-aggregation fallback.  ``replica_energy_j`` splits
+    the fleet energy back per replica, and the attribution test checks
+    the parts sum to the whole.
+
+    Fault handling (``fault_plan`` — a ``repro_torch.faults.FaultPlan``):
+
+    - ``ReplicaCrash(i, at_s)``: replica *i* dies at ``at_s`` on the
+      shared serve clock.  Queries it completed before the crash
+      stand; everything else from its share is re-dispatched
+      round-robin onto the survivors after ``retry``'s backoff (one
+      re-dispatch wave; no duplicate or lost qids either way — the
+      queue runner's conservation check holds).  The dead replica's
+      power channels clamp to zero from ``at_s``, so fleet energy
+      bills it exactly through the crash.
+    - ``ReplicaHang(i, at_s, duration_s)``: replica *i* stalls; its
+      in-flight completions shift by the stall (late enough ones may
+      blow the per-request deadline — counted, not hidden).
+
+    Without ``retry``, a crash that loses queries raises instead of
+    silently shrinking the result set.
+
+    The port's one difference: replicas that carry a measured
+    ``energy_meter`` are refused (``ValueError``, naming the replica).
+    On one card every replica's NVML trace is the whole card's draw, so
+    the fleet's PDU would bill it once per replica; replicas sharing a
+    card run with modeled rails.
+    """
+
+    def __init__(self, replicas: list, *, name: str = "replicated",
+                 sysdesc: Optional[SystemDescription] = None,
+                 fault_plan=None, retry=None):
+        if not replicas:
+            raise ValueError("ReplicatedSUT needs at least one replica")
+        for i, rep in enumerate(replicas):
+            if getattr(rep, "trace", None) is not None:
+                raise ValueError(
+                    f"ReplicatedSUT: replica {i} ({rep.name}) carries a "
+                    f"measured energy_meter; every replica on one card "
+                    f"would read the whole card's counter, so the fleet "
+                    f"would bill it once per replica: give the replicas "
+                    f"modeled rails")
+        base = replicas[0].system_description()
+        r = len(replicas)
+        if sysdesc is None:
+            sysdesc = SystemDescription(
+                scale=base.scale, n_chips=base.n_chips * r,
+                instrument=base.instrument,
+                telemetry_accuracy=base.telemetry_accuracy,
+                max_system_watts=(base.max_system_watts or 0.0) * r or None,
+                idle_system_watts=base.idle_system_watts * r)
+        super().__init__(name, sysdesc)
+        self.replicas = replicas
+        self.fault_plan = fault_plan
+        self.retry = retry
+        self.completed: list = []
+        # speculative fleets: delegate draft-aware energy weighting to
+        # the replicas' (identical) weight functions so per-request
+        # attribution keeps billing draft forwards in fleet mode
+        weight = getattr(replicas[0], "request_energy_weight", None)
+        if weight is not None:
+            self.request_energy_weight = weight
+
+    @property
+    def n_replicas(self) -> int:
+        """Fleet size (replicas behind the one admission queue)."""
+        return len(self.replicas)
+
+    def _crash_time(self, i: int) -> Optional[float]:
+        if self.fault_plan is None:
+            return None
+        c = self.fault_plan.crash_of(i)
+        return float(c.at_s) if c is not None else None
+
+    def serve_queue(self, arrivals: list[tuple[dict, float]]) -> list:
+        from concurrent.futures import ThreadPoolExecutor
+
+        from repro_torch.core.loadgen import qid_of
+
+        plan = self.fault_plan
+        shares = [list(arrivals[i::self.n_replicas])
+                  for i in range(self.n_replicas)]
+        # replicas are independent engines on independent t=0 clocks;
+        # serve them concurrently so fleet wall time is one schedule,
+        # not R of them (each replica sleeps through its own arrivals).
+        # Every replica serves even an empty share so its completed
+        # list reflects *this* run (no stale spans in the fleet power
+        # trace when the SUT is reused or under-fed).
+        with ThreadPoolExecutor(self.n_replicas) as pool:
+            futures = [pool.submit(rep.serve_queue, share)
+                       for rep, share in zip(self.replicas, shares)]
+            waves = [list(f.result()) for f in futures]
+
+        # absorb the plan's replica faults: shift hung completions,
+        # drop a crashed replica's post-crash completions and collect
+        # the lost share for re-dispatch
+        lost: list[tuple[dict, float]] = []
+        crash_at = 0.0
+        for i, recs in enumerate(waves):
+            hang = plan.hang_of(i) if plan is not None else None
+            if hang is not None:
+                for r in recs:
+                    if r.done_s is not None and r.done_s >= hang.at_s:
+                        r.done_s += hang.duration_s
+                        if (r.first_token_s is not None
+                                and r.first_token_s >= hang.at_s):
+                            r.first_token_s += hang.duration_s
+            tc = self._crash_time(i)
+            if tc is not None:
+                kept = [r for r in recs
+                        if r.done_s is not None and r.done_s < tc]
+                done = {r.rid for r in kept}
+                for j, (s, a) in enumerate(shares[i]):
+                    if qid_of(s, j) not in done:
+                        lost.append((s, float(a)))
+                crash_at = max(crash_at, tc)
+                waves[i] = kept
+
+        if lost:
+            survivors = [i for i in range(self.n_replicas)
+                         if self._crash_time(i) is None]
+            if not survivors:
+                raise RuntimeError(
+                    f"{self.name}: every replica crashed — "
+                    f"{len(lost)} queries unservable")
+            if self.retry is None:
+                raise RuntimeError(
+                    f"{self.name}: replica crash lost {len(lost)} "
+                    f"queries; pass retry=RetryPolicy() to re-dispatch "
+                    f"them onto the surviving replicas")
+            # one re-dispatch wave: the lost share re-arrives on the
+            # survivors after the crash is detected + backoff
+            delay = self.retry.delay_s(0)
+            redo = sorted(lost, key=lambda sa: (sa[1],
+                                                qid_of(sa[0], 0)))
+            redo = [(s, max(a, crash_at) + delay) for s, a in redo]
+            shares2 = {i: redo[k::len(survivors)]
+                       for k, i in enumerate(survivors)}
+            with ThreadPoolExecutor(len(survivors)) as pool:
+                futures = {i: pool.submit(self.replicas[i].serve_queue,
+                                          share)
+                           for i, share in shares2.items()}
+                for i, f in futures.items():
+                    waves[i] = waves[i] + list(f.result())
+
+        # per-replica completed reflects every wave this replica served
+        # (utilization spans + energy billing see retried queries too)
+        for rep, recs in zip(self.replicas, waves):
+            rep.completed = recs
+        self.completed = [r for recs in waves for r in recs]
+        rids = [r.rid for r in self.completed]
+        if len(set(rids)) != len(rids):
+            raise ValueError(
+                f"{self.name}: duplicate request ids across replicas — "
+                "request builders must derive rids from the loadgen "
+                "query id (repro.core.loadgen.qid_of), not the "
+                "per-replica enumerate index")
+        return self.completed
+
+    def supports_serve_queue(self) -> bool:
+        return True
+
+    def completed_requests(self) -> Optional[list]:
+        return self.completed or None
+
+    def _replica_outcome(self, rep, outcome):
+        """The fleet outcome as one replica sees it: the real outcome
+        with qps scaled to its share of completed queries, every other
+        field intact (replica power surfaces may read any of them)."""
+        import dataclasses
+
+        frac = (len(rep.completed) / max(1, len(self.completed))
+                if getattr(rep, "completed", None) else 0.0)
+        result = dataclasses.replace(outcome.result,
+                                     qps=outcome.result.qps * frac)
+        return dataclasses.replace(outcome, result=result)
+
+    def _crash_clamped(self, i: int, src):
+        """A replica's trace, zeroed from its crash time: the dead
+        replica draws nothing after ``at_s``, so fleet energy bills it
+        exactly through the crash (and the PDU register — sum of
+        *measured* feeds — agrees by construction)."""
+        tc = self._crash_time(i)
+        if tc is None or src is None:
+            return src
+
+        def clamped(t, _src=src, _tc=tc):
+            t = np.asarray(t, float)
+            return np.where(t < _tc, np.asarray(_src(t), float), 0.0)
+
+        return clamped
+
+    def domains(self, outcome) -> list[PowerDomain]:
+        doms: list[PowerDomain] = []
+        wall_names: list[str] = []
+        for i, rep in enumerate(self.replicas):
+            rout = self._replica_outcome(rep, outcome)
+            rdoms = rep.domains(rout) if hasattr(rep, "domains") else None
+            if rdoms is None:
+                rdoms = [wall_domain(rep.power_source(rout))]
+            g = f"r{i}"
+            for d in rdoms:
+                doms.append(PowerDomain(
+                    name=f"{g}/{d.name}",
+                    source=self._crash_clamped(i, d.source), kind=d.kind,
+                    group=g, boundary=False,
+                    derived_from=tuple(f"{g}/{n}"
+                                       for n in d.derived_from),
+                    combine=d.combine))
+                if d.kind == WALL:
+                    wall_names.append(f"{g}/{d.name}")
+        # the fleet boundary: a PDU register aggregating the replica
+        # wall feeds (sum of *measured* samples — §IV-C fallback)
+        doms.append(PowerDomain(PDU, derived_from=tuple(wall_names),
+                                boundary=True))
+        return doms
+
+    def _psu(self):
+        # R10 applies the documented PSU to every replica group, so it
+        # is only honest when the replicas share one loss model; a
+        # heterogeneous fleet documents none (R10 skipped, R9/R11
+        # still checked)
+        psus = [getattr(rep, "_psu", lambda: None)()
+                for rep in self.replicas]
+        if psus[0] is not None and all(p == psus[0] for p in psus):
+            return psus[0]
+        return None
+
+    def _replica_source(self, rep, rout) -> PowerSource:
+        """One replica's boundary trace: the sum of its wall feeds when
+        it is domain-native (the exact series its share of the PDU
+        register meters), else its legacy scalar source."""
+        doms = rep.domains(rout) if hasattr(rep, "domains") else None
+        if doms is not None:
+            walls = [d.source for d in doms
+                     if d.kind == WALL and d.source is not None]
+            if walls:
+                def src(t, _walls=tuple(walls)):
+                    t = np.asarray(t, float)
+                    total = np.zeros_like(t)
+                    for w in _walls:
+                        total = total + np.asarray(w(t), float)
+                    return total
+
+                return src
+        return rep.power_source(rout)
+
+    def replica_sources(self, outcome) -> list[PowerSource]:
+        """Per-replica wall traces, crash-clamped to zero draw after a
+        fault plan kills the member (energy billed through crash time)."""
+        return [self._crash_clamped(
+                    i, self._replica_source(
+                        rep, self._replica_outcome(rep, outcome)))
+                for i, rep in enumerate(self.replicas)]
+
+    def power_source(self, outcome) -> PowerSource:
+        sources = self.replica_sources(outcome)
+
+        def fleet(t):
+            t = np.asarray(t, float)
+            total = np.zeros_like(t)
+            for src in sources:
+                total = total + np.asarray(src(t), float)
+            return total
+
+        return fleet
+
+    def replica_energy_j(self, outcome, times_s: np.ndarray
+                         ) -> list[float]:
+        """Trapezoidal per-replica energy over the measured sample
+        times; sums to the fleet trace's integral by linearity."""
+        times_s = np.asarray(times_s, float)
+        from repro_torch.core.summarizer import _trapz
+
+        out = []
+        for src in self.replica_sources(outcome):
+            w = np.asarray(src(times_s), float)
+            out.append(float(_trapz(w, times_s)))
+        return out
 
 
 class TinySUT(BaseSUT):

@@ -31,7 +31,7 @@ import math
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, count_launch
 from repro_torch.kernels.flash_attention.ops import (
     _check_aligned, _sm_count, _splits,
 )
@@ -199,7 +199,7 @@ def decode_attention(q, k_cache, v_cache, pos):
                (b, s, kvh, h // kvh, d, *k_cache.stride()[:3],
                 *v_cache.stride()[:3]),
                after=(pos.stride(0) if pos.ndim else 0,))
-    decode_attention.launches += 1
+    count_launch(decode_attention)
     return o
 
 

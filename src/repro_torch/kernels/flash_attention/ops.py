@@ -42,7 +42,7 @@ import math
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, count_launch
 
 MASK_VALUE = -1e30
 
@@ -334,7 +334,7 @@ def flash_attention(q, k, v, *, causal: bool = True):
     o = launch("flash_attention", q, kvh, skv, (k, v),
                (k.data_ptr(), v.data_ptr()), (b, sq, skv, h, kvh, d),
                (*k.stride()[:3], *v.stride()[:3]), flags=(int(causal),))
-    flash_attention.launches += 1
+    count_launch(flash_attention)
     return o
 
 

@@ -31,7 +31,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, count_launch
 
 # the largest K whose int32 sum cannot overflow: 128 * 128 * K < 2^31
 MAX_K = 131_072
@@ -186,7 +186,7 @@ def int8_matmul(x, w, sx, sw, *, out_dtype=torch.bfloat16):
         if t.device != x.device:
             raise ValueError("int8_matmul: inputs on different devices")
     out = launch(x, w, sx, sw, out_dtype, route)
-    int8_matmul.launches += 1
+    count_launch(int8_matmul)
     return out
 
 

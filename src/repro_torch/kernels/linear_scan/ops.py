@@ -32,7 +32,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, count_launch
 
 # the reference model's chunk (``models/rwkv6.py:CHUNK``)
 CHUNK = 256
@@ -295,7 +295,7 @@ def linear_scan(r, k, v, logw, u):
     r, k, v, logw = (x if x.stride(-1) == 1 else x.contiguous()
                      for x in (r, k, v, logw))
     out = launch(r, k, v, logw, u.contiguous(), route)
-    linear_scan.launches += 1
+    count_launch(linear_scan)
     return out
 
 

@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import count_launch
 from repro_torch.kernels.decode_attention.ops import (
     decode_attention_plain, launch,
 )
@@ -99,7 +100,7 @@ def paged_decode_attention(q, k_pool, v_pool, pages, pos):
                 pos.data_ptr()),
                (b, kvh, h // kvh, d, nb, ps, *k_pool.stride()[:3],
                 *v_pool.stride()[:3]))
-    paged_decode_attention.launches += 1
+    count_launch(paged_decode_attention)
     return o
 
 

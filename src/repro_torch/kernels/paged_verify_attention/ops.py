@@ -24,6 +24,7 @@ through strides.
 """
 from __future__ import annotations
 
+from repro_torch.kernels import count_launch
 from repro_torch.kernels.flash_attention.ops import launch
 from repro_torch.kernels.paged_decode_attention.ops import (
     check_paged_args, paged_view,
@@ -61,7 +62,7 @@ def paged_verify_attention(q, k_pool, v_pool, pages, pos):
          pos.data_ptr()),
         (b, t, h, kvh, d, nb, ps),
         (*k_pool.stride()[:3], *v_pool.stride()[:3]))
-    paged_verify_attention.launches += 1
+    count_launch(paged_verify_attention)
     return o
 
 

@@ -32,6 +32,7 @@ import math
 
 import torch
 
+from repro_torch.kernels import count_launch
 from repro_torch.kernels.decode_attention.ops import MASK_VALUE
 from repro_torch.kernels.flash_attention.ops import launch
 
@@ -98,7 +99,7 @@ def verify_attention(q, k_cache, v_cache, pos):
         (k_cache.data_ptr(), v_cache.data_ptr(), pos.data_ptr()),
         (b, t, s, h, kvh, d),
         (*k_cache.stride()[:3], *v_cache.stride()[:3]))
-    verify_attention.launches += 1
+    count_launch(verify_attention)
     return o
 
 

@@ -14,9 +14,12 @@ own* peak, not the stack peak), and one power log whose samples carry
 the domain/boundary metadata the summarizer and compliance review key
 on.
 
-Copied from the reference ``src/repro/power/stack.py``; besides its
-imports, its fault-injection degradation loop raises until the
-reference's fault package is ported (ROADMAP §A.4).
+Copied from the reference ``src/repro/power/stack.py``; only its imports
+differ.  Injected metering faults (``repro_torch.faults``) act on the
+stack's sampling of a channel: on the card that includes the
+accelerator channel's samples of the NVML-measured trace, never the
+NVML counter itself, so a re-measured interval re-samples the same
+measured trace.
 """
 from __future__ import annotations
 
@@ -111,7 +114,7 @@ class MeterStack:
         self.psu = psu
         self.name = name
         # per-channel degradation record of the last measure() with an
-        # injector: {channel: repro.faults.ChannelHealth}
+        # injector: {channel: repro_torch.faults.ChannelHealth}
         self.health: dict = {}
 
     # --- introspection -------------------------------------------------
@@ -177,12 +180,12 @@ class MeterStack:
         channels share one timeline (uniform sample rate enforced),
         the precondition for cross-domain energy comparison.
 
-        ``injector`` (a ``repro.faults.FaultInjector``) applies the
+        ``injector`` (a ``repro_torch.faults.FaultInjector``) applies the
         fault plan's metering hazards to each measured channel, and the
         stack degrades gracefully instead of logging lies: clipped
         intervals are re-ranged and re-measured, sample gaps re-measured
         (bounded exponential backoff per ``retry``, a
-        ``repro.faults.RetryPolicy``), skewed timestamps realigned to
+        ``repro_torch.faults.RetryPolicy``), skewed timestamps realigned to
         the stack's own nominal grid.  What happened lands in
         ``self.health`` (per-channel ``ChannelHealth``); residual gaps
         and clipped samples reach the log marked for the compliance
@@ -276,21 +279,83 @@ class MeterStack:
         injected measure(); clean channels report 1.0."""
         return {name: h.coverage for name, h in self.health.items()}
 
+    def _bump_range(self, m: Meter) -> bool:
+        """Re-range after clipping: step the channel to the next range
+        (PTDaemon's cure for an overload — one step per retry, since a
+        clipped reading hides the true peak)."""
+        a = m.analyzer
+        if a is None or a.fixed_range is None:
+            return False                # autorange never clips here
+        above = [r for r in a.spec.ranges_w if r > a.fixed_range]
+        if not above:
+            return False                # already at the top range
+        a.fixed_range = above[0]
+        return True
+
     def _degrade(self, m: Meter, t_ms: np.ndarray, w: np.ndarray, *,
                  t0_ms: float, hz: float, injector, retry):
         """Inject one channel's faults, then re-range/re-measure the
-        affected intervals with bounded exponential backoff: the
-        reference's degradation loop, which waits for the port of its
-        fault-injection package."""
-        raise NotImplementedError(
-            "metering fault injection: the fault-injection package (the "
-            "reference's repro.faults) is not ported yet, see ROADMAP "
-            "§A.4")
+        affected intervals with bounded exponential backoff."""
+        from repro_torch.faults.inject import ChannelHealth
+
+        rel_s = (np.asarray(t_ms, float) - t0_ms) / 1e3
+        w, dropped, clipped, shift_ms = injector.apply(m, rel_s, w,
+                                                       retry=0)
+        health = ChannelHealth()
+        if np.any(shift_ms != 0.0):
+            # the stack owns the nominal grid (one shared timeline), so
+            # a skew spike is detected as deviation from it and cured
+            # by realigning to the grid; the correction is surfaced in
+            # health rather than silently swallowed
+            health.skew_corrected_ms = float(np.max(np.abs(shift_ms)))
+        k = 0
+        max_attempts = retry.max_attempts if retry is not None else 0
+        while (dropped.any() or clipped.any()) and k < max_attempts:
+            if clipped.any():
+                if self._bump_range(m):
+                    health.reranges += 1
+                elif not dropped.any():
+                    break               # top range: no structural fix
+            health.retries += 1
+            health.backoff_s += retry.delay_s(k)
+            bad = dropped | clipped
+            for i0, i1 in _spans(bad):
+                nn = i1 - i0 + 1
+                start_s = float(rel_s[i0])
+                # the analyzer samples from t=0, so the interval source
+                # is the channel waveform shifted to the span start
+                seg_src = (lambda t, _src=m.domain.source, _a=start_s:
+                           _src(np.asarray(t, float) + _a))
+                _, seg_w = m.analyzer.measure(
+                    seg_src, (nn + 0.5) / hz,
+                    t0_ms=t0_ms + start_s * 1e3)
+                seg_w, seg_drop, seg_clip, _ = injector.apply(
+                    m, rel_s[i0:i1 + 1], seg_w[:nn], retry=k + 1)
+                w[i0:i1 + 1] = seg_w
+                dropped[i0:i1 + 1] = seg_drop
+                clipped[i0:i1 + 1] = seg_clip
+            k += 1
+        health.n_dropped = int(dropped.sum())
+        health.n_clipped = int(clipped.sum())
+        health.coverage = 1.0 - health.n_dropped / max(1, len(w))
+        return w, dropped, clipped, health
 
     def shift_clock(self, logger: MLPerfLogger, offset_ms: float):
         """Move logged samples into the SUT clock (post-NTP-sync)."""
         for ev in logger.events:
             ev.time_ms += offset_ms
+
+
+def _spans(mask: np.ndarray) -> list[tuple[int, int]]:
+    """Contiguous True runs of a boolean mask as inclusive (i0, i1)
+    index pairs (the intervals the degradation loop re-measures)."""
+    idx = np.flatnonzero(mask)
+    if not len(idx):
+        return []
+    breaks = np.flatnonzero(np.diff(idx) > 1)
+    starts = np.concatenate([[0], breaks + 1])
+    stops = np.concatenate([breaks, [len(idx) - 1]])
+    return [(int(idx[a]), int(idx[b])) for a, b in zip(starts, stops)]
 
 
 def single_source_stack(source, analyzer: Optional[VirtualAnalyzer]

@@ -257,6 +257,10 @@ def test_port_imports_neither_jax_nor_the_reference_package():
             "repro_torch/benchmarks/serving_throughput.py",
             "repro_torch/benchmarks/slo_sweep.py",
             "repro_torch/serving/scheduler.py",
+            *(f"repro_torch/faults/{m}.py" for m in (
+                "__init__", "plan", "inject")),
+            *(f"repro_torch/benchmarks/{m}.py" for m in (
+                "resilience", "prefix_cache", "speculative_efficiency")),
             *(f"repro_torch/harness/{m}.py" for m in (
                 "__init__", "scenarios", "power_run", "sut")),
             os.path.join("..", "chip_smoke.py")} <= seen

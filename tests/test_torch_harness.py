@@ -11,7 +11,6 @@ not merely close.
 import dataclasses
 import os
 import sys
-import types
 
 import numpy as np
 import pytest
@@ -161,13 +160,6 @@ def test_io_manager_cross_check_equals_the_reference():
     for a, b in zip(ref_wave, port_wave):
         assert np.array_equal(a, b)
     assert (e_port, n_port) == (e_ref, n_ref) and n_port == 64
-
-
-def test_fault_plan_is_not_ported_yet():
-    sut, scenario = _single("port")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        th.PowerRun(sut, dataclasses.replace(scenario, min_duration_s=1.0),
-                    fault_plan=types.SimpleNamespace()).run()
 
 
 def test_port_hw_holds_no_tpu_figures():

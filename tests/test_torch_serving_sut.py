@@ -278,12 +278,14 @@ def test_continuous_sut_serves_the_reference_tokens_under_server():
 class FakeCounter:
     """A cumulative counter in mJ that updates every ``step_s`` (like
     the card's), integrating a piecewise-linear energy profile of
-    ``watts`` over ``edges`` seconds since it was made (real time)."""
+    ``watts`` over ``edges`` seconds since it was made, on ``clock``
+    (real time unless a ``VirtualClock`` is given)."""
 
     def __init__(self, watts=(180.0, 420.0, 95.0), edges=(0.06, 0.15),
-                 step_s=0.004):
+                 step_s=0.004, clock=time.monotonic):
         self.watts, self.edges, self.step_s = watts, edges, step_s
-        self.t0 = time.monotonic()
+        self.clock = clock
+        self.t0 = clock()
         self.reads = 0
 
     def energy_mj(self, t):
@@ -295,7 +297,7 @@ class FakeCounter:
 
     def __call__(self):
         self.reads += 1
-        t = time.monotonic() - self.t0
+        t = self.clock() - self.t0
         return int(self.energy_mj(t - t % self.step_s))
 
 
@@ -440,18 +442,65 @@ COUNTER_S = 0.02
 ENERGY_ALIGN_TOL = 0.03
 
 
-class LateSlots(SleepySlots):
-    """The slot stub with its t = 0 ``late_s`` after its first clock
-    reading."""
+class VirtualClock:
+    """One clock for the counter, the sampler and the stub engine: it
+    moves only when the stub ``advance``s it, and on the way every
+    ``VirtualSampler`` started on it reads at each of its periods."""
 
-    def __init__(self, late_s):
+    def __init__(self):
+        self.t = 0.0
+        self.samplers = []
+
+    def __call__(self):
+        return self.t
+
+    def advance(self, dt):
+        end = self.t + dt
+        while True:
+            due = [s for s in self.samplers if s.next_s <= end]
+            if not due:
+                break
+            s = min(due, key=lambda s: s.next_s)
+            self.t = s.next_s
+            s._read()
+            s.next_s = self.t + s.period_s
+        self.t = end
+
+
+class VirtualSampler(EnergySampler):
+    """``EnergySampler`` on a ``VirtualClock``: its readings come at
+    every period of the clock instead of from a thread's wake-ups, so a
+    loaded machine cannot drift them."""
+
+    def start(self):
+        if self._thread is not None:
+            raise RuntimeError("VirtualSampler.start: already started")
+        self._read()
+        self.next_s = self.clock() + self.period_s
+        self.clock.samplers.append(self)
+        self._thread = self.clock
+        return self
+
+    def stop(self):
+        self.clock.samplers.remove(self)
+        self._read()
+
+
+class LateSlots(SlotStub):
+    """The slot stub on a ``VirtualClock``: ``serve`` advances the clock
+    through its run, stamping requests from its first ``now`` reading,
+    with its t = 0 ``late_s`` after that reading."""
+
+    def __init__(self, clock, late_s):
         super().__init__()
-        self.late_s = late_s
+        self.clock, self.late_s = clock, late_s
 
-    def serve(self, reqs, now=time.monotonic):
+    def serve(self, reqs, now):
         now()
-        time.sleep(self.late_s)
-        return super().serve(reqs, now)
+        self.clock.advance(self.late_s)
+        out = super().serve(reqs)
+        self.clock.advance(max(r.done_s for r in out))
+        return out
 
 
 class ShiftedTrace(th.MeasuredTrace):
@@ -468,12 +517,16 @@ class ShiftedTrace(th.MeasuredTrace):
 
 
 def _stepped_serve(late_s=0.0, shift_s=None):
+    """A measured serve on one ``VirtualClock``: the counter's steps,
+    the sampler's readings and the stub's stamps all read it, so the
+    gates see the alignment under test and no scheduling jitter."""
+    clock = VirtualClock()
     counter = FakeCounter(watts=(650.0, 90.0), edges=(0.15,),
-                          step_s=COUNTER_S)
-    meter = functools.partial(EnergySampler, counter,
-                              period_s=COUNTER_S / 2)
+                          step_s=COUNTER_S, clock=clock)
+    meter = functools.partial(VirtualSampler, counter,
+                              period_s=COUNTER_S / 2, clock=clock)
     sut = th.ContinuousBatchingSUT(
-        LateSlots(late_s), _cfg("port"), name="measured-cb",
+        LateSlots(clock, late_s), _cfg("port"), name="measured-cb",
         make_request=_make_request("port"), energy_meter=meter)
     if shift_s is not None:
         sut.trace = ShiftedTrace(meter, shift_s)
