@@ -156,11 +156,15 @@ Phases, each fatal on failure:
    test at 64-row pages under its virtual clock: at least one
    preemption and one resume, only priority 0 parked, tokens as an
    uncontended run's except from a near-tie on; (d)
-   ``slo_sweep.metrics(smoke=True)`` with the NVML meter on all three
-   configurations: every review ACCEPTs; ``t_long``, the SLO, each
+   ``slo_sweep.metrics(smoke=True)`` with the NVML meter on the three
+   colocated configurations and modeled rails (the H100 system) on the
+   disaggregated one: every review ACCEPTs; ``t_long``, the SLO, each
    point's short-class attainment, ``qps_at_slo``, tok/s, tok/J at the
-   accelerator and the wall, preemptions, resumes, the interleave ratio
-   and ``speedup`` (reported, not gated) are printed.
+   accelerator and the wall, preemptions, resumes, the interleave
+   ratio, ``speedup``, the disaggregated row's modeled ``prefill_j``,
+   ``decode_j`` and ``prefill_energy_frac`` and beside them the NVML
+   counter's delta over the same serve (reported, not gated) are
+   printed.
 17. Faults on the main path (after phase 16, phase 4's weights and
    engine): (a) ``PowerRun(ContinuousBatchingSUT(engine, energy_meter=
    NVML), Server(mode="queue"), fault_plan=FaultPlan([MeterDropout(
@@ -172,7 +176,9 @@ Phases, each fatal on failure:
    every offered qid completed, shed or timed out exactly once, some
    shed, launches exact for what was served.  (c) ``ReplicatedSUT`` of
    two ``ContinuousBatchingSUT``s (one set of weights, two engines,
-   modeled rails) with replica 1 crashing halfway through its share:
+   modeled rails, each serve on a virtual clock of 0.1 s a read, so
+   that every run splits the same way) with replica 1 crashing halfway
+   through its share:
    with ``retry`` no qid lost or duplicated, launches exact for every
    serve of both replicas (each from its own thread), and every
    request's tokens those of phase 4's engine serving them offline,
@@ -201,6 +207,27 @@ Phases, each fatal on failure:
    energy share, tok/s and tok/J at the accelerator and the wall, and
    every repetition's tok/J beside its window in counter periods, are
    printed (not gated).
+19. Prefill/decode disaggregation (after phase 18, phase 4's weights):
+   (a) ``DisaggregatedEngine`` with two ``PrefillWorker``s, each
+   prefilling in a thread of its own, and a paged decode engine in
+   slo_sweep's geometry (64-row pages, 8 slots, chunks of 2; 1,088 rows
+   a slot for phase 4's longest request) serves phase 4's 16 requests
+   offline and with their arrivals: every budget completed, tokens
+   those of the colocated paged engine except from a near-tie on,
+   launches exact (flash 28 per request from the worker threads, paged
+   decode 28 per decode step, nothing else), one host read per decode
+   chunk; (b) a worker whose third prefill raises ends ``serve`` with
+   that error within 30 s; (c) ``DisaggregatedSUT`` with the NVML meter
+   is refused.
+20. The modeled fleet calibrated on the card:
+   ``fleet_sweep.metrics(smoke=True)`` measures the warm decode token
+   time on the full-width qwen3-1.7b (seeded bf16 weights; launches
+   exact: flash 28 per admission, decode 28 per step) and runs its six
+   configurations in simulated time (no sleep): every acceptance check
+   passes and every review ACCEPTs; ``t_tok``, tokens/s and each
+   configuration's tail attainment, tok/J, provisioned W, cold starts,
+   scale events and hetero_carbon's grams are printed.  Then
+   ``repro_torch.launch.fleet`` with a 60 s horizon: ACCEPTED.
 
 The line before the last holds the kernels' JSON record; the last line
 is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside
@@ -2676,7 +2703,8 @@ def phase_slo(torch, dev, model, params, kernels: dict) -> dict:
     print(f"  (d) {cal['device']}: t_long {cal['t_long_ms']:.3f} ms, TTFT "
           f"SLO {cal['ttft_slo_ms']:.3f} ms, grid {cal['grid_qps']} QPS, "
           f"{24} queries a point")
-    for name in ("monolithic", "chunked", "chunked_preempt"):
+    for name in ("monolithic", "chunked", "chunked_preempt",
+                 "disaggregated"):
         p = m[name]
         check(p["review_passed"],
               f"phase 16 (d) slo_sweep {name}: a review REJECTED its run")
@@ -2684,14 +2712,26 @@ def phase_slo(torch, dev, model, params, kernels: dict) -> dict:
             f", {k} {p[k]}" for k in ("preemptions", "resumes") if k in p)
         if "interleave_ratio" in p:
             extra += f", interleave ratio {p['interleave_ratio']:.4f}"
+        if "accelerator_j" in p:
+            energy = (f"{p['tok_per_j_accelerator']:.4f} tok/J at the "
+                      f"accelerator ({p['accelerator_j']:.3f} J measured), "
+                      f"{p['tok_per_j']:.4f} tok/J at the wall")
+        else:
+            energy = f"{p['tok_per_j']:.4f} tok/J at the wall (modeled)"
         print(f"  (d) {name}: attainment " + ", ".join(
             f"{k[7:]} {v:.3f}" for k, v in sorted(p.items())
             if k.startswith("attain_"))
               + f"; qps_at_slo {p['qps_at_slo']:.3f}, {p['tokens_per_s']:.1f}"
-              f" tok/s, {p['tok_per_j_accelerator']:.4f} tok/J at the "
-              f"accelerator ({p['accelerator_j']:.3f} J measured), "
-              f"{p['tok_per_j']:.4f} tok/J at the wall{extra}; reviews "
-              f"ACCEPTED")
+              f" tok/s, {energy}{extra}; reviews ACCEPTED")
+    d = m["disaggregated"]
+    check("counter_j" in d and "accelerator_j" not in d,
+          "phase 16 (d) disaggregated: the row is not modeled beside the "
+          "counter")
+    print(f"  (d) disaggregated split at the mid point (modeled, "
+          f"DATACENTER_H100): prefill {d['prefill_j']:.3f} J, decode "
+          f"{d['decode_j']:.3f} J at the walls, prefill share "
+          f"{d['prefill_energy_frac']:.4f}; the NVML counter's delta over "
+          f"the same serve (reported, not gated): {d['counter_j']:.3f} J")
     if m["chunked_preempt"]["qps_at_slo"] or m["monolithic"]["qps_at_slo"]:
         print(f"  (d) speedup (chunked_preempt / monolithic sustainable "
               f"QPS, reported) {m['chunked_preempt']['speedup']:.3f}x")
@@ -2720,6 +2760,9 @@ FAULT_DROPOUT = (0.5, 1.0)
 FAULT_BURST = dict(at_s=0.5, duration_s=0.5, qps=120.0)
 FAULT_SHED_QUEUE = 8
 FAULT_DEADLINE_S = 5.0
+
+# Phase 17 (c): the replicas' virtual clock advances this much a read.
+FAULT_CLOCK_TICK_S = 0.1
 
 # Phase 18: speculative_efficiency's repetitions (its N_REPS is 4).
 SPEC_BENCH_REPS = 2
@@ -2907,12 +2950,12 @@ def phase_faults(torch, dev, model, params, engine, requests) -> dict:
     deadlines: every offered qid completed, shed or timed out exactly
     once, some shed, launches exact for what was served.  (c)
     ``ReplicatedSUT`` of two ``ContinuousBatchingSUT``s (one set of
-    weights, two engines, modeled rails) with replica 1 crashing halfway
-    through its share: with ``retry`` no qid lost or duplicated,
-    launches exact for every serve of both replicas, and every request's
-    tokens those of phase 4's engine serving the same requests offline,
-    except from a near-tie on; without it the run raises; a set of
-    measured replicas is refused.  Returns the launches of (a), (b) and
+    weights, two engines, modeled rails, each serve on a virtual clock)
+    with replica 1 crashing halfway through its share: with ``retry``
+    no qid lost or duplicated, launches exact for every serve of both
+    replicas, and every request's tokens those of phase 4's engine
+    serving the same requests offline, except from a near-tie on;
+    without it the run raises; a set of measured replicas is refused.  Returns the launches of (a), (b) and
     (c)'s crashed run."""
     import numpy as np
     from repro_torch.core.loadgen import ShedPolicy, poisson_arrivals
@@ -3037,12 +3080,42 @@ def phase_faults(torch, dev, model, params, engine, requests) -> dict:
     for k in launches:
         launches[k] += got[k]
 
-    # (c) two replicas, one crashing mid-serve
+    # (c) two replicas, one crashing mid-serve.  Each replica's serves
+    # run on a virtual clock, fresh at every serve (as
+    # tests/test_torch_faults.py does on the CPU): the crash time taken
+    # from the fault-free run then splits replica 1's share the same way
+    # in the runs with and without retry, whatever the host's speed in
+    # each (on the wall clock a faster later run could finish the whole
+    # share before the crash, and lose nothing).  A read advances it by
+    # FAULT_CLOCK_TICK_S, about what the card's host takes between two
+    # reads (a decode chunk of 8 steps is two), so that arrivals overlap
+    # in the slots as they do on the wall clock
     second = ContinuousBatchingEngine(model, params, max_len=2048,
                                       n_slots=8, chunk_steps=8, device=dev)
     second.serve([Request(rid=-1, prompt=np.arange(64), max_new_tokens=9)],
                  honor_arrivals=False)
     engines = (engine, second)
+
+    def virtual_clock(eng):
+        def serve(requests, **kw):
+            t = [0.0]
+
+            def now():
+                t[0] += FAULT_CLOCK_TICK_S
+                return t[0]
+
+            def sleep(dt):
+                t[0] += max(0.0, dt)
+
+            kw.setdefault("now", now)
+            kw.setdefault("sleep", sleep)
+            # the class's serve at call time: serve_tally's, inside it
+            return ContinuousBatchingEngine.serve(eng, requests, **kw)
+
+        return serve
+
+    for e in engines:
+        e.serve = virtual_clock(e)
     fleet_request = make_request(lambda qid: 16 + 8 * (qid % 4))
 
     def fleet(retry=None, **kw):
@@ -3109,7 +3182,7 @@ def phase_faults(torch, dev, model, params, engine, requests) -> dict:
     print(f"  (c) measured replicas: {refused or 'accepted'}")
     check("replica 0" in refused, "phase 17 (c): replicas with a measured "
           "meter on one card were not refused")
-    del second
+    del engine.serve, second
     gc.collect()
     torch.cuda.empty_cache()
     print(f"  phase 17 took {time.perf_counter() - t_phase:.1f} s")
@@ -3355,6 +3428,267 @@ def phase_benchmarks(torch, dev, kernels: dict, period_s: float) -> dict:
     return out
 
 
+# Phase 19: the disaggregated decode engine.  slo_sweep's page size,
+# slots and chunk steps; phase 4's requests reach 1,028 tokens (prompt +
+# budget), past the sweep's 832 rows, so a slot holds 17 pages of 64
+# and the pool every slot full.
+DISAGG_MAX_LEN = 1088
+# Phase 19 (b): the prefill that raises, and how long serve may take to
+# end with its error.
+DISAGG_FAIL_AT = 3
+DISAGG_FAIL_S = 30.0
+
+
+def phase_disagg(torch, dev, model, params, requests) -> dict:
+    """Phase 19: prefill/decode disaggregation at full width on phase
+    4's weights.  (a) ``DisaggregatedEngine`` with two ``PrefillWorker``s
+    (each prefilling in a thread of its own) and a paged decode engine
+    serves phase 4's 16 requests offline and then with their arrivals:
+    every request completes its budget; its tokens are the colocated
+    paged engine's on the same weights and requests, except from a
+    near-tie on; launches exact (flash 28 per request, counted from the
+    worker threads; paged decode 28 per decode step; nothing else); one
+    host read per decode chunk.  (b) A worker whose third prefill raises
+    ends ``serve`` with that error within ``DISAGG_FAIL_S``.  (c)
+    ``DisaggregatedSUT`` with the NVML meter is refused.  Returns (a)'s
+    launches, both serves summed."""
+    import copy
+    import threading
+
+    import numpy as np
+    from repro_torch.benchmarks import slo_sweep as sw
+    from repro_torch.harness import DisaggregatedSUT
+    from repro_torch.launch.serve import summarize
+    from repro_torch.power.nvml import NVML
+    from repro_torch.serving import (ContinuousBatchingEngine,
+                                     DisaggregatedEngine, PrefillWorker,
+                                     Request)
+
+    t_phase = time.perf_counter()
+    layers = model.cfg.n_layers
+    geometry = dict(max_len=DISAGG_MAX_LEN, n_slots=sw.SLOTS,
+                    chunk_steps=sw.CHUNK_STEPS, kv_page_size=sw.PAGE_SIZE,
+                    device=dev)
+
+    def workers(cls=PrefillWorker):
+        return [PrefillWorker(model, params, page_size=sw.PAGE_SIZE,
+                              device=dev),
+                cls(model, params, page_size=sw.PAGE_SIZE, device=dev)]
+
+    colocated = ContinuousBatchingEngine(model, params, **geometry)
+    done, wall_s, _ = served_run(torch, colocated, requests,
+                                 honor_arrivals=False)
+    want = {r.rid: r.output for r in done}
+    print(f"  (a) colocated paged engine, offline: {len(done)} requests in "
+          f"{wall_s:.3f} s")
+    del colocated
+
+    dec = ContinuousBatchingEngine(model, params, **geometry)
+    deng = DisaggregatedEngine(workers(), dec)
+    counters = launch_counters()
+    total = dict.fromkeys(counters, 0)
+    for label, arrivals in (("offline", False), ("arrivals", True)):
+        deng.serve([Request(rid=-1 - k, prompt=np.arange(64 + 8 * k),
+                            max_new_tokens=9) for k in range(2)],
+                   honor_arrivals=False)              # warm-up
+        torch.cuda.synchronize()
+        for k in counters.values():
+            k.launches = 0
+        t0 = time.perf_counter()
+        done = deng.serve(copy.deepcopy(requests), honor_arrivals=arrivals)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        got = {n: k.launches for n, k in counters.items()}
+        for n in total:
+            total[n] += got[n]
+        m = summarize(done, wall_s)
+        st = dec.sched_stats
+        print(f"  (a) disaggregated, {label}: {m['requests']} requests, "
+              f"{m['tokens']} tokens in {wall_s:.3f} s: "
+              f"{m['tokens_per_s']:.1f} tokens/s, TTFT p50/p99 "
+              f"{m['ttft_p50_s'] * 1e3:.1f}/{m['ttft_p99_s'] * 1e3:.1f} ms, "
+              f"TPOT mean {m['tpot_mean_s'] * 1e3:.2f} ms; prefill tokens "
+              f"by worker {[w.prefill_tokens for w in deng.workers]}; "
+              f"{st['decode_chunks']} decode chunks, {dec.host_syncs} host "
+              f"reads, {dec.decode_steps} decode steps; launches: "
+              + ", ".join(f"{k} {n}" for k, n in got.items() if n))
+        check(len(done) == len(requests) and all(
+            len(r.output) == r.max_new_tokens for r in done),
+            f"phase 19 {label}: not every request completed its budget")
+        check(all(r.prefill_start_s <= r.first_token_s <= r.done_s
+                  for r in done),
+              f"phase 19 {label}: a request's stamps are out of order")
+        check(got["flash_attention"] == layers * len(requests),
+              f"phase 19 {label}: flash launches {got['flash_attention']} "
+              f"!= {layers} x {len(requests)} prefills")
+        check(got["paged_decode_attention"] == layers * dec.decode_steps,
+              f"phase 19 {label}: paged decode launches "
+              f"{got['paged_decode_attention']} != {layers} x "
+              f"{dec.decode_steps} steps")
+        check(got["decode_attention"] == got["verify_attention"]
+              == got["paged_verify_attention"] == 0,
+              f"phase 19 {label}: a kernel off the disaggregated path ran")
+        check(dec.host_syncs == st["decode_chunks"] and dec.decode_steps
+              == dec.chunk_steps * dec.host_syncs,
+              f"phase 19 {label}: {dec.host_syncs} host reads for "
+              f"{st['decode_chunks']} decode chunks")
+        same = sum(r.output == want[r.rid] for r in done)
+        print(f"  (a) {label}: {same}/{len(done)} requests token-identical "
+              f"to the colocated paged engine")
+        for r in done:
+            near_tie(torch, model, params, r.prompt, want[r.rid], r.output,
+                     f"(a) {label} request {r.rid}")
+
+    class Failing(PrefillWorker):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.calls = 0
+
+        def prefill(self, r, t0_s, now=time.monotonic):
+            self.calls += 1
+            if self.calls == DISAGG_FAIL_AT:
+                raise RuntimeError(f"injected failure of prefill "
+                                   f"{self.calls}")
+            return super().prefill(r, t0_s, now)
+
+    failing = DisaggregatedEngine(workers(Failing), dec)
+    out: dict = {}
+
+    def serve_failing():
+        try:
+            failing.serve(copy.deepcopy(requests), honor_arrivals=False)
+        except RuntimeError as e:
+            out["error"] = e
+
+    t0 = time.perf_counter()
+    runner = threading.Thread(target=serve_failing, daemon=True)
+    runner.start()
+    runner.join(timeout=DISAGG_FAIL_S)
+    ended_s = time.perf_counter() - t0
+    check(not runner.is_alive(), f"phase 19 (b): serve still running "
+          f"{DISAGG_FAIL_S:.0f} s after a worker raised")
+    check("injected failure" in str(out.get("error", "")),
+          f"phase 19 (b): serve ended with {out.get('error')!r}, not the "
+          f"worker's error")
+    print(f"  (b) a worker's prefill {DISAGG_FAIL_AT} raised; serve ended "
+          f"with its error after {ended_s:.3f} s: {out['error']}")
+
+    nvml = NVML(dev)
+    try:
+        DisaggregatedSUT(deng, model.cfg, make_request=lambda i, s, a: None,
+                         energy_meter=nvml.energy_meter())
+        refused = ""
+    except ValueError as e:
+        refused = str(e)
+    finally:
+        nvml.close()
+    check("measured energy_meter is refused" in refused,
+          "phase 19 (c): DisaggregatedSUT took the NVML meter")
+    print(f"  (c) DisaggregatedSUT with the NVML meter refused: {refused}")
+    torch.cuda.synchronize()
+    del deng, failing, dec
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  phase 19 took {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
+@contextlib.contextmanager
+def recorded_sleeps():
+    """Records every ``time.sleep`` inside the block (seconds asked)."""
+    sleep = time.sleep
+    asked: list = []
+
+    def recorded(dt):
+        asked.append(dt)
+        sleep(dt)
+
+    time.sleep = recorded
+    try:
+        yield asked
+    finally:
+        time.sleep = sleep
+
+
+def phase_fleet(torch, dev) -> dict:
+    """Phase 20: the modeled fleet calibrated on the card.
+    ``fleet_sweep.metrics(smoke=True)`` measures the warm decode token
+    time ``t_tok`` on the full-width qwen3-1.7b (seeded bf16 weights,
+    its own engine: 4 slots, 48 rows, chunks of 4): launches exact for
+    its serves (flash 28 per admission, decode 28 per decode step,
+    ``check_launches``); every acceptance check of the sweep passes (it
+    raises otherwise: the cap, R11's pdu = sum of replica walls, the
+    exact ledger within 2 %, autoscaled beating static max-N on J/token
+    at equal or better tail attainment) and every configuration's review
+    ACCEPTs; the fleet runs in simulated time and sleeps through none of
+    it.  Then the launcher ``repro_torch.launch.fleet`` with a short
+    horizon: its review ACCEPTs.  Returns the calibration's launches."""
+    from repro_torch.benchmarks import fleet_sweep as fs
+    from repro_torch.configs import get_config
+    from repro_torch.launch import fleet as launch_fleet
+
+    t_phase = time.perf_counter()
+    layers = get_config("qwen3-1.7b").n_layers
+    counters = launch_counters()
+    measure = fs._measure_t_tok
+    cal_s: list = []
+
+    def timed(*a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return measure(*a, **kw)
+        finally:
+            cal_s.append(time.perf_counter() - t0)
+
+    fs._measure_t_tok = timed
+    try:
+        with serve_tally() as log, recorded_sleeps() as asked:
+            torch.cuda.synchronize()
+            for k in counters.values():
+                k.launches = 0
+            t0 = time.perf_counter()
+            m = fs.metrics(device=dev, smoke=True)
+            sweep_s = time.perf_counter() - t0
+            got = {n: k.launches for n, k in counters.items()}
+    finally:
+        fs._measure_t_tok = measure
+    check_launches("phase 20 calibration", got, layers, log, paged=False)
+    check(not asked, f"phase 20: the sweep slept {sum(asked):.3f} s in "
+          f"{len(asked)} calls")
+    cal = m["calibration"]
+    print(f"  {cal['device']}: t_tok {cal['t_tok_ms']:.4f} ms, "
+          f"{cal['tokens_per_s']:.1f} tokens/s; a request-time unit "
+          f"{cal['unit_ms']:.3f} ms; {cal['n_arrivals']} arrivals over "
+          f"{cal['horizon_s']:.3f} s of simulated time; calibration "
+          f"{cal_s[0]:.1f} s, sweep {sweep_s - cal_s[0]:.1f} s of wall, no "
+          f"sleep")
+    for name, p in m.items():
+        if name == "calibration":
+            continue
+        check(p["compliance_passed"] == 1.0,
+              f"phase 20 fleet_sweep {name}: the review REJECTED its run")
+        extra = "".join(f", {k} {p[k]:.3f}" for k in (
+            "speedup", "peak_replica_w", "emitted_gco2") if k in p)
+        print(f"  {name}: tail attainment {p['tail_attainment']:.4f}, "
+              f"{p['tok_per_j']:.4f} tok/J, {p['tokens_per_s']:.1f} tok/s, "
+              f"provisioned {p['provisioned_w_avg']:.1f} W, "
+              f"{p['cold_starts']} cold starts, {p['scale_events']} scale "
+              f"events, {p['n_crashed']} crashed{extra}; review ACCEPTED")
+    print("  acceptance: cap, R11, exact ledger and autoscaled vs static "
+          "max-N all passed (the sweep raises otherwise)")
+    t0 = time.perf_counter()
+    with recorded_sleeps() as asked:
+        r = launch_fleet.main(["--horizon", "60"])
+    check(r.passed, "phase 20: the fleet launcher's review REJECTED its run")
+    check(not asked, "phase 20: the fleet launcher slept")
+    print(f"  launcher (--horizon 60): ACCEPTED in "
+          f"{time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  phase 20 took {time.perf_counter() - t_phase:.1f} s")
+    return got
+
+
 def phase_rwkv_engine(torch, dev, requests):
     """Phase 10: phase 4's requests (arrivals, prompt lengths, budgets),
     their tokens redrawn in rwkv6-3b's vocabulary, through the
@@ -3572,6 +3906,14 @@ def main() -> int:
     prefix_launches = bench["prefix_cache"]["launches"]
     spec_bench_launches = bench["speculative_efficiency"]["launches"]
 
+    phase("phase 19: prefill/decode disaggregation (two prefill workers, "
+          "paged KV handoff)")
+    disagg_launches = phase_disagg(torch, dev, model, params, requests)
+
+    phase("phase 20: the modeled fleet calibrated on the card "
+          "(fleet_sweep, launch.fleet)")
+    fleet_launches = phase_fleet(torch, dev)
+
     # the qwen3 weights, engines and damped copy go before rwkv6-3b
     del engine, make, model, params
     gc.collect()
@@ -3597,18 +3939,21 @@ def main() -> int:
     whisper_launches = phase_whisper(torch, dev)
 
     # launches: each kernel's count on its own paths' runs (phases 4, 14,
-    # 15 and 17 for decode and flash, 16 and 18 for flash, 18 for decode;
-    # phases 6, 16 and 18 for the paged kernels, 8 and 18 for the verify
-    # kernel, phase 10 for the scan, phase 12 for the int8 GEMM)
+    # 15, 17 and 20 for decode and flash, 16, 18 and 19 for flash, 18 for
+    # decode; phases 6, 16 and 18 for the paged kernels and 19 for paged
+    # decode, 8 and 18 for the verify kernel, phase 10 for the scan,
+    # phase 12 for the int8 GEMM)
     dec = "src/repro/kernels/decode_attention/decode_attention.py"
     by_phase = {"4": launches, "14": whisper_launches,
                 "15": power["launches"], "16": slo_launches,
                 "17": fault_launches, "18": {
                     k: prefix_launches[k] + spec_bench_launches[k]
-                    for k in prefix_launches}}
-    uses = {"decode_attention": ("4", "14", "15", "17", "18"),
-            "flash_attention": ("4", "14", "15", "16", "17", "18"),
-            "paged_decode_attention": ("6", "16", "18"),
+                    for k in prefix_launches},
+                "19": disagg_launches, "20": fleet_launches}
+    uses = {"decode_attention": ("4", "14", "15", "17", "18", "20"),
+            "flash_attention": ("4", "14", "15", "16", "17", "18", "19",
+                                "20"),
+            "paged_decode_attention": ("6", "16", "18", "19"),
             "paged_verify_attention": ("6", "16", "18"),
             "verify_attention": ("8", "18")}
     by_phase["6"], by_phase["8"] = paged_launches, spec_launches

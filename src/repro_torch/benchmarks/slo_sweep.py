@@ -5,7 +5,7 @@ On a bimodal prompt mix (short interactive queries + long
 context-stuffing queries), how many queries per second can each engine
 configuration sustain while the *interactive* class keeps meeting its
 time-to-first-token SLO, and what does that capacity cost in joules?
-Three configurations share one geometry and one tight page pool:
+Four configurations share one geometry and one tight page pool:
 
 - **monolithic** -- paged KV, whole-prompt prefill at admission: a
   short arriving behind a long prompt waits out the whole prefill;
@@ -16,11 +16,16 @@ Three configurations share one geometry and one tight page pool:
   deadline-slack admission order, and under page-pool pressure a
   low-priority long is parked (pages evicted, state host-side) so the
   short admits at once; the long resumes through the prefix-cache
-  extend path.
-
-The reference's fourth row, ``disaggregated`` (prefill and decode
-fleets joined by a paged KV handoff), waits for the port of
-``serving/disagg.py`` (ROADMAP §A.9).
+  extend path;
+- **disaggregated** -- prefill and decode as separate fleets
+  (``PrefillWorker`` x ``N_PREFILL_WORKERS`` -> paged KV handoff ->
+  the monolithic engine's geometry decoding), each behind its own rail
+  stack under ``DisaggregatedSUT``, so the prefill-vs-decode energy
+  split is read per fleet (``prefill_j``, ``decode_j``,
+  ``prefill_energy_frac`` at the ``MID`` point).  Its rails are
+  modeled on every device (one card's counter cannot be split between
+  fleets that overlap): on the CPU as the reference's edge system, on
+  the card as the H100 datacenter system.
 
 Every timing knob is calibrated to the measured warm monolithic
 long-prompt serve ``t_long`` of this engine on this device (the SLO is
@@ -33,17 +38,20 @@ Reported per configuration, as in the reference: ``tokens_per_s`` /
 (``max_sustainable_qps`` over the grid at ``ATTAIN_BAR`` short-class
 attainment), ``qps_at_slo_per_j``, the per-point attainments, the
 preemptions and resumes (preemptive config), the interleave ratio
-(chunked configs) and ``speedup`` = chunked_preempt's sustainable QPS
-over monolithic's.  The port adds ``review_passed`` (every point's
-review ACCEPTED).
+(chunked configs), ``prefill_j`` / ``decode_j`` /
+``prefill_energy_frac`` (disaggregated) and ``speedup`` =
+chunked_preempt's sustainable QPS over monolithic's.  The port adds
+``review_passed`` (every point's review ACCEPTED).
 
 - On the CPU (``device="cpu"``): the reduced qwen3-1.7b, every rail
   the reference's model.
-- On the card (the default): the full-width qwen3-1.7b, and each SUT's
-  accelerator rail is the card's NVML energy counter (the H100
-  system's host rail modeled, the wall derived through its PSU); each
-  configuration also reports the mid point's measured accelerator
-  Joules and tokens/J there.
+- On the card (the default): the full-width qwen3-1.7b, and each
+  colocated SUT's accelerator rail is the card's NVML energy counter
+  (the H100 system's host rail modeled, the wall derived through its
+  PSU); each of those configurations also reports the mid point's
+  measured accelerator Joules and tokens/J there.  The disaggregated
+  row reports instead ``counter_j``, the counter's delta over its mid
+  point's serve, beside its modeled split.
 
   PYTHONPATH=src python -m repro_torch.benchmarks.slo_sweep \\
       [--device cpu] [--smoke]
@@ -76,6 +84,7 @@ GRID_X = (0.4, 1.0, 2.0)        # offered qps = x / t_long (smoke)
 GRID_X_FULL = (0.4, 0.8, 1.2, 1.6, 2.0, 2.4)
 MID = 1                         # grid index for the fixed-load
                                 # tokens_per_s / tok_per_j comparison
+N_PREFILL_WORKERS = 2
 SEED = 0                        # Poisson arrival schedule seed
 
 
@@ -178,7 +187,9 @@ def _run_grid(sut, grid_qps, ttft_slo_s, tpot_slo_s, n_queries):
                           ttft_slo_s=ttft_slo_s, tpot_slo_s=tpot_slo_s)
         res = PowerRun(sut, scenario, seed=0, sample_hz=1000.0).run()
         attain = _short_attainment(sut.completed, ttft_slo_s)
-        points.append((qps, attain, res, dict(sut.engine.sched_stats)))
+        # a disaggregated SUT's engine keeps its decode engine's stats
+        eng = getattr(sut.engine, "engine", sut.engine)
+        points.append((qps, attain, res, dict(eng.sched_stats)))
     return points
 
 
@@ -215,9 +226,48 @@ def _point_metrics(points, grid_x, floor_qps, measured: bool):
     return out, msq_eff
 
 
+def _disaggregated(engine, cfg, dev, measured: bool, nvml, grid,
+                   ttft_slo, tpot_slo, n):
+    """The ``disaggregated`` row: ``N_PREFILL_WORKERS`` workers on the
+    decode engine's model and weights, warmed, then the grid under
+    ``DisaggregatedSUT`` on modeled rails (the H100 system on the card,
+    the reference's default on the CPU).  Returns the grid's points
+    and, on the card, the counter's delta over each point's serve."""
+    from repro_torch.core.loadgen import qid_of
+    from repro_torch.harness import DisaggregatedSUT
+    from repro_torch.hw import DATACENTER_H100, EDGE_SYSTEM
+    from repro_torch.serving import DisaggregatedEngine, PrefillWorker
+
+    workers = [PrefillWorker(engine.model, engine.params,
+                             page_size=PAGE_SIZE, device=dev)
+               for _ in range(N_PREFILL_WORKERS)]
+    deng = DisaggregatedEngine(workers, engine)
+    _warm(deng, cfg, prefix=False)
+
+    def make_request(i, s, a, _slo=ttft_slo):
+        return _make_request(cfg, qid_of(s, i), i, a, _slo)
+
+    sut = DisaggregatedSUT(
+        deng, cfg, name="slo-disaggregated", make_request=make_request,
+        system=DATACENTER_H100 if measured else EDGE_SYSTEM)
+    counter_j: list = []
+    if measured:
+        serve_queue = sut.serve_queue
+
+        def metered(arrivals):
+            e0 = nvml.energy_mj()
+            try:
+                return serve_queue(arrivals)
+            finally:
+                counter_j.append((nvml.energy_mj() - e0) / 1e3)
+
+        sut.serve_queue = metered
+    return _run_grid(sut, grid, ttft_slo, tpot_slo, n), counter_j
+
+
 def metrics(device="cuda", smoke: bool = False) -> dict:
-    """The QPS-at-SLO sweep keyed as the reference's, less its
-    ``disaggregated`` row; ``calibration`` also names the device."""
+    """The QPS-at-SLO sweep keyed as the reference's; ``calibration``
+    also names the device."""
     import torch
 
     from repro_torch import resolve_device
@@ -293,6 +343,20 @@ def metrics(device="cuda", smoke: bool = False) -> dict:
                 row["interleave_ratio"] = il / max(1, dc)
             out[name] = row
             del sut, eng
+        # disaggregated: prefill fleet -> paged handoff -> decode fleet,
+        # one rail stack per fleet (modeled split)
+        pts, counter_j = _disaggregated(engine(), cfg, dev, measured, nvml,
+                                        grid_qps, ttft_slo, tpot_slo, n)
+        row, msq_by_name["disaggregated"] = _point_metrics(
+            pts, grid_x, floor_qps, measured=False)
+        dom = pts[min(MID, len(pts) - 1)][2].per_domain_energy_j
+        row["prefill_j"] = dom.get("prefill/wall", 0.0)
+        row["decode_j"] = dom.get("decode/wall", 0.0)
+        total = row["prefill_j"] + row["decode_j"]
+        row["prefill_energy_frac"] = row["prefill_j"] / max(total, 1e-12)
+        if measured:
+            row["counter_j"] = counter_j[min(MID, len(counter_j) - 1)]
+        out["disaggregated"] = row
     finally:
         if nvml is not None:
             nvml.close()
@@ -319,6 +383,10 @@ def csv(device="cuda", smoke: bool = False) -> list[str]:
         if "preemptions" in p:
             derived += (f";preempt={p['preemptions']}"
                         f";resume={p['resumes']}")
+        if "prefill_j" in p:
+            derived += (f";prefill={p['prefill_j']:.2f}J"
+                        f";decode={p['decode_j']:.2f}J"
+                        f";prefill_frac={p['prefill_energy_frac']:.2f}")
         attains = ";".join(
             f"{k[7:]}={v:.2f}" for k, v in sorted(p.items())
             if k.startswith("attain_"))

@@ -19,7 +19,7 @@ runners directly only when composing a new scenario.
   per-request TTFT/TPOT, from which throughput and SLO compliance are
   derived).  ``run_server_trace`` is the trace-driven sibling: the
   caller supplies the whole arrival schedule explicitly (e.g. a
-  compressed 24 h diurnal day from ``repro.fleet.traces``) and shares
+  compressed 24 h diurnal day from ``repro_torch.fleet.traces``) and shares
   the queue form's admission/shedding/metric semantics.
 
 Implements the paper's minimum-duration rule: workloads shorter than
@@ -432,7 +432,7 @@ def run_server_trace(serve: Callable[[list[tuple[dict, float]]], list],
     The trace-driven sibling of ``run_server_queue``: instead of
     generating Poisson arrivals at a constant ``target_qps``, the
     caller hands the whole schedule (``arrivals_s`` — seconds from run
-    start, e.g. a compressed 24 h ``repro.fleet.traces`` diurnal day)
+    start, e.g. a compressed 24 h ``repro_torch.fleet.traces`` diurnal day)
     and the admission, shedding, conservation, and metric semantics
     are shared verbatim with the Poisson form.  ``target_qps``
     defaults to the trace's mean rate (it only feeds ``ShedPolicy``'s

@@ -1,6 +1,5 @@
 """``repro_torch.harness`` — the public measurement API (PyTorch port
-of ``src/repro/harness``; ``ShardedSUT`` and ``DisaggregatedSUT`` wait
-for ROADMAP §A.8 and §A.9).
+of ``src/repro/harness``; ``ShardedSUT`` waits for ROADMAP §A.8).
 
 One measurement protocol, uniformly applied (the paper's core
 contribution): wrap any system behind the ``SUT`` protocol, pick a
@@ -33,8 +32,8 @@ that only provides ``power_source`` is wrapped into a single-domain
 wall-only stack with a ``DeprecationWarning``.
 """
 from repro_torch.harness.sut import (  # noqa: F401
-    SUT, BaseSUT, CallableSUT, ContinuousBatchingSUT, MeasuredTrace,
-    ReplicatedSUT, ServeEngineSUT, TinySUT, constant_power,
+    SUT, BaseSUT, CallableSUT, ContinuousBatchingSUT, DisaggregatedSUT,
+    MeasuredTrace, ReplicatedSUT, ServeEngineSUT, TinySUT, constant_power,
     measured_domains, measured_sysdesc,
     rail_domains, throughput_watts, throughput_work,
 )

@@ -186,7 +186,7 @@ class Server(Scenario):
 class TraceServer(Scenario):
     """Server scenario driven by an explicit arrival trace.
 
-    ``trace`` is either a ``repro.fleet.traces.ArrivalTrace`` or a raw
+    ``trace`` is either a ``repro_torch.fleet.traces.ArrivalTrace`` or a raw
     array of arrival seconds; the whole schedule is handed to the
     SUT's admission queue via ``run_server_trace`` (queue form only —
     a trace has no synchronous analogue).  All the queue-form

@@ -22,9 +22,12 @@ it claims to be (``system_description``).
   boundary is a PDU domain aggregating the replica walls.  Replicas
   with a measured ``energy_meter`` are refused (one card's counter
   cannot be split between replicas).
+- ``DisaggregatedSUT`` — a ``DisaggregatedEngine``'s prefill and
+  decode fleets behind one queue, each with its own rail stack
+  (``prefill/...``, ``decode/...``) under a derived ``pdu``.  A
+  measured ``energy_meter`` is refused, for the same reason.
 
-The reference's other multi-engine adapters (``ShardedSUT``,
-``DisaggregatedSUT``) wait for ROADMAP §A.8 and §A.9.
+The reference's ``ShardedSUT`` waits for ROADMAP §A.8.
 
 Power surface: every adapter implements ``domains(outcome) ->
 list[PowerDomain]`` — its per-component measurement boundaries
@@ -976,6 +979,166 @@ class ReplicatedSUT(BaseSUT):
             w = np.asarray(src(times_s), float)
             out.append(float(_trapz(w, times_s)))
         return out
+
+
+class DisaggregatedSUT(BaseSUT):
+    """Prefill and decode fleets behind one queue, metered separately.
+
+    Wraps a ``repro_torch.serving.DisaggregatedEngine``: the prefill
+    workers and the decode engine each get their own full rail stack
+    (``prefill/accelerator`` ... ``prefill/wall``, ``decode/...``) with
+    the fleet boundary a derived ``pdu`` channel summing the two wall
+    feeds, so the prefill-vs-decode energy split is read per boundary
+    channel (``per_domain_energy_j["prefill/wall"]`` vs
+    ``["decode/wall"]``).
+
+    Args:
+        engine: the ``DisaggregatedEngine`` (prefill workers + paged
+            decode engine).
+        cfg: the target model config (FLOP/token shaping for both
+            fleets' analytic draw).
+        make_request: ``(i, sample, arrival_s) -> Request`` queue-entry
+            builder, as in ``ContinuousBatchingSUT``.
+        system: the per-fleet ``SystemSpec`` (chips split as
+            ``len(workers)`` prefill + one decode).
+        energy_meter: must be ``None``.  The port's one difference: a
+            measured meter is refused (``ValueError``), because on one
+            card the prefill and decode fleets read the same NVML
+            counter while they overlap, so a measured split would bill
+            the card twice.  Both fleets' rails are modeled.
+
+    Each fleet's rails are shaped by its *own* phase utilization:
+    prefill by the (``prefill_start_s``, ``first_token_s``) spans over
+    the worker count, decode by the (``first_token_s``, ``done_s``)
+    spans over the slot count, and driven by its own token rate
+    (prompt tokens/s vs output tokens/s), since prefill does 2
+    FLOPs/param *per prompt token* while decode does the same per
+    generated token at decode-shaped batch sizes.
+    """
+
+    def __init__(self, engine, cfg, *, name: str = "disaggregated",
+                 make_request: Callable[[int, dict, float], Any],
+                 system: SystemSpec = EDGE_SYSTEM,
+                 sysdesc: Optional[SystemDescription] = None,
+                 energy_meter: Optional[Callable] = None):
+        if energy_meter is not None:
+            raise ValueError(
+                f"DisaggregatedSUT {name!r}: a measured energy_meter is "
+                f"refused; the prefill and decode fleets share one card, "
+                f"whose counter both would read while they overlap, so "
+                f"the split would bill the card twice: the fleets run on "
+                f"modeled rails")
+        self.n_prefill = len(engine.workers)
+        self.n_decode = getattr(engine.engine, "tp", 1)
+        pre_meter = SystemPowerModel(system, self.n_prefill)
+        dec_meter = SystemPowerModel(system, self.n_decode)
+        if sysdesc is None:
+            sysdesc = SystemDescription(
+                scale="datacenter",
+                n_chips=self.n_prefill + self.n_decode,
+                instrument="node-telemetry", telemetry_accuracy=0.01,
+                max_system_watts=(_system_peak_watts(pre_meter)
+                                  + _system_peak_watts(dec_meter)),
+                idle_system_watts=(pre_meter.system_watts(None)
+                                   + dec_meter.system_watts(None)))
+        super().__init__(name, sysdesc)
+        self.engine = engine
+        self.cfg = cfg
+        self.make_request = make_request
+        self.prefill_meter = pre_meter
+        self.decode_meter = dec_meter
+        self.completed: list = []
+
+        def request_energy_weight(r):
+            # prompt tokens the prefill fleet computed + tokens the
+            # decode fleet generated: both phases billed to the
+            # request that caused the work
+            return (getattr(r, "prefill_tokens", 0)
+                    + len(r.output or []))
+
+        self.request_energy_weight = request_energy_weight
+
+    def serve_queue(self, arrivals: list[tuple[dict, float]]) -> list:
+        reqs = [self.make_request(i, s, a)
+                for i, (s, a) in enumerate(arrivals)]
+        self.completed = self.engine.serve(reqs)
+        return self.completed
+
+    def supports_serve_queue(self) -> bool:
+        return True
+
+    def completed_requests(self) -> Optional[list]:
+        return self.completed or None
+
+    def _phase_util(self, spans: list, width: int) -> Callable:
+        def util(t):
+            t = np.asarray(t, float)
+            inflight = np.zeros_like(t)
+            for a, d in spans:
+                inflight += (t >= a) & (t < d)
+            return np.minimum(inflight / max(1, width), 1.0)
+
+        return util
+
+    def _fleet_shapes(self):
+        """Per-fleet (token_rate, util) from the completed records."""
+        recs = [r for r in self.completed if r.done_s is not None]
+        dur = max([r.done_s for r in recs], default=0.0) or 1.0
+        pre_spans = [(r.prefill_start_s, r.first_token_s) for r in recs
+                     if r.prefill_start_s is not None
+                     and r.first_token_s is not None]
+        dec_spans = [(r.first_token_s, r.done_s) for r in recs
+                     if r.first_token_s is not None]
+        pre_rate = sum(getattr(r, "prefill_tokens", 0)
+                       for r in recs) / dur
+        dec_rate = sum(len(r.output or []) for r in recs) / dur
+        return ((pre_rate, self._phase_util(pre_spans, self.n_prefill)),
+                (dec_rate, self._phase_util(dec_spans,
+                                            self.engine.engine.n_slots)))
+
+    def domains(self, outcome) -> list[PowerDomain]:
+        (pre_rate, pre_util), (dec_rate, dec_util) = self._fleet_shapes()
+        fleets = (("prefill", self.prefill_meter, pre_rate, pre_util,
+                   self.n_prefill),
+                  ("decode", self.decode_meter, dec_rate, dec_util,
+                   self.n_decode))
+        doms: list[PowerDomain] = []
+        walls: list[str] = []
+        for g, meter, rate, util, k in fleets:
+            # 2 FLOPs/param per token this fleet processes: prompt
+            # tokens for prefill, generated tokens for decode
+            rdoms = rail_domains(meter, throughput_work(self.cfg, rate),
+                                 util=util, n_accel_channels=k)
+            for d in rdoms:
+                doms.append(PowerDomain(
+                    name=f"{g}/{d.name}", source=d.source, kind=d.kind,
+                    group=g, boundary=False,
+                    derived_from=tuple(f"{g}/{n}"
+                                       for n in d.derived_from),
+                    combine=d.combine))
+                if d.kind == WALL:
+                    walls.append(f"{g}/{d.name}")
+        doms.append(PowerDomain(PDU, derived_from=tuple(walls),
+                                boundary=True))
+        return doms
+
+    def _psu(self):
+        return self.prefill_meter.psu()
+
+    def power_source(self, outcome) -> PowerSource:
+        (pre_rate, pre_util), (dec_rate, dec_util) = self._fleet_shapes()
+        pre = _shaped(self.prefill_meter.system_watts(None),
+                      self.prefill_meter.system_watts(
+                          throughput_work(self.cfg, pre_rate)), pre_util)
+        dec = _shaped(self.decode_meter.system_watts(None),
+                      self.decode_meter.system_watts(
+                          throughput_work(self.cfg, dec_rate)), dec_util)
+
+        def fleet(t):
+            t = np.asarray(t, float)
+            return np.asarray(pre(t), float) + np.asarray(dec(t), float)
+
+        return fleet
 
 
 class TinySUT(BaseSUT):

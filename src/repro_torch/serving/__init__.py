@@ -1,6 +1,10 @@
 """Serving engines of the port: contiguous and paged KV, radix prefix
-caching, speculative decoding, chunked prefill and the deadline-slack
-scheduler with preemption."""
+caching, speculative decoding, chunked prefill, the deadline-slack
+scheduler with preemption, and prefill/decode disaggregation
+(``PrefillWorker`` -> ``KVHandoff`` -> ``DisaggregatedEngine``)."""
+from repro_torch.serving.disagg import (  # noqa: F401
+    DisaggregatedEngine, KVHandoff, PrefillWorker,
+)
 from repro_torch.serving.engine import (  # noqa: F401
     ContinuousBatchingEngine, Request, ServeEngine,
     attribute_request_energy,

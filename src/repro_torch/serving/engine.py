@@ -46,9 +46,7 @@ class Request:
     clock), and the SLO-aware fields ``priority`` (higher = more
     urgent) and ``deadline_s`` (absolute completion deadline on the
     serve clock; ``None`` = best-effort).  Everything else is
-    engine-stamped.  The reference's ``prefill_start_s`` is stamped
-    only by prefill/decode disaggregation, which the port does not
-    have yet (ROADMAP §A.9).
+    engine-stamped.
     """
 
     rid: int
@@ -65,6 +63,9 @@ class Request:
     energy_j: Optional[float] = None  # filled by attribute_request_energy
     preemptions: int = 0              # times this request was parked
                                       # (pages evicted, state host-side)
+    prefill_start_s: Optional[float] = None  # when prefill compute began
+                                      # (disaggregation: on the prefill
+                                      # fleet; None = admitted directly)
     cached_tokens: int = 0            # prompt tokens served from the
                                       # prefix cache (no prefill compute)
     prefill_tokens: int = 0           # prompt tokens computed at admission
@@ -138,6 +139,15 @@ def _on_device(t: torch.Tensor, dev: torch.device) -> bool:
     card)."""
     return t.device.type == dev.type and (dev.index is None
                                           or t.device.index == dev.index)
+
+
+def page_blocks(cache, n_blocks: int, page_size: int) -> dict:
+    """A batch-1 contiguous cache of ``n_blocks * page_size`` rows as
+    page-shaped K/V blocks: {name: (L, NB, page, kvh, dh)} (views of
+    its leaves)."""
+    return {name: t[:, 0].reshape(t.shape[0], n_blocks, page_size,
+                                  *t.shape[3:])
+            for name, t in cache["layers"]["blocks"].items()}
 
 
 def _prompt_tensor(prompt, device) -> torch.Tensor:
@@ -440,18 +450,46 @@ class ContinuousBatchingEngine:
             n_blk = -(-int(tokens.shape[1]) // ps)
             logits, one = self.model.prefill(params, {"tokens": tokens},
                                              max_len=n_blk * ps)
-            idx = torch.as_tensor(pages[:n_blk], dtype=torch.long,
-                                  device=self.device)
-            for name, pool in cache["layers"]["blocks"].items():
-                small = one["layers"]["blocks"][name]   # (L, 1, n*ps, ..)
-                pool[:, idx] = small[:, 0].reshape(
-                    small.shape[0], n_blk, ps, *pool.shape[3:])
+            self._scatter_blocks(cache, page_blocks(one, n_blk, ps),
+                                 pages[:n_blk])
             cache["pages"][slot] = self._table_row(pages)
             cache["pos"][slot] = one["pos"]
         tok0 = torch.argmax(logits[0, -1], -1)
         state["tok"][slot] = tok0
         state["remaining"][slot] = max(budget - 1, 0)
         return state, tok0
+
+    def _scatter_blocks(self, cache, blocks: dict, pages: list) -> None:
+        """Write page-shaped K/V ``blocks`` ({name: (L, NB, page, kvh,
+        dh)}) at the physical ``pages`` (NB of them, position order) of
+        the pool, in place."""
+        idx = torch.as_tensor(pages, dtype=torch.long, device=self.device)
+        for name, pool in cache["layers"]["blocks"].items():
+            pool[:, idx] = blocks[name].to(pool.dtype)
+
+    @torch.no_grad()
+    def _install_slot(self, state, blocks: dict, tok0: int, slot: int,
+                      pages: list, n_tokens: int, budget: int):
+        """Install handed-off K/V into slot ``slot`` (prefill/decode
+        disaggregation): the paged ``_prefill_slot`` without the
+        compute.
+
+        ``blocks`` ({name: (L, NB, page, kvh, dh)}, on the engine's
+        device) were computed by a ``PrefillWorker``; they are scattered
+        at the first NB of ``pages`` (the slot's physical pages,
+        position order), the slot's table row is installed, its
+        position becomes ``n_tokens``, the first token ``tok0`` that the
+        worker already emitted seeds decoding, and the budget becomes
+        ``budget - 1``.  Other slots are untouched.  Returns the state.
+        """
+        cache = state["cache"]
+        n_blk = -(-n_tokens // self.page_size)
+        self._scatter_blocks(cache, blocks, pages[:n_blk])
+        cache["pages"][slot] = self._table_row(pages)
+        cache["pos"][slot] = n_tokens
+        state["tok"][slot] = tok0
+        state["remaining"][slot] = max(budget - 1, 0)
+        return state
 
     @torch.no_grad()
     def _extend_slot(self, params, state, suffix, slot: int, pages: list,

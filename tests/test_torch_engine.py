@@ -263,6 +263,12 @@ def test_port_imports_neither_jax_nor_the_reference_package():
                 "resilience", "prefix_cache", "speculative_efficiency")),
             *(f"repro_torch/harness/{m}.py" for m in (
                 "__init__", "scenarios", "power_run", "sut")),
+            "repro_torch/serving/disagg.py",
+            *(f"repro_torch/fleet/{m}.py" for m in (
+                "__init__", "traces", "lifecycle", "routing", "controller",
+                "simulator", "sut")),
+            "repro_torch/launch/fleet.py",
+            "repro_torch/benchmarks/fleet_sweep.py",
             os.path.join("..", "chip_smoke.py")} <= seen
     assert not offenders, offenders
 

@@ -4,7 +4,11 @@ stream, keys and CSV rows, and on weights bridged from the reference's
 (``from_jax``, reduced qwen3-1.7b) the same cache accounting: hits,
 lookups, cached tokens, peak pages and admission capacity per hit rate.
 Both run one repetition (each module's ``N_REPS`` set to 1 here): the
-accounting is the same in every repetition."""
+accounting is the same in every repetition.  Both serve on one virtual
+clock of 2 ms ticks (every ``now()`` read ticks it, ``sleep`` jumps
+ahead), so that arrivals land against the work alike in both packages:
+on each package's own wall clock hit 0.9's peak was 39 or 40 pages
+depending on the machine's speed, in both."""
 import copy
 import os
 import sys
@@ -17,10 +21,12 @@ import torch
 from repro import configs as jcfg
 from repro.models import build_model as jax_build_model
 from repro.models.param import init_params as jax_init_params
+from repro.serving import ContinuousBatchingEngine as JaxCBE
 from repro_torch import configs as tcfg
 from repro_torch.benchmarks import prefix_cache as tpc
 from repro_torch.models import build_model
 from repro_torch.models.param import from_jax
+from repro_torch.serving import ContinuousBatchingEngine
 
 ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 sys.path.insert(0, ROOT)
@@ -41,12 +47,34 @@ def _bridged(dev):
             from_jax(jax.tree.map(np.asarray, jp), dev))
 
 
+def _clocked(serve):
+    """``serve`` on a fresh virtual clock of 2 ms ticks per call, unless
+    the caller passes its own ``now``/``sleep``."""
+    def clocked(engine, requests, *args, **kwargs):
+        t = [0.0]
+
+        def now():
+            t[0] += 0.002
+            return t[0]
+
+        def sleep(dt):
+            t[0] += max(0.0, dt)
+
+        kwargs.setdefault("now", now)
+        kwargs.setdefault("sleep", sleep)
+        return serve(engine, requests, *args, **kwargs)
+
+    return clocked
+
+
 @pytest.fixture(scope="module")
 def both():
     with pytest.MonkeyPatch.context() as m:
         m.setattr(jpc, "N_REPS", 1)
         m.setattr(tpc, "N_REPS", 1)
         m.setattr(tpc, "_model", _bridged)
+        for cls in (JaxCBE, ContinuousBatchingEngine):
+            m.setattr(cls, "serve", _clocked(cls.serve))
         return {"ref": jpc.metrics(smoke=True),
                 "port": tpc.metrics(device="cpu", smoke=True)}
 

@@ -6,7 +6,9 @@ the reference's geometry, chunked prefill under speculative decoding,
 the guard that a non-final chunk reads nothing back to the host and
 writes only the engine's own pool, the guard that a frozen slot writes
 only the garbage page, the launcher's ``--prefill-chunk`` and
-``--preemption`` under ``PowerRun``, and ``slo_sweep``'s structure.
+``--preemption`` under ``PowerRun``, and ``slo_sweep``: its four rows,
+the disaggregated one included, figure for figure against the
+reference's on one virtual clock, its rows and its geometry.
 
 Both engines run under one virtual clock (every ``now()`` read ticks
 it), so that tokens, ``sched_stats`` and every request's stamps must be
@@ -17,16 +19,21 @@ package's jnp path, as in ``test_torch_paged.py``).
 import copy
 import os
 import sys
+import threading
+import types
 
 import jax
 import numpy as np
 import pytest
 import torch
 
+import repro.serving.disagg as jdisagg
+import repro_torch.serving.disagg as tdisagg
 from repro import configs as jcfg
 from repro.models import build_model as jax_build_model
 from repro.models.param import init_params as jax_init_params
 from repro.serving import ContinuousBatchingEngine as JaxCBE
+from repro.serving import DisaggregatedEngine as JaxDE
 from repro.serving import Request as JaxRequest
 from repro.serving import Scheduler as JaxScheduler
 from repro.serving import truncate_draft as jax_truncate
@@ -36,7 +43,8 @@ from repro_torch.launch import serve as tserve
 from repro_torch.models import build_model
 from repro_torch.models.param import from_jax
 from repro_torch.serving import (GARBAGE_PAGE, ContinuousBatchingEngine,
-                                 Request, Scheduler, truncate_draft)
+                                 DisaggregatedEngine, Request, Scheduler,
+                                 truncate_draft)
 
 ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 sys.path.insert(0, ROOT)
@@ -447,29 +455,94 @@ def test_launcher_refuses_slo_options_it_cannot_honour(flags, needs, capsys):
 # rows do not depend on it
 SMALL = dict(LONG_LEN=48, SHORT_LEN=8, MAX_LEN=64, PAGE_SIZE=8, KV_PAGES=15,
              SLOTS=4, PREFILL_CHUNK=16)
+# the calibration unit on the virtual clock (each package's own
+# measurement times a wall-clock serve)
+T_LONG_S = 0.05
+
+
+class _SyncThread:
+    """``threading.Thread`` running its target at ``start``: a
+    disaggregated serve's workers drain their shares before its decode
+    loop begins, in both packages alike."""
+
+    def __init__(self, target, args=(), kwargs=None, daemon=None):
+        self.target, self.args, self.kwargs = target, args, kwargs or {}
+
+    def start(self):
+        self.target(*self.args, **self.kwargs)
+
+    def join(self, timeout=None):
+        pass
+
+
+def _clocked(serve):
+    """``serve`` on a fresh ``_clock()`` per call."""
+    def clocked(engine, requests, *args, **kwargs):
+        now, sleep = _clock()
+        kwargs.setdefault("now", now)
+        kwargs.setdefault("sleep", sleep)
+        return serve(engine, requests, *args, **kwargs)
+
+    return clocked
 
 
 @pytest.fixture(scope="module")
 def sweeps():
+    """Both sweeps on one virtual clock: every engine serve (colocated
+    and disaggregated) on a fresh ``_clock()``, the disaggregated
+    workers' threads run at ``start``, and ``t_long`` fixed, so that
+    arrivals land against the work alike in both packages."""
     with pytest.MonkeyPatch.context() as m:
         for mod in (jsweep, tsweep):
             for name, value in SMALL.items():
                 m.setattr(mod, name, value)
+            m.setattr(mod, "_measure_t_long", lambda *a: T_LONG_S)
+        for cls in (JaxCBE, ContinuousBatchingEngine, JaxDE,
+                    DisaggregatedEngine):
+            m.setattr(cls, "serve", _clocked(cls.serve))
+        sync = types.SimpleNamespace(Thread=_SyncThread,
+                                     Event=threading.Event)
+        for mod in (jdisagg, tdisagg):
+            m.setattr(mod, "threading", sync)
         return {"ref": jsweep.metrics(smoke=True),
                 "port": tsweep.metrics(device="cpu", smoke=True)}
 
 
-def test_sweep_keys_are_the_reference_keys_less_disaggregated(sweeps):
+def test_sweep_keys_are_the_reference_keys(sweeps):
     ref, port = sweeps["ref"], sweeps["port"]
-    assert set(port) == set(ref) - {"disaggregated"}
+    assert set(port) == set(ref)
     for name in port:
         assert set(ref[name]) <= set(port[name])
     assert port["calibration"]["device"] == "cpu"
-    for name in ("monolithic", "chunked", "chunked_preempt"):
+    for name in ("monolithic", "chunked", "chunked_preempt",
+                 "disaggregated"):
         assert port[name]["review_passed"] is True
         assert port[name]["tokens_per_s"] > 0
         assert "accelerator_j" not in port[name]      # modeled on the CPU
+    assert "counter_j" not in port["disaggregated"]
     assert port["chunked_preempt"]["speedup"] > 0
+
+
+# the modeled split of both packages from the same records on the same
+# virtual clock: equal but for float summation order
+SPLIT_REL_TOL = 1e-9
+
+
+def test_sweep_disaggregated_split_is_the_reference_split(sweeps):
+    ref, port = sweeps["ref"]["disaggregated"], sweeps["port"][
+        "disaggregated"]
+    for key in ("prefill_j", "decode_j", "prefill_energy_frac"):
+        assert port[key] == pytest.approx(ref[key], rel=SPLIT_REL_TOL), key
+    assert port["prefill_j"] > 0 and port["decode_j"] > 0
+    assert 0 < port["prefill_energy_frac"] < 1
+
+
+def test_sweep_is_the_reference_sweep_on_the_virtual_clock(sweeps):
+    """On one virtual clock every figure the reference reports is the
+    reference's, row by row."""
+    ref, port = sweeps["ref"], sweeps["port"]
+    for name, row in ref.items():
+        assert {k: port[name][k] for k in row} == row, name
 
 
 def test_sweep_csv_rows_are_the_reference_rows(sweeps, monkeypatch):
@@ -480,17 +553,17 @@ def test_sweep_csv_rows_are_the_reference_rows(sweeps, monkeypatch):
         monkeypatch.setattr(mod, fn, lambda *a, _m=sweeps[side], **k:
                             copy.deepcopy(_m))
         rows[side] = [r.split(",")[0] for r in mod.csv(smoke=True)]
-    assert rows["port"] == [r for r in rows["ref"]
-                            if r != "slo_disaggregated"] == [
+    assert rows["port"] == rows["ref"] == [
         "slo_calibration", "slo_monolithic", "slo_chunked",
-        "slo_chunked_preempt"]
+        "slo_chunked_preempt", "slo_disaggregated"]
 
 
 def test_sweep_geometry_is_the_reference_geometry():
     names = ("LONG_LEN", "SHORT_LEN", "MAX_LEN", "PAGE_SIZE", "SLOTS",
              "KV_PAGES", "CHUNK_STEPS", "PREFILL_CHUNK", "NEW_TOKENS",
              "LONG_PERIOD", "LONG_SLOTS", "SLO_FRAC", "TPOT_FRAC",
-             "ATTAIN_BAR", "GRID_X", "GRID_X_FULL", "MID", "SEED")
+             "ATTAIN_BAR", "GRID_X", "GRID_X_FULL", "MID",
+             "N_PREFILL_WORKERS", "SEED")
     assert ({n: getattr(tsweep, n) for n in names}
             == {n: getattr(jsweep, n) for n in names})
 
