@@ -228,6 +228,21 @@ Phases, each fatal on failure:
    configuration's tail attainment, tok/J, provisioned W, cold starts,
    scale events and hetero_carbon's grams are printed.  Then
    ``repro_torch.launch.fleet`` with a 60 s horizon: ACCEPTED.
+21. Tensor-parallel serving at TP 1 through an NCCL group of one rank
+   (in-process, ``file://`` rendezvous), on phase 4's weights:
+   ``ShardedContinuousBatchingEngine`` serves phase 4's 16 requests
+   with their arrivals, and phase 4's engine the same, on one virtual
+   clock: tokens, launches, host copies (one a chunk) and decode steps
+   equal, 2 all-reduces a layer per decode step and per prefill; one
+   prefill's logits bit-identical to the unsharded LM's; a paged
+   prefix-cache serve and a k = 4 speculative serve each equal to their
+   unsharded engines; ``ShardedSUT`` under ``PowerRun(Server)`` with the
+   NVML meter ACCEPTED, launches exact.  Printed: the all-reduce calls
+   and their device ms per decode step (``torch.profiler``; one call by
+   events), the host time of one all-reduce, of one clock broadcast and
+   of a decode step sharded and not, tok/s and tok/J,
+   ``torch.cuda.device_count()``, the card's name and power limit.  A
+   run across cards waits for a 4-chip cell.
 
 The line before the last holds the kernels' JSON record; the last line
 is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside
@@ -3689,6 +3704,350 @@ def phase_fleet(torch, dev) -> dict:
     return got
 
 
+# Phase 21: the virtual clock of its serves (each read ticks this much,
+# about a decode chunk's host time over the reads a loop makes, as phase
+# 17 (c)'s): the unsharded and the sharded engine then admit, chunk and
+# retire alike, so their tokens, launches and counts compare exactly.
+TP_TICK_S = 0.1
+
+
+def clocked_serve(torch, engine, requests, honor_arrivals=True) -> tuple:
+    """Serve a copy of ``requests`` on a virtual clock of ``TP_TICK_S`` a
+    read, after a warm-up request outside the counted run, every launch
+    counter and the all-reduce count set to 0 just before; returns
+    (done, wall seconds, launches, all-reduce calls)."""
+    import copy
+
+    import numpy as np
+    from repro_torch.parallel import tp_all_reduce
+    from repro_torch.serving import Request
+
+    engine.serve([Request(rid=-1, prompt=np.arange(64), max_new_tokens=9)],
+                  honor_arrivals=False)
+    torch.cuda.synchronize()
+    kernels = launch_counters()
+    for k in kernels.values():
+        k.launches = 0
+    tp_all_reduce.calls = 0
+    t = [0.0]
+
+    def now():
+        t[0] += TP_TICK_S
+        return t[0]
+
+    def sleep(dt):
+        t[0] += max(0.0, dt)
+
+    t0 = time.perf_counter()
+    done = engine.serve(copy.deepcopy(requests), now=now, sleep=sleep,
+                        honor_arrivals=honor_arrivals)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    return (done, wall_s, {n: k.launches for n, k in kernels.items()},
+            tp_all_reduce.calls)
+
+
+def same_serves(label: str, engine, ref_engine, got: tuple, want: tuple):
+    """The sharded serve ``got`` against the unsharded ``want`` (both
+    ``clocked_serve`` results): every request's tokens, every kernel's
+    launches, host syncs, decode steps and rounds equal."""
+    a = {r.rid: list(map(int, r.output)) for r in got[0]}
+    b = {r.rid: list(map(int, r.output)) for r in want[0]}
+    check(sorted(a) == sorted(b), f"{label}: other requests completed")
+    diff = [rid for rid in b if a.get(rid) != b[rid]]
+    check(not diff, f"{label}: requests {diff} emitted other tokens than "
+          f"the unsharded engine's")
+    check(got[2] == want[2], f"{label}: launches {got[2]} != the unsharded "
+          f"engine's {want[2]}")
+    for what in ("host_syncs", "decode_steps", "spec_rounds"):
+        check(getattr(engine, what) == getattr(ref_engine, what),
+              f"{label}: {what} {getattr(engine, what)} != "
+              f"{getattr(ref_engine, what)}")
+    check(engine.host_syncs * engine.chunk_steps
+          == engine.decode_steps + engine.spec_rounds,
+          f"{label}: more than one host copy per chunk")
+    print(f"  {label}: {len(a)}/{len(b)} requests token-identical to the "
+          f"unsharded engine's; launches equal ("
+          + ", ".join(f"{k} {n}" for k, n in got[2].items() if n)
+          + f"); {engine.host_syncs} host copies, {engine.decode_steps} "
+          f"decode steps, {engine.spec_rounds} rounds; wall {got[1]:.3f} s "
+          f"sharded vs {want[1]:.3f} s unsharded")
+
+
+def profile_decode_chunk(torch, engine, reps: int = 3) -> dict:
+    """One decode chunk of ``engine`` (every slot idle: the steps run all
+    the same), ``reps`` times under ``torch.profiler``: per decode step,
+    the all-reduce calls, the device time of the NCCL kernels and of all
+    kernels, from a window holding ``reps`` times each kernel's records
+    (``PROFILE_LEAD_IN`` fills open it, as in ``device_ms``)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.parallel import tp_all_reduce
+
+    lead = torch.empty(1, dtype=torch.uint8, device="cuda")
+
+    def chunk():
+        engine.state, _ = engine._decode_chunk(engine.params, engine.state)
+
+    chunk()
+    torch.cuda.synchronize()
+    steps = reps * engine.chunk_steps
+    for window in range(1, PROFILE_WINDOWS + 1):
+        tp_all_reduce.calls = 0
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(PROFILE_LEAD_IN):
+                lead.fill_(0)
+            for _ in range(reps):
+                chunk()
+            torch.cuda.synchronize()
+        calls = tp_all_reduce.calls
+        per, count = {}, {}
+        for e in prof.events():
+            if (e.device_type != DeviceType.CUDA
+                    or "FillFunctor<unsigned char>" in e.name):
+                continue
+            per[e.name] = per.get(e.name, 0.0) + e.time_range.elapsed_us()
+            count[e.name] = count.get(e.name, 0) + 1
+        if per and all(n % reps == 0 for n in count.values()):
+            nccl = [n for n in per if "nccl" in n.lower()]
+            return dict(
+                calls_per_step=calls / steps,
+                nccl_kernels_per_step=sum(count[n] for n in nccl) / steps,
+                nccl_ms_per_step=sum(per[n] for n in nccl) / 1e3 / steps,
+                kernel_ms_per_step=sum(per.values()) / 1e3 / steps,
+                nccl_names=sorted({n.split("(")[0] for n in nccl}))
+        print(f"  torch.profiler window {window} of {PROFILE_WINDOWS} "
+              f"incomplete over {reps} chunks")
+    return dict(calls_per_step=calls / steps, nccl_kernels_per_step=None,
+                nccl_ms_per_step=None, kernel_ms_per_step=None,
+                nccl_names=[])
+
+
+def phase_tp(torch, dev, model, params, engine, requests) -> dict:
+    """Phase 21: tensor-parallel serving at TP 1 through an NCCL group
+    of one rank on ``cuda:0`` (in-process, ``file://`` rendezvous), on
+    phase 4's weights.  (a) Phase 4's 16 requests with their arrivals,
+    through ``ShardedContinuousBatchingEngine`` and through phase 4's
+    engine on one virtual clock: tokens, launches, host copies (one a
+    chunk) and decode steps equal; the all-reduces 2 a layer per decode
+    step and per prefill.  (b) One prefill's logits bit-identical to the
+    unsharded LM's.  (c) A decode chunk under ``torch.profiler``:
+    all-reduce calls, NCCL and all kernels' device ms per decode step;
+    one all-reduce of the decode step's shape by events.  (d) A paged
+    prefix-cache serve and a k = 4 speculative serve (2-layer draft on
+    the damped weights), each against its unsharded engine as in (a).
+    (e) ``ShardedSUT`` under ``PowerRun(Server)`` with the card's NVML
+    meter: ACCEPTED, launches exact; tok/s and tok/J printed.  Returns
+    the sharded serves' launches."""
+    import datetime
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch.distributed as dist
+
+    t_phase = time.perf_counter()
+    print(f"  torch.cuda.device_count() = {torch.cuda.device_count()}; one "
+          f"NCCL rank on {dev} (a run across cards waits for a 4-chip cell)")
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-tp-")
+    dist.init_process_group(
+        "nccl", init_method=f"file://{os.path.join(tmp, 'rdzv')}", rank=0,
+        world_size=1, timeout=datetime.timedelta(seconds=300))
+    try:
+        out = tp_serves(torch, dev, model, params, engine, requests, np)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  phase 21 took {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def tp_serves(torch, dev, model, params, engine, requests, np) -> dict:
+    """Phase 21's serves inside its process group (see ``phase_tp``)."""
+    from repro_torch.harness import PowerRun, Server, ShardedSUT
+    from repro_torch.parallel import tp_all_reduce
+    from repro_torch.power.nvml import NVML
+    from repro_torch.serving import (ContinuousBatchingEngine, Request,
+                                     ShardedContinuousBatchingEngine,
+                                     damp_upper_layers, truncate_draft)
+
+    cfg = model.cfg
+    layers = cfg.n_layers
+    geometry = dict(max_len=2048, n_slots=8, chunk_steps=8, device=dev)
+    total: dict = {}
+
+    def tally(launches):
+        for k, n in launches.items():
+            total[k] = total.get(k, 0) + n
+
+    # (a) phase 4's requests, arrivals on the virtual clock
+    sharded = ShardedContinuousBatchingEngine(model, params, tp=1, rank=0,
+                                              **geometry)
+    want = clocked_serve(torch, engine, requests)
+    got = clocked_serve(torch, sharded, requests)
+    tally(got[2])
+    same_serves("(a) phase 4's 16 requests", sharded, engine, got, want)
+    n = len(requests)
+    check(got[2]["decode_attention"] == layers * sharded.decode_steps
+          and got[2]["flash_attention"] == layers * n,
+          f"(a) launches {got[2]} != {layers} x {sharded.decode_steps} "
+          f"decode steps, {layers} x {n} admissions")
+    want_calls = 2 * layers * (sharded.decode_steps + n)
+    check(got[3] == want_calls, f"(a) {got[3]} all-reduces != 2 x {layers} "
+          f"x ({sharded.decode_steps} decode steps + {n} prefills)")
+    tokens = sum(len(r.output) for r in got[0])
+    print(f"  (a) {got[3]} all-reduces (2 a layer per decode step and per "
+          f"prefill); {tokens} tokens in {got[1]:.3f} s of wall on the "
+          f"virtual clock: {tokens / got[1]:.1f} tok/s sharded, "
+          f"{tokens / want[1]:.1f} unsharded")
+
+    # (b) one prefill's logits, bit for bit
+    prompt = torch.as_tensor(np.asarray(requests[0].prompt),
+                             device=dev)[None]
+    with torch.no_grad():
+        a = sharded.model.prefill(sharded.params, {"tokens": prompt})[0]
+        b = model.prefill(params, {"tokens": prompt})[0]
+    check(torch.equal(a, b), f"(b) prefill logits differ: max |a - b| "
+          f"{float((a - b).abs().max())}")
+    print(f"  (b) prefill of {prompt.shape[1]} tokens: logits bit-identical "
+          f"to the unsharded LM's")
+
+    # (c) the all-reduces of a decode step
+    prof = profile_decode_chunk(torch, sharded)
+    x = torch.randn(sharded.n_slots, 1, cfg.d_model, device=dev,
+                    dtype=model.dtype)
+    ar_ms = time_ms(lambda: tp_all_reduce(x, sharded.group))
+    ar_us = host_us(torch, lambda: tp_all_reduce(x, sharded.group))
+    clock_us = host_us(torch, sharded._agreed(time.monotonic))
+    # one all-reduce behind queued device work: its host time against
+    # the time the queue takes to drain says whether it waits for it
+    big = torch.randn(8192, 8192, device=dev, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    for _ in range(10):
+        big @ big
+    t0 = time.perf_counter()
+    tp_all_reduce(x, sharded.group)
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    queued_us = ((t1 - t0) * 1e6, (time.perf_counter() - t0) * 1e6)
+    del big
+    # host time of a decode step (every slot idle), sharded and not
+    step_ms = {name: host_us(torch, lambda e=e: e._decode_chunk(
+        e.params, e.state), reps=3) / 1e3 / e.chunk_steps
+        for name, e in (("sharded", sharded), ("unsharded", engine))}
+    check(prof["calls_per_step"] == 2 * layers,
+          f"(c) {prof['calls_per_step']} all-reduces a decode step != "
+          f"2 x {layers}")
+    print(f"  (c) a decode step: {prof['calls_per_step']:.0f} all-reduce "
+          f"calls, NCCL kernels {prof['nccl_kernels_per_step']} a step "
+          f"({', '.join(prof['nccl_names']) or 'none recorded'}), "
+          f"{fmt_ms(prof['nccl_ms_per_step'])} of NCCL device time of "
+          f"{fmt_ms(prof['kernel_ms_per_step'])} kernel-only; one "
+          f"all-reduce of ({sharded.n_slots}, 1, {cfg.d_model}) "
+          f"{cfg.dtype} by events {ar_ms:.4f} ms, {ar_us:.1f} us of host "
+          f"(x {2 * layers} = {ar_us * 2 * layers / 1e3:.3f} ms a step); "
+          f"one clock broadcast {clock_us:.1f} us of host; host time a "
+          f"decode step {step_ms['sharded']:.3f} ms sharded, "
+          f"{step_ms['unsharded']:.3f} ms unsharded")
+    print(f"  (c) behind 10 queued 8,192^2 bf16 matmuls one all-reduce "
+          f"took {queued_us[0]:.1f} us of host; the queue drained "
+          f"{queued_us[1]:.1f} us after the call began")
+
+    # (d) paged + prefix cache, and speculative k = 4
+    rng = np.random.default_rng(21)
+    system = rng.integers(0, cfg.vocab_size, 512)
+    paged_reqs = [Request(rid=i, prompt=np.concatenate(
+        [system, rng.integers(0, cfg.vocab_size, int(rng.integers(16, 129)))])
+        if i % 4 else rng.integers(0, cfg.vocab_size,
+                                   int(rng.integers(128, 513))),
+        max_new_tokens=int(rng.integers(16, 49))) for i in range(8)]
+    paged = dict(kv_page_size=16, prefix_caching=True, **geometry)
+    ref_engine = ContinuousBatchingEngine(model, params, **paged)
+    sh = ShardedContinuousBatchingEngine(model, params, tp=1, rank=0,
+                                         **paged)
+    want = clocked_serve(torch, ref_engine, paged_reqs, honor_arrivals=False)
+    got = clocked_serve(torch, sh, paged_reqs, honor_arrivals=False)
+    tally(got[2])
+    same_serves("(d) paged + prefix cache", sh, ref_engine, got, want)
+    check(sh.prefix_stats == ref_engine.prefix_stats
+          and sh.prefix_stats["hits"] >= 5,
+          f"(d) prefix stats {sh.prefix_stats} != "
+          f"{ref_engine.prefix_stats} or too few hits")
+    print(f"  (d) prefix cache: {sh.prefix_stats}")
+    del ref_engine, sh
+    damped = damp_upper_layers(params, n_keep=2, damp=0.001)
+    dmodel, dparams = truncate_draft(model, damped, 2)
+    spec = dict(draft_model=dmodel, draft_params=dparams, spec_k=4,
+                **geometry)
+    spec_reqs = [Request(rid=i, prompt=r.prompt,
+                         max_new_tokens=min(r.max_new_tokens, 48))
+                 for i, r in enumerate(requests[:8])]
+    ref_engine = ContinuousBatchingEngine(model, damped, **spec)
+    sh = ShardedContinuousBatchingEngine(model, damped, tp=1, rank=0, **spec)
+    want = clocked_serve(torch, ref_engine, spec_reqs, honor_arrivals=False)
+    got = clocked_serve(torch, sh, spec_reqs, honor_arrivals=False)
+    tally(got[2])
+    same_serves("(d) speculative k = 4", sh, ref_engine, got, want)
+    check(sh.spec_stats == ref_engine.spec_stats,
+          f"(d) spec stats {sh.spec_stats} != {ref_engine.spec_stats}")
+    print(f"  (d) speculative: acceptance {sh.acceptance_rate():.4f}, "
+          f"{sh.spec_stats['rounds']} slot-rounds")
+    del ref_engine, sh, damped, dmodel, dparams
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (e) ShardedSUT under PowerRun(Server) with the NVML meter
+    def make_request(i, s, a):
+        qid = s["qid"]
+        r = requests[qid % len(requests)]
+        return Request(rid=qid, prompt=r.prompt,
+                       max_new_tokens=r.max_new_tokens, arrival_s=a)
+
+    with NVML(dev) as nvml:
+        sut = ShardedSUT(sharded, cfg, name="qwen3-1.7b-tp1",
+                         make_request=make_request,
+                         energy_meter=nvml.energy_meter())
+        torch.cuda.synchronize()
+        kernels = launch_counters()
+        for k in kernels.values():
+            k.launches = 0
+        r = PowerRun(sut, Server(mode="queue", target_qps=8.0,
+                                 min_queries=16, latency_slo_s=10.0,
+                                 min_duration_s=1.0), seed=0).run()
+        launches = {name: k.launches for name, k in kernels.items()}
+    tally(launches)
+    print("  " + r.render().replace("\n", "\n  "))
+    check(r.passed, "(e) ShardedSUT: the review REJECTED the run")
+    m = r.outcome.server
+    q = r.outcome.result.n_queries
+    check(launches["decode_attention"] == layers * sharded.decode_steps
+          and launches["flash_attention"] == layers * q,
+          f"(e) launches {launches} != {layers} x {sharded.decode_steps} "
+          f"decode steps, {layers} x {q} admissions")
+    dom = r.per_domain_energy_j
+    acc_j = dom["accelerator"]
+    counter_j = sut.trace.energy_j()
+    tokens = m.total_tokens
+    print(f"  (e) ShardedSUT (tp 1, NVML meter) ACCEPTED: {q} requests, "
+          f"{tokens} tokens in {r.summary.window_s:.3f} s, "
+          f"{m.tokens_per_s:.1f} tok/s, TTFT p50/p99 "
+          f"{m.ttft_p(50) * 1e3:.1f}/{m.ttft_p(99) * 1e3:.1f} ms; "
+          f"{tokens / acc_j:.4f} tok/J at the accelerator (measured: "
+          f"{acc_j:.3f} J; the counter's delta {counter_j:.3f} J, stack vs "
+          f"counter {abs(acc_j - counter_j) / counter_j * 100:.3f} %), "
+          f"{tokens / r.summary.energy_j:.4f} tok/J at the wall")
+    return dict(launches=total, profile=prof, allreduce_event_ms=ar_ms,
+                allreduce_host_us=ar_us, clock_host_us=clock_us,
+                allreduce_queued_us=queued_us,
+                step_host_ms=step_ms,
+                tokens_per_s=m.tokens_per_s,
+                tok_per_j_accelerator=tokens / acc_j,
+                tok_per_j_wall=tokens / r.summary.energy_j)
+
+
 def phase_rwkv_engine(torch, dev, requests):
     """Phase 10: phase 4's requests (arrivals, prompt lengths, budgets),
     their tokens redrawn in rwkv6-3b's vocabulary, through the
@@ -3914,6 +4273,11 @@ def main() -> int:
           "(fleet_sweep, launch.fleet)")
     fleet_launches = phase_fleet(torch, dev)
 
+    phase("phase 21: tensor-parallel serving at TP 1 through an NCCL "
+          "group of one rank")
+    print(smi.strip())
+    tp = phase_tp(torch, dev, model, params, engine, requests)
+
     # the qwen3 weights, engines and damped copy go before rwkv6-3b
     del engine, make, model, params
     gc.collect()
@@ -3942,20 +4306,22 @@ def main() -> int:
     # 15, 17 and 20 for decode and flash, 16, 18 and 19 for flash, 18 for
     # decode; phases 6, 16 and 18 for the paged kernels and 19 for paged
     # decode, 8 and 18 for the verify kernel, phase 10 for the scan,
-    # phase 12 for the int8 GEMM)
+    # phase 12 for the int8 GEMM; phase 21's sharded serves for decode,
+    # flash, the paged pair and verify)
     dec = "src/repro/kernels/decode_attention/decode_attention.py"
     by_phase = {"4": launches, "14": whisper_launches,
                 "15": power["launches"], "16": slo_launches,
                 "17": fault_launches, "18": {
                     k: prefix_launches[k] + spec_bench_launches[k]
                     for k in prefix_launches},
-                "19": disagg_launches, "20": fleet_launches}
-    uses = {"decode_attention": ("4", "14", "15", "17", "18", "20"),
+                "19": disagg_launches, "20": fleet_launches,
+                "21": tp["launches"]}
+    uses = {"decode_attention": ("4", "14", "15", "17", "18", "20", "21"),
             "flash_attention": ("4", "14", "15", "16", "17", "18", "19",
-                                "20"),
-            "paged_decode_attention": ("6", "16", "18", "19"),
-            "paged_verify_attention": ("6", "16", "18"),
-            "verify_attention": ("8", "18")}
+                                "20", "21"),
+            "paged_decode_attention": ("6", "16", "18", "19", "21"),
+            "paged_verify_attention": ("6", "16", "18", "21"),
+            "verify_attention": ("8", "18", "21")}
     by_phase["6"], by_phase["8"] = paged_launches, spec_launches
     totals = {}
     for name, phases in uses.items():

@@ -1,5 +1,5 @@
 """``repro_torch.harness`` — the public measurement API (PyTorch port
-of ``src/repro/harness``; ``ShardedSUT`` waits for ROADMAP §A.8).
+of ``src/repro/harness``).
 
 One measurement protocol, uniformly applied (the paper's core
 contribution): wrap any system behind the ``SUT`` protocol, pick a
@@ -33,8 +33,9 @@ wall-only stack with a ``DeprecationWarning``.
 """
 from repro_torch.harness.sut import (  # noqa: F401
     SUT, BaseSUT, CallableSUT, ContinuousBatchingSUT, DisaggregatedSUT,
-    MeasuredTrace, ReplicatedSUT, ServeEngineSUT, TinySUT, constant_power,
-    measured_domains, measured_sysdesc,
+    MeasuredTrace, ReplicatedSUT, ServeEngineSUT, ShardedSUT, TinySUT,
+    constant_power,
+    measured_domains, measured_sysdesc, modeled_sysdesc,
     rail_domains, throughput_watts, throughput_work,
 )
 from repro_torch.harness.scenarios import (  # noqa: F401

@@ -26,8 +26,10 @@ it claims to be (``system_description``).
   decode fleets behind one queue, each with its own rail stack
   (``prefill/...``, ``decode/...``) under a derived ``pdu``.  A
   measured ``energy_meter`` is refused, for the same reason.
-
-The reference's ``ShardedSUT`` waits for ROADMAP §A.8.
+- ``ShardedSUT`` — a tensor-parallel ``ShardedContinuousBatchingEngine``
+  (rank 0's) behind the same queue surface: ``tp`` chips on the meter,
+  one accelerator channel per shard.  A measured ``energy_meter`` is
+  taken at tp 1 only: one NVML counter is one card.
 
 Power surface: every adapter implements ``domains(outcome) ->
 list[PowerDomain]`` — its per-component measurement boundaries
@@ -689,6 +691,72 @@ def _system_peak_watts(meter: SystemPowerModel) -> float:
          + s.n_hosts(meter.n_chips) * s.host_active_watts
          + s.n_switches(meter.n_chips) * s.switch_watts)
     return w / s.psu_efficiency
+
+
+def modeled_sysdesc(meter: SystemPowerModel,
+                    scale: Optional[str] = None) -> SystemDescription:
+    """What a system on modeled rails declares (the reference
+    ``ShardedSUT``'s recipe): ``datacenter`` scale for more than one
+    chip unless ``scale`` says otherwise, read through node telemetry
+    of documented accuracy (R4) there and a virtual analyzer at the
+    edge, with the meter's peak and idle envelope."""
+    scale = scale or ("datacenter" if meter.n_chips > 1 else "edge")
+    # datacenter submissions document node telemetry accuracy (R4)
+    # instead of a SPEC-approved analyzer
+    telemetry = 0.01 if scale == "datacenter" else None
+    return SystemDescription(
+        scale=scale, n_chips=meter.n_chips,
+        instrument=("node-telemetry" if scale == "datacenter"
+                    else "virtual-wt310"),
+        telemetry_accuracy=telemetry,
+        max_system_watts=_system_peak_watts(meter),
+        idle_system_watts=meter.system_watts(None))
+
+
+class ShardedSUT(ContinuousBatchingSUT):
+    """Tensor-parallel ``ShardedContinuousBatchingEngine`` behind the
+    SUT surface.
+
+    Identical queue semantics to ``ContinuousBatchingSUT``; the power
+    meter spans the shards (``n_chips = engine.tp``) with one
+    accelerator channel *per shard* summed under one wall, and the
+    default system description declares the matching scale and
+    envelope, so the stack gets the scale-appropriate instruments and
+    the compliance review checks the fleet-level power budget.  The
+    engine is rank 0's: its ``serve`` drives the other ranks, which
+    ``follow``.
+
+    The port's one difference: a measured ``energy_meter`` is taken at
+    tp 1 only, and then the SUT is measured as ``ContinuousBatchingSUT``
+    is (on the H100 system unless told otherwise).  At tp > 1 it raises
+    ``ValueError``, naming the SUT: one NVML counter is one card, and
+    the other shards' cards would go unbilled.
+    """
+
+    def __init__(self, engine, cfg, *, name: str = "sharded-engine",
+                 make_request: Callable[[int, dict, float], Any],
+                 system: Optional[SystemSpec] = None,
+                 scale: Optional[str] = None,
+                 draft: Any = None,
+                 sysdesc: Optional[SystemDescription] = None,
+                 energy_meter: Optional[Callable] = None):
+        tp = engine.tp
+        if energy_meter is not None and tp > 1:
+            raise ValueError(
+                f"ShardedSUT {name!r}: a measured energy_meter is taken at "
+                f"tp 1 only; at tp={tp} one card's NVML counter would stand "
+                f"for {tp} cards: the shards run on modeled rails")
+        if energy_meter is None:
+            system = system or EDGE_SYSTEM
+            if sysdesc is None:
+                sysdesc = modeled_sysdesc(SystemPowerModel(system, tp),
+                                          scale)
+        super().__init__(engine, cfg, name=name, make_request=make_request,
+                         system=system, n_chips=tp, draft=draft,
+                         sysdesc=sysdesc, energy_meter=energy_meter)
+
+    def _n_accel_channels(self) -> int:
+        return self.engine.tp
 
 
 class ReplicatedSUT(BaseSUT):

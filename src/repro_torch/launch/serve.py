@@ -63,8 +63,25 @@ recurrent state, so ``--kv-page-size``, ``--prefix-cache`` and
   python -m repro_torch.launch.serve --arch rwkv6-3b --reduce \\
       --device cpu --qps 20 --min-duration 0.5
 
-The reference launcher's options for tensor parallelism and replicas
-are refused until ROADMAP §A.8 lands.
+Scale axis (the paper's µW -> MW sweep): ``--tp K`` shards the
+continuous engine K ways, one process per shard
+(``repro_torch.parallel.run_tp``: gloo with ``--device cpu``, NCCL on
+the card, where K must not exceed the visible cards): every rank holds
+a ``ShardedContinuousBatchingEngine``, rank 0 runs the ``PowerRun``
+through ``ShardedSUT`` (one accelerator channel per shard summed under
+one wall) and prints, the other ranks follow its serves.
+``--replicas N`` runs N independent engines behind one admission
+queue (``ReplicatedSUT``; the fleet boundary is a PDU domain summing
+the replicas' walls).  Either way the energy is modeled (the H100
+system's rails on the card): one card's NVML counter cannot stand for
+K cards, nor be split between replicas.  Both at once are refused:
+replicas of a sharded engine would issue their collectives from
+threads, in an order the ranks do not share (ROADMAP §A.8).
+
+  python -m repro_torch.launch.serve --arch qwen3-1.7b --reduce \\
+      --device cpu --tp 4 --qps 16 --min-duration 2
+  python -m repro_torch.launch.serve --arch qwen3-1.7b --reduce \\
+      --device cpu --replicas 2 --qps 16 --min-duration 2
 """
 from __future__ import annotations
 
@@ -75,9 +92,12 @@ import torch
 
 from repro_torch.configs import get_config, list_archs, reduce_config
 from repro_torch.core.loadgen import qid_of
+from repro_torch.core.power_model import SystemPowerModel
 from repro_torch.harness import (ContinuousBatchingSUT, MultiStream, Offline,
-                                 PowerRun, ServeEngineSUT, Server,
-                                 SingleStream)
+                                 PowerRun, ReplicatedSUT, ServeEngineSUT,
+                                 Server, ShardedSUT, SingleStream,
+                                 modeled_sysdesc)
+from repro_torch.hw import DATACENTER_H100
 from repro_torch.kernels.decode_attention.ops import decode_attention
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.linear_scan.ops import linear_scan
@@ -87,16 +107,13 @@ from repro_torch.kernels.paged_verify_attention.ops import (
     paged_verify_attention)
 from repro_torch.kernels.verify_attention.ops import verify_attention
 from repro_torch.models import build_model
+from repro_torch.parallel import run_tp
 from repro_torch.power import ACCELERATOR
 from repro_torch.power.nvml import NVML
 from repro_torch.serving import (ContinuousBatchingEngine, Request,
-                                 Scheduler, ServeEngine, truncate_draft)
-
-# reference-launcher options that wait for a later slice
-UNPORTED = {
-    "tp": "ROADMAP §A.8 (tensor parallel)",
-    "replicas": "ROADMAP §A.8 (replicas behind one queue)",
-}
+                                 Scheduler, ServeEngine,
+                                 ShardedContinuousBatchingEngine,
+                                 truncate_draft)
 
 KERNELS = (decode_attention, flash_attention, paged_decode_attention,
            paged_verify_attention, verify_attention, linear_scan)
@@ -171,33 +188,65 @@ def build_draft(args, cfg, model, params):
     return dmodel, dmodel.init(args.seed + 2)
 
 
-def _continuous_sut(args, cfg, model, params, energy_meter):
+def _continuous_engines(args, cfg, model, params, rank: int = 0):
+    """``--replicas`` warmed-up continuous engines (one rank's shard of
+    one with ``--tp``) and the draft's config (``None`` without
+    ``--speculative``)."""
     spec_kw, draft_cfg = {}, None
     if args.speculative:
         dmodel, dparams = build_draft(args, cfg, model, params)
         spec_kw = dict(draft_model=dmodel, draft_params=dparams,
                        spec_k=args.k)
         draft_cfg = dmodel.cfg
-    engine = ContinuousBatchingEngine(
-        model, params, max_len=args.max_len, n_slots=args.slots,
-        chunk_steps=args.chunk_steps, device=args.device,
-        kv_page_size=args.kv_page_size, prefix_caching=args.prefix_cache,
-        prefill_chunk_tokens=args.prefill_chunk,
-        scheduler=Scheduler(preemption=True) if args.preemption else None,
-        **spec_kw)
-    # warm-up outside the measurement: one request end to end
-    engine.serve([_request(args, cfg.vocab_size, 10 ** 6)],
-                 honor_arrivals=False)
+    kw = dict(max_len=args.max_len, n_slots=args.slots,
+              chunk_steps=args.chunk_steps, device=model.device,
+              kv_page_size=args.kv_page_size,
+              prefix_caching=args.prefix_cache,
+              prefill_chunk_tokens=args.prefill_chunk,
+              scheduler=(Scheduler(preemption=True) if args.preemption
+                         else None), **spec_kw)
+    engines = []
+    for _ in range(args.replicas):
+        engine = (ShardedContinuousBatchingEngine(
+            model, params, tp=args.tp, rank=rank, **kw) if args.tp > 1
+            else ContinuousBatchingEngine(model, params, **kw))
+        # warm-up outside the measurement: one request end to end (on
+        # every rank of a sharded engine)
+        engine.serve([_request(args, cfg.vocab_size, 10 ** 6)],
+                     honor_arrivals=False)
+        engines.append(engine)
+    return engines, draft_cfg
 
+
+def _continuous_sut(args, cfg, engines, draft_cfg, energy_meter):
+    """The SUT over ``engines``: ``ContinuousBatchingSUT``,
+    ``ShardedSUT`` with ``--tp`` or ``ReplicatedSUT`` over one SUT a
+    replica with ``--replicas``; modeled rails on the H100 system on
+    the card unless ``energy_meter`` measures the one card."""
     def make_request(i, s, a):
-        # rid from the loadgen query id (unique even when samples wrap)
+        # rid from the loadgen query id (unique even when samples wrap,
+        # and across replicas, each of which sees a share of the queue)
         return _request(args, cfg.vocab_size, qid_of(s, i), a)
 
     name = f"{args.arch}-continuous" + (
         f"-k{args.k}" if args.speculative else "")
-    return ContinuousBatchingSUT(engine, cfg, name=name,
-                                 make_request=make_request, draft=draft_cfg,
-                                 energy_meter=energy_meter), engine
+    system = sysdesc = None
+    if energy_meter is None and engines[0].device.type == "cuda":
+        # a modeled H100 server declares itself as one
+        system = DATACENTER_H100
+        sysdesc = modeled_sysdesc(SystemPowerModel(system, 1), "datacenter")
+    if args.tp > 1:
+        return ShardedSUT(engines[0], cfg, name=f"{name}-tp{args.tp}",
+                          make_request=make_request, system=system,
+                          draft=draft_cfg)
+    suts = [ContinuousBatchingSUT(
+        engine, cfg, name=name + (f"-r{i}" if args.replicas > 1 else ""),
+        make_request=make_request, system=system, draft=draft_cfg,
+        sysdesc=sysdesc, energy_meter=energy_meter)
+        for i, engine in enumerate(engines)]
+    if args.replicas > 1:
+        return ReplicatedSUT(suts, name=f"{args.arch}-x{args.replicas}")
+    return suts[0]
 
 
 def _fixed_sut(args, cfg, model, params, energy_meter):
@@ -218,8 +267,9 @@ def _fixed_sut(args, cfg, model, params, energy_meter):
                           energy_meter=energy_meter), engine
 
 
-def _report(args, r, engine, measured: bool) -> dict:
-    """Print the run and return its figures."""
+def _report(args, r, engines, measured: bool) -> dict:
+    """Print the run and return its figures (``engines``: the replicas,
+    or rank 0's shard)."""
     server = r.outcome.server
     if server is not None:
         tokens, n = server.total_tokens, r.outcome.result.n_queries
@@ -232,7 +282,9 @@ def _report(args, r, engine, measured: bool) -> dict:
              "tpot_mean_s": float("nan")}
     dur = r.outcome.result.duration_s
     dom = r.per_domain_energy_j
-    acc_j = dom.get(ACCELERATOR, 0.0)
+    # one channel, or one a shard (accelerator/i) or a replica
+    # (r{i}/accelerator)
+    acc_j = sum(v for k, v in dom.items() if ACCELERATOR in k.split("/"))
     m.update(requests=n, tokens=tokens, duration_s=dur,
              tokens_per_s=tokens / max(dur, 1e-9),
              review_passed=r.passed, energy_j=r.summary.energy_j,
@@ -241,26 +293,43 @@ def _report(args, r, engine, measured: bool) -> dict:
              tok_per_j_accelerator=tokens / max(acc_j, 1e-12),
              measured=[ACCELERATOR] if measured else [])
     print(r.render())
+    engine = engines[0]
     device = (torch.cuda.get_device_name(engine.device)
               if engine.device.type == "cuda" else "cpu")
+    scale = (f" across tp={args.tp} ranks" if args.tp > 1 else
+             f" x {args.replicas} replicas" if args.replicas > 1 else "")
     print(f"{args.arch}{' (reduced)' if args.reduce else ''} {args.engine} "
-          f"{args.scenario} on {device}: {n} requests, {tokens} tokens in "
-          f"{dur:.3f} s, {m['tokens_per_s']:.1f} tokens/s")
+          f"{args.scenario} on {device}{scale}: {n} requests, {tokens} "
+          f"tokens in {dur:.3f} s, {m['tokens_per_s']:.1f} tokens/s")
+    syncs = ([e.host_syncs for e in engines]
+             if hasattr(engine, "host_syncs") else "n/a")
     print(f"  TTFT p50/p99: {m['ttft_p50_s'] * 1e3:.1f}/"
           f"{m['ttft_p99_s'] * 1e3:.1f} ms, TPOT mean: "
           f"{m['tpot_mean_s'] * 1e3:.2f} ms, host syncs: "
-          f"{getattr(engine, 'host_syncs', 'n/a')}")
+          f"{syncs[0] if len(syncs) == 1 else syncs}")
+    if not measured and engine.device.type == "cuda":
+        print(f"  energy modeled: the H100 system's rails "
+              f"(repro_torch.hw.DATACENTER_H100) for "
+              f"{max(args.tp, args.replicas)} cards (one card's NVML "
+              f"counter cannot stand for several cards or be split "
+              f"between replicas)")
     print("  energy by channel: " + "; ".join(
         f"{k} {v:.3f} J ("
         + ("measured, NVML" if k == ACCELERATOR and measured else
-           "derived: PSU of the rails" if k == "wall" else "modeled")
+           "derived: PSU of the rails" if k.split("/")[-1] == "wall" else
+           "derived: the replicas' walls" if k == "pdu" else "modeled")
         + ")" for k, v in sorted(dom.items())))
     print(f"  {m['tok_per_j_accelerator']:.3f} tok/J at the accelerator "
           f"({'measured' if measured else 'modeled'}), "
           f"{m['tok_per_j']:.3f} tok/J at the wall; review "
           f"{'ACCEPTED' if r.passed else 'REJECTED'}")
-    print("  kernel launches: " + ", ".join(
-        f"{k.__name__} {k.launches}" for k in KERNELS))
+    print(f"  kernel launches{' (rank 0)' if args.tp > 1 else ''}: "
+          + ", ".join(f"{k.__name__} {k.launches}" for k in KERNELS))
+    if args.replicas > 1:
+        per_rep = [dom.get(f"r{i}/wall", 0.0) for i in range(args.replicas)]
+        print(f"  per-replica wall energy: "
+              f"{'/'.join(f'{x:.3f}' for x in per_rep)} J (sum "
+              f"{sum(per_rep):.3f} J vs fleet PDU {r.summary.energy_j:.3f} J)")
     return m
 
 
@@ -308,13 +377,13 @@ def main(argv=None):
                          "high-priority arrival under page-pool "
                          "pressure parks a best-effort request "
                          "(needs --prefix-cache)")
-    # refused until ported
-    ap.add_argument("--tp", type=int, default=1)
-    ap.add_argument("--replicas", type=int, default=1)
+    ap.add_argument("--tp", type=int, default=1,
+                    help="tensor-parallel degree: one process a shard "
+                         "(gloo on the CPU, NCCL on as many cards)")
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="independent engine replicas behind one "
+                         "admission queue (fleet power summed)")
     args = ap.parse_args(argv)
-    for name, item in UNPORTED.items():
-        if getattr(args, name) != 1:
-            ap.error(f"--{name.replace('_', '-')} is not ported yet: {item}")
     spec_k = args.k if args.speculative else 0
     if args.prompt_len + args.new_tokens + spec_k > args.max_len:
         ap.error("--prompt-len + --new-tokens (+ --k with --speculative) "
@@ -322,6 +391,20 @@ def main(argv=None):
     if args.engine == "continuous" and args.scenario != "server":
         ap.error("--engine continuous drives the server scenario (its "
                  "admission queue is the point); use --scenario server")
+    if args.tp < 1 or args.replicas < 1:
+        ap.error("--tp and --replicas count from 1")
+    if (args.tp > 1 or args.replicas > 1) and args.engine != "continuous":
+        ap.error("--tp/--replicas shard the continuous engine; add "
+                 "--engine continuous")
+    if args.tp > 1 and args.replicas > 1:
+        ap.error("--tp with --replicas is not ported: each replica of a "
+                 "sharded engine would issue its collectives from a "
+                 "thread of its own, in an order the ranks do not share "
+                 "(ROADMAP §A.8)")
+    if (args.tp > 1 and torch.device(args.device).type == "cuda"
+            and args.tp > torch.cuda.device_count()):
+        ap.error(f"--tp {args.tp} runs a rank on each of {args.tp} cards; "
+                 f"{torch.cuda.device_count()} visible")
     if args.speculative and args.engine != "continuous":
         ap.error("--speculative is a continuous-engine decode mode; add "
                  "--engine continuous")
@@ -341,47 +424,93 @@ def main(argv=None):
         ap.error("--preemption needs --prefix-cache (a parked "
                  "request's KV pages survive as cache entries until "
                  "resume)")
+    if args.tp > 1:
+        backend = ("nccl" if torch.device(args.device).type == "cuda"
+                   else "gloo")
+        # the run's own length, its warm-up and the ranks' start
+        return run_tp(_tp_rank, args.tp, backend=backend,
+                      timeout_s=600.0 + 10.0 * args.min_duration,
+                      args=(args,))
+    return _run(args, args.device)
 
+
+def _tp_rank(rank: int, tp: int, args):
+    """One rank of ``--tp``: rank r on ``cuda:r`` (or the CPU)."""
+    dev = (f"cuda:{rank}" if torch.device(args.device).type == "cuda"
+           else "cpu")
+    return _run(args, dev, rank)
+
+
+def _run(args, device, rank: int = 0):
+    """Build, serve under ``PowerRun`` and report (rank 0 of ``--tp``,
+    or the only process); the other ranks of ``--tp`` follow rank 0's
+    serves and return ``None``."""
     cfg = get_config(args.arch)
     if args.reduce:
         cfg = reduce_config(cfg)
-    model = build_model(cfg, args.device)
+    model = build_model(cfg, device)
     params = model.init(args.seed)
-    measured = model.device.type == "cuda"
+    draft_cfg = None
+    if args.engine == "continuous":
+        engines, draft_cfg = _continuous_engines(args, cfg, model, params,
+                                                 rank)
+        if rank != 0:
+            engines[0].follow()
+            return None
+    measured = (model.device.type == "cuda" and args.tp == 1
+                and args.replicas == 1)
     nvml = NVML(model.device) if measured else None
     try:
         energy_meter = nvml.energy_meter() if measured else None
-        make = (_continuous_sut if args.engine == "continuous"
-                else _fixed_sut)
-        sut, engine = make(args, cfg, model, params, energy_meter)
+        if args.engine == "continuous":
+            sut = _continuous_sut(args, cfg, engines, draft_cfg,
+                                  energy_meter)
+        else:
+            sut, engine = _fixed_sut(args, cfg, model, params, energy_meter)
+            engines = [engine]
         for k in KERNELS:
             k.launches = 0
-        r = PowerRun(sut, _scenario_for(args), seed=0).run()
+        try:
+            r = PowerRun(sut, _scenario_for(args), seed=0).run()
+        finally:
+            if args.tp > 1:
+                engines[0].close()
     finally:
         if nvml is not None:
             nvml.close()
-    m = _report(args, r, engine, measured)
-    if args.speculative:
-        st = engine.spec_stats
-        print(f"  speculative k={args.k} (draft "
-              f"{sut.draft_cfg.name}): acceptance "
-              f"{engine.acceptance_rate():.2f}, {st['rounds']} verified "
-              f"slot-rounds")
-    if getattr(engine, "prefix_caching", False):
-        st = engine.prefix_stats
-        print(f"  prefix cache: {st['hits']}/{st['lookups']} hits, "
-              f"{st['cached_tokens']} prompt tokens served from cache, "
-              f"{st['evicted_pages']} pages evicted, peak "
-              f"{engine.page_pool.peak_used} pages (page size "
-              f"{args.kv_page_size})")
-    st = getattr(engine, "sched_stats", {})
-    if any(st.values()):
-        chunks = st["prefill_chunks"]
-        print(f"  scheduler: {st['preemptions']} preemptions, "
-              f"{st['resumes']} resumes, {chunks} prefill chunks "
-              f"({st['interleaved_chunks'] / max(1, chunks):.0%} "
-              f"interleaved with decode)")
+    m = _report(args, r, engines, measured)
+    _print_stats(args, engines, draft_cfg)
     return m
+
+
+def _print_stats(args, engines, draft_cfg) -> None:
+    """The speculative, prefix-cache and scheduler counters, summed over
+    the replicas."""
+    def total(stats: str, key: str) -> int:
+        return sum(getattr(e, stats)[key] for e in engines)
+
+    if args.speculative:
+        acc = total("spec_stats", "accepted") / max(
+            1, total("spec_stats", "proposed"))
+        print(f"  speculative k={args.k} (draft {draft_cfg.name}): "
+              f"acceptance {acc:.2f}, {total('spec_stats', 'rounds')} "
+              f"verified slot-rounds")
+    if getattr(engines[0], "prefix_caching", False):
+        peak = max(e.page_pool.peak_used for e in engines)
+        print(f"  prefix cache: {total('prefix_stats', 'hits')}/"
+              f"{total('prefix_stats', 'lookups')} hits, "
+              f"{total('prefix_stats', 'cached_tokens')} prompt tokens "
+              f"served from cache, {total('prefix_stats', 'evicted_pages')}"
+              f" pages evicted, peak {peak} pages (page size "
+              f"{args.kv_page_size})")
+    if any(v for e in engines for v in getattr(e, "sched_stats",
+                                               {}).values()):
+        chunks = total("sched_stats", "prefill_chunks")
+        inter = total("sched_stats", "interleaved_chunks")
+        print(f"  scheduler: {total('sched_stats', 'preemptions')} "
+              f"preemptions, {total('sched_stats', 'resumes')} resumes, "
+              f"{chunks} prefill chunks ({inter / max(1, chunks):.0%} "
+              f"interleaved with decode)")
 
 
 if __name__ == "__main__":

@@ -4,8 +4,10 @@
 The dense subset of the reference ``models/layers.py``: norms, RoPE,
 full-sequence GQA attention (an encoder's, bidirectional), GQA
 prefill/decode/verify with the KV-cache write, the paged-KV decode and
-verify paths, and the SwiGLU FFN.  The reference's ``shard``/``tp_psum``
-are identities at TP = 1 and are dropped.  Attention goes through the kernel wrappers when ``kernels``
+verify paths, and the SwiGLU FFN.  The reference's ``shard`` is an
+identity outside a mesh and is dropped; its ``tp_psum`` after each
+row-parallel projection is ``LM``'s all-reduce over its ``tp_group``
+(``models/lm.py``).  Attention goes through the kernel wrappers when ``kernels``
 is set (CPU tensors still take the plain version inside them) and
 straight to the plain versions otherwise.
 """

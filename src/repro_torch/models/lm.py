@@ -15,7 +15,11 @@ and the two token-shift rows) instead of K/V rows.
   logits, cache = lm.decode_step(params, cache, next_tokens)
 
 ``verify_step`` scores a T-token window per slot (speculative
-decoding).  The paged engine's cache tree (``init_paged_cache``) holds
+decoding).  With a ``tp_group`` (tensor parallelism, one process per
+shard: ``repro_torch.serving.sharded``) the LM is one shard of the
+Megatron layout, built from ``parallel.tp_local_config``: it
+all-reduces each block's attention output and FFN output over the
+group, where the reference calls ``tp_psum``.  The paged engine's cache tree (``init_paged_cache``) holds
 page pools shared by all slots plus a ``pages`` table; ``decode_step``
 and ``verify_step`` then go through the page table.  Both need
 random-access KV attention and raise ``NotImplementedError`` for rwkv,
@@ -33,6 +37,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import rwkv6 as R
 from repro_torch.models.param import (DTYPES, ParamDef, init_params,
                                       stack_tree, tree_map)
+from repro_torch.parallel.sharding import tp_all_reduce
 
 # family -> the one layer kind its homogeneous stack holds
 _LAYER_KINDS = {"dense": "attn_dense", "rwkv": "rwkv"}
@@ -44,10 +49,13 @@ class LM:
     attention and the scan to the plain PyTorch versions on any device
     (the on-card yardstick); with ``kernels=True`` CUDA tensors go
     through the hand-written kernels and CPU tensors through the same
-    plain versions."""
+    plain versions.  ``tp_group``: the process group of a tensor-parallel
+    shard (``None``: the whole model, no collective); the group belongs
+    to the model, so a speculative draft built without one stays
+    replicated in the same thread."""
 
     def __init__(self, cfg: ModelConfig, device="cuda", *,
-                 kernels: bool = True):
+                 kernels: bool = True, tp_group=None):
         if cfg.family not in _LAYER_KINDS:
             raise NotImplementedError(
                 f"family {cfg.family!r}: only the dense (attn_dense) and "
@@ -58,6 +66,11 @@ class LM:
         self.kernels = kernels
         self.dtype = DTYPES[cfg.dtype]
         self.kind = _LAYER_KINDS[cfg.family]
+        self.tp_group = tp_group
+        if tp_group is not None and self.kind != "attn_dense":
+            raise NotImplementedError(
+                f"family {cfg.family!r}: tensor parallelism shards dense "
+                f"GQA stacks only (parallel.tp_local_config)")
 
     def check_verify(self) -> None:
         """Raise ``NotImplementedError`` unless the stack has random-access
@@ -145,9 +158,16 @@ class LM:
             raise NotImplementedError(
                 f"mode {mode!r}: training is not ported yet, see ROADMAP "
                 f"§A.12")
-        x = x + o
+        x = x + self._reduce(o)
         h2 = L.rmsnorm(x, bp["ln2"], cfg.norm_eps)
-        return x + L.ffn(h2, bp["ffn"])
+        return x + self._reduce(L.ffn(h2, bp["ffn"]))
+
+    def _reduce(self, x):
+        """Complete a row-parallel projection: the sum of every shard's
+        partial output over ``tp_group`` (identity without one)."""
+        if self.tp_group is None:
+            return x
+        return tp_all_reduce(x, self.tp_group)
 
     def _apply_rwkv_block(self, x, bp, mode, cache):
         """One RWKV-6 block (reference ``LM._apply_block``, rwkv branch);

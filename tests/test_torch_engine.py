@@ -183,9 +183,12 @@ def test_launcher_runs_on_cpu():
 
 @pytest.mark.parametrize("flag", [["--tp", "4"], ["--replicas", "2"]])
 def test_launcher_refuses_unported_options(flag, capsys):
+    """``--tp`` and ``--replicas`` each run (tests/test_torch_sharded.py);
+    what stays unported of them is the two together (ROADMAP §A.8)."""
+    other = ["--replicas", "2"] if flag[0] == "--tp" else ["--tp", "2"]
     with pytest.raises(SystemExit):
         tserve.main(["--arch", "qwen3-1.7b", "--reduce", "--device", "cpu",
-                     *flag])
+                     *flag, *other])
     assert "ROADMAP" in capsys.readouterr().err
 
 
@@ -269,6 +272,10 @@ def test_port_imports_neither_jax_nor_the_reference_package():
                 "simulator", "sut")),
             "repro_torch/launch/fleet.py",
             "repro_torch/benchmarks/fleet_sweep.py",
+            *(f"repro_torch/parallel/{m}.py" for m in (
+                "__init__", "sharding", "launch")),
+            "repro_torch/serving/sharded.py",
+            "repro_torch/benchmarks/scale_sweep.py",
             os.path.join("..", "chip_smoke.py")} <= seen
     assert not offenders, offenders
 

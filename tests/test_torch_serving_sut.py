@@ -349,21 +349,34 @@ def test_counter_period_measures_the_update_step():
 
 
 class SleepySlots(SlotStub):
-    """The slot stub on real time: ``serve`` sleeps through its run,
-    stamping requests on ``now`` from its first reading."""
+    """The slot stub on a ``VirtualClock``: ``serve`` advances the clock
+    through its run, stamping requests on ``now`` from its first
+    reading."""
+
+    def __init__(self, clock):
+        super().__init__()
+        self.clock = clock
 
     def serve(self, reqs, now=time.monotonic):
         t0 = now()
         out = super().serve(reqs)
-        time.sleep(max(r.done_s for r in out))
+        self.clock.advance(max(r.done_s for r in out))
         assert now() - t0 >= max(r.done_s for r in out)
         return out
 
 
-def _meter():
+def _meter(clock=None):
+    """A sampler factory over a stepped counter: on real time, or with
+    ``clock`` (a ``VirtualClock``) a ``VirtualSampler`` that reads at
+    each of its periods as the clock advances."""
+    if clock is None:
+        counter = FakeCounter(watts=(210.0, 480.0, 130.0),
+                              edges=(0.2, 0.45), step_s=0.005)
+        return functools.partial(EnergySampler, counter, period_s=0.002)
     counter = FakeCounter(watts=(210.0, 480.0, 130.0), edges=(0.2, 0.45),
-                          step_s=0.005)
-    return functools.partial(EnergySampler, counter, period_s=0.002)
+                          step_s=0.005, clock=clock)
+    return functools.partial(VirtualSampler, counter, period_s=0.002,
+                             clock=clock)
 
 
 def _check_measured(sut, r):
@@ -386,9 +399,10 @@ def _check_measured(sut, r):
 
 
 def test_measured_continuous_sut_reads_the_counter():
+    clock = VirtualClock()
     sut = th.ContinuousBatchingSUT(
-        SleepySlots(), _cfg("port"), name="measured-cb",
-        make_request=_make_request("port"), energy_meter=_meter())
+        SleepySlots(clock), _cfg("port"), name="measured-cb",
+        make_request=_make_request("port"), energy_meter=_meter(clock))
     r = th.PowerRun(sut, th.Server(target_qps=40.0, latency_slo_s=10.0,
                                    mode="queue", min_duration_s=0.3,
                                    min_queries=8), seed=0).run()
@@ -399,17 +413,28 @@ def test_measured_continuous_sut_reads_the_counter():
 
 
 class SleepyBatches:
+    """A fixed-batch stub whose batch takes 10 ms + 5 ms a request: on
+    real time, or with ``clock`` (a ``VirtualClock``) by advancing it."""
+
     batch = 4
 
+    def __init__(self, clock=None):
+        self.clock = clock
+
     def run_batch(self, reqs, now=None):
-        time.sleep(0.01 + 0.005 * len(reqs))
+        dt = 0.01 + 0.005 * len(reqs)
+        if self.clock is None:
+            time.sleep(dt)
+        else:
+            self.clock.advance(dt)
         return reqs
 
 
 def test_measured_fixed_sut_splices_its_batches():
-    sut = th.ServeEngineSUT(SleepyBatches(), _cfg("port"),
+    clock = VirtualClock()
+    sut = th.ServeEngineSUT(SleepyBatches(clock), _cfg("port"),
                             name="measured-fixed", make_requests=lambda s: s,
-                            energy_meter=_meter())
+                            energy_meter=_meter(clock))
     r = th.PowerRun(sut, th.Offline(batch=4, min_duration_s=0.6),
                     seed=0).run()
     _check_measured(sut, r)
