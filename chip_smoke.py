@@ -165,8 +165,9 @@ Phases, each fatal on failure:
    ``decode_j`` and ``prefill_energy_frac`` and beside them the NVML
    counter's delta over the same serve (reported, not gated) are
    printed.
-17. Faults on the main path (after phase 16, phase 4's weights and
-   engine): (a) ``PowerRun(ContinuousBatchingSUT(engine, energy_meter=
+17. Faults on the main path (after phase 16; since phases 22-23 joined
+   the script, on the first 14 of phase 4's 28 layers, with an engine of
+   its own in phase 4's geometry): (a) ``PowerRun(ContinuousBatchingSUT(engine, energy_meter=
    NVML), Server(mode="queue"), fault_plan=FaultPlan([MeterDropout(
    "wall", 0.5, 1.0)]))``: hardened (``meter_retry=RetryPolicy()``) the
    review ACCEPTs with the wall's coverage 1.0 after re-measurement and
@@ -229,9 +230,10 @@ Phases, each fatal on failure:
    scale events and hetero_carbon's grams are printed.  Then
    ``repro_torch.launch.fleet`` with a 60 s horizon: ACCEPTED.
 21. Tensor-parallel serving at TP 1 through an NCCL group of one rank
-   (in-process, ``file://`` rendezvous), on phase 4's weights:
+   (in-process, ``file://`` rendezvous), on the first 14 of phase 4's
+   28 layers (since phases 22-23 joined the script; weights shared):
    ``ShardedContinuousBatchingEngine`` serves phase 4's 16 requests
-   with their arrivals, and phase 4's engine the same, on one virtual
+   with their arrivals, and an unsharded engine the same, on one virtual
    clock: tokens, launches, host copies (one a chunk) and decode steps
    equal, 2 all-reduces a layer per decode step and per prefill; one
    prefill's logits bit-identical to the unsharded LM's; a paged
@@ -243,6 +245,47 @@ Phases, each fatal on failure:
    of a decode step sharded and not, tok/s and tok/J,
    ``torch.cuda.device_count()``, the card's name and power limit.  A
    run across cards waits for a 4-chip cell.
+22. Full-width qwen3-moe-30b-a3b (after phase 14, every earlier model
+   freed: 48 layers, d_model 2,048, 32 query and 4 KV heads of 128, so
+   G 8; 128 experts top-8 of width 768; padded vocab 153,600; bf16,
+   30.5 B seeded random weights, drawn a slice of the leading axis at a
+   time), the peak of allocated memory printed after each part: (a) the
+   five attention kernels at G 8 against their plain versions and timed
+   (decode and paged decode at 8 slots over 2,048 rows, bit for bit to
+   each other; verify at T 5, the tile route, bit for bit to paged
+   verify; paged verify at T 200 behind 1,024 and T 64 at 704; flash
+   causal at S 1,024), the G 8 builds' ptxas registers; (b) phase 4's
+   traffic through the contiguous engine, served as (f): 48 decode
+   launches a step, 48 flash an admission, every budget met; (c) phase
+   5's kernel path against the plain path with every routing call kept:
+   the share of (token, layer) top-8 sets that agree, logits within
+   phase 5's limit on the rows whose every routing call agreed, the
+   others printed, then the plain path again with the kernel path's
+   experts forced at every call: every row within phase 5's limit; (d)
+   phase 6's traffic
+   through the paged engine with prefix caching (launches exact) and
+   through chunked prefill in 256-token chunks (paged verify 48 a chunk;
+   tokens against the monolithic run reported: a chunk's rows set the
+   expert capacity), and one wave of 8 requests with equal budgets,
+   paged with shuffled pages against contiguous: equal tokens (across
+   retirements the two differ by design: a retired slot reads its own
+   row in one and the garbage page in the other); (e) k = 4 with a
+   full-width qwen3-1.7b draft on 8 requests of 32 tokens offline:
+   verify 48 a round, the draft's decode 28 x 5, acceptance printed;
+   (f) phase 15's Server run with the NVML meter (ACCEPT, stack vs
+   counter, alignment, watts, launches; tok/s, tok/J, the modeled
+   host's share); a decode chunk under
+   ``torch.cuda.set_sync_debug_mode("error")``; a decode step's host
+   time, kernels and busy share (``launch.profile_engine``'s
+   measurement) beside the expert weights' read time.
+23. Full-width deepseek-v3-671b on its first 4 of 61 layers (3 MLA
+   layers with a dense FFN, 1 with 256 routed experts top-8, a shared
+   expert and the sigmoid router) and its MTP block, 15.8 B seeded
+   bf16 weights: 8 requests offline through the contiguous engine, one
+   of 1,100 tokens (the reference's MLA query chunking refuses that
+   length), all budgets met; the same through ``kernels=False``: equal
+   tokens (MLA and the MoE have no kernel); no kernel launched; a
+   decode chunk under ``set_sync_debug_mode("error")``.
 
 The line before the last holds the kernels' JSON record; the last line
 is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside
@@ -1779,6 +1822,20 @@ def print_served(m: dict, wall_s: float, engine) -> None:
           f"{engine.host_syncs}, decode steps {engine.decode_steps}")
 
 
+def count_launches(torch, fn):
+    """Run ``fn()`` with every launch counter set to 0 just before;
+    returns (its result, wall seconds, the launches)."""
+    kernels = launch_counters()
+    torch.cuda.synchronize()
+    for k in kernels.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    return res, wall_s, {name: k.launches for name, k in kernels.items()}
+
+
 def served_run(torch, engine, requests, honor_arrivals=True):
     """Serve a copy of ``requests`` after a warm-up request (cuBLAS
     handles, kernel libraries) outside the counted run, with every
@@ -1791,36 +1848,39 @@ def served_run(torch, engine, requests, honor_arrivals=True):
 
     engine.serve([Request(rid=-1, prompt=np.arange(64), max_new_tokens=9)],
                  honor_arrivals=False)
-    torch.cuda.synchronize()
-    kernels = launch_counters()
-    for k in kernels.values():
-        k.launches = 0
-    t0 = time.perf_counter()
-    done = engine.serve(copy.deepcopy(requests),
-                        honor_arrivals=honor_arrivals)
-    torch.cuda.synchronize()
-    wall_s = time.perf_counter() - t0
-    return done, wall_s, {name: k.launches for name, k in kernels.items()}
+    return count_launches(torch, lambda: engine.serve(
+        copy.deepcopy(requests), honor_arrivals=honor_arrivals))
+
+
+def phase4_requests(cfg) -> list:
+    """Phase 4's traffic in ``cfg``'s vocabulary: 16 requests arriving as
+    a Poisson process at 8 QPS, prompts of 128-1,024 tokens, budgets of
+    32-128 (numpy seed 0)."""
+    import numpy as np
+    from repro_torch.launch.serve import poisson_arrivals
+    from repro_torch.serving import Request
+
+    rng = np.random.default_rng(0)
+    n = 16
+    arrivals = poisson_arrivals(8.0, 0.0, seed=0, min_queries=n)[:n]
+    return [Request(rid=i,
+                    prompt=rng.integers(0, cfg.vocab_size,
+                                        int(rng.integers(128, 1025))),
+                    max_new_tokens=int(rng.integers(32, 129)),
+                    arrival_s=float(a))
+            for i, a in enumerate(arrivals)]
 
 
 def phase_engine(torch, dev, model, params):
     """Phase 4: serve 16 requests through the full-width engine."""
-    import numpy as np
-    from repro_torch.launch.serve import poisson_arrivals, summarize
-    from repro_torch.serving import ContinuousBatchingEngine, Request
+    from repro_torch.launch.serve import summarize
+    from repro_torch.serving import ContinuousBatchingEngine
 
     cfg = model.cfg
     engine = ContinuousBatchingEngine(model, params, max_len=2048,
                                       n_slots=8, chunk_steps=8, device=dev)
-    rng = np.random.default_rng(0)
-    n = 16
-    arrivals = poisson_arrivals(8.0, 0.0, seed=0, min_queries=n)[:n]
-    requests = [Request(rid=i,
-                        prompt=rng.integers(0, cfg.vocab_size,
-                                            int(rng.integers(128, 1025))),
-                        max_new_tokens=int(rng.integers(32, 129)),
-                        arrival_s=float(a))
-                for i, a in enumerate(arrivals)]
+    requests = phase4_requests(cfg)
+    n = len(requests)
     done, wall_s, launches = served_run(torch, engine, requests)
     m = summarize(done, wall_s)
     print_served(m, wall_s, engine)
@@ -1902,7 +1962,7 @@ def phase_paged_engine(torch, dev, model, params):
     """Phase 6: the paged, prefix-caching engine at full width: 24
     Poisson requests, 18 behind one shared 1,024-token system prompt
     with unique 64-512-token tails, 6 unique 128-1,024-token prompts,
-    interleaved."""
+    interleaved.  Returns the launches and the served requests."""
     import numpy as np
     from repro_torch.launch.serve import poisson_arrivals, summarize
     from repro_torch.serving import ContinuousBatchingEngine, Request
@@ -1976,7 +2036,7 @@ def phase_paged_engine(torch, dev, model, params):
           "the paged engine launched a contiguous decode or verify kernel")
     check(engine.host_syncs * engine.chunk_steps == engine.decode_steps,
           "more than one host copy per decode chunk")
-    return launches
+    return launches, done
 
 
 def phase_token_identity(torch, dev, model, params, engine, requests):
@@ -2219,15 +2279,11 @@ def phase_power(torch, dev, model, engine, requests) -> dict:
     ``serving_throughput.metrics(smoke=True)`` on the card: both SUTs
     ACCEPT.  (d) the launcher's fixed engine under Offline through
     ``ServeEngineSUT``: ACCEPT.  Returns (b)'s launches."""
-    import numpy as np
     from repro_torch.benchmarks import serving_throughput
-    from repro_torch.harness import ContinuousBatchingSUT, PowerRun, Server
     from repro_torch.hw import H100_SXM
     from repro_torch.launch import serve as tserve
     from repro_torch.power.nvml import NVML
-    from repro_torch.serving import Request
 
-    cfg = model.cfg
     with NVML(dev) as nvml:
         limit_w = nvml.power_limit_w()
         meter = nvml.energy_meter()
@@ -2247,72 +2303,10 @@ def phase_power(torch, dev, model, engine, requests) -> dict:
               f"(estimate); power reading now {nvml.power_w():.2f} W")
 
         # (b) the main path
-        def make_request(i, s, a):
-            qid = s["qid"]
-            r = requests[qid % len(requests)]
-            return Request(rid=qid, prompt=r.prompt,
-                           max_new_tokens=r.max_new_tokens, arrival_s=a)
-
-        engine.serve([Request(rid=-1, prompt=np.arange(64),
-                              max_new_tokens=9)], honor_arrivals=False)
-        sut = ContinuousBatchingSUT(engine, cfg, name="qwen3-1.7b-continuous",
-                                    make_request=make_request,
-                                    energy_meter=meter)
-        torch.cuda.synchronize()
-        kernels = launch_counters()
-        for k in kernels.values():
-            k.launches = 0
-        r = PowerRun(sut, Server(mode="queue", target_qps=8.0,
-                                 min_queries=16, latency_slo_s=10.0,
-                                 min_duration_s=1.0), seed=0).run()
-        launches = {name: k.launches for name, k in kernels.items()}
-    print("  " + r.render().replace("\n", "\n  "))
-    m = r.outcome.server
-    n = r.outcome.result.n_queries
-    check(r.passed, "phase 15 main path: the review REJECTED the run")
-    check(launches["decode_attention"] == cfg.n_layers * engine.decode_steps,
-          f"phase 15 decode launches {launches['decode_attention']} != "
-          f"{cfg.n_layers} layers x {engine.decode_steps} decode steps")
-    check(launches["flash_attention"] == cfg.n_layers * n,
-          f"phase 15 flash launches {launches['flash_attention']} != "
-          f"{cfg.n_layers} layers x {n} admissions")
-    dom = r.per_domain_energy_j
-    sampler = sut.trace.segments[0][1]
-    counter_j = sut.trace.energy_j()
-    acc_j = dom["accelerator"]
-    err = abs(acc_j - counter_j) / counter_j
-    window = r.summary.window_s
-    lead, tail = sut.trace.gaps_s(r.outcome.result.duration_s)
-    acc_w = acc_j / window
-    tokens = m.total_tokens
-    print(f"  (b) {n} requests, {tokens} tokens in {window:.3f} s: "
-          f"{m.tokens_per_s:.1f} tok/s, TTFT p50/p99 "
-          f"{m.ttft_p(50) * 1e3:.1f}/{m.ttft_p(99) * 1e3:.1f} ms, TPOT "
-          f"mean {m.tpot_mean * 1e3:.2f} ms; launches: decode "
-          f"{launches['decode_attention']} (28 x {engine.decode_steps} "
-          f"steps), flash {launches['flash_attention']} (28 x {n})")
-    print("  (b) energy: " + "; ".join(
-        f"{k} {v:.3f} J ({'measured, NVML counter' if k == 'accelerator' else 'derived: PSU of the rails' if k == 'wall' else 'modeled'})"
-        for k, v in sorted(dom.items()))
-          + f"; accelerator {acc_w:.2f} W average")
-    print(f"  (b) {tokens / acc_j:.4f} tok/J at the accelerator "
-          f"(measured), {tokens / r.summary.energy_j:.4f} tok/J at the "
-          f"wall; the counter's delta over the serve {counter_j:.3f} J in "
-          f"{sampler.window_s():.3f} s, {sampler.n_samples} readings every "
-          f"{sampler.period_s * 1e3:.3f} ms; stack vs counter "
-          f"{err * 100:.3f} %; the sampler read {lead * 1e3:.3f} ms "
-          f"before the serve's t = 0 and {tail * 1e3:.3f} ms after its "
-          f"window")
-    check(0 <= lead <= sampler.period_s and 0 <= tail <= sampler.period_s,
-          f"phase 15: the serve's window is not inside the sampler's "
-          f"readings to within one period ({sampler.period_s * 1e3:.3f} "
-          f"ms): {lead * 1e3:.3f} ms before, {tail * 1e3:.3f} ms after")
-    check(err <= ENERGY_ALIGN_TOL,
-          f"phase 15: the stack's accelerator energy {acc_j:.3f} J is "
-          f"{err * 100:.2f} % off the counter's delta {counter_j:.3f} J")
-    check(0.5 * idle_w <= acc_w <= 1.05 * limit_w,
-          f"phase 15: accelerator {acc_w:.2f} W outside [{0.5 * idle_w:.2f},"
-          f" {1.05 * limit_w:.2f}] W")
+        b = measured_server(torch, engine, requests, "qwen3-1.7b", meter,
+                            idle_w, limit_w, "phase 15")
+    launches, acc_j, counter_j = b["launches"], b["accelerator_j"], \
+        b["counter_j"]
 
     # (c) the serving-throughput benchmark on the card
     st = serving_throughput.metrics(device=dev, smoke=True)
@@ -2337,10 +2331,108 @@ def phase_power(torch, dev, model, engine, requests) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return dict(launches=launches, idle_w=idle_w, limit_w=limit_w,
-                counter_period_s=period, tokens_per_s=m.tokens_per_s,
+                counter_period_s=period, tokens_per_s=b["tokens_per_s"],
                 accelerator_j=acc_j, counter_j=counter_j,
+                tok_per_j_accelerator=b["tok_per_j_accelerator"],
+                tok_per_j_wall=b["tok_per_j_wall"])
+
+
+def measured_server(torch, engine, requests, name, meter, idle_w, limit_w,
+                    label) -> dict:
+    """``PowerRun(ContinuousBatchingSUT(engine, energy_meter=meter),
+    Server(mode="queue", target_qps=8, min_queries=16, latency_slo_s=10))``
+    over ``requests``' prompts and budgets (phase 15's settings): the
+    review must ACCEPT, the stack's accelerator energy lie within
+    ``ENERGY_ALIGN_TOL`` of the counter's delta over the serve, the
+    serve's window inside the sampler's readings to within one period,
+    the accelerator's average watts between half ``idle_w`` and 1.05 x
+    ``limit_w``, and the launches be exact (flash a layer per admission,
+    decode a layer per decode step).  Returns its launches, Joules and
+    rates."""
+    import numpy as np
+    from repro_torch.harness import ContinuousBatchingSUT, PowerRun, Server
+    from repro_torch.serving import Request
+
+    cfg = engine.model.cfg
+
+    def make_request(i, s, a):
+        qid = s["qid"]
+        r = requests[qid % len(requests)]
+        return Request(rid=qid, prompt=r.prompt,
+                       max_new_tokens=r.max_new_tokens, arrival_s=a)
+
+    engine.serve([Request(rid=-1, prompt=np.arange(64), max_new_tokens=9)],
+                 honor_arrivals=False)
+    sut = ContinuousBatchingSUT(engine, cfg, name=f"{name}-continuous",
+                                make_request=make_request,
+                                energy_meter=meter)
+    torch.cuda.synchronize()
+    kernels = launch_counters()
+    for k in kernels.values():
+        k.launches = 0
+    r = PowerRun(sut, Server(mode="queue", target_qps=8.0, min_queries=16,
+                             latency_slo_s=10.0, min_duration_s=1.0),
+                 seed=0).run()
+    launches = {name: k.launches for name, k in kernels.items()}
+    print("  " + r.render().replace("\n", "\n  "))
+    m = r.outcome.server
+    n = r.outcome.result.n_queries
+    layers = cfg.n_layers
+    check(r.passed, f"{label} main path: the review REJECTED the run")
+    check(launches["decode_attention"] == layers * engine.decode_steps,
+          f"{label} decode launches {launches['decode_attention']} != "
+          f"{layers} layers x {engine.decode_steps} decode steps")
+    check(launches["flash_attention"] == layers * n,
+          f"{label} flash launches {launches['flash_attention']} != "
+          f"{layers} layers x {n} admissions")
+    dom = r.per_domain_energy_j
+    sampler = sut.trace.segments[0][1]
+    counter_j = sut.trace.energy_j()
+    acc_j = dom["accelerator"]
+    err = abs(acc_j - counter_j) / counter_j
+    window = r.summary.window_s
+    lead, tail = sut.trace.gaps_s(r.outcome.result.duration_s)
+    acc_w = acc_j / window
+    tokens = m.total_tokens
+    print(f"  {n} requests, {tokens} tokens in {window:.3f} s: "
+          f"{m.tokens_per_s:.1f} tok/s, TTFT p50/p99 "
+          f"{m.ttft_p(50) * 1e3:.1f}/{m.ttft_p(99) * 1e3:.1f} ms, TPOT "
+          f"mean {m.tpot_mean * 1e3:.2f} ms; launches: decode "
+          f"{launches['decode_attention']} ({layers} x "
+          f"{engine.decode_steps} steps), flash "
+          f"{launches['flash_attention']} ({layers} x {n})")
+    print("  energy: " + "; ".join(
+        f"{k} {v:.3f} J ({'measured, NVML counter' if k == 'accelerator' else 'derived: PSU of the rails' if k == 'wall' else 'modeled'})"
+        for k, v in sorted(dom.items()))
+          + f"; accelerator {acc_w:.2f} W average")
+    host_j = sum(v for k, v in dom.items()
+                 if k not in ("accelerator", "wall"))
+    print(f"  {tokens / acc_j:.4f} tok/J at the accelerator (measured), "
+          f"{tokens / r.summary.energy_j:.4f} tok/J at the wall; the "
+          f"modeled rails other than the accelerator {host_j:.3f} J; the "
+          f"counter's delta over the serve {counter_j:.3f} J in "
+          f"{sampler.window_s():.3f} s, {sampler.n_samples} readings every "
+          f"{sampler.period_s * 1e3:.3f} ms; stack vs counter "
+          f"{err * 100:.3f} %; the sampler read {lead * 1e3:.3f} ms "
+          f"before the serve's t = 0 and {tail * 1e3:.3f} ms after its "
+          f"window")
+    check(0 <= lead <= sampler.period_s and 0 <= tail <= sampler.period_s,
+          f"{label}: the serve's window is not inside the sampler's "
+          f"readings to within one period ({sampler.period_s * 1e3:.3f} "
+          f"ms): {lead * 1e3:.3f} ms before, {tail * 1e3:.3f} ms after")
+    check(err <= ENERGY_ALIGN_TOL,
+          f"{label}: the stack's accelerator energy {acc_j:.3f} J is "
+          f"{err * 100:.2f} % off the counter's delta {counter_j:.3f} J")
+    check(0.5 * idle_w <= acc_w <= 1.05 * limit_w,
+          f"{label}: accelerator {acc_w:.2f} W outside [{0.5 * idle_w:.2f},"
+          f" {1.05 * limit_w:.2f}] W")
+    return dict(launches=launches, accelerator_j=acc_j, counter_j=counter_j,
+                tokens_per_s=m.tokens_per_s, passed=r.passed,
+                completed=sut.completed, decode_steps=engine.decode_steps,
+                n_queries=n,
                 tok_per_j_accelerator=tokens / acc_j,
-                tok_per_j_wall=tokens / r.summary.energy_j)
+                tok_per_j_wall=tokens / r.summary.energy_j,
+                host_share=host_j / r.summary.energy_j)
 
 
 # Phase 16 (a): paged verify at the chunk shapes of the sweep's geometry
@@ -2953,9 +3045,10 @@ def check_launches(label: str, got: dict, layers: int, log: list,
               f"expected from the serves' request streams and counts")
 
 
-def phase_faults(torch, dev, model, params, engine, requests) -> dict:
-    """Phase 17: fault injection on the main path at full width (phase
-    4's weights and engine).  (a) ``PowerRun(ContinuousBatchingSUT(
+def phase_faults(torch, dev, model, params, requests) -> dict:
+    """Phase 17: fault injection on the main path at full width, on the
+    first ``CUT_LAYERS`` layers of phase 4's model (its weights) and an
+    engine of its own in phase 4's geometry.  (a) ``PowerRun(ContinuousBatchingSUT(
     engine, energy_meter=NVML), Server(mode="queue"), fault_plan=
     FaultPlan([MeterDropout("wall", ...)]))``: hardened (``meter_retry=
     RetryPolicy()``) the review ACCEPTs with the wall's coverage 1.0
@@ -2968,7 +3061,7 @@ def phase_faults(torch, dev, model, params, engine, requests) -> dict:
     weights, two engines, modeled rails, each serve on a virtual clock)
     with replica 1 crashing halfway through its share: with ``retry``
     no qid lost or duplicated, launches exact for every serve of both
-    replicas, and every request's tokens those of phase 4's engine
+    replicas, and every request's tokens those of the first engine
     serving the same requests offline, except from a near-tie on;
     without it the run raises; a set of measured replicas is refused.  Returns the launches of (a), (b) and
     (c)'s crashed run."""
@@ -2979,9 +3072,14 @@ def phase_faults(torch, dev, model, params, engine, requests) -> dict:
     from repro_torch.harness import (ContinuousBatchingSUT, PowerRun,
                                      ReplicatedSUT, Server)
     from repro_torch.power.nvml import NVML
-    from repro_torch.serving import ContinuousBatchingEngine, Request
+    from repro_torch.serving import (ContinuousBatchingEngine, Request,
+                                     truncate_draft)
 
     t_phase = time.perf_counter()
+    model, params = truncate_draft(model, params, CUT_LAYERS)
+    engine = ContinuousBatchingEngine(model, params, max_len=2048,
+                                      n_slots=8, chunk_steps=8, device=dev)
+    print(f"  on the first {CUT_LAYERS} of phase 4's 28 layers")
     cfg = model.cfg
     layers = cfg.n_layers
     kernels = launch_counters()
@@ -3709,6 +3807,11 @@ def phase_fleet(torch, dev) -> dict:
 # 17 (c)'s): the unsharded and the sharded engine then admit, chunk and
 # retire alike, so their tokens, launches and counts compare exactly.
 TP_TICK_S = 0.1
+# Phases 17 and 21 run on the first CUT_LAYERS of phase 4's 28 layers
+# (shared weights, an engine of the truncated model's own in phase 4's
+# geometry), so that the script, phases 22-23 included, keeps inside its
+# time limit.
+CUT_LAYERS = 14
 
 
 def clocked_serve(torch, engine, requests, honor_arrivals=True) -> tuple:
@@ -3824,7 +3927,7 @@ def profile_decode_chunk(torch, engine, reps: int = 3) -> dict:
                 nccl_names=[])
 
 
-def phase_tp(torch, dev, model, params, engine, requests) -> dict:
+def phase_tp(torch, dev, model, params, requests) -> dict:
     """Phase 21: tensor-parallel serving at TP 1 through an NCCL group
     of one rank on ``cuda:0`` (in-process, ``file://`` rendezvous), on
     phase 4's weights.  (a) Phase 4's 16 requests with their arrivals,
@@ -3838,16 +3941,23 @@ def phase_tp(torch, dev, model, params, engine, requests) -> dict:
     prefix-cache serve and a k = 4 speculative serve (2-layer draft on
     the damped weights), each against its unsharded engine as in (a).
     (e) ``ShardedSUT`` under ``PowerRun(Server)`` with the card's NVML
-    meter: ACCEPTED, launches exact; tok/s and tok/J printed.  Returns
-    the sharded serves' launches."""
+    meter: ACCEPTED, launches exact; tok/s and tok/J printed.  All of it
+    on the first ``CUT_LAYERS`` layers of phase 4's model and a
+    contiguous engine of its own in phase 4's geometry.  Returns the
+    sharded serves' launches."""
     import datetime
     import shutil
     import tempfile
 
     import numpy as np
     import torch.distributed as dist
+    from repro_torch.serving import ContinuousBatchingEngine, truncate_draft
 
     t_phase = time.perf_counter()
+    model, params = truncate_draft(model, params, CUT_LAYERS)
+    engine = ContinuousBatchingEngine(model, params, max_len=2048,
+                                      n_slots=8, chunk_steps=8, device=dev)
+    print(f"  on the first {CUT_LAYERS} of phase 4's 28 layers")
     print(f"  torch.cuda.device_count() = {torch.cuda.device_count()}; one "
           f"NCCL rank on {dev} (a run across cards waits for a 4-chip cell)")
     tmp = tempfile.mkdtemp(prefix="chip-smoke-tp-")
@@ -4163,6 +4273,698 @@ def phase_rwkv_consistency(torch, dev, cfg, params):
               f"{rel:.3e}")
 
 
+# Phase 22: qwen3-moe-30b-a3b at full width (48 layers, d_model 2,048,
+# 32 query heads and 4 KV heads of 128 (G 8), 128 experts top-8 of
+# width 768, padded vocab 153,600, bf16, seeded random weights).
+MOE_ARCH = "qwen3-moe-30b-a3b"
+# (d): chunked prefill over phase 6's traffic, in chunks of this many
+# prompt tokens (a 1,536-token prompt fills in 6)
+MOE_PREFILL_CHUNK = 256
+# (d): one wave of 8 requests, this many tokens each
+MOE_WAVE_TOKENS = 24
+# (e): the speculative window, its draft (full width) and the budget of
+# each of its 8 requests
+MOE_SPEC_K = 4
+MOE_DRAFT = "qwen3-1.7b"
+MOE_SPEC_TOKENS = 32
+# Phase 23: deepseek-v3-671b at full width on its first 4 layers (the 3
+# first_k_dense MLA layers and 1 MLA-MoE layer) and its MTP block
+MLA_ARCH = "deepseek-v3-671b"
+MLA_LAYERS = 4
+MLA_LONG = 1100     # a prompt the reference's MLA query chunking refuses
+
+
+def peak_gb(torch, label: str) -> float:
+    """Print and return the peak of ``torch.cuda.max_memory_allocated``
+    since the last reset, in GB, and reset it."""
+    gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"  {label}: peak memory allocated {gb:.2f} GB of "
+          f"{torch.cuda.get_device_properties(0).total_memory / 1e9:.2f}")
+    torch.cuda.reset_peak_memory_stats()
+    return gb
+
+
+def ptxas_g8(log: str) -> list[str]:
+    """The rows of ``ptxas_report`` whose kernel is instantiated at G 8
+    (a template argument of 8 after the dtype and head dim)."""
+    names = [(r, r.rsplit(": ", 1)[0]) for r in ptxas_report(log)]
+    return [r for r, n in names if "<8," in n or ", 8," in n]
+
+
+def phase_moe_kernels(torch, dev) -> dict:
+    """Phase 22 (a): the five attention kernels at qwen3-moe's shape (H
+    32, KVH 4, G 8, D 128, bf16) against their plain versions, timed by
+    events and kernel-only, beside the plain version's time, SDPA's
+    (kernel-only too) and the bound: decode and paged decode (8 slots
+    over 2,048 rows at ragged depths; paged through a shuffled table of
+    16-row pages, bit for bit against decode); verify at the speculative
+    window (T 5: T * G = 40 window rows a KV head, the tile route), bit
+    for bit against paged verify; paged verify at a prefix hit's suffix
+    (T 200 behind 1,024) and a prefill chunk (T 64 at 704); flash causal
+    at S 1,024.  Each kernel's ptxas registers and spills at G 8 are
+    printed from phase 2's build logs."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import build
+    from repro_torch.kernels.decode_attention.ops import (
+        decode_attention, decode_attention_plain)
+    from repro_torch.kernels.decode_attention.ops import plan as decode_plan
+    from repro_torch.kernels.flash_attention.ops import (
+        _route, _sm_count, flash_attention, flash_attention_plain,
+        flash_attention_split_plain)
+    from repro_torch.kernels.paged_decode_attention.ops import (
+        paged_decode_attention, paged_decode_attention_plain)
+    from repro_torch.kernels.paged_verify_attention.ops import (
+        paged_verify_attention, paged_verify_attention_plain)
+    from repro_torch.kernels.verify_attention.ops import (
+        verify_attention, verify_attention_plain)
+
+    for name, (_, log) in build.build_log.items():
+        for row in ptxas_g8(log):
+            print(f"  {name}.cu at G 8: {row}")
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2222)
+    b, kvh, g, d, s, ps = 8, 4, 8, 128, 2048, 16
+    h, nb = kvh * g, s // ps
+    n_sm = _sm_count(dev.index)
+    out = {}
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(bf16)
+
+    q, kc, vc = randn(b, 1, h, d), randn(b, s, kvh, d), randn(b, s, kvh, d)
+    ragged = torch.tensor([0, 2047, 1024, 17, 511, 1500, 300, 2000],
+                          dtype=torch.int32, device=dev)
+    mask = (torch.arange(s, device=dev)[None, :]
+            <= ragged[:, None])[:, None, None, :]
+    route, n_split, per = decode_plan("decode_attention", h, kvh, d, bf16, s,
+                                      b * kvh, n_sm)
+    got = decode_attention(q, kc, vc, ragged)
+    err, rel = compare("decode_attention (G 8)", got,
+                       decode_attention_plain(q, kc, vc, ragged))
+    compare("decode_attention (G 8) vs the split plain version", got,
+            flash_attention_split_plain(q, kc, vc, causal=True,
+                                        keys_per_split=per, offsets=ragged))
+    print(f"  decode_attention G 8 route {route} ({n_split} splits of "
+          f"{per}): max |kernel - plain| {err:.3e}, rel {rel:.3e}")
+    out["decode_attention"] = dict(
+        max_abs_err=err, kernel_route=route, **decode_times(
+            torch, "decode_attention (G 8)", F,
+            lambda: decode_attention(q, kc, vc, ragged),
+            lambda: decode_attention_plain(q, kc, vc, ragged),
+            q, kc, vc, mask, ragged))
+
+    pages = (torch.randperm(b * nb, generator=gen, device=dev) + 1).reshape(
+        b, nb).to(torch.int32)
+    kp = torch.full((b * nb + 1, ps, kvh, d), 1e4, dtype=bf16, device=dev)
+    vp = torch.full_like(kp, -1e4)
+    kp[pages.long()] = kc.reshape(b, nb, ps, kvh, d)
+    vp[pages.long()] = vc.reshape(b, nb, ps, kvh, d)
+    got = paged_decode_attention(q, kp, vp, pages, ragged)
+    err, rel = compare("paged_decode_attention (G 8)", got,
+                       paged_decode_attention_plain(q, kp, vp, pages,
+                                                    ragged))
+    check(torch.equal(got, decode_attention(q, kc, vc, ragged)),
+          "paged_decode_attention (G 8) is not bit-identical to "
+          "decode_attention through a shuffled page table")
+    blocks = int(((ragged.long() + ps) // ps).sum())
+    out["paged_decode_attention"] = dict(
+        max_abs_err=err, kernel_route=route, **decode_times(
+            torch, "paged_decode_attention (G 8; SDPA: contiguous)", F,
+            lambda: paged_decode_attention(q, kp, vp, pages, ragged),
+            lambda: paged_decode_attention_plain(q, kp, vp, pages, ragged),
+            q, kc, vc, mask, ragged, extra_bytes=blocks * 4 + b * 4))
+
+    def window_times(name, kernel, plain, qw, kfull, vfull, starts, t,
+                     extra_bytes=0):
+        """Events, kernel-only, plain, SDPA (boolean mask on the
+        contiguous rows) and the bound of a T-token window call."""
+        bw = qw.shape[0]
+        q_pos = starts.long()[:, None] + torch.arange(t, device=dev)[None]
+        skv = int(starts.max()) + t
+        vmask = (torch.arange(skv, device=dev)[None, None, :]
+                 <= q_pos[:, :, None])[:, None].expand(bw, h, t, skv)
+        kk, vv = kfull[:, :skv], vfull[:, :skv]
+
+        def sdpa():
+            return F.scaled_dot_product_attention(
+                qw.transpose(1, 2), kk.transpose(1, 2), vv.transpose(1, 2),
+                attn_mask=vmask, enable_gqa=True)
+
+        ms = time_ms(kernel)
+        dev_ms, kerns = device_ms(torch, kernel)
+        plain_ms = time_ms(plain)
+        lib_ms = time_ms(sdpa)
+        lib_dev_ms, _ = device_ms(torch, sdpa)
+        rows = int((starts.long() + t).sum())
+        nbytes = rows * kvh * d * 2 * 2 + 2 * qw.numel() * 2 + extra_bytes
+        flops = int((q_pos + 1).sum()) * h * d * 4
+        bound_ms, bound_by = bound(nbytes, flops)
+        rt = _route(t, kfull.shape[1], h, kvh, d, bf16)
+        print(f"  {name} B={bw} T={t} G={g} route {rt}: kernel {ms:.4f} ms "
+              f"(kernel-only {fmt_ms(dev_ms)}: {kerns}), plain "
+              f"{plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms (kernel-only "
+              f"{fmt_ms(lib_dev_ms)}), bound {bound_ms * 1e3:.2f} us "
+              f"({bound_by}, {nbytes} B, {flops} flop)")
+        return dict(kernel_route=rt, ms=ms, device_ms=dev_ms,
+                    plain_ms=plain_ms, library_ms=lib_ms,
+                    library_device_ms=lib_dev_ms, bound_ms=bound_ms,
+                    bound_by=bound_by)
+
+    t = MOE_SPEC_K + 1
+    starts = ragged.clamp(max=s - t)
+    qw = randn(b, t, h, d)
+    got = verify_attention(qw, kc, vc, starts)
+    err, _ = compare("verify_attention (G 8, T 5)", got,
+                     verify_attention_plain(qw, kc, vc, starts))
+    check(torch.equal(got, paged_verify_attention(qw, kp, vp, pages,
+                                                  starts)),
+          "verify_attention (G 8, T 5) is not bit-identical to "
+          "paged_verify_attention through a shuffled page table")
+    check(_route(t, s, h, kvh, d, bf16) == "mma",
+          "verify at T 5, G 8 did not take the tensor-core tile route")
+    out["verify_attention"] = dict(max_abs_err=err, **window_times(
+        "verify_attention (G 8)",
+        lambda: verify_attention(qw, kc, vc, starts),
+        lambda: verify_attention_plain(qw, kc, vc, starts), qw, kc, vc,
+        starts, t, extra_bytes=b * 4))
+
+    pv = {}
+    for t, start in ((200, 1024), (64, 704)):
+        qw = randn(1, t, h, d)
+        st = torch.tensor([start], dtype=torch.int32, device=dev)
+        pg1 = pages[:1]
+        got = paged_verify_attention(qw, kp, vp, pg1, st)
+        err, _ = compare(f"paged_verify_attention (G 8, T {t} at {start})",
+                         got, paged_verify_attention_plain(qw, kp, vp, pg1,
+                                                           st))
+        check(torch.equal(got, verify_attention(qw, kc[:1], vc[:1], st)),
+              f"paged_verify_attention (G 8, T {t}) is not bit-identical "
+              f"to verify_attention")
+        pv[f"t{t}_at{start}"] = dict(max_abs_err=err, **window_times(
+            f"paged_verify_attention (G 8, at {start})",
+            lambda: paged_verify_attention(qw, kp, vp, pg1, st),
+            lambda: paged_verify_attention_plain(qw, kp, vp, pg1, st),
+            qw, kc[:1], vc[:1], st, t,
+            extra_bytes=-(-(start + t) // ps) * 4 + 4))
+    out["paged_verify_attention"] = dict(
+        pv["t200_at1024"], chunk=pv["t64_at704"],
+        max_abs_err=max(r["max_abs_err"] for r in pv.values()))
+
+    sq = 1024
+    qf, kf, vf = randn(1, sq, h, d), randn(1, sq, kvh, d), randn(1, sq, kvh, d)
+    got = flash_attention(qf, kf, vf, causal=True)
+    err, _ = compare("flash_attention (G 8, S 1,024)", got,
+                     flash_attention_plain(qf, kf, vf, causal=True))
+    ms = time_ms(lambda: flash_attention(qf, kf, vf, causal=True))
+    dev_ms, kerns = device_ms(torch,
+                              lambda: flash_attention(qf, kf, vf, causal=True))
+    plain_ms = time_ms(lambda: flash_attention_plain(qf, kf, vf, causal=True))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(
+            qf.transpose(1, 2), kf.transpose(1, 2), vf.transpose(1, 2),
+            is_causal=True, enable_gqa=True)
+
+    lib_ms = time_ms(sdpa)
+    lib_dev_ms, _ = device_ms(torch, sdpa)
+    flops = 4 * h * d * sq * (sq + 1) // 2
+    nbytes = (2 * sq * h * d + 2 * sq * kvh * d) * 2
+    bound_ms, bound_by = bound(nbytes, flops)
+    rt = _route(sq, sq, h, kvh, d, bf16)
+    print(f"  flash_attention S={sq} H={h} KVH={kvh} route {rt}: kernel "
+          f"{ms:.4f} ms (kernel-only {fmt_ms(dev_ms)}: {kerns}), plain "
+          f"{plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms (kernel-only "
+          f"{fmt_ms(lib_dev_ms)}), bound {bound_ms * 1e3:.2f} us "
+          f"({bound_by}, {flops} flop)")
+    out["flash_attention"] = dict(
+        max_abs_err=err, kernel_route=rt, ms=ms, device_ms=dev_ms,
+        plain_ms=plain_ms, library_ms=lib_ms, library_device_ms=lib_dev_ms,
+        bound_ms=bound_ms, bound_by=bound_by)
+    return out
+
+
+def check_served(label, done, requests, vp) -> dict:
+    """Every request completed with its whole budget of tokens inside
+    the padded vocabulary; returns {rid: output}."""
+    check(len(done) == len(requests),
+          f"{label}: {len(done)} of {len(requests)} requests completed")
+    for r in done:
+        check(len(r.output) == r.max_new_tokens,
+              f"{label}: request {r.rid}: {len(r.output)} of "
+              f"{r.max_new_tokens} tokens")
+        check(all(0 <= t < vp for t in r.output),
+              f"{label}: request {r.rid}: token outside the padded "
+              f"vocabulary")
+    return {r.rid: r.output for r in done}
+
+
+def sync_free_chunk(torch, engine, model, params, prompts) -> None:
+    """Fill the engine's slots with ``prompts`` and run one decode chunk
+    with ``torch.cuda.set_sync_debug_mode("error")``: any operation that
+    waits for the device (a device-to-host copy, ``bincount``'s read of
+    its maximum, ``nonzero``) raises."""
+    engine.reset()
+    for b, prompt in enumerate(prompts):
+        engine._prefill_slot(params, engine.state, prompt, b, 64)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        engine.state, buf = engine._decode_chunk(params, engine.state)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    toks = buf.cpu()
+    check(bool(((toks >= 0) & (toks < model.vp)).all()),
+          "the sync-free decode chunk emitted tokens outside the vocab")
+    print(f"  one decode chunk ({engine.chunk_steps} steps, "
+          f"{len(prompts)} slots) ran with set_sync_debug_mode('error'): "
+          f"no operation waited for the device")
+
+
+def routing_recorder(torch, layers_mod, forced=None):
+    """Wrap ``layers._route`` to keep every call's top-k experts (each
+    row's set, sorted) in call order; returns (the list, an undo).  With
+    ``forced`` (another run's ``_route`` outputs, in call order) each
+    call takes that call's experts instead of its own, with its own
+    gates for them (the softmax router's renormalised probabilities:
+    qwen3-moe's), so that the two runs route alike."""
+    orig = layers_mod._route
+    calls = []
+
+    def rec(x2d, router_w, mo, router_type):
+        topv, topi, aux = orig(x2d, router_w, mo, router_type)
+        if forced is not None:
+            topi = forced[len(calls)]
+            probs = torch.softmax(x2d.float() @ router_w.float(), dim=-1)
+            topv = probs.gather(-1, topi)
+            topv = topv / (topv.sum(-1, keepdim=True) + 1e-9)
+        calls.append(topi)
+        return topv, topi, aux
+
+    layers_mod._route = rec
+    return calls, lambda: setattr(layers_mod, "_route", orig)
+
+
+def moe_consistency(torch, dev, cfg, params) -> dict:
+    """Phase 22 (c): phase 5's prefills and teacher-forced ragged decode
+    steps through the kernel path and the plain path on the same weights,
+    with every MoE call's routing kept.  Routing is discontinuous: a
+    one-ulp difference in attention can move a token's top-k set, and
+    then its expert outputs, the capacity left to the other tokens of
+    its call and every later row of its slot, differ for a reason that
+    is not the kernels.  So the share of (token, layer) top-k sets that
+    agree is reported; a logit row is held to phase 5's
+    ``LOGIT_REL_TOL`` when every routing call its slot's rows took part
+    in agreed on every row (a decode call's capacity is shared by the
+    batch), the other rows are reported.  Then the plain path runs again
+    with the kernel path's experts forced at every call, so that only
+    the kernels' rounding parts the two: every row is held to
+    ``LOGIT_REL_TOL``."""
+    import numpy as np
+    from repro_torch.models import build_model
+    from repro_torch.models import layers as L
+
+    rng = np.random.default_rng(1)
+    lens = (300, 17, 1024, 129)
+    prompts = [torch.as_tensor(rng.integers(0, cfg.vocab_size, n),
+                               device=dev)[None] for n in lens]
+    forced = torch.as_tensor(rng.integers(0, cfg.vocab_size, (4, 6)),
+                             device=dev)
+    n_layers = cfg.n_layers
+    runs, routes = [], []
+    for kernels, force in ((True, None), (False, None), (False, True)):
+        model = build_model(cfg, dev, kernels=kernels)
+        calls, undo = routing_recorder(torch, L,
+                                       routes[0] if force else None)
+        try:
+            cache, logits = prefill_slots(torch, model, params, prompts,
+                                          1280)
+            with torch.no_grad():
+                for step in range(forced.shape[1]):
+                    lg, cache = model.decode_step(params, cache,
+                                                  forced[:, step:step + 1])
+                    logits.extend(lg[:, -1])
+        finally:
+            undo()
+        runs.append(torch.stack(logits).float())
+        routes.append(calls)
+        del cache
+    got, want, pinned = runs
+    # per call: which rows' sets agree; calls are prefill slot 0..3 (a
+    # call a layer each), then decode steps (a call a layer, 4 rows)
+    same = [(a.sort(-1).values == b.sort(-1).values).all(-1)
+            for a, b in zip(routes[0], routes[1], strict=True)]
+    n_sets = sum(int(m.numel()) for m in same)
+    n_agree = sum(int(m.sum()) for m in same)
+    pre = [all(bool(m.all()) for m in same[i * n_layers:(i + 1) * n_layers])
+           for i in range(len(lens))]
+    ok_rows, step_ok = list(pre), True
+    for j in range(forced.shape[1]):
+        base = (len(lens) + j) * n_layers
+        step_ok = step_ok and all(bool(m.all())
+                                  for m in same[base:base + n_layers])
+        ok_rows += [pre[b] and step_ok for b in range(len(lens))]
+    ok = torch.tensor(ok_rows, device=got.device)
+    scale = want.abs().max()
+    rel_rows = (got - want).abs().amax(-1) / scale
+    agree_tok = (got.argmax(-1) == want.argmax(-1))
+    print(f"  routing: {n_agree}/{n_sets} (token, layer) top-"
+          f"{cfg.moe.top_k} sets agree ({n_agree / n_sets:.4%}); "
+          f"{int(ok.sum())}/{ok.numel()} logit rows whose every routing "
+          f"call agreed (prefills agreeing: {pre})")
+    if bool(ok.any()):
+        rel = float(rel_rows[ok].max())
+        print(f"  those rows: max |kernel - plain| / max |plain| = "
+              f"{rel:.3e}, argmax agreement "
+              f"{float(agree_tok[ok].float().mean()):.3f}")
+        check(rel <= LOGIT_REL_TOL,
+              f"phase 22 (c): kernel-path logits differ by {rel} on rows "
+              f"whose routing agreed")
+    bad = [(i, round(float(rel_rows[i]), 4), bool(agree_tok[i]))
+           for i in range(ok.numel()) if not bool(ok[i])]
+    print(f"  rows whose routing parted somewhere (row, rel, argmax "
+          f"equal), reported: {bad}")
+    rel_pin = float((got - pinned).abs().max() / pinned.abs().max())
+    agree_pin = float((got.argmax(-1) == pinned.argmax(-1)).float().mean())
+    print(f"  the plain path with the kernel path's experts forced at every "
+          f"call: max |kernel - plain| / max |plain| = {rel_pin:.3e} over "
+          f"all {got.shape[0]} rows, argmax agreement {agree_pin:.3f}")
+    check(bool(torch.isfinite(got).all()), "phase 22 (c): non-finite "
+          "logits")
+    check(rel_pin <= LOGIT_REL_TOL,
+          f"phase 22 (c): with the routing forced alike, kernel-path "
+          f"logits differ by {rel_pin}")
+    return dict(sets_agree=n_agree / n_sets, rows_gated=int(ok.sum()),
+                rows=ok.numel(), forced_rel=rel_pin)
+
+
+def phase_moe(torch, dev) -> dict:
+    """Phase 22: qwen3-moe-30b-a3b at full width.  (a) the five kernels at
+    G 8 (``phase_moe_kernels``); (b) and (f) in one serve: phase 4's
+    traffic through the contiguous engine behind ``measured_server``
+    (phase 15's Server with the NVML meter: ACCEPT, launches exact),
+    every budget met; (c) kernel path vs plain path
+    (``moe_consistency``); (d) the paged engine with prefix caching on
+    phase 6's traffic (launches exact), phase 6's traffic through chunked
+    prefill as well (reported against the monolithic paged run), and one
+    wave of 8 requests with equal budgets through the contiguous engine
+    and a paged one with shuffled pages: equal tokens; (e) ``spec_k = 4``
+    with a full-width qwen3-1.7b draft on 8 requests offline, launches
+    exact; a decode chunk under ``set_sync_debug_mode("error")``; a
+    decode step's time and kernels (``launch.profile_engine``'s
+    measurement).  Returns the launches of each part and (a)'s kernel
+    rows."""
+    import copy
+
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.launch import profile_engine as pe
+    from repro_torch.launch.serve import summarize
+    from repro_torch.models import build_model
+    from repro_torch.models.param import tree_leaves
+    from repro_torch.power.nvml import NVML
+    from repro_torch.serving import (ContinuousBatchingEngine, PagePool,
+                                     Request)
+
+    torch.cuda.reset_peak_memory_stats()
+    out = {"launches": {}}
+    print("  (a) the five attention kernels at G 8")
+    out["kernels"] = phase_moe_kernels(torch, dev)
+    peak_gb(torch, "(a)")
+
+    cfg = get_config(MOE_ARCH)
+    model = build_model(cfg, dev)
+    t0 = time.perf_counter()
+    params = model.init(seed=0)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    expert_bytes = sum(params["blocks"]["moe"][n].numel() * 2
+                       for n in ("w_gate", "w_up", "w_down"))
+    print(f"  {cfg.n_layers} layers, d_model {cfg.d_model}, heads "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} of {cfg.head_dim}, "
+          f"{cfg.moe.n_experts} experts top-{cfg.moe.top_k} of width "
+          f"{cfg.moe.d_expert}, padded vocab {model.vp}: "
+          f"{n_params / 1e9:.3f} B params ({cfg.dtype}), drawn in "
+          f"{time.perf_counter() - t0:.2f} s; the experts' weights "
+          f"{expert_bytes / 1e9:.2f} GB (every decode step reads them all: "
+          f"{expert_bytes / HBM_BYTES_PER_S * 1e3:.2f} ms at "
+          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s)")
+    peak_gb(torch, "weights")
+    layers = cfg.n_layers
+
+    print("  (b) phase 4's traffic through the contiguous engine, served "
+          "under PowerRun (Server, phase 15's settings) with the NVML "
+          "meter: that is (f) as well")
+    engine = ContinuousBatchingEngine(model, params, max_len=2048,
+                                      n_slots=8, chunk_steps=8, device=dev)
+    requests = phase4_requests(cfg)
+    with NVML(dev) as nvml:
+        limit_w = nvml.power_limit_w()
+        meter = nvml.energy_meter()
+        torch.cuda.synchronize()
+        with meter() as idle:
+            time.sleep(1.0)
+        idle_w = idle.energy_j() / idle.window_s()
+        print(f"  idle {idle_w:.2f} W over {idle.window_s():.3f} s, "
+              f"enforced limit {limit_w:.2f} W")
+        f = measured_server(torch, engine, requests, MOE_ARCH, meter,
+                            idle_w, limit_w, "phase 22 (b, f)")
+    check(len(f["completed"]) == f["n_queries"],
+          f"phase 22 (b): {len(f['completed'])} of {f['n_queries']} "
+          f"queries completed")
+    for r in f["completed"]:
+        check(len(r.output) == r.max_new_tokens
+              and all(0 <= t < model.vp for t in r.output),
+              f"phase 22 (b): request {r.rid}: {len(r.output)} of "
+              f"{r.max_new_tokens} tokens, or one outside the vocabulary")
+    print(f"  (b) {f['n_queries']} requests, every budget met; launches "
+          f"exact: decode {f['launches']['decode_attention']} = {layers} x "
+          f"{f['decode_steps']} steps, flash "
+          f"{f['launches']['flash_attention']} = {layers} x "
+          f"{f['n_queries']} admissions")
+    print(f"  (f) ACCEPTED: {f['tokens_per_s']:.1f} tok/s, "
+          f"{f['tok_per_j_accelerator']:.4f} tok/J at the accelerator, "
+          f"{f['tok_per_j_wall']:.4f} at the wall, modeled host share "
+          f"{f['host_share']:.4f} of the wall's Joules")
+    out["launches"]["b_f"] = f["launches"]
+    out["power"] = {k: v for k, v in f.items() if k != "completed"}
+    peak_gb(torch, "(b, f)")
+
+    print("  (c) kernel path vs plain path")
+    out["consistency"] = moe_consistency(torch, dev, cfg, params)
+    gc.collect()
+    torch.cuda.empty_cache()
+    peak_gb(torch, "(c)")
+
+    print("  (d) paged engine with prefix caching, phase 6's traffic")
+    paged_launches, paged_done = phase_paged_engine(torch, dev, model,
+                                                    params)
+    out["launches"]["d_paged"] = paged_launches
+    chunked = ContinuousBatchingEngine(
+        model, params, max_len=2048, n_slots=8, chunk_steps=8,
+        kv_page_size=16, prefix_caching=True,
+        prefill_chunk_tokens=MOE_PREFILL_CHUNK, device=dev)
+    reqs6 = [Request(rid=r.rid, prompt=r.prompt,
+                     max_new_tokens=r.max_new_tokens, arrival_s=r.arrival_s)
+             for r in paged_done]
+    reqs6.sort(key=lambda r: r.rid)
+    done, wall_s, launches = count_launches(
+        torch, lambda: chunked.serve(copy.deepcopy(reqs6)))
+    got = check_served("phase 22 (d) chunked", done, reqs6, model.vp)
+    want = {r.rid: r.output for r in paged_done}
+    m = summarize(done, wall_s)
+    print_served(m, wall_s, chunked)
+    st = chunked.sched_stats
+    print(f"  chunked prefill ({MOE_PREFILL_CHUNK}-token chunks): "
+          f"{st['prefill_chunks']} prefill chunks, "
+          f"{st['interleaved_chunks']} of {st['decode_chunks']} decode "
+          f"chunks interleaved; {chunked.prefix_stats['hits']} prefix hits;"
+          f" requests token-identical to the monolithic paged run "
+          f"{sum(got[i] == want[i] for i in want)}/{len(want)} (reported: "
+          f"a chunk's rows set the MoE capacity, as in the reference)")
+    check(launches["paged_verify_attention"] == layers * st["prefill_chunks"],
+          f"phase 22 (d) chunked: paged verify launches "
+          f"{launches['paged_verify_attention']} != {layers} x "
+          f"{st['prefill_chunks']} chunks")
+    check(launches["paged_decode_attention"] == layers * chunked.decode_steps,
+          "phase 22 (d) chunked: paged decode launches are not a layer per "
+          "decode step")
+    check(launches["flash_attention"] == launches["decode_attention"] == 0,
+          "phase 22 (d) chunked: flash or contiguous decode launched")
+    out["launches"]["d_chunked"] = launches
+    del chunked
+    # one wave: 8 requests admitted together, equal budgets, so that no
+    # slot retires while another decodes (a retired slot's rows read its
+    # own cache row in the contiguous engine and the garbage page in the
+    # paged one, and reach the others through expert capacity)
+    wave = [Request(rid=i, prompt=requests[i].prompt,
+                    max_new_tokens=MOE_WAVE_TOKENS) for i in range(8)]
+    cont = {r.rid: r.output for r in engine.serve(copy.deepcopy(wave),
+                                                  honor_arrivals=False)}
+    paged = ContinuousBatchingEngine(model, params, max_len=2048,
+                                     n_slots=8, chunk_steps=8,
+                                     kv_page_size=16, device=dev)
+    order = np.random.default_rng(7).permutation(paged.n_pages - 1) + 1
+    paged.page_pool = PagePool(paged.n_pages, paged.page_size,
+                               order=order.tolist())
+    pgot = {r.rid: r.output for r in paged.serve(copy.deepcopy(wave),
+                                                 honor_arrivals=False)}
+    n_same = sum(pgot[i] == cont[i] for i in cont)
+    print(f"  one wave of 8 ({MOE_WAVE_TOKENS} tokens each): paged "
+          f"(shuffled pages) vs "
+          f"contiguous {n_same}/8 requests token-identical")
+    check(n_same == 8, "phase 22 (d): paged tokens differ from the "
+          "contiguous engine's on one wave")
+    del paged
+    gc.collect()
+    torch.cuda.empty_cache()
+    peak_gb(torch, "(d)")
+
+    print(f"  (e) speculative decoding, k = {MOE_SPEC_K}, full-width "
+          f"{MOE_DRAFT} draft")
+    dcfg = get_config(MOE_DRAFT)
+    dmodel = build_model(dcfg, dev)
+    dparams = dmodel.init(seed=0)
+    spec = ContinuousBatchingEngine(model, params, max_len=2048, n_slots=8,
+                                    chunk_steps=8, spec_k=MOE_SPEC_K,
+                                    draft_model=dmodel,
+                                    draft_params=dparams, device=dev)
+    reqs8 = [Request(rid=r.rid, prompt=r.prompt,
+                     max_new_tokens=MOE_SPEC_TOKENS) for r in requests[:8]]
+    spec.serve([Request(rid=-1, prompt=np.arange(64), max_new_tokens=9)],
+               honor_arrivals=False)
+    done, wall_s, launches = count_launches(
+        torch, lambda: spec.serve(copy.deepcopy(reqs8),
+                                  honor_arrivals=False))
+    check_served("phase 22 (e)", done, reqs8, model.vp)
+    rounds = spec.spec_rounds
+    print(f"  {len(done)} requests, {sum(len(r.output) for r in done)} "
+          f"tokens in {wall_s:.3f} s, {rounds} rounds, acceptance "
+          f"{spec.acceptance_rate():.4f}; launches: " + ", ".join(
+              f"{k} {n}" for k, n in launches.items()))
+    check(launches["verify_attention"] == layers * rounds,
+          f"phase 22 (e): verify launches {launches['verify_attention']} "
+          f"!= {layers} x {rounds} rounds")
+    check(launches["decode_attention"]
+          == dcfg.n_layers * (MOE_SPEC_K + 1) * rounds,
+          f"phase 22 (e): draft decode launches "
+          f"{launches['decode_attention']} != {dcfg.n_layers} x "
+          f"{MOE_SPEC_K + 1} x {rounds}")
+    check(launches["flash_attention"] == (layers + dcfg.n_layers) * len(reqs8),
+          f"phase 22 (e): flash launches {launches['flash_attention']} != "
+          f"({layers} + {dcfg.n_layers}) x {len(reqs8)} admissions")
+    check(spec.host_syncs * spec.chunk_steps == rounds,
+          "phase 22 (e): more than one host copy per chunk of rounds")
+    out["launches"]["e"] = launches
+    out["spec"] = dict(rounds=rounds, acceptance=spec.acceptance_rate(),
+                       wall_s=wall_s)
+    peak_gb(torch, "(e)")
+    del spec, dmodel, dparams
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    rng = np.random.default_rng(5)
+    prompts = [torch.as_tensor(rng.integers(0, cfg.vocab_size, 1024),
+                               device=dev)[None] for _ in range(8)]
+    sync_free_chunk(torch, engine, model, params, prompts)
+
+    # a decode step's time and kernels, as launch.profile_engine measures
+    # it: 8 slots behind 1,024-token prompts
+    def chunk():
+        engine.state, _ = engine._decode_chunk(params, engine.state)
+
+    chunk()
+    step = pe._profiled(chunk, pe._wall_ms(chunk, 4))
+    steps = engine.chunk_steps
+    print(f"  decode step (8 slots at ~1,024): {step['wall_ms'] / steps:.3f}"
+          f" ms host wall, {step['kernel_ms'] / steps:.3f} ms of kernels "
+          f"(busy {step['busy_share']:.1%}), "
+          f"{step['n_kernels'] // steps} kernels a step; expert weights "
+          f"alone {expert_bytes / HBM_BYTES_PER_S * 1e3:.2f} ms at the "
+          f"HBM rate")
+    for t in step["top"][:8]:
+        print(f"    {t['ms'] / steps:9.3f} ms a step x{t['count'] // steps:<5}"
+              f" {t['kernel']}")
+    out["step"] = dict(wall_ms=step["wall_ms"] / steps,
+                       kernel_ms=step["kernel_ms"] / steps,
+                       busy_share=step["busy_share"],
+                       expert_bound_ms=expert_bytes / HBM_BYTES_PER_S * 1e3)
+    out["peak_gb"] = peak_gb(torch, "decode chunk and step profile")
+    del engine, model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_mla(torch, dev) -> dict:
+    """Phase 23: deepseek-v3-671b at full width on its first
+    ``MLA_LAYERS`` layers (3 MLA layers with a dense FFN of 18,432, then
+    1 MLA layer with 256 routed experts top-8 and a shared expert, the
+    sigmoid router) and its MTP block, bf16, seeded weights: 8 requests
+    offline through the contiguous engine, one of ``MLA_LONG`` tokens
+    (past the reference's 1,024-row query chunk, not a multiple of it);
+    the same through ``kernels=False``: equal tokens (MLA and the MoE
+    have no kernel, so the two paths run the same code); no kernel
+    launched; a decode chunk under ``set_sync_debug_mode("error")``."""
+    import copy
+
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models.param import tree_leaves
+    from repro_torch.serving import ContinuousBatchingEngine, Request
+
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(MLA_ARCH, n_layers=MLA_LAYERS)
+    model = build_model(cfg, dev)
+    params = model.init(seed=0)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    print(f"  {cfg.n_layers} of 61 layers ({cfg.moe.first_k_dense} dense + "
+          f"{cfg.n_layers - cfg.moe.first_k_dense} MoE), d_model "
+          f"{cfg.d_model}, {cfg.n_heads} heads, MLA ranks "
+          f"{cfg.mla.q_lora_rank}/{cfg.mla.kv_lora_rank}, "
+          f"{cfg.moe.n_experts} experts top-{cfg.moe.top_k} + "
+          f"{cfg.moe.n_shared} shared, padded vocab {model.vp}: "
+          f"{n_params / 1e9:.3f} B params ({cfg.dtype}, MTP block "
+          f"included)")
+    peak_gb(torch, "weights")
+    rng = np.random.default_rng(6)
+    lens = [MLA_LONG] + [int(x) for x in rng.integers(128, 1025, 7)]
+    reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, n),
+                    max_new_tokens=int(rng.integers(16, 49)))
+            for i, n in enumerate(lens)]
+    outs = {}
+    for kernels in (True, False):
+        m = model if kernels else build_model(cfg, dev, kernels=False)
+        eng = ContinuousBatchingEngine(m, params, max_len=2048, n_slots=8,
+                                       chunk_steps=8, device=dev)
+        eng.serve([Request(rid=-1, prompt=np.arange(64), max_new_tokens=9)],
+                  honor_arrivals=False)
+        done, wall_s, launches = count_launches(
+            torch, lambda: eng.serve(copy.deepcopy(reqs),
+                                     honor_arrivals=False))
+        outs[kernels] = check_served(f"phase 23 (kernels={kernels})", done,
+                                     reqs, model.vp)
+        print(f"  kernels={kernels}: {len(done)} requests (prompts "
+              f"{lens}), {sum(len(o) for o in outs[kernels].values())} "
+              f"tokens in {wall_s:.3f} s, {eng.decode_steps} decode steps, "
+              f"host syncs {eng.host_syncs}; launches {launches}")
+        check(not any(launches.values()),
+              "phase 23: the MLA stack launched an attention kernel")
+    check(outs[True] == outs[False],
+          "phase 23: kernels=True and kernels=False gave other tokens on "
+          "the same code path")
+    print("  tokens equal between kernels=True and kernels=False: 8/8")
+    prompts = [torch.as_tensor(rng.integers(0, cfg.vocab_size, 512),
+                               device=dev)[None] for _ in range(8)]
+    sync_free_chunk(torch, eng, model, params, prompts)
+    out = dict(params_b=n_params / 1e9, peak_gb=peak_gb(torch, "phase 23"))
+    del eng, model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4232,7 +5034,7 @@ def main() -> int:
     phase_consistency(torch, dev, cfg, params)
 
     phase("phase 6: full-width paged engine with prefix caching")
-    paged_launches = phase_paged_engine(torch, dev, model, params)
+    paged_launches, _ = phase_paged_engine(torch, dev, model, params)
 
     phase("phase 7: paged vs contiguous tokens; prefix hit vs cold logits")
     phase_token_identity(torch, dev, model, params, engine, requests)
@@ -4254,7 +5056,7 @@ def main() -> int:
 
     phase("phase 17: faults on the main path (meter dropout, queue "
           "overload, a replica crash)")
-    fault_launches = phase_faults(torch, dev, model, params, engine,
+    fault_launches = phase_faults(torch, dev, model, params,
                                   requests)
 
     phase("phase 18: the prefix-cache and speculative benchmarks on the "
@@ -4276,7 +5078,7 @@ def main() -> int:
     phase("phase 21: tensor-parallel serving at TP 1 through an NCCL "
           "group of one rank")
     print(smi.strip())
-    tp = phase_tp(torch, dev, model, params, engine, requests)
+    tp = phase_tp(torch, dev, model, params, requests)
 
     # the qwen3 weights, engines and damped copy go before rwkv6-3b
     del engine, make, model, params
@@ -4301,6 +5103,17 @@ def main() -> int:
 
     phase("phase 14: full-width whisper-small through ServeEngine")
     whisper_launches = phase_whisper(torch, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    phase("phase 22: full-width qwen3-moe-30b-a3b (MoE, G 8)")
+    print(smi.strip())
+    moe = phase_moe(torch, dev)
+
+    phase(f"phase 23: full-width deepseek-v3-671b on {MLA_LAYERS} of its "
+          f"61 layers (MLA, MoE with a shared expert)")
+    print(smi.strip())
+    mla = phase_mla(torch, dev)
 
     # launches: each kernel's count on its own paths' runs (phases 4, 14,
     # 15, 17 and 20 for decode and flash, 16, 18 and 19 for flash, 18 for
@@ -4310,23 +5123,30 @@ def main() -> int:
     # flash, the paged pair and verify)
     dec = "src/repro/kernels/decode_attention/decode_attention.py"
     by_phase = {"4": launches, "14": whisper_launches,
+                "22": {k: sum(part[k] for part in moe["launches"].values())
+                       for k in launches},
                 "15": power["launches"], "16": slo_launches,
                 "17": fault_launches, "18": {
                     k: prefix_launches[k] + spec_bench_launches[k]
                     for k in prefix_launches},
                 "19": disagg_launches, "20": fleet_launches,
                 "21": tp["launches"]}
-    uses = {"decode_attention": ("4", "14", "15", "17", "18", "20", "21"),
+    uses = {"decode_attention": ("4", "14", "15", "17", "18", "20", "21",
+                                 "22"),
             "flash_attention": ("4", "14", "15", "16", "17", "18", "19",
-                                "20", "21"),
-            "paged_decode_attention": ("6", "16", "18", "19", "21"),
-            "paged_verify_attention": ("6", "16", "18", "21"),
-            "verify_attention": ("8", "18", "21")}
+                                "20", "21", "22"),
+            "paged_decode_attention": ("6", "16", "18", "19", "21", "22"),
+            "paged_verify_attention": ("6", "16", "18", "21", "22"),
+            "verify_attention": ("8", "18", "21", "22")}
     by_phase["6"], by_phase["8"] = paged_launches, spec_launches
     totals = {}
     for name, phases in uses.items():
         kernels[name]["launches_by_phase"] = {
             p: by_phase[p][name] for p in phases}
+        g8 = moe["kernels"][name]
+        kernels[name]["g8"] = g8
+        kernels[name]["max_abs_err"] = max(kernels[name]["max_abs_err"],
+                                           g8["max_abs_err"])
         totals[name] = sum(kernels[name]["launches_by_phase"].values())
     sources = {
         "decode_attention": (f"{dec}:351", totals),
@@ -4345,6 +5165,11 @@ def main() -> int:
              source=f"src/repro_torch/kernels/csrc/{name}.cu",
              replaces=replaces, launches=counts[name], **kernels[name])
         for name, (replaces, counts) in sources.items()]}
+    print(f"phase 22: {moe['step']['wall_ms']:.3f} ms a decode step "
+          f"({moe['step']['kernel_ms']:.3f} ms of kernels), "
+          f"{moe['power']['tok_per_j_accelerator']:.4f} tok/J at the "
+          f"accelerator, peak {moe['peak_gb']:.2f} GB; phase 23: "
+          f"{mla['params_b']:.3f} B params, peak {mla['peak_gb']:.2f} GB")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi.strip())
     print(json.dumps(record))

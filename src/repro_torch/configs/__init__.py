@@ -1,8 +1,9 @@
 """Config registry: ``get_config("qwen3-1.7b")`` and reduced smoke configs.
 
-The dense decoder family, rwkv6, the whisper encoder-decoder and the
-tiny keyword spotter are ported so far; asking for any other architecture the JAX package knows
-raises ``NotImplementedError``.
+The dense decoder family, the MoE and MLA-MoE decoders (qwen3-moe,
+deepseek-v3), rwkv6, the whisper encoder-decoder and the tiny keyword
+spotter are ported so far; asking for any other architecture the JAX
+package knows raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -18,17 +19,17 @@ _ARCH_MODULES = {
     "granite-3-2b": "granite_3_2b",
     "qwen2.5-3b": "qwen2_5_3b",
     "qwen3-1.7b": "qwen3_1_7b",
+    "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
+    "deepseek-v3-671b": "deepseek_v3_671b",
     "rwkv6-3b": "rwkv6_3b",
     "tiny-kws": "tiny_kws",
     "whisper-small": "whisper_small",
     "yi-9b": "yi_9b",
 }
 
-# architectures of the reference package whose families (MoE, MLA,
-# hybrid, VLM) the port does not run yet
+# architectures of the reference package whose families (hybrid, VLM)
+# the port does not run yet
 _NOT_PORTED = {
-    "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
-    "deepseek-v3-671b": "deepseek_v3_671b",
     "phi-3-vision-4.2b": "phi_3_vision_4_2b",
     "jamba-v0.1-52b": "jamba_v0_1_52b",
     "edge-vit": "edge_vit",
@@ -49,7 +50,8 @@ def get_config(name: str, **overrides) -> ModelConfig:
     if key in _NOT_PORTED:
         raise NotImplementedError(
             f"arch {key!r} is not ported yet, see ROADMAP §A.11 "
-            f"(the port runs the dense, rwkv, encdec and tiny families: "
+            f"(the port runs the dense, moe, mla_moe, rwkv, encdec and "
+            f"tiny families: "
             f"{list_archs()})")
     if key not in _ARCH_MODULES:
         raise KeyError(f"unknown arch {name!r}; have {list_archs()}")
@@ -66,13 +68,16 @@ def reduce_config(cfg: ModelConfig) -> ModelConfig:
 
     The same cut as the reference ``reduce_config`` for the ported
     families: at most 4 layers, width 128, 4/2 heads of 32, vocab 512,
-    float32; rwkv keeps 4/4 heads of 32; encdec keeps 2 encoder layers
-    over 64 frames and 2 decoder layers.  A tiny config is returned
-    unchanged (it is already tiny).
+    float32; rwkv keeps 4/4 heads of 32; MoE keeps at most 8 experts,
+    top-2, of width 128 and at most 1 leading dense layer (of width 256
+    where the config has one); MLA takes ranks 64/32 and head dims
+    32 + 16 / 32; encdec keeps 2 encoder layers over 64 frames and 2
+    decoder layers.  A tiny config is returned unchanged (it is already
+    tiny).
     """
     if cfg.family == "tiny":
         return cfg
-    if cfg.family not in ("dense", "rwkv", "encdec"):
+    if cfg.family not in ("dense", "moe", "mla_moe", "rwkv", "encdec"):
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet, see ROADMAP §A.11")
     changes: dict = dict(
@@ -88,6 +93,19 @@ def reduce_config(cfg: ModelConfig) -> ModelConfig:
     )
     if cfg.family == "rwkv":
         changes.update(n_heads=4, n_kv_heads=4, d_head=32)
+    if cfg.moe is not None:
+        changes["moe"] = dataclasses.replace(
+            cfg.moe,
+            n_experts=min(cfg.moe.n_experts, 8),
+            top_k=min(cfg.moe.top_k, 2),
+            d_expert=128,
+            first_k_dense=min(cfg.moe.first_k_dense, 1),
+            d_ff_dense=256 if cfg.moe.d_ff_dense else None,
+        )
+    if cfg.mla is not None:
+        changes["mla"] = MLAConfig(q_lora_rank=64, kv_lora_rank=32,
+                                   qk_nope_head_dim=32, qk_rope_head_dim=16,
+                                   v_head_dim=32)
     if cfg.encdec is not None:
         changes["encdec"] = dataclasses.replace(cfg.encdec, enc_layers=2,
                                                 enc_len=64)

@@ -17,13 +17,13 @@ tokens), then, after one warm-up chunk, measures:
   of the speculative engine (``SPEC_K`` drafts from a 2-layer truncated
   draft, the target's layers past 2 damped to 0.001: ``chip_smoke.py``
   phase 8's pair), its slots filled the same way, per round; only for
-  an architecture with a verify path (not rwkv6-3b);
+  a dense target (a truncated draft needs one);
 - prefix hit: the same for one admission of a ``PROMPT_LEN +
   SUFFIX_LEN``-token prompt into the paged engine (pages of
   ``PAGE_SIZE``, the radix prefix cache on, ``chip_smoke.py`` phase 6's
   engine) whose first ``PROMPT_LEN`` tokens are cached: the
   ``SUFFIX_LEN``-token suffix runs through paged verify attention behind
-  them; for the same architectures.
+  them; for the GQA stacks (dense and moe: not rwkv6-3b, nor MLA).
 
 whisper-small (an encoder-decoder, which the slot engine refuses) is
 profiled as ``chip_smoke.py`` phase 14 serves it through ``ServeEngine``:
@@ -253,9 +253,11 @@ def main(argv=None):
                   kernel_ms_per_step=decode["kernel_ms"] / steps)
     prefill = _profiled(lambda: admit(0), _wall_ms(lambda: admit(0), 2))
 
-    dense = model.kind == "attn_dense"
+    # a truncated draft needs a dense target; the prefix hit a GQA stack
+    dense = cfg.family == "dense"
     rounds = _profile_spec(model, params, rng) if dense else None
-    hit = _profile_prefix_hit(model, params, rng) if dense else None
+    hit = (_profile_prefix_hit(model, params, rng)
+           if cfg.family in ("dense", "moe") else None)
 
     smi = _smi()
     depth = int(eng.state["cache"]["pos"].max())

@@ -1,19 +1,22 @@
-"""Transformer layers of the dense decoder and the encoder-decoder
-(PyTorch port).
+"""Transformer layers of the decoders and the encoder-decoder (PyTorch
+port).
 
-The dense subset of the reference ``models/layers.py``: norms, RoPE,
+The reference ``models/layers.py`` but for training: norms, RoPE,
 full-sequence GQA attention (an encoder's, bidirectional), GQA
 prefill/decode/verify with the KV-cache write, the paged-KV decode and
-verify paths, and the SwiGLU FFN.  The reference's ``shard`` is an
-identity outside a mesh and is dropped; its ``tp_psum`` after each
-row-parallel projection is ``LM``'s all-reduce over its ``tp_group``
-(``models/lm.py``).  Attention goes through the kernel wrappers when ``kernels``
-is set (CPU tensors still take the plain version inside them) and
-straight to the plain versions otherwise.
+verify paths, absorbed MLA (DeepSeek's latent attention) with its
+latent cache, the SwiGLU FFN and the sort-based, capacity-limited MoE
+layer on its local path (no expert parallelism).  The reference's
+``shard`` is an identity outside a mesh and is dropped; its ``tp_psum``
+after each row-parallel projection is ``LM``'s all-reduce over its
+``tp_group`` (``models/lm.py``).  Attention goes through the kernel
+wrappers when ``kernels`` is set (CPU tensors still take the plain
+version inside them) and straight to the plain versions otherwise.
 """
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -83,51 +86,74 @@ def rope(x, positions, theta: float):
 # KV cache write
 # ----------------------------------------------------------------------
 def cache_update_window(cache, new, pos):
-    """Write ``new`` (B, T, KVH, D) at rows ``[pos, pos + T)`` of
-    ``cache`` (B, S, KVH, D), in place (the reference's one-hot update
-    rebuilds the cache; its jit donates the buffer, so this is the same
-    state change).  ``pos`` is a scalar or a per-slot (B,) tensor:
-    every slot writes its own contiguous window.
+    """Write ``new`` (B, T, ...) at rows ``[pos, pos + T)`` of ``cache``
+    (B, S, ...), in place (the reference's one-hot update rebuilds the
+    cache; its jit donates the buffer, so this is the same state
+    change).  ``pos`` is a scalar or a per-slot (B,) tensor: every slot
+    writes its own contiguous window.  The trailing dims are K/V's
+    (KVH, D) or an MLA latent's (R,).
 
-    Rows past S - 1 are clamped to S - 1, where the reference's one-hot
-    writes nothing: only a slot the engine has already retired can sit
-    that deep (a zero-budget prompt of exactly ``max_len`` tokens), its
-    row is garbage either way and is rewritten at the next prefill.
-    The clamp keeps the write free of a host sync.
+    Rows past S - 1 are written nowhere, as the reference's one-hot
+    writes them (only a slot the engine has retired can sit that deep,
+    and an MoE layer lets its row reach the others through expert
+    capacity).  Without a host sync: they aim at row S - 1 with the
+    value that row ends up holding, so duplicate writes agree.
     """
     b, t = new.shape[:2]
-    pos = torch.as_tensor(pos, device=cache.device).long()
+    s = cache.shape[1]
+    dev = cache.device
+    new = new.to(cache.dtype)
+    pos = torch.as_tensor(pos, device=dev).long()
     if pos.ndim == 0:
         pos = pos.expand(b)
-    rows = pos[:, None] + torch.arange(t, device=cache.device)[None, :]
-    slots = torch.arange(b, device=cache.device)[:, None].expand(b, t)
-    cache.index_put_((slots, rows.clamp(max=cache.shape[1] - 1)),
-                     new.to(cache.dtype))
+    rows = pos[:, None] + torch.arange(t, device=dev)[None, :]
+    slots = torch.arange(b, device=dev)[:, None].expand(b, t)
+    tail = (1,) * (new.ndim - 2)
+    if t == 1:
+        last = cache[:, s - 1:s]
+    else:
+        # row S - 1's final value: the window's, where it reaches it
+        at = (s - 1 - pos).clamp(0, t - 1)
+        last = torch.where((pos < s).view(b, 1, *tail),
+                           new[slots[:, 0], at][:, None], cache[:, s - 1:s])
+    vals = torch.where((rows < s).view(b, t, *tail), new, last)
+    cache.index_put_((slots, rows.clamp(max=s - 1)), vals)
     return cache
 
 
 def cache_update(cache, new, pos):
-    """Write ``new`` (B, 1, KVH, D) into ``cache`` (B, S, KVH, D) at
-    ``pos``, a scalar or a per-slot (B,) tensor, in place: the T = 1
-    case of ``cache_update_window``."""
+    """Write ``new`` (B, 1, ...) into ``cache`` (B, S, ...) at ``pos``, a
+    scalar or a per-slot (B,) tensor, in place: the T = 1 case of
+    ``cache_update_window``."""
     return cache_update_window(cache, new, pos)
 
 
 def paged_dest(pages, pos, t: int, page_size: int):
-    """Physical (page, offset) index tensors, each (B, T), of logical
-    rows ``[pos, pos + T)`` of every slot through the page table
-    ``pages`` (B, NB).  Rows whose logical block falls off the table
-    clamp to the slot's last table entry: retired slots' tables are
-    reset to the reserved garbage page 0, so their frozen in-chunk
-    writes can never corrupt a reallocated page.  The model computes
-    it once per step and shares it across layers and K/V."""
+    """Where logical rows ``[pos, pos + T)`` of every slot land through
+    the page table ``pages`` (B, NB): (page, offset), each (B, T), and
+    ``last`` (B * T,), for each write the index of the last write to
+    the same place.  Rows whose logical block falls off the table clamp
+    to the slot's last table entry: retired slots' tables are reset to
+    the reserved garbage page 0, so their frozen in-chunk writes can
+    never corrupt a reallocated page.  Several frozen slots may write
+    one garbage row; the reference's scatter keeps the last of them,
+    and ``paged_insert_window`` writes that one's value for each, so
+    that the garbage a retired slot reads back (which reaches live
+    slots through MoE capacity) is the same on every device and run.
+    The model computes it once per step and shares it across layers
+    and K/V."""
     b = pages.shape[0]
     pos = torch.as_tensor(pos, device=pages.device).long()
     if pos.ndim == 0:
         pos = pos.expand(b)
     rows = pos[:, None] + torch.arange(t, device=pages.device)[None, :]
     blk = (rows // page_size).clamp(max=pages.shape[1] - 1)
-    return torch.gather(pages.long(), 1, blk), rows % page_size
+    page, off = torch.gather(pages.long(), 1, blk), rows % page_size
+    key = (page * page_size + off).flatten()
+    idx = torch.arange(key.numel(), device=pages.device)
+    last = torch.where(key[:, None] == key[None, :], idx[None, :],
+                       -1).amax(1)
+    return page, off, last
 
 
 def paged_insert_window(pool, new, pages, pos, dest=None):
@@ -141,7 +167,9 @@ def paged_insert_window(pool, new, pages, pos, dest=None):
     it already."""
     if dest is None:
         dest = paged_dest(pages, pos, new.shape[1], pool.shape[1])
-    pool.index_put_(dest, new.to(pool.dtype))
+    page, off, last = dest
+    vals = new.to(pool.dtype).flatten(0, 1)[last].view(new.shape)
+    pool.index_put_((page, off), vals)
     return pool
 
 
@@ -332,8 +360,9 @@ def gqa_verify_paged(x, p, cfg, cache, pos, pages, *, kernels: bool = True,
 # ----------------------------------------------------------------------
 # Dense FFN (SwiGLU)
 # ----------------------------------------------------------------------
-def ffn_defs(cfg) -> dict:
-    d, dt, f = cfg.d_model, cfg.dtype, cfg.d_ff
+def ffn_defs(cfg, d_ff: Optional[int] = None) -> dict:
+    """SwiGLU weights of width ``d_ff`` (default ``cfg.d_ff``)."""
+    d, dt, f = cfg.d_model, cfg.dtype, d_ff or cfg.d_ff
     return {
         "w_gate": ParamDef((d, f), ("fsdp", "d_ff"), "normal", dt),
         "w_up": ParamDef((d, f), ("fsdp", "d_ff"), "normal", dt),
@@ -346,3 +375,281 @@ def ffn(x, p):
     """SwiGLU FFN."""
     h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
     return h @ p["w_down"]
+
+
+# ----------------------------------------------------------------------
+# MLA (DeepSeek multi-head latent attention), absorbed formulation
+# ----------------------------------------------------------------------
+MASK_VALUE = -1e30
+
+
+def mla_defs(cfg) -> dict:
+    m, d, h, dt = cfg.mla, cfg.d_model, cfg.n_heads, cfg.dtype
+    qk = m.qk_nope_head_dim
+    return {
+        "wq_a": ParamDef((d, m.q_lora_rank), ("fsdp", None), "normal", dt),
+        "q_a_norm": rmsnorm_def(m.q_lora_rank, dt),
+        "wq_b": ParamDef((m.q_lora_rank, h, qk + m.qk_rope_head_dim),
+                         (None, "heads", None), "normal", dt),
+        "wkv_a": ParamDef((d, m.kv_lora_rank + m.qk_rope_head_dim),
+                          ("fsdp", None), "normal", dt),
+        "kv_a_norm": rmsnorm_def(m.kv_lora_rank, dt),
+        "wk_b": ParamDef((h, m.kv_lora_rank, qk), ("heads", None, None),
+                         "normal", dt),
+        "wv_b": ParamDef((h, m.kv_lora_rank, m.v_head_dim),
+                         ("heads", None, None), "normal", dt),
+        "wo": ParamDef((h * m.v_head_dim, d), ("heads_flat", "fsdp"),
+                       "normal", dt,
+                       1.0 / math.sqrt(h * m.v_head_dim * 2 * cfg.n_layers)),
+    }
+
+
+def _mla_qc(x, p, cfg, positions):
+    """Project to the absorbed query (B, S, H, R), its RoPE part (B, S,
+    H, P), and the latent KV: c_kv (B, S, R) and k_rope (B, S, P)."""
+    m = cfg.mla
+    b, s, _ = x.shape
+    qa = rmsnorm(x @ p["wq_a"], p["q_a_norm"], cfg.norm_eps)
+    q = (qa @ p["wq_b"].flatten(1)).view(b, s, *p["wq_b"].shape[1:])
+    q_nope, q_rope = q[..., :m.qk_nope_head_dim], q[..., m.qk_nope_head_dim:]
+    q_rope = rope(q_rope, positions, cfg.rope_theta)
+    # absorb W_uk into q: q' = q_nope @ W_uk^T -> (B, S, H, kv_rank)
+    q_abs = torch.einsum("bshd,hrd->bshr", q_nope, p["wk_b"])
+    kv = x @ p["wkv_a"]
+    c_kv = rmsnorm(kv[..., :m.kv_lora_rank], p["kv_a_norm"], cfg.norm_eps)
+    k_rope = rope(kv[..., m.kv_lora_rank:][:, :, None, :], positions,
+                  cfg.rope_theta)[:, :, 0, :]
+    return q_abs, q_rope, c_kv, k_rope
+
+
+def _mla_scores(q_abs, q_rope, c_kv, k_rope, cfg):
+    """float32 scores (B, H, Sq, S) = q_abs . c_kv + q_rope . k_rope,
+    scaled."""
+    m = cfg.mla
+    scale = 1.0 / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)
+    sc = torch.einsum("bqhr,bsr->bhqs", q_abs.float(), c_kv.float())
+    sc = sc + torch.einsum("bqhp,bsp->bhqs", q_rope.float(), k_rope.float())
+    return sc * scale
+
+
+def _mla_out(sc, c_kv, dtype):
+    """Softmax over the keys, then the output latent (B, Sq, H, R)."""
+    pr = torch.softmax(sc, dim=-1)
+    return torch.einsum("bhqs,bsr->bqhr", pr, c_kv.float()).to(dtype)
+
+
+def _mla_attend(q_abs, q_rope, c_kv, k_rope, cfg, *, causal, pos=None):
+    """Absorbed attention over the latent cache (reference
+    ``_mla_attend``): q_abs (B, Sq, H, R), q_rope (B, Sq, H, P), c_kv
+    (B, S, R), k_rope (B, S, P).  ``causal``: query i sees keys <= i
+    (or <= ``pos`` for every query); otherwise a scalar or per-slot (B,)
+    ``pos`` masks the keys past it.  Returns the output latent o_l =
+    softmax(scores) @ c_kv, to be un-absorbed by W_uv."""
+    sq, s = q_abs.shape[1], c_kv.shape[1]
+    dev = q_abs.device
+    sc = _mla_scores(q_abs, q_rope, c_kv, k_rope, cfg)
+    kv_pos = torch.arange(s, device=dev)
+    if causal:
+        q_pos = (torch.arange(sq, device=dev) if pos is None
+                 else torch.as_tensor(pos, device=dev).expand(sq))
+        sc = torch.where((kv_pos[None, :] <= q_pos[:, None])[None, None],
+                         sc, MASK_VALUE)
+    elif pos is not None:
+        pos = torch.as_tensor(pos, device=dev)
+        if pos.ndim == 1:                       # per-slot depths (B,)
+            msk = kv_pos[None, :] <= pos[:, None]
+            sc = torch.where(msk[:, None, None, :], sc, MASK_VALUE)
+        else:
+            sc = torch.where((kv_pos <= pos)[None, None, None], sc,
+                             MASK_VALUE)
+    return _mla_out(sc, c_kv, q_abs.dtype)
+
+
+def _mla_attend_chunk(q_abs, q_rope, c_kv, k_rope, cfg, offset: int):
+    """Causal output latent of a query chunk at absolute positions
+    ``[offset, offset + Cq)`` over the whole latent cache."""
+    cq, s = q_abs.shape[1], c_kv.shape[1]
+    dev = q_abs.device
+    sc = _mla_scores(q_abs, q_rope, c_kv, k_rope, cfg)
+    msk = (torch.arange(s, device=dev)[None, :]
+           <= (offset + torch.arange(cq, device=dev))[:, None])
+    sc = torch.where(msk[None, None], sc, MASK_VALUE)
+    return _mla_out(sc, c_kv, q_abs.dtype)
+
+
+def _mla_ol_chunked(q_abs, q_rope, c_kv, k_rope, cfg, q_chunk: int = 1024):
+    """Causal absorbed-MLA output latent, chunked over the queries
+    (flash-style: no S x S score tensor past ``q_chunk`` rows).  The
+    last chunk takes whatever rows are left, so any length runs; the
+    reference reshapes by ``S // q_chunk`` and raises unless a prompt
+    longer than ``q_chunk`` is a multiple of it (ROADMAP §C)."""
+    s = q_abs.shape[1]
+    if s <= q_chunk:
+        return _mla_attend(q_abs, q_rope, c_kv, k_rope, cfg, causal=True)
+    return torch.cat([
+        _mla_attend_chunk(q_abs[:, i:i + q_chunk], q_rope[:, i:i + q_chunk],
+                          c_kv, k_rope, cfg, i)
+        for i in range(0, s, q_chunk)], dim=1)
+
+
+def _mla_o(o_l, p):
+    """Un-absorb the output latent (B, Sq, H, R) by W_uv and project
+    out: (B, Sq, d)."""
+    b, sq = o_l.shape[:2]
+    o = torch.einsum("bqhr,hrd->bqhd", o_l, p["wv_b"])
+    return o.reshape(b, sq, -1) @ p["wo"]
+
+
+def mla_prefill(x, p, cfg):
+    """MLA over a whole prompt from position 0: the output and the
+    latent cache rows (c_kv (B, S, R), k_rope (B, S, P)) to keep."""
+    s = x.shape[1]
+    positions = torch.arange(s, device=x.device)
+    q_abs, q_rope, c_kv, k_rope = _mla_qc(x, p, cfg, positions)
+    o_l = _mla_ol_chunked(q_abs, q_rope, c_kv, k_rope, cfg)
+    return _mla_o(o_l, p), (c_kv, k_rope)
+
+
+def mla_decode(x, p, cfg, cache, pos):
+    """One-token MLA decode against ``cache`` = dict(c_kv (B, S, R),
+    k_rope (B, S, P)), written in place at ``pos`` (a scalar or a
+    per-slot (B,) tensor) by ``cache_update``, which drops rows past the
+    cache as the reference's one-hot does."""
+    pos = torch.as_tensor(pos, device=x.device)
+    positions = pos[:, None] if pos.ndim == 1 else pos.reshape(1)
+    q_abs, q_rope, c_new, kr_new = _mla_qc(x, p, cfg, positions)
+    ckv = cache_update(cache["c_kv"], c_new, pos)
+    krp = cache_update(cache["k_rope"], kr_new, pos)
+    o_l = _mla_attend(q_abs, q_rope, ckv, krp, cfg, causal=False, pos=pos)
+    return _mla_o(o_l, p)
+
+
+# ----------------------------------------------------------------------
+# Mixture of Experts: sort-based capacity dispatch, local path
+# ----------------------------------------------------------------------
+def moe_defs(cfg) -> dict:
+    """Router (float32), the experts' stacked SwiGLU weights and, with
+    ``n_shared``, one always-on shared SwiGLU of ``n_shared`` experts'
+    width."""
+    mo, d, dt = cfg.moe, cfg.d_model, cfg.dtype
+    e, f = mo.n_experts, mo.d_expert
+    scale_down = 1.0 / math.sqrt(f * max(1, 2 * cfg.n_layers))
+    defs = {
+        "router": ParamDef((d, e), (None, "experts"), "normal", "float32"),
+        "w_gate": ParamDef((e, d, f), ("experts", "fsdp", "d_expert"),
+                           "normal", dt),
+        "w_up": ParamDef((e, d, f), ("experts", "fsdp", "d_expert"),
+                         "normal", dt),
+        "w_down": ParamDef((e, f, d), ("experts", "d_expert", "fsdp"),
+                           "normal", dt, scale_down),
+    }
+    if mo.n_shared:
+        sf = mo.d_expert * mo.n_shared
+        defs["shared"] = {
+            "w_gate": ParamDef((d, sf), ("fsdp", "d_ff"), "normal", dt),
+            "w_up": ParamDef((d, sf), ("fsdp", "d_ff"), "normal", dt),
+            "w_down": ParamDef((sf, d), ("d_ff", "fsdp"), "normal", dt,
+                               scale_down),
+        }
+    return defs
+
+
+def _top_k(scores, k: int):
+    """The k largest scores of each row and their indices, the lower
+    index first on a tie (as ``jax.lax.top_k``; ``torch.topk`` does not
+    promise an order among ties): a stable descending sort."""
+    v, i = torch.sort(scores, dim=-1, descending=True, stable=True)
+    return v[..., :k], i[..., :k]
+
+
+def _route(x2d, router_w, mo, router_type):
+    """Top-k routing of (N, d) tokens: (topv (N, k) renormalised gate
+    weights, topi (N, k) experts, aux).  ``softmax`` (qwen3-moe) takes
+    the top k of the softmax; ``sigmoid`` (DeepSeek-V3) of the sigmoid
+    scores.  ``aux`` is the Switch load-balance loss, computed as the
+    reference does; serving ignores it."""
+    logits = x2d.float() @ router_w.float()
+    if router_type == "sigmoid":
+        scores = torch.sigmoid(logits)
+        topv, topi = _top_k(scores, mo.top_k)
+        probs = scores / (scores.sum(-1, keepdim=True) + 1e-9)
+    else:
+        probs = torch.softmax(logits, dim=-1)
+        topv, topi = _top_k(probs, mo.top_k)
+    topv = topv / (topv.sum(-1, keepdim=True) + 1e-9)
+    e = router_w.shape[-1]
+    assign = F.one_hot(topi[..., 0], e).float()
+    aux = e * torch.mean(assign.mean(0) * probs.mean(0))
+    return topv, topi, aux
+
+
+def _capacity(n_tokens: int, mo) -> int:
+    """Rows each expert takes from a call of ``n_tokens`` tokens: the
+    reference's, so a call's batch shape decides which assignments
+    drop."""
+    return max(1, int(math.ceil(n_tokens * mo.top_k / mo.n_experts
+                                * mo.capacity_factor)))
+
+
+def _moe_local(x2d, topv, topi, wg, wu, wd, capacity: int):
+    """Sort-based, capacity-limited expert compute (reference
+    ``_moe_local``): the (N, k) assignments are sorted by expert
+    (stably: by token within an expert), each expert takes its first
+    ``capacity`` rows into an (E, capacity, d) buffer and the rest drop
+    (GShard), the experts run as batched GEMMs, and each token sums its
+    kept outputs weighted by its gates.
+
+    No host read: expert counts come from ``scatter_add_`` (not
+    ``bincount``, which reads its maximum back on CUDA).  The dispatch
+    writes dropped rows to one spare buffer row; the combine gathers
+    each token's k outputs back in assignment order and sums them in
+    float32, where the reference scatter-adds (an atomic, run-dependent
+    sum in bf16 on a GPU)."""
+    n, k = topi.shape
+    e = wg.shape[0]
+    dev = x2d.device
+    flat_e = topi.reshape(-1).long()
+    order = torch.sort(flat_e, stable=True).indices
+    tok = order // k
+    se = flat_e[order]
+    counts = torch.zeros(e, dtype=torch.long, device=dev).scatter_add_(
+        0, flat_e, torch.ones_like(flat_e))
+    starts = torch.cumsum(counts, 0) - counts
+    pos_in_e = torch.arange(n * k, device=dev) - starts[se]
+    keep = pos_in_e < capacity
+    slot = torch.where(keep, se * capacity + pos_in_e, e * capacity)
+    buf = torch.zeros((e * capacity + 1, x2d.shape[1]), dtype=x2d.dtype,
+                      device=dev)
+    buf[slot] = x2d[tok]
+    buf = buf[:-1].view(e, capacity, -1)
+    h = F.silu(torch.bmm(buf, wg)) * torch.bmm(buf, wu)
+    out = torch.bmm(h, wd).view(e * capacity, -1)
+    y_sorted = torch.where(keep[:, None],
+                           out[slot.clamp(max=e * capacity - 1)], 0.0)
+    w_sorted = topv.reshape(-1)[order].to(y_sorted.dtype)
+    contrib = y_sorted * w_sorted[:, None]
+    # back to assignment order: token t's k outputs at rows t*k .. t*k+k-1
+    inv = torch.empty_like(order)
+    inv[order] = torch.arange(n * k, device=dev)
+    return contrib[inv].view(n, k, -1).float().sum(1).to(x2d.dtype)
+
+
+def moe_ffn(x, p, cfg, router_type="softmax"):
+    """MoE layer over (B, S, d), all B * S tokens routed in one call
+    (so the capacity follows the call's shape), plus the shared expert
+    where the config has one.  Returns (y, aux)."""
+    mo = cfg.moe
+    b, s, d = x.shape
+    x2d = x.reshape(-1, d)
+    topv, topi, aux = _route(x2d, p["router"], mo, router_type)
+    y = _moe_local(x2d, topv, topi, p["w_gate"], p["w_up"], p["w_down"],
+                   _capacity(x2d.shape[0], mo)).view(b, s, d)
+    if mo.n_shared:
+        y = y + ffn(x, p["shared"])
+    return y, aux
+
+
+def moe_decode(x, p, cfg, router_type="softmax"):
+    """Decode-time MoE (reference ``moe_decode``): on one device the same
+    local path as ``moe_ffn``."""
+    return moe_ffn(x, p, cfg, router_type)

@@ -1,13 +1,19 @@
-"""Decoder-only language model, dense and rwkv families (PyTorch port).
+"""Decoder-only language model: the dense, moe, mla_moe and rwkv
+families (PyTorch port).
 
 The counterpart of the reference ``models/lm.py::LM`` for
-``family == "dense"`` (``attn_dense`` blocks) and ``family == "rwkv"``
-(RWKV-6 blocks): the same parameter tree (one ``"blocks"`` stack with
-a leading layer axis), the same cache tree, and the same ``prefill`` /
-``decode_step`` API.  Layers run as a Python loop over the stack.
-Caches are updated in place where the reference's jitted callers
-donate them.  An rwkv cache holds each layer's recurrent state (``S``
-and the two token-shift rows) instead of K/V rows.
+``family == "dense"`` (``attn_dense`` blocks), ``"moe"`` (``attn_moe``:
+GQA and a top-k MoE FFN), ``"mla_moe"`` (DeepSeek-V3: ``first_k_dense``
+``mla_dense`` blocks, then ``mla_moe`` blocks with a sigmoid router and
+a shared expert) and ``"rwkv"`` (RWKV-6 blocks): the same parameter
+tree (one ``"blocks"`` stack with a leading layer axis, or mla_moe's
+``"dense_blocks"`` and ``"moe_blocks"`` stacks and its ``"mtp"``
+subtree, which serving leaves unused), the same cache tree, and the
+same ``prefill`` / ``decode_step`` API.  Layers run as a Python loop
+over each stack.  Caches are updated in place where the reference's
+jitted callers donate them.  An rwkv cache holds each layer's recurrent
+state (``S`` and the two token-shift rows) instead of K/V rows, an MLA
+cache the latent ``c_kv`` and ``k_rope`` rows.
 
   lm = LM(cfg, device="cuda")
   params = lm.init(seed=0)                 # or param.from_jax(tree)
@@ -22,8 +28,8 @@ all-reduces each block's attention output and FFN output over the
 group, where the reference calls ``tp_psum``.  The paged engine's cache tree (``init_paged_cache``) holds
 page pools shared by all slots plus a ``pages`` table; ``decode_step``
 and ``verify_step`` then go through the page table.  Both need
-random-access KV attention and raise ``NotImplementedError`` for rwkv,
-as the reference does.
+random-access KV attention and raise ``NotImplementedError`` for rwkv
+and MLA, as the reference does.
 """
 from __future__ import annotations
 
@@ -39,70 +45,101 @@ from repro_torch.models.param import (DTYPES, ParamDef, init_params,
                                       stack_tree, tree_map)
 from repro_torch.parallel.sharding import tp_all_reduce
 
-# family -> the one layer kind its homogeneous stack holds
-_LAYER_KINDS = {"dense": "attn_dense", "rwkv": "rwkv"}
+_FAMILIES = ("dense", "moe", "mla_moe", "rwkv")
 
 
 class LM:
-    """Dense GQA decoder or RWKV-6 stack.  ``device`` defaults to
-    ``cuda`` and raises when no GPU is visible.  ``kernels=False`` sends
-    attention and the scan to the plain PyTorch versions on any device
-    (the on-card yardstick); with ``kernels=True`` CUDA tensors go
-    through the hand-written kernels and CPU tensors through the same
-    plain versions.  ``tp_group``: the process group of a tensor-parallel
-    shard (``None``: the whole model, no collective); the group belongs
-    to the model, so a speculative draft built without one stays
-    replicated in the same thread."""
+    """Dense or MoE GQA decoder, MLA-MoE decoder or RWKV-6 stack.
+    ``device`` defaults to ``cuda`` and raises when no GPU is visible.
+    ``kernels=False`` sends attention and the scan to the plain PyTorch
+    versions on any device (the on-card yardstick); with ``kernels=True``
+    CUDA tensors go through the hand-written kernels and CPU tensors
+    through the same plain versions (MLA and the MoE layer have no
+    kernel: both settings run them alike).  ``tp_group``: the process
+    group of a tensor-parallel shard (``None``: the whole model, no
+    collective); the group belongs to the model, so a speculative draft
+    built without one stays replicated in the same thread."""
 
     def __init__(self, cfg: ModelConfig, device="cuda", *,
                  kernels: bool = True, tp_group=None):
-        if cfg.family not in _LAYER_KINDS:
+        if cfg.family not in _FAMILIES:
             raise NotImplementedError(
-                f"family {cfg.family!r}: only the dense (attn_dense) and "
+                f"family {cfg.family!r}: only the dense, moe, mla_moe and "
                 f"rwkv families are ported; see ROADMAP §A.11")
         self.cfg = cfg
         self.vp = L.pad_vocab(cfg.vocab_size)
         self.device = resolve_device(device)
         self.kernels = kernels
         self.dtype = DTYPES[cfg.dtype]
-        self.kind = _LAYER_KINDS[cfg.family]
+        # (stack name, layer kind, layers) in the order they run
+        if cfg.family == "mla_moe":
+            k = cfg.moe.first_k_dense
+            self.groups = [("dense_blocks", "mla_dense", k),
+                           ("moe_blocks", "mla_moe", cfg.n_layers - k)]
+        else:       # a homogeneous stack of the first layer's kind
+            self.groups = [("blocks", self._layer_kinds()[0],
+                            cfg.n_layers)]
         self.tp_group = tp_group
-        if tp_group is not None and self.kind != "attn_dense":
+        if tp_group is not None and cfg.family != "dense":
             raise NotImplementedError(
                 f"family {cfg.family!r}: tensor parallelism shards dense "
-                f"GQA stacks only (parallel.tp_local_config)")
+                f"GQA stacks only (parallel.tp_local_config); expert "
+                f"parallelism is ROADMAP §A.8's later work")
+
+    def _layer_kinds(self) -> list[str]:
+        """Each layer's kind, as the reference's ``LM._layer_kinds``."""
+        cfg = self.cfg
+        kinds = []
+        for i in range(cfg.n_layers):
+            if cfg.family == "rwkv":
+                kinds.append("rwkv")
+                continue
+            mix = "mla" if cfg.mla is not None else "attn"
+            is_moe = False
+            if cfg.moe is not None:
+                is_moe = (i >= cfg.moe.first_k_dense
+                          and (i % cfg.moe.moe_every) == 0)
+            kinds.append(f"{mix}_{'moe' if is_moe else 'dense'}")
+        return kinds
 
     def check_verify(self) -> None:
-        """Raise ``NotImplementedError`` unless the stack has random-access
-        KV attention: verify windows and paged KV need it, and an rwkv
-        state has neither (the reference raises the same)."""
-        if self.kind != "attn_dense":
-            raise NotImplementedError(
-                f"speculative verify and paged KV need random-access KV "
-                f"attention; family {self.cfg.family!r} (layer kind "
-                f"{self.kind!r}) has no multi-token verify or page-table "
-                f"path")
+        """Raise ``NotImplementedError`` unless every layer has
+        random-access KV attention (an ``attn_*`` kind): verify windows
+        and paged KV need it; an rwkv state and an MLA latent cache have
+        neither (the reference raises the same)."""
+        for _, kind, _ in self.groups:
+            if not kind.startswith("attn_"):
+                raise NotImplementedError(
+                    f"speculative verify and paged KV need random-access "
+                    f"KV attention; family {self.cfg.family!r} (layer kind "
+                    f"{kind!r}) has no multi-token verify or page-table "
+                    f"path")
 
     # ------------------------------------------------------------------
     # Parameter definitions
     # ------------------------------------------------------------------
-    def _block_defs(self) -> dict:
-        """One block of the stack's layer kind."""
+    def _block_defs(self, kind: str) -> dict:
+        """One block of layer kind ``kind``."""
         cfg = self.cfg
         d = {"ln1": L.rmsnorm_def(cfg.d_model, cfg.dtype),
              "ln2": L.rmsnorm_def(cfg.d_model, cfg.dtype)}
-        if self.kind == "rwkv":
+        if kind == "rwkv":
             d["time"] = R.rwkv_time_defs(cfg)
             d["chan"] = R.rwkv_channel_defs(cfg)
+            return d
+        mix, ff = kind.split("_")
+        d["attn"] = L.gqa_defs(cfg) if mix == "attn" else L.mla_defs(cfg)
+        if ff == "moe":
+            d["moe"] = L.moe_defs(cfg)
         else:
-            d["attn"] = L.gqa_defs(cfg)
-            d["ffn"] = L.ffn_defs(cfg)
+            d["ffn"] = L.ffn_defs(cfg, cfg.moe.d_ff_dense if cfg.moe
+                                  else None)
         return d
 
     def param_defs(self):
         cfg = self.cfg
         dt = cfg.dtype
-        return {
+        defs: dict[str, Any] = {
             "embed": ParamDef((self.vp, cfg.d_model), ("vocab", "fsdp"),
                               "embed", dt),
             "final_norm": L.rmsnorm_def(cfg.d_model, dt),
@@ -110,8 +147,19 @@ class LM:
             # reference: greedy argmax runs over all of them
             "lm_head": ParamDef((cfg.d_model, self.vp), ("fsdp", "vocab"),
                                 "normal", dt),
-            "blocks": stack_tree(self._block_defs(), cfg.n_layers),
         }
+        for name, kind, n in self.groups:
+            defs[name] = stack_tree(self._block_defs(kind), n)
+        if cfg.mtp:         # DeepSeek-V3's training-only MTP module
+            defs["mtp"] = {
+                "proj": ParamDef((2 * cfg.d_model, cfg.d_model),
+                                 ("fsdp", "embed"), "normal", dt),
+                "norm_h": L.rmsnorm_def(cfg.d_model, dt),
+                "norm_e": L.rmsnorm_def(cfg.d_model, dt),
+                "block": self._block_defs(
+                    "mla_dense" if cfg.mla is not None else "attn_dense"),
+            }
+        return defs
 
     def init(self, seed: int = 0):
         """Seeded random weights, drawn on the model's device."""
@@ -122,18 +170,29 @@ class LM:
     # ------------------------------------------------------------------
     # Block application
     # ------------------------------------------------------------------
-    def _apply_block(self, x, bp, mode, cache, pos, pages=None, dest=None):
-        """One block; ``cache`` (this layer's dict of cache leaves) is
-        written in place.  An ``attn_dense`` block's cache is dict(k,
-        v); ``pages`` (B, NB) switches its decode and verify to the paged
-        KV pool: the cache leaves are then shared physical pages, not
-        per-slot rows (``dest``: the window's ``paged_dest``).  Returns
-        the block output."""
+    def _apply_block(self, x, bp, kind, mode, cache, pos, pages=None,
+                     dest=None):
+        """One block of layer kind ``kind``; ``cache`` (this layer's dict
+        of cache leaves) is written in place.  An ``attn_*`` block's
+        cache is dict(k, v); ``pages`` (B, NB) switches its decode and
+        verify to the paged KV pool: the cache leaves are then shared
+        physical pages, not per-slot rows (``dest``: the window's
+        ``paged_dest``).  An ``mla_*`` block's cache is dict(c_kv,
+        k_rope).  A ``*_moe`` block routes all of the call's tokens
+        through one capacity-limited MoE layer.  Returns the block
+        output."""
         cfg = self.cfg
-        if self.kind == "rwkv":
+        if kind == "rwkv":
             return self._apply_rwkv_block(x, bp, mode, cache)
+        mix, ff = kind.split("_")
         h = L.rmsnorm(x, bp["ln1"], cfg.norm_eps)
-        if mode == "prefill":
+        if mode not in ("prefill", "decode", "verify"):
+            raise NotImplementedError(
+                f"mode {mode!r}: training is not ported yet, see ROADMAP "
+                f"§A.12")
+        if mix == "mla":
+            o = self._mla(h, bp["attn"], mode, cache, pos)
+        elif mode == "prefill":
             o, (k, v) = L.gqa_prefill(h, bp["attn"], cfg,
                                       kernels=self.kernels)
             s = k.shape[1]
@@ -148,19 +207,36 @@ class LM:
         elif mode == "decode":
             o = L.gqa_decode(h, bp["attn"], cfg, cache, pos,
                              kernels=self.kernels)
-        elif mode == "verify" and pages is not None:
+        elif pages is not None:
             o = L.gqa_verify_paged(h, bp["attn"], cfg, cache, pos, pages,
                                    kernels=self.kernels, dest=dest)
-        elif mode == "verify":
+        else:
             o = L.gqa_verify(h, bp["attn"], cfg, cache, pos,
                              kernels=self.kernels)
-        else:
-            raise NotImplementedError(
-                f"mode {mode!r}: training is not ported yet, see ROADMAP "
-                f"§A.12")
         x = x + self._reduce(o)
         h2 = L.rmsnorm(x, bp["ln2"], cfg.norm_eps)
+        if ff == "moe":
+            router = "sigmoid" if cfg.family == "mla_moe" else "softmax"
+            moe = L.moe_decode if mode == "decode" else L.moe_ffn
+            return x + moe(h2, bp["moe"], cfg, router)[0]
         return x + self._reduce(L.ffn(h2, bp["ffn"]))
+
+    def _mla(self, h, p, mode, cache, pos):
+        """An MLA block's attention (plain PyTorch: the reference's is
+        jnp, with no Pallas kernel).  Prefill writes the latent rows at
+        [0, S) and zeros after, as the reference pads them."""
+        if mode == "decode":
+            return L.mla_decode(h, p, self.cfg, cache, pos)
+        if mode != "prefill":
+            raise NotImplementedError(
+                f"mode {mode!r}: an MLA block has prefill and decode only "
+                f"(no multi-token verify path, as in the reference)")
+        o, (c_kv, k_rope) = L.mla_prefill(h, p, self.cfg)
+        s = c_kv.shape[1]
+        for name, new in (("c_kv", c_kv), ("k_rope", k_rope)):
+            cache[name][:, :s] = new
+            cache[name][:, s:] = 0
+        return o
 
     def _reduce(self, x):
         """Complete a row-parallel projection: the sum of every shard's
@@ -201,40 +277,53 @@ class LM:
         return x + o2
 
     def _run_stack(self, params, x, mode, cache, pos, pages=None):
-        """Run all blocks over the stacked parameters and caches.  One
-        page table serves every layer (the pools are stacked per layer,
-        the table is not), so the window's physical rows are resolved
-        once here for all of them."""
+        """Run all blocks, stack by stack, over the stacked parameters
+        and caches.  One page table serves every layer (the pools are
+        stacked per layer, the table is not), so the window's physical
+        rows are resolved once here for all of them."""
         dest = None
         if pages is not None:
             dest = L.paged_dest(pages, pos, x.shape[1],
                                 cache["blocks"]["k"].shape[2])
-        for i in range(self.cfg.n_layers):
-            bp = tree_map(lambda a: a[i], params["blocks"])
-            c = {name: t[i] for name, t in cache["blocks"].items()}
-            x = self._apply_block(x, bp, mode, c, pos, pages, dest)
+        for name, kind, n in self.groups:
+            for i in range(n):
+                bp = tree_map(lambda a: a[i], params[name])
+                c = {leaf: t[i] for leaf, t in cache[name].items()}
+                x = self._apply_block(x, bp, kind, mode, c, pos, pages,
+                                      dest)
         return x
 
     # ------------------------------------------------------------------
     # Caches
     # ------------------------------------------------------------------
+    def _block_cache_specs(self, kind: str, batch: int,
+                           max_len: int) -> dict[str, Any]:
+        """One layer's cache leaves as (shape, dtype)."""
+        cfg = self.cfg
+        if kind == "rwkv":
+            return R.rwkv_state_defs(cfg, batch, self.dtype)
+        if kind.startswith("mla"):
+            m = cfg.mla
+            return {"c_kv": ((batch, max_len, m.kv_lora_rank), self.dtype),
+                    "k_rope": ((batch, max_len, m.qk_rope_head_dim),
+                               self.dtype)}
+        kv = ((batch, max_len, cfg.n_kv_heads, cfg.head_dim), self.dtype)
+        return {"k": kv, "v": kv}
+
     def cache_specs(self, batch: int, max_len: int,
                     per_slot_pos: bool = False) -> dict[str, Any]:
-        """Shapes and dtypes of the cache tree, stacked per layer, plus
-        ``pos`` -- per slot (B,) with ``per_slot_pos``.  Dense: (L, B, S,
-        KVH, D) K and V.  rwkv: the (L, B, H, dh, dh) float32 state and
-        the (L, B, 1, d) token-shift rows, whatever ``max_len``."""
-        cfg = self.cfg
-        if self.kind == "rwkv":
-            blocks = tree_map(lambda s: ((cfg.n_layers,) + s[0], s[1]),
-                              R.rwkv_state_defs(cfg, batch, self.dtype))
-        else:
-            kv = ((cfg.n_layers, batch, max_len, cfg.n_kv_heads,
-                   cfg.head_dim), self.dtype)
-            blocks = {"k": kv, "v": kv}
+        """Shapes and dtypes of the cache tree, stacked per layer in each
+        stack, plus ``pos`` -- per slot (B,) with ``per_slot_pos``.
+        Dense and moe: (L, B, S, KVH, D) K and V.  mla_moe: (L, B, S, R)
+        ``c_kv`` and (L, B, S, P) ``k_rope`` in each of its two stacks.
+        rwkv: the (L, B, H, dh, dh) float32 state and the (L, B, 1, d)
+        token-shift rows, whatever ``max_len``."""
+        layers = {name: tree_map(lambda s, n=n: ((n,) + s[0], s[1]),
+                                 self._block_cache_specs(kind, batch,
+                                                         max_len))
+                  for name, kind, n in self.groups}
         pos_shape = (batch,) if per_slot_pos else ()
-        return {"layers": {"blocks": blocks},
-                "pos": (pos_shape, torch.int32)}
+        return {"layers": layers, "pos": (pos_shape, torch.int32)}
 
     def init_cache(self, batch: int, max_len: int,
                    per_slot_pos: bool = False):
@@ -247,7 +336,7 @@ class LM:
         """Shapes and dtypes of the paged engine's cache tree: stacked
         (L, P, page_size, KVH, D) K and V page pools shared by all
         slots, a per-slot (B,) ``pos`` and the (B, NB) int32 page
-        table.  Dense stacks only."""
+        table.  GQA stacks (dense and moe) only."""
         self.check_verify()
         cfg = self.cfg
         pool = ((cfg.n_layers, n_pages, page_size, cfg.n_kv_heads,
@@ -281,11 +370,11 @@ class LM:
         """inputs["tokens"]: (B, S) -> last-token logits (B, 1, Vp) and
         the cache, K/V at rows [0, S) and zeros up to ``max_len``.
 
-        ``cache`` (a ``{"blocks": {...}}`` tree shaped like
-        ``cache_specs(B, max_len)["layers"]``, e.g. views of one slot of an
-        engine's cache) is written in place instead of allocating a fresh
-        one.  An rwkv prefill writes each layer's final state and
-        token-shift rows there."""
+        ``cache`` (a tree shaped like ``cache_specs(B, max_len)["layers"]``,
+        e.g. views of one slot of an engine's cache) is written in place
+        instead of allocating a fresh one.  An rwkv prefill writes each
+        layer's final state and token-shift rows there, an MLA prefill
+        its latent rows."""
         x = self._embed_inputs(params, inputs)
         b, seq = x.shape[0], x.shape[1]
         max_len = max_len or seq
@@ -306,7 +395,7 @@ class LM:
         returned unchanged: the caller advances it (by the accepted
         length, in speculative decoding), which rolls rejected tokens
         back in place -- their rows sit past the new frontier and the
-        next window overwrites them.  Dense stacks only."""
+        next window overwrites them.  GQA stacks (dense and moe) only."""
         self.check_verify()
         pos = cache["pos"]
         pages = cache.get("pages")

@@ -41,6 +41,37 @@ def tree_leaves(tree) -> list:
     return [tree]
 
 
+# the largest float32 temporary a leaf's draw may take
+SLICE_BYTES = 1 << 30
+
+
+def _draw_normal(shape, std: float, dtype, gen) -> torch.Tensor:
+    """A normal(0, std) tensor of ``shape``, drawn in float32 and cast to
+    ``dtype``.  A leaf whose float32 draw would pass ``SLICE_BYTES`` is
+    drawn one block of slices at a time (slices of the leading axis, or
+    of the first axes whose slices fit), so that no temporary passes it:
+    qwen3-moe's stacked expert weights are 38.7 GB in float32, beside
+    the 61 GB of bf16 weights on an 80 GB card."""
+    dev = gen.device
+    if math.prod(shape) * 4 <= SLICE_BYTES:
+        x = torch.randn(shape, generator=gen, dtype=torch.float32,
+                        device=dev)
+        return x.mul_(std).to(dtype)
+    lead = 1
+    while math.prod(shape[lead:]) * 4 > SLICE_BYTES:
+        lead += 1
+    inner = shape[lead:]
+    out = torch.empty(shape, dtype=dtype, device=dev)
+    rows = out.view(-1, *inner)
+    step = max(1, SLICE_BYTES // (math.prod(inner) * 4))
+    for i in range(0, rows.shape[0], step):
+        blk = rows[i:i + step]
+        x = torch.randn(blk.shape, generator=gen, dtype=torch.float32,
+                        device=dev)
+        blk.copy_(x.mul_(std))
+    return out
+
+
 def _init_one(d: ParamDef, gen: torch.Generator) -> torch.Tensor:
     dtype = DTYPES[d.dtype]
     dev = gen.device
@@ -55,8 +86,7 @@ def _init_one(d: ParamDef, gen: torch.Generator) -> torch.Tensor:
     else:                           # fan-in scaled normal
         fan_in = d.shape[-2] if len(d.shape) >= 2 else d.shape[-1]
         std = d.scale or (1.0 / math.sqrt(max(1, fan_in)))
-    x = torch.randn(d.shape, generator=gen, dtype=torch.float32, device=dev)
-    return x.mul_(std).to(dtype)
+    return _draw_normal(d.shape, std, dtype, gen)
 
 
 def init_params(defs, gen: torch.Generator):

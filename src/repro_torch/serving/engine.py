@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.models.param import tree_map
 from repro_torch.serving.kv_pages import GARBAGE_PAGE, PagePool, PoolExhausted
 from repro_torch.serving.prefix_cache import PrefixCache
 from repro_torch.serving.speculative import (greedy_verify,
@@ -433,12 +434,14 @@ class ContinuousBatchingEngine:
         cache).  Paged (``pages``: the slot's physical pages in position
         order): the prompt's K/V are chopped into page-size blocks and
         scattered at the first ceil(S / page_size) of them, and the
-        slot's table row is installed.  The reference also scatters the
-        zero tail of its padded prefill cache into the rest of the row;
-        no position past S is ever read before decode writes it, so
-        that write is left out.  The slot's position becomes S, its
-        first greedy token seeds decoding, and its budget becomes
-        ``budget - 1``.  Other slots are untouched.  Returns (state,
+        slot's table row is installed.  The reference scatters the zero
+        tail of its padded prefill cache over the rest of the row: the
+        slot's other pages and, where the row is shorter than the table,
+        the garbage page are zeroed here too (a retired slot reads the
+        garbage page back, and an MoE layer lets what it reads reach the
+        other slots through expert capacity).  The slot's position
+        becomes S, its first greedy token seeds decoding, and its budget
+        becomes ``budget - 1``.  Other slots are untouched.  Returns (state,
         tok0) with tok0 still on the device.
         """
         cache = state["cache"]
@@ -452,6 +455,12 @@ class ContinuousBatchingEngine:
                                              max_len=n_blk * ps)
             self._scatter_blocks(cache, page_blocks(one, n_blk, ps),
                                  pages[:n_blk])
+            rest = list(pages[n_blk:])
+            if len(pages) < self.pages_per_slot:
+                rest.append(GARBAGE_PAGE)
+            idx = torch.as_tensor(rest, dtype=torch.long, device=self.device)
+            for pool in cache["layers"]["blocks"].values():
+                pool[:, idx] = 0
             cache["pages"][slot] = self._table_row(pages)
             cache["pos"][slot] = one["pos"]
         tok0 = torch.argmax(logits[0, -1], -1)
@@ -546,10 +555,11 @@ class ContinuousBatchingEngine:
 
     def _prefill_row(self, model, params, cache, tokens, slot: int):
         """Batch-1 prefill of ``tokens`` (1, S) by ``model`` into row
-        ``slot`` of the contiguous per-slot ``cache``, in place: K/V at
-        rows [0, S), zeros after, position S.  Returns the logits."""
-        row = {"blocks": {name: t[:, slot:slot + 1] for name, t in
-                          cache["layers"]["blocks"].items()}}
+        ``slot`` of the contiguous per-slot ``cache``, in place, in every
+        stack of the cache tree (the reference splices each leaf): K/V
+        or latent rows at [0, S), zeros after, position S.  Returns the
+        logits."""
+        row = tree_map(lambda t: t[:, slot:slot + 1], cache["layers"])
         logits, one = model.prefill(params, {"tokens": tokens},
                                     max_len=self.max_len, cache=row)
         cache["pos"][slot] = one["pos"]

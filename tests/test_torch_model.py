@@ -1,8 +1,10 @@
 """The port's LM on the CPU against the JAX reference: configs, the
-weight bridge, each dense layer function, and the model's prefill/decode
-logits on the same weights (float32, reduced configs, within 1e-4), for
-the dense family and rwkv6 (whose own layers are in test_torch_rwkv);
-whisper's configs here, its model in test_torch_whisper."""
+weight bridge, the seeded init, each dense layer function, and the
+model's prefill/decode logits on the same weights (float32, reduced
+configs, within 1e-4), for the dense family and rwkv6 (whose own layers
+are in test_torch_rwkv); the moe and mla_moe families' configs here,
+their models in test_torch_moe and test_torch_mla; whisper's configs
+here, its model in test_torch_whisper."""
 import dataclasses
 
 import jax
@@ -18,6 +20,8 @@ from repro.models.param import init_params as jax_init_params
 from repro_torch import configs as tcfg
 from repro_torch.models import build_model
 from repro_torch.models import layers as TL
+from repro_torch.models import param as tparam
+from repro_torch.models.lm import LM
 from repro_torch.models.param import from_jax, tree_leaves, tree_map
 
 # tiny shapes: one intra-op thread each, so that pytest-xdist workers do
@@ -26,7 +30,9 @@ torch.set_num_threads(1)
 
 DENSE = ["qwen3-1.7b", "qwen2.5-3b", "granite-3-2b", "yi-9b"]
 LMS = DENSE + ["rwkv6-3b"]          # decoder-only: models/lm.py
-PORTED = LMS + ["whisper-small"]    # encdec: tests/test_torch_whisper.py
+# encdec: tests/test_torch_whisper.py; moe and mla_moe:
+# tests/test_torch_moe.py and tests/test_torch_mla.py
+PORTED = LMS + ["whisper-small", "qwen3-moe-30b-a3b", "deepseek-v3-671b"]
 TOL = dict(rtol=1e-4, atol=1e-4)
 
 
@@ -63,11 +69,49 @@ def test_configs_match_reference(arch):
     assert full.head_dim == jcfg.get_config(arch).head_dim
 
 
-@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "jamba-v0.1-52b",
-                                  "deepseek-v3-671b"])
+@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "phi-3-vision-4.2b",
+                                  "edge-vit"])
 def test_unported_families_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP §A.11"):
         tcfg.get_config(arch)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "deepseek-v3-671b",
+                                  "rwkv6-3b"])
+def test_tensor_parallelism_refuses_non_dense_families(arch):
+    """A tp group shards dense GQA stacks only: expert parallelism is
+    ROADMAP §A.8's later work."""
+    cfg = tcfg.reduce_config(tcfg.get_config(arch))
+    with pytest.raises(NotImplementedError, match="§A.8"):
+        LM(cfg, "cpu", tp_group=object())
+
+
+def test_sliced_init_keeps_shape_dtype_and_std(monkeypatch):
+    """A leaf whose float32 draw passes ``SLICE_BYTES`` is drawn a block
+    of leading slices at a time: each leaf keeps its shape, dtype and
+    fan-in-scaled std (the experts' (E, d, f) leaves scale by d), and no
+    float32 temporary passes one block."""
+    cfg = tcfg.reduce_config(tcfg.get_config("qwen3-moe-30b-a3b"))
+    defs = build_model(cfg, "cpu").param_defs()
+    limit = 64 * 1024
+    monkeypatch.setattr(tparam, "SLICE_BYTES", limit)
+    sizes, randn = [], torch.randn
+
+    def spy(*shape, **kw):
+        out = randn(*shape, **kw)
+        sizes.append(out.numel() * out.element_size())
+        return out
+
+    monkeypatch.setattr(torch, "randn", spy)
+    params = tparam.init_params(defs, torch.Generator().manual_seed(0))
+    assert max(sizes) <= limit
+    assert len(sizes) > len(tree_leaves(params))   # some leaves sliced
+    for d, t in zip(tree_leaves(defs), tree_leaves(params), strict=True):
+        assert tuple(t.shape) == d.shape and t.dtype == tparam.DTYPES[d.dtype]
+        if d.init == "normal" and d.scale is None and t.numel() >= 4096:
+            std = 1 / np.sqrt(d.shape[-2] if len(d.shape) >= 2
+                              else d.shape[-1])
+            assert abs(t.float().std().item() / std - 1) < 0.05, d
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -137,10 +137,10 @@ def test_prefix_cache_eviction_skips_referenced_pages(impl):
 
 def test_paged_and_window_writes_match_reference():
     """A 3-row window that crosses a page boundary, one whose rows run
-    off the table (clamped to the slot's last entry), and the
-    contiguous window write at per-slot and scalar starts (in range:
-    past the last row the port clamps where the reference drops, see
-    ROADMAP §C)."""
+    off the table (clamped to the slot's last entry), two slots writing
+    the same rows of one page (the last write is kept), and the
+    contiguous window write at per-slot and scalar starts, in range and
+    past the last row (written nowhere, as the reference's one-hot)."""
     rng = np.random.default_rng(0)
     pool = rng.standard_normal((7, 4, 2, 8)).astype(np.float32)
     new = rng.standard_normal((2, 3, 2, 8)).astype(np.float32)
@@ -154,8 +154,20 @@ def test_paged_and_window_writes_match_reference():
                                  torch.from_numpy(pages),
                                  torch.from_numpy(pos))
     np.testing.assert_array_equal(_np(got), np.asarray(want))
+    same = np.array([[0, 0, 0], [0, 0, 0]], np.int32)   # the garbage page
+    for p in (np.array([1, 5], np.int32), np.array([5, 1], np.int32)):
+        want = jax.jit(JL.paged_insert_window)(
+            jnp.asarray(pool), jnp.asarray(new), jnp.asarray(same),
+            jnp.asarray(p))
+        got = TL.paged_insert_window(torch.from_numpy(pool.copy()),
+                                     torch.from_numpy(new),
+                                     torch.from_numpy(same),
+                                     torch.from_numpy(p))
+        np.testing.assert_array_equal(_np(got), np.asarray(want))
     cache = rng.standard_normal((2, 9, 2, 8)).astype(np.float32)
-    for p in (np.array([0, 6], np.int32), np.int32(4)):
+    for p in (np.array([0, 6], np.int32), np.int32(4),
+              np.array([7, 8], np.int32), np.array([9, 3], np.int32),
+              np.int32(8)):
         want = jax.jit(JL.cache_update_window)(
             jnp.asarray(cache), jnp.asarray(new), jnp.asarray(p))
         got = TL.cache_update_window(torch.from_numpy(cache.copy()),
