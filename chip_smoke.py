@@ -245,39 +245,39 @@ Phases, each fatal on failure:
    of a decode step sharded and not, tok/s and tok/J,
    ``torch.cuda.device_count()``, the card's name and power limit.  A
    run across cards waits for a 4-chip cell.
-22. Full-width qwen3-moe-30b-a3b (after phase 14, every earlier model
-   freed: 48 layers, d_model 2,048, 32 query and 4 KV heads of 128, so
-   G 8; 128 experts top-8 of width 768; padded vocab 153,600; bf16,
-   30.5 B seeded random weights, drawn a slice of the leading axis at a
-   time), the peak of allocated memory printed after each part: (a) the
-   five attention kernels at G 8 against their plain versions and timed
-   (decode and paged decode at 8 slots over 2,048 rows, bit for bit to
-   each other; verify at T 5, the tile route, bit for bit to paged
-   verify; paged verify at T 200 behind 1,024 and T 64 at 704; flash
-   causal at S 1,024), the G 8 builds' ptxas registers; (b) phase 4's
-   traffic through the contiguous engine, served as (f): 48 decode
-   launches a step, 48 flash an admission, every budget met; (c) phase
-   5's kernel path against the plain path with every routing call kept:
-   the share of (token, layer) top-8 sets that agree, logits within
-   phase 5's limit on the rows whose every routing call agreed, the
-   others printed, then the plain path again with the kernel path's
-   experts forced at every call: every row within phase 5's limit; (d)
-   phase 6's traffic
-   through the paged engine with prefix caching (launches exact) and
-   through chunked prefill in 256-token chunks (paged verify 48 a chunk;
-   tokens against the monolithic run reported: a chunk's rows set the
-   expert capacity), and one wave of 8 requests with equal budgets,
-   paged with shuffled pages against contiguous: equal tokens (across
-   retirements the two differ by design: a retired slot reads its own
-   row in one and the garbage page in the other); (e) k = 4 with a
-   full-width qwen3-1.7b draft on 8 requests of 32 tokens offline:
-   verify 48 a round, the draft's decode 28 x 5, acceptance printed;
-   (f) phase 15's Server run with the NVML meter (ACCEPT, stack vs
-   counter, alignment, watts, launches; tok/s, tok/J, the modeled
-   host's share); a decode chunk under
+22. Full-width qwen3-moe-30b-a3b on the first 24 of its 48 layers (after
+   phase 14, every earlier model freed; 24 layers since phase 24 joined,
+   so that the script stays inside its time limit): d_model 2,048, 32
+   query and 4 KV heads of 128, so G 8; 128 experts top-8 of width 768;
+   padded vocab 153,600; bf16 seeded random weights, drawn a slice of the
+   leading axis at a time; the peak of allocated memory printed after
+   each part.  (a) the five attention kernels at G 8 against their plain
+   versions and timed (decode and paged decode at 8 slots over 2,048
+   rows, bit for bit to each other; verify at T 5, the tile route, bit
+   for bit to paged verify; paged verify at T 200 behind 1,024 and T 64
+   at 704; flash causal at S 1,024), the G 8 builds' ptxas registers; (b)
+   phase 4's traffic through the contiguous engine, served as (f): a
+   decode launch a layer a step, a flash launch a layer an admission,
+   every budget met; (c) phase 5's kernel path against the plain path
+   with every routing call kept: the share of (token, layer) top-8 sets
+   that agree, logits within phase 5's limit on the rows whose every
+   routing call agreed, the others printed, then the plain path again
+   with the kernel path's experts forced at every call: every row within
+   phase 5's limit; (d) phase 6's traffic through the paged engine with
+   prefix caching (launches exact) and through chunked prefill in
+   256-token chunks (paged verify a layer a chunk; tokens against the
+   monolithic run reported: a chunk's rows set the expert capacity), and
+   one wave of 8 requests with equal budgets, paged with shuffled pages
+   against contiguous: equal tokens (across retirements the two differ by
+   design: a retired slot reads its own row in one and the garbage page
+   in the other); (e) k = 4 with a full-width qwen3-1.7b draft on 8
+   requests of 32 tokens offline: verify a layer a round, the draft's
+   decode 28 x 5, acceptance printed; (f) phase 15's Server run with the
+   NVML meter (ACCEPT, stack vs counter, alignment, watts, launches;
+   tok/s, tok/J, the modeled host's share); a decode chunk under
    ``torch.cuda.set_sync_debug_mode("error")``; a decode step's host
-   time, kernels and busy share (``launch.profile_engine``'s
-   measurement) beside the expert weights' read time.
+   time, kernels and busy share (``launch.profile_engine``'s measurement)
+   beside the expert weights' read time.
 23. Full-width deepseek-v3-671b on its first 4 of 61 layers (3 MLA
    layers with a dense FFN, 1 with 256 routed experts top-8, a shared
    expert and the sigmoid router) and its MTP block, 15.8 B seeded
@@ -286,6 +286,26 @@ Phases, each fatal on failure:
    length), all budgets met; the same through ``kernels=False``: equal
    tokens (MLA and the MoE have no kernel); no kernel launched; a
    decode chunk under ``set_sync_debug_mode("error")``.
+24. Full-width jamba-v0.1-52b on 16 of its 32 layers (2 of 4
+   superblocks: 14 Mamba mixers, 2 GQA layers of H 32, KVH 8, 8
+   top-2-of-16-expert MoE FFNs; 26.1 B seeded bf16 weights, after phase
+   23's model is freed): (a) decode (8 slots over 2,048 rows at ragged
+   depths) and flash (causal, S 1,024) at G 4 against their plain
+   versions, timed by events and kernel-only beside SDPA and their
+   bounds; (b) phase 4's traffic through the contiguous engine behind
+   phase 15's measured Server run (ACCEPT; decode 2 launches a step,
+   flash 2 an admission; every budget met; prompts longer than a
+   512-token scan chunk and no multiple of it, where the reference
+   asserts); (c) one 1,024-token prefill through the kernel and the
+   plain path: the (token, layer) routing agreement, then every logit
+   row with the kernel path's experts forced on the plain path, within
+   phase 5's limit; (d) one Mamba mixer alone in float32: 1,100 tokens
+   in one prefill against a 1,024-token prefill and 76 decode steps,
+   outputs and final state within 1e-4 by norm; (e) a decode chunk
+   under ``set_sync_debug_mode("error")``, a decode step and the
+   prefill profiled (``launch.profile_engine``: the prefill's kernels
+   split into GEMMs, attention, the Mamba scan and the rest), the peak
+   memory and the phase's seconds.
 
 The line before the last holds the kernels' JSON record; the last line
 is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside
@@ -2337,6 +2357,13 @@ def phase_power(torch, dev, model, engine, requests) -> dict:
                 tok_per_j_wall=b["tok_per_j_wall"])
 
 
+def attn_layers(model) -> int:
+    """The model's GQA layers: each launches flash once an admission and
+    decode once a decode step (a hybrid's Mamba sublayers launch
+    neither)."""
+    return sum(k.startswith("attn") for k in model._layer_kinds())
+
+
 def measured_server(torch, engine, requests, name, meter, idle_w, limit_w,
                     label) -> dict:
     """``PowerRun(ContinuousBatchingSUT(engine, energy_meter=meter),
@@ -2346,9 +2373,9 @@ def measured_server(torch, engine, requests, name, meter, idle_w, limit_w,
     ``ENERGY_ALIGN_TOL`` of the counter's delta over the serve, the
     serve's window inside the sampler's readings to within one period,
     the accelerator's average watts between half ``idle_w`` and 1.05 x
-    ``limit_w``, and the launches be exact (flash a layer per admission,
-    decode a layer per decode step).  Returns its launches, Joules and
-    rates."""
+    ``limit_w``, and the launches be exact (flash an attention layer per
+    admission, decode an attention layer per decode step).  Returns its
+    launches, Joules and rates."""
     import numpy as np
     from repro_torch.harness import ContinuousBatchingSUT, PowerRun, Server
     from repro_torch.serving import Request
@@ -2377,7 +2404,7 @@ def measured_server(torch, engine, requests, name, meter, idle_w, limit_w,
     print("  " + r.render().replace("\n", "\n  "))
     m = r.outcome.server
     n = r.outcome.result.n_queries
-    layers = cfg.n_layers
+    layers = attn_layers(engine.model)
     check(r.passed, f"{label} main path: the review REJECTED the run")
     check(launches["decode_attention"] == layers * engine.decode_steps,
           f"{label} decode launches {launches['decode_attention']} != "
@@ -4277,6 +4304,9 @@ def phase_rwkv_consistency(torch, dev, cfg, params):
 # 32 query heads and 4 KV heads of 128 (G 8), 128 experts top-8 of
 # width 768, padded vocab 153,600, bf16, seeded random weights).
 MOE_ARCH = "qwen3-moe-30b-a3b"
+# its first 24 of 48 layers since phase 24 joined (full width; the script
+# stays inside its time limit)
+MOE_LAYERS = 24
 # (d): chunked prefill over phase 6's traffic, in chunks of this many
 # prompt tokens (a 1,536-token prompt fills in 6)
 MOE_PREFILL_CHUNK = 256
@@ -4292,6 +4322,13 @@ MOE_SPEC_TOKENS = 32
 MLA_ARCH = "deepseek-v3-671b"
 MLA_LAYERS = 4
 MLA_LONG = 1100     # a prompt the reference's MLA query chunking refuses
+# Phase 24: jamba-v0.1-52b at full width on as many whole superblocks as
+# fit (launch.profile_engine.fit_depth: 2 of 4, 16 of 32 layers)
+JAMBA_ARCH = "jamba-v0.1-52b"
+JAMBA_LAYERS = 16
+JAMBA_PREFILL = 1024        # (c) and (e): one prefill of this many tokens
+JAMBA_HANDOFF = (1024, 76)  # (d): prefill, then decode steps (1,100 in all)
+JAMBA_CONSISTENCY_TOL = 1e-4  # (d): float32, by norm
 
 
 def peak_gb(torch, label: str) -> float:
@@ -4311,6 +4348,98 @@ def ptxas_g8(log: str) -> list[str]:
     return [r for r, n in names if "<8," in n or ", 8," in n]
 
 
+# ragged depths of the 8 slots of phases 22 (a) and 24 (a)
+GQA_RAGGED = (0, 2047, 1024, 17, 511, 1500, 300, 2000)
+
+
+def decode_at(torch, dev, gen, kvh: int, g: int, label: str):
+    """decode_attention at 8 slots over 2,048 rows at ``GQA_RAGGED``
+    depths, KVH ``kvh``, G ``g``, D 128, bf16 (q, K, V drawn from
+    ``gen``): held against its plain version and the split algorithm's
+    plain version, then timed (``decode_times``).  Returns (its row,
+    (q, K, V, ragged, mask))."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention.ops import (
+        decode_attention, decode_attention_plain)
+    from repro_torch.kernels.decode_attention.ops import plan as decode_plan
+    from repro_torch.kernels.flash_attention.ops import (
+        _sm_count, flash_attention_split_plain)
+
+    bf16 = torch.bfloat16
+    b, d, s = 8, 128, 2048
+    h = kvh * g
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(bf16)
+
+    q, kc, vc = randn(b, 1, h, d), randn(b, s, kvh, d), randn(b, s, kvh, d)
+    ragged = torch.tensor(GQA_RAGGED, dtype=torch.int32, device=dev)
+    mask = (torch.arange(s, device=dev)[None, :]
+            <= ragged[:, None])[:, None, None, :]
+    route, n_split, per = decode_plan("decode_attention", h, kvh, d, bf16, s,
+                                      b * kvh, _sm_count(dev.index))
+    got = decode_attention(q, kc, vc, ragged)
+    err, rel = compare(label, got, decode_attention_plain(q, kc, vc, ragged))
+    compare(f"{label} vs the split plain version", got,
+            flash_attention_split_plain(q, kc, vc, causal=True,
+                                        keys_per_split=per, offsets=ragged))
+    print(f"  {label} route {route} ({n_split} splits of {per}): max "
+          f"|kernel - plain| {err:.3e}, rel {rel:.3e}")
+    row = dict(max_abs_err=err, kernel_route=route, **decode_times(
+        torch, label, F, lambda: decode_attention(q, kc, vc, ragged),
+        lambda: decode_attention_plain(q, kc, vc, ragged),
+        q, kc, vc, mask, ragged))
+    return row, (q, kc, vc, ragged, mask)
+
+
+def flash_at(torch, dev, gen, kvh: int, g: int, label: str) -> dict:
+    """flash_attention causal at S 1,024, KVH ``kvh``, G ``g``, D 128,
+    bf16: held against its plain version, then timed by events and
+    kernel-only beside the plain version, SDPA (events and kernel-only;
+    a yardstick the port never calls) and the bound.  Returns its
+    row."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.ops import (
+        _route, flash_attention, flash_attention_plain)
+
+    bf16 = torch.bfloat16
+    sq, d = 1024, 128
+    h = kvh * g
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(bf16)
+
+    qf, kf, vf = randn(1, sq, h, d), randn(1, sq, kvh, d), randn(1, sq, kvh, d)
+    got = flash_attention(qf, kf, vf, causal=True)
+    err, _ = compare(label, got,
+                     flash_attention_plain(qf, kf, vf, causal=True))
+    ms = time_ms(lambda: flash_attention(qf, kf, vf, causal=True))
+    dev_ms, kerns = device_ms(torch,
+                              lambda: flash_attention(qf, kf, vf, causal=True))
+    plain_ms = time_ms(lambda: flash_attention_plain(qf, kf, vf, causal=True))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(
+            qf.transpose(1, 2), kf.transpose(1, 2), vf.transpose(1, 2),
+            is_causal=True, enable_gqa=True)
+
+    lib_ms = time_ms(sdpa)
+    lib_dev_ms, _ = device_ms(torch, sdpa)
+    flops = 4 * h * d * sq * (sq + 1) // 2
+    nbytes = (2 * sq * h * d + 2 * sq * kvh * d) * 2
+    bound_ms, bound_by = bound(nbytes, flops)
+    rt = _route(sq, sq, h, kvh, d, bf16)
+    print(f"  {label} S={sq} H={h} KVH={kvh} route {rt}: kernel "
+          f"{ms:.4f} ms (kernel-only {fmt_ms(dev_ms)}: {kerns}), plain "
+          f"{plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms (kernel-only "
+          f"{fmt_ms(lib_dev_ms)}), bound {bound_ms * 1e3:.2f} us "
+          f"({bound_by}, {flops} flop)")
+    return dict(max_abs_err=err, kernel_route=rt, ms=ms, device_ms=dev_ms,
+                plain_ms=plain_ms, library_ms=lib_ms,
+                library_device_ms=lib_dev_ms, bound_ms=bound_ms,
+                bound_by=bound_by)
+
+
 def phase_moe_kernels(torch, dev) -> dict:
     """Phase 22 (a): the five attention kernels at qwen3-moe's shape (H
     32, KVH 4, G 8, D 128, bf16) against their plain versions, timed by
@@ -4325,12 +4454,8 @@ def phase_moe_kernels(torch, dev) -> dict:
     printed from phase 2's build logs."""
     import torch.nn.functional as F
     from repro_torch.kernels import build
-    from repro_torch.kernels.decode_attention.ops import (
-        decode_attention, decode_attention_plain)
-    from repro_torch.kernels.decode_attention.ops import plan as decode_plan
-    from repro_torch.kernels.flash_attention.ops import (
-        _route, _sm_count, flash_attention, flash_attention_plain,
-        flash_attention_split_plain)
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.flash_attention.ops import _route
     from repro_torch.kernels.paged_decode_attention.ops import (
         paged_decode_attention, paged_decode_attention_plain)
     from repro_torch.kernels.paged_verify_attention.ops import (
@@ -4346,33 +4471,14 @@ def phase_moe_kernels(torch, dev) -> dict:
     gen.manual_seed(2222)
     b, kvh, g, d, s, ps = 8, 4, 8, 128, 2048, 16
     h, nb = kvh * g, s // ps
-    n_sm = _sm_count(dev.index)
     out = {}
 
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=dev).to(bf16)
 
-    q, kc, vc = randn(b, 1, h, d), randn(b, s, kvh, d), randn(b, s, kvh, d)
-    ragged = torch.tensor([0, 2047, 1024, 17, 511, 1500, 300, 2000],
-                          dtype=torch.int32, device=dev)
-    mask = (torch.arange(s, device=dev)[None, :]
-            <= ragged[:, None])[:, None, None, :]
-    route, n_split, per = decode_plan("decode_attention", h, kvh, d, bf16, s,
-                                      b * kvh, n_sm)
-    got = decode_attention(q, kc, vc, ragged)
-    err, rel = compare("decode_attention (G 8)", got,
-                       decode_attention_plain(q, kc, vc, ragged))
-    compare("decode_attention (G 8) vs the split plain version", got,
-            flash_attention_split_plain(q, kc, vc, causal=True,
-                                        keys_per_split=per, offsets=ragged))
-    print(f"  decode_attention G 8 route {route} ({n_split} splits of "
-          f"{per}): max |kernel - plain| {err:.3e}, rel {rel:.3e}")
-    out["decode_attention"] = dict(
-        max_abs_err=err, kernel_route=route, **decode_times(
-            torch, "decode_attention (G 8)", F,
-            lambda: decode_attention(q, kc, vc, ragged),
-            lambda: decode_attention_plain(q, kc, vc, ragged),
-            q, kc, vc, mask, ragged))
+    out["decode_attention"], (q, kc, vc, ragged, mask) = decode_at(
+        torch, dev, gen, kvh, g, "decode_attention (G 8)")
+    route = out["decode_attention"]["kernel_route"]
 
     pages = (torch.randperm(b * nb, generator=gen, device=dev) + 1).reshape(
         b, nb).to(torch.int32)
@@ -4471,36 +4577,8 @@ def phase_moe_kernels(torch, dev) -> dict:
         pv["t200_at1024"], chunk=pv["t64_at704"],
         max_abs_err=max(r["max_abs_err"] for r in pv.values()))
 
-    sq = 1024
-    qf, kf, vf = randn(1, sq, h, d), randn(1, sq, kvh, d), randn(1, sq, kvh, d)
-    got = flash_attention(qf, kf, vf, causal=True)
-    err, _ = compare("flash_attention (G 8, S 1,024)", got,
-                     flash_attention_plain(qf, kf, vf, causal=True))
-    ms = time_ms(lambda: flash_attention(qf, kf, vf, causal=True))
-    dev_ms, kerns = device_ms(torch,
-                              lambda: flash_attention(qf, kf, vf, causal=True))
-    plain_ms = time_ms(lambda: flash_attention_plain(qf, kf, vf, causal=True))
-
-    def sdpa():
-        return F.scaled_dot_product_attention(
-            qf.transpose(1, 2), kf.transpose(1, 2), vf.transpose(1, 2),
-            is_causal=True, enable_gqa=True)
-
-    lib_ms = time_ms(sdpa)
-    lib_dev_ms, _ = device_ms(torch, sdpa)
-    flops = 4 * h * d * sq * (sq + 1) // 2
-    nbytes = (2 * sq * h * d + 2 * sq * kvh * d) * 2
-    bound_ms, bound_by = bound(nbytes, flops)
-    rt = _route(sq, sq, h, kvh, d, bf16)
-    print(f"  flash_attention S={sq} H={h} KVH={kvh} route {rt}: kernel "
-          f"{ms:.4f} ms (kernel-only {fmt_ms(dev_ms)}: {kerns}), plain "
-          f"{plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms (kernel-only "
-          f"{fmt_ms(lib_dev_ms)}), bound {bound_ms * 1e3:.2f} us "
-          f"({bound_by}, {flops} flop)")
-    out["flash_attention"] = dict(
-        max_abs_err=err, kernel_route=rt, ms=ms, device_ms=dev_ms,
-        plain_ms=plain_ms, library_ms=lib_ms, library_device_ms=lib_dev_ms,
-        bound_ms=bound_ms, bound_by=bound_by)
+    out["flash_attention"] = flash_at(torch, dev, gen, kvh, g,
+                                      "flash_attention (G 8, S 1,024)")
     return out
 
 
@@ -4659,7 +4737,8 @@ def moe_consistency(torch, dev, cfg, params) -> dict:
 
 
 def phase_moe(torch, dev) -> dict:
-    """Phase 22: qwen3-moe-30b-a3b at full width.  (a) the five kernels at
+    """Phase 22: qwen3-moe-30b-a3b at full width on its first
+    ``MOE_LAYERS`` layers.  (a) the five kernels at
     G 8 (``phase_moe_kernels``); (b) and (f) in one serve: phase 4's
     traffic through the contiguous engine behind ``measured_server``
     (phase 15's Server with the NVML meter: ACCEPT, launches exact),
@@ -4692,7 +4771,7 @@ def phase_moe(torch, dev) -> dict:
     out["kernels"] = phase_moe_kernels(torch, dev)
     peak_gb(torch, "(a)")
 
-    cfg = get_config(MOE_ARCH)
+    cfg = get_config(MOE_ARCH, n_layers=MOE_LAYERS)
     model = build_model(cfg, dev)
     t0 = time.perf_counter()
     params = model.init(seed=0)
@@ -4965,6 +5044,272 @@ def phase_mla(torch, dev) -> dict:
     return out
 
 
+def all_logits(torch, model, params, tokens):
+    """(S, Vp) float32 logits of every position of one (1, S) prefill
+    (``LM.prefill`` keeps only the last row's)."""
+    with torch.no_grad():
+        cache = model.init_cache(1, tokens.shape[1])["layers"]
+        x = model._run_stack(params, model._embed_inputs(
+            params, {"tokens": tokens}), "prefill", cache, None)
+        return model._logits(params, x)[0]
+
+
+def jamba_consistency(torch, dev, cfg, params) -> dict:
+    """Phase 24 (c): one ``JAMBA_PREFILL``-token prefill through the
+    kernel path and the plain path (``kernels=False``) on the same
+    weights, every MoE call's routing kept, every position's logits:
+    the share of (token, layer) top-2 sets that agree is reported; then
+    the plain path again with the kernel path's experts forced at every
+    call (``routing_recorder``: jamba's router is softmax, as
+    qwen3-moe's), so that only the attention kernels' rounding parts the
+    two: every logit row within ``LOGIT_REL_TOL`` of max |logit|."""
+    import numpy as np
+    from repro_torch.models import build_model
+    from repro_torch.models import layers as L
+
+    rng = np.random.default_rng(24)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, JAMBA_PREFILL),
+                             device=dev)[None]
+    runs, routes = [], []
+    for kernels, force in ((True, None), (False, None), (False, True)):
+        model = build_model(cfg, dev, kernels=kernels)
+        calls, undo = routing_recorder(torch, L,
+                                       routes[0] if force else None)
+        try:
+            runs.append(all_logits(torch, model, params, tokens))
+        finally:
+            undo()
+        routes.append(calls)
+    got, want, pinned = runs
+    same = [(a.sort(-1).values == b.sort(-1).values).all(-1)
+            for a, b in zip(routes[0], routes[1], strict=True)]
+    n_sets = sum(int(m.numel()) for m in same)
+    n_agree = sum(int(m.sum()) for m in same)
+    rel_free = float((got - want).abs().max() / want.abs().max())
+    rel_pin = float((got - pinned).abs().max() / pinned.abs().max())
+    agree_pin = float((got.argmax(-1) == pinned.argmax(-1)).float().mean())
+    print(f"  routing: {n_agree}/{n_sets} (token, layer) top-"
+          f"{cfg.moe.top_k} sets agree ({n_agree / n_sets:.4%}) over "
+          f"{len(same)} MoE calls; free-running max |kernel - plain| / "
+          f"max |plain| {rel_free:.3e} (reported)")
+    print(f"  the plain path with the kernel path's experts forced at every "
+          f"call: max |kernel - plain| / max |plain| = {rel_pin:.3e} over "
+          f"all {got.shape[0]} logit rows, argmax agreement "
+          f"{agree_pin:.4f}")
+    check(bool(torch.isfinite(got).all()),
+          "phase 24 (c): non-finite logits")
+    check(rel_pin <= LOGIT_REL_TOL,
+          f"phase 24 (c): with the routing forced alike, kernel-path "
+          f"logits differ by {rel_pin}")
+    return dict(sets_agree=n_agree / n_sets, forced_rel=rel_pin,
+                free_rel=rel_free, rows=int(got.shape[0]))
+
+
+def jamba_mamba_handoff(torch, dev, cfg, params) -> dict:
+    """Phase 24 (d): the first superblock's first Mamba mixer at full
+    width in float32, alone (its seeded weights, A_log set to Mamba's
+    S4D-real init log(1..d_state) so that every state column decays at
+    its own rate): ``mamba_block`` over ``sum(JAMBA_HANDOFF)`` tokens
+    (two chunks of 512 and a ragged tail) against ``mamba_block`` over
+    the first ``JAMBA_HANDOFF[0]`` and a ``mamba_decode`` step for each
+    of the rest: outputs and final h within ``JAMBA_CONSISTENCY_TOL`` by
+    norm."""
+    from repro_torch.models import mamba as M
+
+    p = {k: v[0].float() for k, v in
+         params["superblocks"]["l0_mamba_moe"]["mamba"].items()}
+    d_in, n = p["A_log"].shape
+    p["A_log"] = torch.log(torch.arange(1, n + 1, device=dev,
+                                        dtype=torch.float32)).expand(d_in, n)
+    head, tail = JAMBA_HANDOFF
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2424)
+    x = torch.randn((1, head + tail, cfg.d_model), generator=gen, device=dev)
+    with torch.no_grad():
+        want, wst = M.mamba_block(x, p, cfg, return_state=True)
+        out, st = M.mamba_block(x[:, :head], p, cfg, return_state=True)
+        outs = [out] + [M.mamba_decode(x[:, t:t + 1], p, cfg, st)[0]
+                        for t in range(head, head + tail)]
+    got = torch.cat(outs, 1)
+    rel_out = float((got - want).norm() / want.norm())
+    rel_h = float((st["h"] - wst["h"]).norm() / wst["h"].norm())
+    print(f"  one Mamba mixer (d_inner {d_in}, d_state {n}), float32: "
+          f"{head + tail} tokens in one prefill (chunks of {M.CHUNK}, a "
+          f"{(head + tail) % M.CHUNK}-token tail) vs a {head}-token prefill "
+          f"and {tail} decode steps: ||out diff|| / ||out|| {rel_out:.3e}, "
+          f"||h diff|| / ||h|| {rel_h:.3e}")
+    check(max(rel_out, rel_h) <= JAMBA_CONSISTENCY_TOL,
+          f"phase 24 (d): the Mamba handoff parts by {rel_out:.3e} (out) "
+          f"and {rel_h:.3e} (h) > {JAMBA_CONSISTENCY_TOL}")
+    return dict(rel_out=rel_out, rel_h=rel_h)
+
+
+def phase_jamba(torch, dev) -> dict:
+    """Phase 24: jamba-v0.1-52b at full width on ``JAMBA_LAYERS`` of its
+    32 layers (2 of 4 superblocks: ``launch.profile_engine.fit_depth``),
+    seeded weights.  (a) decode and flash at G 4 (H 32, KVH 8, D 128,
+    bf16; ``decode_at``, ``flash_at``) against their plain versions,
+    timed; (b) phase 4's traffic through the contiguous engine behind
+    ``measured_server`` (ACCEPT; launches exact: 2 attention layers);
+    (c) ``jamba_consistency``; (d) ``jamba_mamba_handoff``; (e) a decode
+    chunk under ``set_sync_debug_mode("error")``, a decode step and a
+    ``JAMBA_PREFILL``-token prefill profiled by ``launch.profile_engine``
+    (the prefill's kernels split into GEMMs, attention, the Mamba scan
+    and the rest), the peak memory.  Returns (a)'s rows, the launches,
+    the Server run's figures and (c)-(e)'s."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.launch import profile_engine as pe
+    from repro_torch.models import build_model
+    from repro_torch.models.param import tree_leaves
+    from repro_torch.power.nvml import NVML
+    from repro_torch.serving import ContinuousBatchingEngine
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    out = {}
+    print("  (a) decode and flash at G 4 (H 32, KVH 8)")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2424)
+    out["kernels"] = {
+        "decode_attention": decode_at(torch, dev, gen, 8, 4,
+                                      "decode_attention (G 4)")[0],
+        "flash_attention": flash_at(torch, dev, gen, 8, 4,
+                                    "flash_attention (G 4, S 1,024)")}
+    peak_gb(torch, "(a)")
+
+    full = get_config(JAMBA_ARCH)
+    card = torch.cuda.get_device_properties(0).total_memory
+    cfg, nbytes = pe.fit_depth(full, card)
+    check(cfg.n_layers == JAMBA_LAYERS,
+          f"phase 24: fit_depth gave {cfg.n_layers} layers, not "
+          f"{JAMBA_LAYERS}")
+    model = build_model(cfg, dev)
+    t0 = time.perf_counter()
+    params = model.init(seed=0)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    kinds = model._layer_kinds()
+    layers = attn_layers(model)
+    print(f"  depth cut: {cfg.n_layers} of {full.n_layers} layers "
+          f"({cfg.n_layers // cfg.hybrid.attn_period} superblocks of "
+          f"{cfg.hybrid.attn_period}; all {full.n_layers} pass "
+          f"{pe.CARD_SHARE:.0%} of the card's {card / 1e9:.2f} GB), d_model "
+          f"{cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads} of "
+          f"{cfg.head_dim}, {cfg.moe.n_experts} experts top-"
+          f"{cfg.moe.top_k} of {cfg.moe.d_expert} on even layers, d_inner "
+          f"{cfg.mamba.expand * cfg.d_model}, padded vocab {model.vp}: "
+          f"{n_params / 1e9:.3f} B params ({nbytes / 1e9:.2f} GB "
+          f"{cfg.dtype}), drawn in {time.perf_counter() - t0:.2f} s; "
+          f"{layers} attention and {len(kinds) - layers} Mamba sublayers")
+    peak_gb(torch, "weights")
+
+    print("  (b) phase 4's traffic through the contiguous engine, served "
+          "under PowerRun (Server, phase 15's settings) with the NVML "
+          "meter")
+    engine = ContinuousBatchingEngine(model, params, max_len=2048,
+                                      n_slots=8, chunk_steps=8, device=dev)
+    requests = phase4_requests(cfg)
+    lens = [len(r.prompt) for r in requests]
+    print(f"  prompts {lens}: {sum(s > 512 and s % 512 != 0 for s in lens)}"
+          f" of them longer than a 512-token scan chunk and no multiple "
+          f"of it (the reference asserts there)")
+    with NVML(dev) as nvml:
+        limit_w = nvml.power_limit_w()
+        meter = nvml.energy_meter()
+        torch.cuda.synchronize()
+        with meter() as idle:
+            time.sleep(1.0)
+        idle_w = idle.energy_j() / idle.window_s()
+        print(f"  idle {idle_w:.2f} W over {idle.window_s():.3f} s, "
+              f"enforced limit {limit_w:.2f} W")
+        f = measured_server(torch, engine, requests, JAMBA_ARCH, meter,
+                            idle_w, limit_w, "phase 24 (b)")
+    check(len(f["completed"]) == f["n_queries"],
+          f"phase 24 (b): {len(f['completed'])} of {f['n_queries']} "
+          f"queries completed")
+    for r in f["completed"]:
+        check(len(r.output) == r.max_new_tokens
+              and all(0 <= t < model.vp for t in r.output),
+              f"phase 24 (b): request {r.rid}: {len(r.output)} of "
+              f"{r.max_new_tokens} tokens, or one outside the vocabulary")
+    print(f"  (b) {f['n_queries']} requests, every budget met; launches "
+          f"exact: decode {f['launches']['decode_attention']} = {layers} x "
+          f"{f['decode_steps']} steps, flash "
+          f"{f['launches']['flash_attention']} = {layers} x "
+          f"{f['n_queries']} admissions; ACCEPTED: "
+          f"{f['tokens_per_s']:.1f} tok/s, {f['tok_per_j_accelerator']:.4f}"
+          f" tok/J at the accelerator, {f['tok_per_j_wall']:.4f} at the "
+          f"wall")
+    out["launches"] = f["launches"]
+    out["power"] = {k: v for k, v in f.items() if k != "completed"}
+    peak_gb(torch, "(b)")
+
+    print("  (c) kernel path vs plain path, one "
+          f"{JAMBA_PREFILL}-token prefill")
+    out["consistency"] = jamba_consistency(torch, dev, cfg, params)
+    gc.collect()
+    torch.cuda.empty_cache()
+    peak_gb(torch, "(c)")
+
+    print("  (d) the Mamba state handed from prefill to decode")
+    out["handoff"] = jamba_mamba_handoff(torch, dev, cfg, params)
+
+    print("  (e) host syncs, a decode step and a prefill profiled")
+    rng = np.random.default_rng(5)
+    prompts = [torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                            JAMBA_PREFILL), device=dev)[None]
+               for _ in range(8)]
+    sync_free_chunk(torch, engine, model, params, prompts)
+
+    def chunk():
+        engine.state, _ = engine._decode_chunk(params, engine.state)
+
+    chunk()
+    step = pe._profiled(chunk, pe._wall_ms(chunk, 4))
+    steps = engine.chunk_steps
+    print(f"  decode step (8 slots at ~{JAMBA_PREFILL}): "
+          f"{step['wall_ms'] / steps:.3f} ms host wall, "
+          f"{step['kernel_ms'] / steps:.3f} ms of kernels (busy "
+          f"{step['busy_share']:.1%}), {step['n_kernels'] // steps} kernels "
+          f"a step")
+    for t in step["top"][:8]:
+        print(f"    {t['ms'] / steps:9.3f} ms a step x{t['count'] // steps:<5}"
+              f" {t['kernel']}")
+
+    def admit():
+        engine._prefill_slot(params, engine.state, prompts[0], 0, 64)
+
+    admit()
+    prefill = pe._profiled(admit, pe._wall_ms(admit, 2))
+    split = pe.prefill_split(admit)
+    print(f"  prefill ({JAMBA_PREFILL} tokens): {prefill['wall_ms']:.3f} ms "
+          f"wall, {prefill['kernel_ms']:.3f} ms of kernels (busy "
+          f"{prefill['busy_share']:.1%}, {prefill['n_kernels']} kernels); "
+          f"split, ms: GEMMs {split['gemm_ms']:.3f}, attention "
+          f"{split['attention_ms']:.3f}, Mamba scan {split['scan_ms']:.3f} "
+          f"({split['scan_calls']} calls, by events), the rest "
+          f"{split['other_ms']:.3f}")
+    for t in prefill["top"][:8]:
+        print(f"    {t['ms']:9.3f} ms x{t['count']:<5} {t['kernel']}")
+    check(split["scan_calls"] == len(kinds) - layers,
+          f"phase 24 (e): {split['scan_calls']} Mamba scans in a prefill, "
+          f"not {len(kinds) - layers}")
+    out["step"] = dict(wall_ms=step["wall_ms"] / steps,
+                       kernel_ms=step["kernel_ms"] / steps,
+                       busy_share=step["busy_share"],
+                       kernels=step["n_kernels"] // steps)
+    out["prefill"] = dict(split, wall_ms=prefill["wall_ms"])
+    out["params_b"] = n_params / 1e9
+    out["peak_gb"] = peak_gb(torch, "phase 24")
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"  phase 24 took {out['seconds']:.1f} s")
+    del engine, model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5106,7 +5451,8 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    phase("phase 22: full-width qwen3-moe-30b-a3b (MoE, G 8)")
+    phase(f"phase 22: full-width qwen3-moe-30b-a3b on {MOE_LAYERS} of its 48 "
+          f"layers (MoE, G 8)")
     print(smi.strip())
     moe = phase_moe(torch, dev)
 
@@ -5115,8 +5461,13 @@ def main() -> int:
     print(smi.strip())
     mla = phase_mla(torch, dev)
 
+    phase(f"phase 24: full-width jamba-v0.1-52b on {JAMBA_LAYERS} of its 32 "
+          f"layers (Mamba + attention superblocks, MoE, G 4)")
+    print(smi.strip())
+    jamba = phase_jamba(torch, dev)
+
     # launches: each kernel's count on its own paths' runs (phases 4, 14,
-    # 15, 17 and 20 for decode and flash, 16, 18 and 19 for flash, 18 for
+    # 15, 17, 20 and 24 for decode and flash, 16, 18 and 19 for flash, 18 for
     # decode; phases 6, 16 and 18 for the paged kernels and 19 for paged
     # decode, 8 and 18 for the verify kernel, phase 10 for the scan,
     # phase 12 for the int8 GEMM; phase 21's sharded serves for decode,
@@ -5130,11 +5481,11 @@ def main() -> int:
                     k: prefix_launches[k] + spec_bench_launches[k]
                     for k in prefix_launches},
                 "19": disagg_launches, "20": fleet_launches,
-                "21": tp["launches"]}
+                "21": tp["launches"], "24": jamba["launches"]}
     uses = {"decode_attention": ("4", "14", "15", "17", "18", "20", "21",
-                                 "22"),
+                                 "22", "24"),
             "flash_attention": ("4", "14", "15", "16", "17", "18", "19",
-                                "20", "21", "22"),
+                                "20", "21", "22", "24"),
             "paged_decode_attention": ("6", "16", "18", "19", "21", "22"),
             "paged_verify_attention": ("6", "16", "18", "21", "22"),
             "verify_attention": ("8", "18", "21", "22")}
@@ -5147,6 +5498,11 @@ def main() -> int:
         kernels[name]["g8"] = g8
         kernels[name]["max_abs_err"] = max(kernels[name]["max_abs_err"],
                                            g8["max_abs_err"])
+        if name in jamba["kernels"]:
+            g4 = jamba["kernels"][name]
+            kernels[name]["g4"] = g4
+            kernels[name]["max_abs_err"] = max(kernels[name]["max_abs_err"],
+                                               g4["max_abs_err"])
         totals[name] = sum(kernels[name]["launches_by_phase"].values())
     sources = {
         "decode_attention": (f"{dec}:351", totals),
@@ -5170,6 +5526,14 @@ def main() -> int:
           f"{moe['power']['tok_per_j_accelerator']:.4f} tok/J at the "
           f"accelerator, peak {moe['peak_gb']:.2f} GB; phase 23: "
           f"{mla['params_b']:.3f} B params, peak {mla['peak_gb']:.2f} GB")
+    print(f"phase 24: {jamba['params_b']:.3f} B params, "
+          f"{jamba['step']['wall_ms']:.3f} ms a decode step "
+          f"({jamba['step']['kernel_ms']:.3f} ms of kernels), a "
+          f"{JAMBA_PREFILL}-token prefill {jamba['prefill']['kernel_ms']:.3f}"
+          f" ms of kernels ({jamba['prefill']['scan_ms']:.3f} Mamba scan), "
+          f"{jamba['power']['tok_per_j_accelerator']:.4f} tok/J at the "
+          f"accelerator, peak {jamba['peak_gb']:.2f} GB, "
+          f"{jamba['seconds']:.1f} s")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi.strip())
     print(json.dumps(record))

@@ -1,9 +1,10 @@
 """Config registry: ``get_config("qwen3-1.7b")`` and reduced smoke configs.
 
 The dense decoder family, the MoE and MLA-MoE decoders (qwen3-moe,
-deepseek-v3), rwkv6, the whisper encoder-decoder and the tiny keyword
-spotter are ported so far; asking for any other architecture the JAX
-package knows raises ``NotImplementedError``.
+deepseek-v3), the Mamba + attention hybrid (jamba), rwkv6, the whisper
+encoder-decoder and the tiny keyword spotter are ported so far; asking
+for any other architecture the JAX package knows raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -21,17 +22,17 @@ _ARCH_MODULES = {
     "qwen3-1.7b": "qwen3_1_7b",
     "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
     "deepseek-v3-671b": "deepseek_v3_671b",
+    "jamba-v0.1-52b": "jamba_v0_1_52b",
     "rwkv6-3b": "rwkv6_3b",
     "tiny-kws": "tiny_kws",
     "whisper-small": "whisper_small",
     "yi-9b": "yi_9b",
 }
 
-# architectures of the reference package whose families (hybrid, VLM)
-# the port does not run yet
+# architectures of the reference package whose family (VLM) the port
+# does not run yet
 _NOT_PORTED = {
     "phi-3-vision-4.2b": "phi_3_vision_4_2b",
-    "jamba-v0.1-52b": "jamba_v0_1_52b",
     "edge-vit": "edge_vit",
 }
 
@@ -50,8 +51,8 @@ def get_config(name: str, **overrides) -> ModelConfig:
     if key in _NOT_PORTED:
         raise NotImplementedError(
             f"arch {key!r} is not ported yet, see ROADMAP §A.11 "
-            f"(the port runs the dense, moe, mla_moe, rwkv, encdec and "
-            f"tiny families: "
+            f"(the port runs the dense, moe, mla_moe, hybrid, rwkv, encdec "
+            f"and tiny families: "
             f"{list_archs()})")
     if key not in _ARCH_MODULES:
         raise KeyError(f"unknown arch {name!r}; have {list_archs()}")
@@ -71,13 +72,14 @@ def reduce_config(cfg: ModelConfig) -> ModelConfig:
     float32; rwkv keeps 4/4 heads of 32; MoE keeps at most 8 experts,
     top-2, of width 128 and at most 1 leading dense layer (of width 256
     where the config has one); MLA takes ranks 64/32 and head dims
-    32 + 16 / 32; encdec keeps 2 encoder layers over 64 frames and 2
-    decoder layers.  A tiny config is returned unchanged (it is already
-    tiny).
+    32 + 16 / 32; hybrid keeps 8 layers (one Jamba period); encdec keeps
+    2 encoder layers over 64 frames and 2 decoder layers.  A tiny config
+    is returned unchanged (it is already tiny).
     """
     if cfg.family == "tiny":
         return cfg
-    if cfg.family not in ("dense", "moe", "mla_moe", "rwkv", "encdec"):
+    if cfg.family not in ("dense", "moe", "mla_moe", "hybrid", "rwkv",
+                          "encdec"):
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet, see ROADMAP §A.11")
     changes: dict = dict(
@@ -106,6 +108,8 @@ def reduce_config(cfg: ModelConfig) -> ModelConfig:
         changes["mla"] = MLAConfig(q_lora_rank=64, kv_lora_rank=32,
                                    qk_nope_head_dim=32, qk_rope_head_dim=16,
                                    v_head_dim=32)
+    if cfg.hybrid is not None:
+        changes.update(n_layers=8)  # one full Jamba period
     if cfg.encdec is not None:
         changes["encdec"] = dataclasses.replace(cfg.encdec, enc_layers=2,
                                                 enc_len=64)

@@ -1,18 +1,25 @@
 """Where the engine's time goes on the card: decode and prefill profiled.
 
   python -m repro_torch.launch.profile_engine [--arch rwkv6-3b]
+  python -m repro_torch.launch.profile_engine --arch jamba-v0.1-52b
   python -m repro_torch.launch.profile_engine --arch whisper-small
 
 Fills every slot of the full-width ``--arch`` (default qwen3-1.7b)
 ``ContinuousBatchingEngine`` (the engine shape ``chip_smoke.py`` serves
 at) with a prompt of ``PROMPT_LEN`` tokens (seeded random weights and
-tokens), then, after one warm-up chunk, measures:
+tokens), then, after one warm-up chunk, measures the following.  An
+arch whose weights pass ``CARD_SHARE`` of the card's memory runs at
+full width on fewer layers (``fit_depth``: whole superblocks of a
+hybrid; jamba-v0.1-52b on 16 of its 32), and the output names the cut.
 
 - decode: host wall time per step over 4 chunks of 8 steps (ending in a
   synchronize), then one chunk under ``torch.profiler`` for its kernels'
   device time; busy share = kernel time / the wall time measured with
   the profiler off; and the kernels that take the most device time;
-- prefill: the same for an admission of ``PROMPT_LEN`` tokens;
+- prefill: the same for an admission of ``PROMPT_LEN`` tokens, and its
+  kernels' device time split (``prefill_split``) into GEMMs (cuBLAS:
+  projections, FFNs, the MoE's expert products), attention (the port's
+  kernels), the Mamba scan of a hybrid and the rest;
 - speculative round: the same for one chunk of ``CHUNK_STEPS`` rounds
   of the speculative engine (``SPEC_K`` drafts from a 2-layer truncated
   draft, the target's layers past 2 damped to 0.001: ``chip_smoke.py``
@@ -39,7 +46,10 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
+import dataclasses
 import json
+import math
 import subprocess
 import time
 
@@ -50,6 +60,8 @@ from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.configs import get_config, list_archs
 from repro_torch.models import build_model
+from repro_torch.models import mamba as M
+from repro_torch.models.param import DTYPES, tree_leaves
 from repro_torch.serving import (ContinuousBatchingEngine, Request,
                                  damp_upper_layers, truncate_draft)
 
@@ -64,6 +76,33 @@ SUFFIX_LEN = 200        # a prefix hit's uncached tail
 SEED = 0
 ENC_PROMPT = 4          # whisper's start-of-transcript prefix
 ENC_MAX_LEN = 448       # whisper's text context
+CARD_SHARE = 0.75       # of the card's memory the weights may take
+# kernel names by part of a prefill (lower case substrings)
+GEMM_NAMES = ("gemm", "nvjet", "cutlass", "xmma", "gemv", "splitk")
+ATTENTION_NAMES = ("flash", "decode", "merge_splits", "window_tile")
+
+
+def weight_bytes(cfg) -> int:
+    """Bytes of ``cfg``'s weights, from its parameter definitions."""
+    defs = build_model(cfg, "cpu").param_defs()
+    return sum(math.prod(d.shape) * DTYPES[d.dtype].itemsize
+               for d in tree_leaves(defs))
+
+
+def fit_depth(cfg, card_bytes: int):
+    """``cfg`` at the most layers whose weights take at most
+    ``CARD_SHARE`` of ``card_bytes`` (whole superblocks of a hybrid; at
+    least every leading dense layer and one MoE layer of an mla_moe
+    stack), full width.  Returns (config, its weights' bytes)."""
+    step = cfg.hybrid.attn_period if cfg.hybrid is not None else 1
+    least = cfg.moe.first_k_dense + 1 if cfg.family == "mla_moe" else step
+    for n in range(cfg.n_layers - cfg.n_layers % step, least - 1, -step):
+        cut = dataclasses.replace(cfg, n_layers=n)
+        nbytes = weight_bytes(cut)
+        if nbytes <= CARD_SHARE * card_bytes:
+            return cut, nbytes
+    raise ValueError(f"{cfg.name}: even {least} layers pass "
+                     f"{CARD_SHARE:.0%} of {card_bytes / 1e9:.1f} GB")
 
 
 def _wall_ms(fn, reps: int) -> float:
@@ -76,10 +115,9 @@ def _wall_ms(fn, reps: int) -> float:
     return (time.perf_counter() - t0) * 1e3 / reps
 
 
-def _profiled(fn, wall_ms: float, top: int = 16) -> dict:
-    """Run ``fn`` once under the profiler: its kernels' device time, the
-    busy share against ``wall_ms`` (measured with the profiler off, which
-    itself slows the host) and the top kernels by device time."""
+def _kernels(fn) -> dict:
+    """{kernel name: [launches, device ms]} of one call of ``fn`` under
+    the profiler."""
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         fn()
@@ -89,6 +127,14 @@ def _profiled(fn, wall_ms: float, top: int = 16) -> dict:
         if e.device_type == DeviceType.CUDA:
             per[e.name][0] += 1
             per[e.name][1] += e.time_range.elapsed_us() / 1e3
+    return per
+
+
+def _profiled(fn, wall_ms: float, top: int = 16) -> dict:
+    """Run ``fn`` once under the profiler: its kernels' device time, the
+    busy share against ``wall_ms`` (measured with the profiler off, which
+    itself slows the host) and the top kernels by device time."""
+    per = _kernels(fn)
     kernel_ms = sum(ms for _, ms in per.values())
     ranked = sorted(per.items(), key=lambda kv: -kv[1][1])[:top]
     return {"wall_ms": wall_ms, "kernel_ms": kernel_ms,
@@ -96,6 +142,57 @@ def _profiled(fn, wall_ms: float, top: int = 16) -> dict:
             "n_kernels": sum(n for n, _ in per.values()),
             "top": [{"kernel": k[:90], "count": n, "ms": ms}
                     for k, (n, ms) in ranked]}
+
+
+@contextlib.contextmanager
+def _timed_calls(module, name: str):
+    """Bracket every call of ``module.name`` with CUDA events while the
+    context is open; yields the list of (start, end) event pairs."""
+    orig = getattr(module, name)
+    pairs = []
+
+    def timed(*args, **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = orig(*args, **kw)
+        end.record()
+        pairs.append((start, end))
+        return out
+
+    setattr(module, name, timed)
+    try:
+        yield pairs
+    finally:
+        setattr(module, name, orig)
+
+
+def prefill_split(fn) -> dict:
+    """The device ms of one call of ``fn`` (an admission) split by part:
+    its kernels under the profiler, GEMMs (cuBLAS, ``GEMM_NAMES``: the
+    projections, FFNs and the MoE's expert products) and attention (the
+    port's kernels, ``ATTENTION_NAMES``) by kernel name; then a second
+    call with CUDA events around each ``mamba.selective_scan`` (a_bar,
+    b_bar, the chunked scan and y: elementwise kernels, so none of them
+    is a GEMM or attention): the Mamba scan's ms.  ``other_ms``: the
+    rest (norms, the conv, routing and dispatch, softplus, ...)."""
+    per = _kernels(fn)
+    total = sum(ms for _, ms in per.values())
+
+    def part(names):
+        return sum(ms for k, (_, ms) in per.items()
+                   if any(n in k.lower() for n in names))
+
+    gemm, attention = part(GEMM_NAMES), part(ATTENTION_NAMES)
+    with _timed_calls(M, "selective_scan") as pairs:
+        fn()
+        torch.cuda.synchronize()
+    scan = sum(s.elapsed_time(e) for s, e in pairs)
+    return {"kernel_ms": total, "gemm_ms": gemm,
+            "attention_ms": attention, "scan_ms": scan,
+            "scan_calls": len(pairs),
+            "other_ms": total - gemm - attention - scan,
+            "n_kernels": sum(n for n, _ in per.values())}
 
 
 def _profile_spec(model, params, rng) -> dict:
@@ -224,9 +321,13 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", default=ARCH, choices=list_archs())
     args = ap.parse_args(argv)
-    cfg = get_config(args.arch)
-    if cfg.encdec is not None:
-        return main_encdec(cfg)
+    full = get_config(args.arch)
+    if full.encdec is not None:
+        return main_encdec(full)
+    card = torch.cuda.get_device_properties(0).total_memory
+    cfg, nbytes = fit_depth(full, card)
+    depth = {"layers": cfg.n_layers, "of": full.n_layers,
+             "weights_gb": nbytes / 1e9, "card_gb": card / 1e9}
     model = build_model(cfg, "cuda")
     params = model.init(SEED)
     eng = ContinuousBatchingEngine(model, params, max_len=MAX_LEN,
@@ -252,6 +353,7 @@ def main(argv=None):
     decode.update(wall_ms_per_step=decode["wall_ms"] / steps,
                   kernel_ms_per_step=decode["kernel_ms"] / steps)
     prefill = _profiled(lambda: admit(0), _wall_ms(lambda: admit(0), 2))
+    split = prefill_split(lambda: admit(0))
 
     # a truncated draft needs a dense target; the prefix hit a GQA stack
     dense = cfg.family == "dense"
@@ -260,8 +362,13 @@ def main(argv=None):
            if cfg.family in ("dense", "moe") else None)
 
     smi = _smi()
-    depth = int(eng.state["cache"]["pos"].max())
-    print(f"{smi}: {cfg.name}, {SLOTS} slots at depth ~{depth}")
+    depth_rows = int(eng.state["cache"]["pos"].max())
+    print(f"{smi}: {cfg.name}, {SLOTS} slots at depth ~{depth_rows}")
+    if cfg.n_layers < full.n_layers:
+        print(f"  depth cut: {cfg.n_layers} of {full.n_layers} layers at "
+              f"full width ({nbytes / 1e9:.2f} GB of weights; all "
+              f"{full.n_layers} pass {CARD_SHARE:.0%} of the card's "
+              f"{card / 1e9:.2f} GB)")
     print(f"  decode: {decode['wall_ms_per_step']:.3f} ms/step host wall, "
           f"{decode['kernel_ms_per_step']:.3f} ms/step of kernels, busy "
           f"{decode['busy_share']:.1%}, {decode['n_kernels'] // steps} "
@@ -269,6 +376,11 @@ def main(argv=None):
     print(f"  prefill ({PROMPT_LEN} tokens): "
           f"{prefill['wall_ms']:.3f} ms wall, {prefill['kernel_ms']:.3f} ms "
           f"of kernels, busy {prefill['busy_share']:.1%}")
+    print(f"  prefill split, ms of kernels: GEMMs {split['gemm_ms']:.3f}, "
+          f"attention {split['attention_ms']:.3f}, Mamba scan "
+          f"{split['scan_ms']:.3f} ({split['scan_calls']} calls, by "
+          f"events), the rest {split['other_ms']:.3f}, of "
+          f"{split['kernel_ms']:.3f}")
     if rounds is not None:
         print(f"  speculative (k={SPEC_K}, depth ~{rounds['depth']}): "
               f"{rounds['wall_ms_per_round']:.3f} ms/round host wall, "
@@ -285,9 +397,10 @@ def main(argv=None):
         for t in (part or {}).get("top", []):
             print(f"  {name} {t['ms']:9.3f} ms x{t['count']:<5} "
                   f"{t['kernel']}")
-    out = {"device": smi, "arch": cfg.name, "slots": SLOTS,
-           "prompt_len": PROMPT_LEN, "decode": decode,
-           "prefill": prefill, "speculative": rounds, "prefix_hit": hit}
+    out = {"device": smi, "arch": cfg.name, "depth": depth,
+           "slots": SLOTS, "prompt_len": PROMPT_LEN, "decode": decode,
+           "prefill": prefill, "prefill_split": split,
+           "speculative": rounds, "prefix_hit": hit}
     print(json.dumps(out))
     return out
 

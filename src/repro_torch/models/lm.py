@@ -1,19 +1,25 @@
-"""Decoder-only language model: the dense, moe, mla_moe and rwkv
+"""Decoder-only language model: the dense, moe, mla_moe, hybrid and rwkv
 families (PyTorch port).
 
 The counterpart of the reference ``models/lm.py::LM`` for
 ``family == "dense"`` (``attn_dense`` blocks), ``"moe"`` (``attn_moe``:
 GQA and a top-k MoE FFN), ``"mla_moe"`` (DeepSeek-V3: ``first_k_dense``
 ``mla_dense`` blocks, then ``mla_moe`` blocks with a sigmoid router and
-a shared expert) and ``"rwkv"`` (RWKV-6 blocks): the same parameter
-tree (one ``"blocks"`` stack with a leading layer axis, or mla_moe's
+a shared expert), ``"hybrid"`` (jamba: superblocks of ``attn_period``
+sublayers, GQA at ``attn_offset`` and a Mamba mixer at the others, a
+softmax-routed MoE FFN every ``moe_every`` layers and a dense one
+between) and ``"rwkv"`` (RWKV-6 blocks): the same parameter tree (one
+``"blocks"`` stack with a leading layer axis, or mla_moe's
 ``"dense_blocks"`` and ``"moe_blocks"`` stacks and its ``"mtp"``
-subtree, which serving leaves unused), the same cache tree, and the
-same ``prefill`` / ``decode_step`` API.  Layers run as a Python loop
-over each stack.  Caches are updated in place where the reference's
-jitted callers donate them.  An rwkv cache holds each layer's recurrent
-state (``S`` and the two token-shift rows) instead of K/V rows, an MLA
-cache the latent ``c_kv`` and ``k_rope`` rows.
+subtree, which serving leaves unused, or hybrid's ``"superblocks"``:
+one stack per sublayer ``l{j}_{kind}`` with a leading superblock axis),
+the same cache tree, and the same ``prefill`` / ``decode_step`` API.
+Layers run as one Python loop over each stack's repeats and their
+sublayers.  Caches are updated in place where the reference's jitted
+callers donate them.  An rwkv cache holds each layer's recurrent state
+(``S`` and the two token-shift rows) instead of K/V rows, an MLA cache
+the latent ``c_kv`` and ``k_rope`` rows, a Mamba sublayer's cache its
+state ``h`` and conv rows.
 
   lm = LM(cfg, device="cuda")
   params = lm.init(seed=0)                 # or param.from_jax(tree)
@@ -28,8 +34,8 @@ all-reduces each block's attention output and FFN output over the
 group, where the reference calls ``tp_psum``.  The paged engine's cache tree (``init_paged_cache``) holds
 page pools shared by all slots plus a ``pages`` table; ``decode_step``
 and ``verify_step`` then go through the page table.  Both need
-random-access KV attention and raise ``NotImplementedError`` for rwkv
-and MLA, as the reference does.
+random-access KV attention and raise ``NotImplementedError`` for rwkv,
+MLA and hybrid, as the reference does.
 """
 from __future__ import annotations
 
@@ -40,22 +46,24 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import mamba as M
 from repro_torch.models import rwkv6 as R
 from repro_torch.models.param import (DTYPES, ParamDef, init_params,
                                       stack_tree, tree_map)
 from repro_torch.parallel.sharding import tp_all_reduce
 
-_FAMILIES = ("dense", "moe", "mla_moe", "rwkv")
+_FAMILIES = ("dense", "moe", "mla_moe", "hybrid", "rwkv")
 
 
 class LM:
-    """Dense or MoE GQA decoder, MLA-MoE decoder or RWKV-6 stack.
+    """Dense or MoE GQA decoder, MLA-MoE decoder, Mamba + GQA hybrid or
+    RWKV-6 stack.
     ``device`` defaults to ``cuda`` and raises when no GPU is visible.
     ``kernels=False`` sends attention and the scan to the plain PyTorch
     versions on any device (the on-card yardstick); with ``kernels=True``
     CUDA tensors go through the hand-written kernels and CPU tensors
-    through the same plain versions (MLA and the MoE layer have no
-    kernel: both settings run them alike).  ``tp_group``: the process
+    through the same plain versions (MLA, Mamba and the MoE layer have
+    no kernel: both settings run them alike).  ``tp_group``: the process
     group of a tensor-parallel shard (``None``: the whole model, no
     collective); the group belongs to the model, so a speculative draft
     built without one stays replicated in the same thread."""
@@ -64,20 +72,28 @@ class LM:
                  kernels: bool = True, tp_group=None):
         if cfg.family not in _FAMILIES:
             raise NotImplementedError(
-                f"family {cfg.family!r}: only the dense, moe, mla_moe and "
-                f"rwkv families are ported; see ROADMAP §A.11")
+                f"family {cfg.family!r}: only the dense, moe, mla_moe, "
+                f"hybrid and rwkv families are ported; see ROADMAP §A.11")
         self.cfg = cfg
         self.vp = L.pad_vocab(cfg.vocab_size)
         self.device = resolve_device(device)
         self.kernels = kernels
         self.dtype = DTYPES[cfg.dtype]
-        # (stack name, layer kind, layers) in the order they run
-        if cfg.family == "mla_moe":
+        # (stack name, its sublayers as (key, kind), repeats) in the
+        # order they run; key None: the stack's leaves are the block's
+        if cfg.family == "hybrid":
+            period = cfg.hybrid.attn_period
+            self.groups = [("superblocks",
+                            [(f"l{j}_{kind}", kind) for j, kind in
+                             enumerate(self._layer_kinds()[:period])],
+                            cfg.n_layers // period)]
+        elif cfg.family == "mla_moe":
             k = cfg.moe.first_k_dense
-            self.groups = [("dense_blocks", "mla_dense", k),
-                           ("moe_blocks", "mla_moe", cfg.n_layers - k)]
+            self.groups = [("dense_blocks", [(None, "mla_dense")], k),
+                           ("moe_blocks", [(None, "mla_moe")],
+                            cfg.n_layers - k)]
         else:       # a homogeneous stack of the first layer's kind
-            self.groups = [("blocks", self._layer_kinds()[0],
+            self.groups = [("blocks", [(None, self._layer_kinds()[0])],
                             cfg.n_layers)]
         self.tp_group = tp_group
         if tp_group is not None and cfg.family != "dense":
@@ -94,7 +110,10 @@ class LM:
             if cfg.family == "rwkv":
                 kinds.append("rwkv")
                 continue
-            mix = "mla" if cfg.mla is not None else "attn"
+            is_attn = (cfg.hybrid is None or i % cfg.hybrid.attn_period
+                       == cfg.hybrid.attn_offset)
+            mix = ("mla" if cfg.mla is not None else
+                   ("attn" if is_attn else "mamba"))
             is_moe = False
             if cfg.moe is not None:
                 is_moe = (i >= cfg.moe.first_k_dense
@@ -105,15 +124,24 @@ class LM:
     def check_verify(self) -> None:
         """Raise ``NotImplementedError`` unless every layer has
         random-access KV attention (an ``attn_*`` kind): verify windows
-        and paged KV need it; an rwkv state and an MLA latent cache have
-        neither (the reference raises the same)."""
-        for _, kind, _ in self.groups:
-            if not kind.startswith("attn_"):
-                raise NotImplementedError(
-                    f"speculative verify and paged KV need random-access "
-                    f"KV attention; family {self.cfg.family!r} (layer kind "
-                    f"{kind!r}) has no multi-token verify or page-table "
-                    f"path")
+        and paged KV need it; an rwkv or Mamba state and an MLA latent
+        cache have neither (the reference raises the same)."""
+        for _, subs, _ in self.groups:
+            for _, kind in subs:
+                if not kind.startswith("attn_"):
+                    raise NotImplementedError(
+                        f"speculative verify and paged KV need random-access "
+                        f"KV attention; family {self.cfg.family!r} (layer "
+                        f"kind {kind!r}) has no multi-token verify or "
+                        f"page-table path")
+
+    @staticmethod
+    def _sublayers(subs, fn):
+        """One repeat of a stack: ``fn(kind)`` of its one block, or a
+        dict of them by sublayer key."""
+        if subs[0][0] is None:
+            return fn(subs[0][1])
+        return {key: fn(kind) for key, kind in subs}
 
     # ------------------------------------------------------------------
     # Parameter definitions
@@ -128,7 +156,10 @@ class LM:
             d["chan"] = R.rwkv_channel_defs(cfg)
             return d
         mix, ff = kind.split("_")
-        d["attn"] = L.gqa_defs(cfg) if mix == "attn" else L.mla_defs(cfg)
+        if mix == "mamba":
+            d["mamba"] = M.mamba_defs(cfg)
+        else:
+            d["attn"] = L.gqa_defs(cfg) if mix == "attn" else L.mla_defs(cfg)
         if ff == "moe":
             d["moe"] = L.moe_defs(cfg)
         else:
@@ -148,8 +179,9 @@ class LM:
             "lm_head": ParamDef((cfg.d_model, self.vp), ("fsdp", "vocab"),
                                 "normal", dt),
         }
-        for name, kind, n in self.groups:
-            defs[name] = stack_tree(self._block_defs(kind), n)
+        for name, subs, n in self.groups:
+            defs[name] = stack_tree(self._sublayers(subs, self._block_defs),
+                                    n)
         if cfg.mtp:         # DeepSeek-V3's training-only MTP module
             defs["mtp"] = {
                 "proj": ParamDef((2 * cfg.d_model, cfg.d_model),
@@ -178,9 +210,9 @@ class LM:
         verify to the paged KV pool: the cache leaves are then shared
         physical pages, not per-slot rows (``dest``: the window's
         ``paged_dest``).  An ``mla_*`` block's cache is dict(c_kv,
-        k_rope).  A ``*_moe`` block routes all of the call's tokens
-        through one capacity-limited MoE layer.  Returns the block
-        output."""
+        k_rope), a ``mamba_*`` block's dict(h, conv).  A ``*_moe`` block
+        routes all of the call's tokens through one capacity-limited MoE
+        layer.  Returns the block output."""
         cfg = self.cfg
         if kind == "rwkv":
             return self._apply_rwkv_block(x, bp, mode, cache)
@@ -192,6 +224,8 @@ class LM:
                 f"§A.12")
         if mix == "mla":
             o = self._mla(h, bp["attn"], mode, cache, pos)
+        elif mix == "mamba":
+            o = self._mamba(h, bp["mamba"], mode, cache)
         elif mode == "prefill":
             o, (k, v) = L.gqa_prefill(h, bp["attn"], cfg,
                                       kernels=self.kernels)
@@ -238,6 +272,23 @@ class LM:
             cache[name][:, s:] = 0
         return o
 
+    def _mamba(self, h, p, mode, cache):
+        """A Mamba sublayer's mixer (plain PyTorch: the reference's is
+        jnp, with no Pallas kernel).  Prefill leaves the state after the
+        prompt's last token in the cache (h, and the conv rows, zeros
+        first for a prompt shorter than them); decode carries it one
+        token on, in place."""
+        if mode == "decode":
+            return M.mamba_decode(h, p, self.cfg, cache)[0]
+        if mode != "prefill":
+            raise NotImplementedError(
+                f"mode {mode!r}: a Mamba sublayer has prefill and decode "
+                f"only (no multi-token verify path, as in the reference)")
+        o, st = M.mamba_block(h, p, self.cfg, return_state=True)
+        cache["h"].copy_(st["h"])
+        cache["conv"].copy_(st["conv"])
+        return o
+
     def _reduce(self, x):
         """Complete a row-parallel projection: the sum of every shard's
         partial output over ``tp_group`` (identity without one)."""
@@ -277,7 +328,8 @@ class LM:
         return x + o2
 
     def _run_stack(self, params, x, mode, cache, pos, pages=None):
-        """Run all blocks, stack by stack, over the stacked parameters
+        """Run all blocks, stack by stack, repeat by repeat and sublayer
+        by sublayer (a hybrid superblock's), over the stacked parameters
         and caches.  One page table serves every layer (the pools are
         stacked per layer, the table is not), so the window's physical
         rows are resolved once here for all of them."""
@@ -285,12 +337,16 @@ class LM:
         if pages is not None:
             dest = L.paged_dest(pages, pos, x.shape[1],
                                 cache["blocks"]["k"].shape[2])
-        for name, kind, n in self.groups:
+        for name, subs, n in self.groups:
             for i in range(n):
-                bp = tree_map(lambda a: a[i], params[name])
-                c = {leaf: t[i] for leaf, t in cache[name].items()}
-                x = self._apply_block(x, bp, kind, mode, c, pos, pages,
-                                      dest)
+                for key, kind in subs:
+                    p, c = params[name], cache[name]
+                    if key is not None:
+                        p, c = p[key], c[key]
+                    x = self._apply_block(
+                        x, tree_map(lambda a: a[i], p), kind, mode,
+                        {leaf: t[i] for leaf, t in c.items()}, pos, pages,
+                        dest)
         return x
 
     # ------------------------------------------------------------------
@@ -302,6 +358,8 @@ class LM:
         cfg = self.cfg
         if kind == "rwkv":
             return R.rwkv_state_defs(cfg, batch, self.dtype)
+        if kind.startswith("mamba"):
+            return M.mamba_state_defs(cfg, batch, self.dtype)
         if kind.startswith("mla"):
             m = cfg.mla
             return {"c_kv": ((batch, max_len, m.kv_lora_rank), self.dtype),
@@ -317,11 +375,16 @@ class LM:
         Dense and moe: (L, B, S, KVH, D) K and V.  mla_moe: (L, B, S, R)
         ``c_kv`` and (L, B, S, P) ``k_rope`` in each of its two stacks.
         rwkv: the (L, B, H, dh, dh) float32 state and the (L, B, 1, d)
-        token-shift rows, whatever ``max_len``."""
+        token-shift rows, whatever ``max_len``.  hybrid: one dict per
+        sublayer ``l{j}_{kind}`` of ``"superblocks"``, leaves stacked
+        over the superblocks: K/V, or a Mamba sublayer's (B, Din, N)
+        float32 ``h`` and (B, K - 1, Din) ``conv``."""
+        def block(kind):
+            return self._block_cache_specs(kind, batch, max_len)
+
         layers = {name: tree_map(lambda s, n=n: ((n,) + s[0], s[1]),
-                                 self._block_cache_specs(kind, batch,
-                                                         max_len))
-                  for name, kind, n in self.groups}
+                                 self._sublayers(subs, block))
+                  for name, subs, n in self.groups}
         pos_shape = (batch,) if per_slot_pos else ()
         return {"layers": layers, "pos": (pos_shape, torch.int32)}
 
@@ -374,7 +437,7 @@ class LM:
         e.g. views of one slot of an engine's cache) is written in place
         instead of allocating a fresh one.  An rwkv prefill writes each
         layer's final state and token-shift rows there, an MLA prefill
-        its latent rows."""
+        its latent rows, a Mamba sublayer its final state."""
         x = self._embed_inputs(params, inputs)
         b, seq = x.shape[0], x.shape[1]
         max_len = max_len or seq

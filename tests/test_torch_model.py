@@ -30,9 +30,11 @@ torch.set_num_threads(1)
 
 DENSE = ["qwen3-1.7b", "qwen2.5-3b", "granite-3-2b", "yi-9b"]
 LMS = DENSE + ["rwkv6-3b"]          # decoder-only: models/lm.py
-# encdec: tests/test_torch_whisper.py; moe and mla_moe:
-# tests/test_torch_moe.py and tests/test_torch_mla.py
-PORTED = LMS + ["whisper-small", "qwen3-moe-30b-a3b", "deepseek-v3-671b"]
+# encdec: tests/test_torch_whisper.py; moe, mla_moe and hybrid:
+# tests/test_torch_moe.py, tests/test_torch_mla.py and
+# tests/test_torch_hybrid.py
+PORTED = LMS + ["whisper-small", "qwen3-moe-30b-a3b", "deepseek-v3-671b",
+                "jamba-v0.1-52b"]
 TOL = dict(rtol=1e-4, atol=1e-4)
 
 
@@ -69,15 +71,14 @@ def test_configs_match_reference(arch):
     assert full.head_dim == jcfg.get_config(arch).head_dim
 
 
-@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "phi-3-vision-4.2b",
-                                  "edge-vit"])
+@pytest.mark.parametrize("arch", ["phi-3-vision-4.2b", "edge-vit"])
 def test_unported_families_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP §A.11"):
         tcfg.get_config(arch)
 
 
 @pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "deepseek-v3-671b",
-                                  "rwkv6-3b"])
+                                  "jamba-v0.1-52b", "rwkv6-3b"])
 def test_tensor_parallelism_refuses_non_dense_families(arch):
     """A tp group shards dense GQA stacks only: expert parallelism is
     ROADMAP §A.8's later work."""
