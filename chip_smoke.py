@@ -55,7 +55,7 @@ Phases, each fatal on failure:
    beside the per-call event time, the kernel-only device time per
    call from ``torch.profiler`` (both grids of the split route).
    Then every build the wrappers can launch (float32 and bfloat16,
-   D 64 and 128, G 1/2/4/8, flash in both forms and, in bf16, through
+   D 64, 96 and 128, G 1/2/4/8, flash in both forms and, in bf16, through
    both routes: causal Sq 3 over 3 and 300 keys (whole splits masked),
    a ragged last split, 77 x 300 tiles; decode and paged decode bit for
    bit, in bf16 also against the split plain version; both verify
@@ -245,8 +245,8 @@ Phases, each fatal on failure:
    of a decode step sharded and not, tok/s and tok/J,
    ``torch.cuda.device_count()``, the card's name and power limit.  A
    run across cards waits for a 4-chip cell.
-22. Full-width qwen3-moe-30b-a3b on the first 24 of its 48 layers (after
-   phase 14, every earlier model freed; 24 layers since phase 24 joined,
+22. Full-width qwen3-moe-30b-a3b on the first 12 of its 48 layers (after
+   phase 14, every earlier model freed; 12 layers since phase 25 joined,
    so that the script stays inside its time limit): d_model 2,048, 32
    query and 4 KV heads of 128, so G 8; 128 experts top-8 of width 768;
    padded vocab 153,600; bf16 seeded random weights, drawn a slice of the
@@ -306,6 +306,31 @@ Phases, each fatal on failure:
    prefill profiled (``launch.profile_engine``: the prefill's kernels
    split into GEMMs, attention, the Mamba scan and the rest), the peak
    memory and the phase's seconds.
+25. Full-width phi-3-vision-4.2b on all 32 layers (d_model 3,072, 32
+   heads of 96 with 32 KV heads: D 96, G 1; SwiGLU 8,192; padded vocab
+   32,768; ``patch_proj`` over 576 patches; 3.83 B seeded bf16 weights,
+   after phase 24's model is freed) and edge-vit: (a) the five attention
+   kernels at D 96, G 1 against their plain versions and timed beside
+   SDPA and their bounds (decode and paged decode at 8 slots over 2,048
+   rows, bit for bit to each other; verify at T 5, bit for bit to paged
+   verify; paged verify at T 200 and T 5 behind 1,024; flash causal at
+   S 1,024 = 576 patches + 448 tokens), the D 96 builds' ptxas
+   registers; (b) two batches of 8 requests with 576 float32 patch
+   embeddings each and 64- or 448-token prompts, 32 new tokens, through
+   ``ServeEngine.run_batch`` (launches exact: flash 32 a batch, decode 32
+   a step; every prefill logit, patch rows and tokens, within phase 5's
+   limit of the ``kernels=False`` path), the 448-token batch at max_len + 1 and the
+   refusal one row past it; (c) phase 4's traffic text-only through the
+   contiguous engine behind phase 15's measured Server run (ACCEPT,
+   launches exact), the paged engine refused (as in the reference), and
+   the same requests on one virtual clock through the speculative engine
+   (k = 4, the target's first 2 layers as the draft): tokens equal to the
+   contiguous engine's or parting at a near-tie, launches exact; (d)
+   edge-vit at full width (12 layers, 6 heads of 64) with 196 patches
+   through ``vlm_batch``; (e) a decode chunk under
+   ``set_sync_debug_mode("error")``, a decode step and a 1,024-token
+   prefill profiled (GEMMs, attention, the rest), the peak memory and
+   the phase's seconds.
 
 The line before the last holds the kernels' JSON record; the last line
 is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside
@@ -1223,6 +1248,10 @@ def phase_flash_bidir(torch, dev):
     return out
 
 
+# the head dims every attention build is checked at in phase 3b
+BUILD_DIMS = (64, 96, 128)
+
+
 def phase_builds(torch, dev):
     """Phase 3, second part: every build the wrappers can launch (the
     kernels are templates on dtype, D and, for decode, G), once each at
@@ -1259,7 +1288,7 @@ def phase_builds(torch, dev):
     pages8 = (torch.randperm(b * nb8, generator=gen, device=dev)
               + 1).reshape(b, nb8).to(torch.int32)
     for dtype, d, g in itertools.product((torch.float32, torch.bfloat16),
-                                         (64, 128), (1, 2, 4, 8)):
+                                         BUILD_DIMS, (1, 2, 4, 8)):
         h = kvh * g
         name = f"{str(dtype).removeprefix('torch.')} D={d} G={g}"
 
@@ -4304,9 +4333,9 @@ def phase_rwkv_consistency(torch, dev, cfg, params):
 # 32 query heads and 4 KV heads of 128 (G 8), 128 experts top-8 of
 # width 768, padded vocab 153,600, bf16, seeded random weights).
 MOE_ARCH = "qwen3-moe-30b-a3b"
-# its first 24 of 48 layers since phase 24 joined (full width; the script
-# stays inside its time limit)
-MOE_LAYERS = 24
+# its first 12 of 48 layers since phase 25 joined (24 with phase 24, 48
+# before; full width; the script stays well inside its time limit)
+MOE_LAYERS = 12
 # (d): chunked prefill over phase 6's traffic, in chunks of this many
 # prompt tokens (a 1,536-token prompt fills in 6)
 MOE_PREFILL_CHUNK = 256
@@ -4330,6 +4359,19 @@ JAMBA_PREFILL = 1024        # (c) and (e): one prefill of this many tokens
 JAMBA_HANDOFF = (1024, 76)  # (d): prefill, then decode steps (1,100 in all)
 JAMBA_CONSISTENCY_TOL = 1e-4  # (d): float32, by norm
 
+# Phase 25: phi-3-vision-4.2b at full width and depth, and edge-vit.
+VLM_ARCH = "phi-3-vision-4.2b"
+VLM_LAYERS = 32
+VLM_PROMPTS = (64, 448)     # (b): a batch's prompt tokens behind 576 patches
+VLM_BUDGET = 32
+# (b)'s cache: the 448-token batch ends at 576 + 448 + 32 = max_len + 1
+VLM_MAX_LEN = 576 + 448 + VLM_BUDGET - 1
+VLM_SPEC_K = 4              # (c): the draft is the target's first 2 layers
+VLM_PREFILL = 1024          # (e): the profiled text-only prefill
+EDGE_ARCH = "edge-vit"
+EDGE_PROMPT = 4             # (d): tokens behind edge-vit's 196 patches
+EDGE_BUDGET = 8
+
 
 def peak_gb(torch, label: str) -> float:
     """Print and return the peak of ``torch.cuda.max_memory_allocated``
@@ -4341,20 +4383,21 @@ def peak_gb(torch, label: str) -> float:
     return gb
 
 
-def ptxas_g8(log: str) -> list[str]:
-    """The rows of ``ptxas_report`` whose kernel is instantiated at G 8
-    (a template argument of 8 after the dtype and head dim)."""
+def ptxas_at(log: str, *marks: str) -> list[str]:
+    """The rows of ``ptxas_report`` whose kernel name holds one of
+    ``marks`` (a template argument: ``"<8,", ", 8,"`` for G 8, ``"<96,",
+    ", 96"`` for head dim 96)."""
     names = [(r, r.rsplit(": ", 1)[0]) for r in ptxas_report(log)]
-    return [r for r, n in names if "<8," in n or ", 8," in n]
+    return [r for r, n in names if any(m in n for m in marks)]
 
 
-# ragged depths of the 8 slots of phases 22 (a) and 24 (a)
+# ragged depths of the 8 slots of phases 22 (a), 24 (a) and 25 (a)
 GQA_RAGGED = (0, 2047, 1024, 17, 511, 1500, 300, 2000)
 
 
-def decode_at(torch, dev, gen, kvh: int, g: int, label: str):
+def decode_at(torch, dev, gen, kvh: int, g: int, label: str, d: int = 128):
     """decode_attention at 8 slots over 2,048 rows at ``GQA_RAGGED``
-    depths, KVH ``kvh``, G ``g``, D 128, bf16 (q, K, V drawn from
+    depths, KVH ``kvh``, G ``g``, D ``d``, bf16 (q, K, V drawn from
     ``gen``): held against its plain version and the split algorithm's
     plain version, then timed (``decode_times``).  Returns (its row,
     (q, K, V, ragged, mask))."""
@@ -4366,7 +4409,7 @@ def decode_at(torch, dev, gen, kvh: int, g: int, label: str):
         _sm_count, flash_attention_split_plain)
 
     bf16 = torch.bfloat16
-    b, d, s = 8, 128, 2048
+    b, s = 8, 2048
     h = kvh * g
 
     def randn(*shape):
@@ -4392,8 +4435,9 @@ def decode_at(torch, dev, gen, kvh: int, g: int, label: str):
     return row, (q, kc, vc, ragged, mask)
 
 
-def flash_at(torch, dev, gen, kvh: int, g: int, label: str) -> dict:
-    """flash_attention causal at S 1,024, KVH ``kvh``, G ``g``, D 128,
+def flash_at(torch, dev, gen, kvh: int, g: int, label: str,
+             d: int = 128) -> dict:
+    """flash_attention causal at S 1,024, KVH ``kvh``, G ``g``, D ``d``,
     bf16: held against its plain version, then timed by events and
     kernel-only beside the plain version, SDPA (events and kernel-only;
     a yardstick the port never calls) and the bound.  Returns its
@@ -4403,7 +4447,7 @@ def flash_at(torch, dev, gen, kvh: int, g: int, label: str) -> dict:
         _route, flash_attention, flash_attention_plain)
 
     bf16 = torch.bfloat16
-    sq, d = 1024, 128
+    sq = 1024
     h = kvh * g
 
     def randn(*shape):
@@ -4442,18 +4486,40 @@ def flash_at(torch, dev, gen, kvh: int, g: int, label: str) -> dict:
 
 def phase_moe_kernels(torch, dev) -> dict:
     """Phase 22 (a): the five attention kernels at qwen3-moe's shape (H
-    32, KVH 4, G 8, D 128, bf16) against their plain versions, timed by
-    events and kernel-only, beside the plain version's time, SDPA's
-    (kernel-only too) and the bound: decode and paged decode (8 slots
-    over 2,048 rows at ragged depths; paged through a shuffled table of
-    16-row pages, bit for bit against decode); verify at the speculative
-    window (T 5: T * G = 40 window rows a KV head, the tile route), bit
-    for bit against paged verify; paged verify at a prefix hit's suffix
-    (T 200 behind 1,024) and a prefill chunk (T 64 at 704); flash causal
-    at S 1,024.  Each kernel's ptxas registers and spills at G 8 are
-    printed from phase 2's build logs."""
-    import torch.nn.functional as F
+    32, KVH 4, G 8, D 128) through ``gqa_kernels``: verify at the
+    speculative window (T 5: T * G = 40 window rows a KV head, the tile
+    route), paged verify at a prefix hit's suffix (T 200 behind 1,024)
+    and a prefill chunk (T 64 at 704).  Each kernel's ptxas registers
+    and spills at G 8 are printed from phase 2's build logs."""
     from repro_torch.kernels import build
+
+    for name, (_, log) in build.build_log.items():
+        for row in ptxas_at(log, "<8,", ", 8,"):
+            print(f"  {name}.cu at G 8: {row}")
+    out = gqa_kernels(torch, dev, 4, 8, 128, 2222, "G 8", MOE_SPEC_K + 1,
+                      ((200, 1024), (64, 704)))
+    check(out["verify_attention"]["kernel_route"] == "mma",
+          "verify at T 5, G 8 did not take the tensor-core tile route")
+    pv = out["paged_verify_attention"]
+    pv["chunk"] = pv.pop("t64_at704")
+    return out
+
+
+def gqa_kernels(torch, dev, kvh: int, g: int, d: int, seed: int, tag: str,
+                spec_t: int, paged_windows) -> dict:
+    """The five attention kernels at one model's shape (KVH ``kvh``, G
+    ``g``, D ``d``, bf16; q, K and V drawn from ``seed``) against their
+    plain versions, timed by events and kernel-only, beside the plain
+    version's time, SDPA's (kernel-only too) and the bound: decode and
+    paged decode (8 slots over 2,048 rows at ``GQA_RAGGED`` depths; paged
+    through a shuffled table of 16-row pages, bit for bit against
+    decode); verify at the speculative window (T ``spec_t`` at each
+    slot's depth), bit for bit against paged verify; paged verify in one
+    slot at each (T, window start) of ``paged_windows``, bit for bit
+    against verify (the first is its row, every window also under
+    ``t{T}_at{start}``); flash causal at S 1,024.  ``tag`` names the
+    shape in the printed labels."""
+    import torch.nn.functional as F
     from repro_torch.kernels.decode_attention.ops import decode_attention
     from repro_torch.kernels.flash_attention.ops import _route
     from repro_torch.kernels.paged_decode_attention.ops import (
@@ -4463,13 +4529,10 @@ def phase_moe_kernels(torch, dev) -> dict:
     from repro_torch.kernels.verify_attention.ops import (
         verify_attention, verify_attention_plain)
 
-    for name, (_, log) in build.build_log.items():
-        for row in ptxas_g8(log):
-            print(f"  {name}.cu at G 8: {row}")
     bf16 = torch.bfloat16
     gen = torch.Generator(device=dev)
-    gen.manual_seed(2222)
-    b, kvh, g, d, s, ps = 8, 4, 8, 128, 2048, 16
+    gen.manual_seed(seed)
+    b, s, ps = 8, 2048, 16
     h, nb = kvh * g, s // ps
     out = {}
 
@@ -4477,7 +4540,7 @@ def phase_moe_kernels(torch, dev) -> dict:
         return torch.randn(shape, generator=gen, device=dev).to(bf16)
 
     out["decode_attention"], (q, kc, vc, ragged, mask) = decode_at(
-        torch, dev, gen, kvh, g, "decode_attention (G 8)")
+        torch, dev, gen, kvh, g, f"decode_attention ({tag})", d)
     route = out["decode_attention"]["kernel_route"]
 
     pages = (torch.randperm(b * nb, generator=gen, device=dev) + 1).reshape(
@@ -4487,16 +4550,16 @@ def phase_moe_kernels(torch, dev) -> dict:
     kp[pages.long()] = kc.reshape(b, nb, ps, kvh, d)
     vp[pages.long()] = vc.reshape(b, nb, ps, kvh, d)
     got = paged_decode_attention(q, kp, vp, pages, ragged)
-    err, rel = compare("paged_decode_attention (G 8)", got,
+    err, rel = compare(f"paged_decode_attention ({tag})", got,
                        paged_decode_attention_plain(q, kp, vp, pages,
                                                     ragged))
     check(torch.equal(got, decode_attention(q, kc, vc, ragged)),
-          "paged_decode_attention (G 8) is not bit-identical to "
-          "decode_attention through a shuffled page table")
+          f"paged_decode_attention ({tag}) is not bit-identical to "
+          f"decode_attention through a shuffled page table")
     blocks = int(((ragged.long() + ps) // ps).sum())
     out["paged_decode_attention"] = dict(
         max_abs_err=err, kernel_route=route, **decode_times(
-            torch, "paged_decode_attention (G 8; SDPA: contiguous)", F,
+            torch, f"paged_decode_attention ({tag}; SDPA: contiguous)", F,
             lambda: paged_decode_attention(q, kp, vp, pages, ragged),
             lambda: paged_decode_attention_plain(q, kp, vp, pages, ragged),
             q, kc, vc, mask, ragged, extra_bytes=blocks * 4 + b * 4))
@@ -4537,48 +4600,47 @@ def phase_moe_kernels(torch, dev) -> dict:
                     library_device_ms=lib_dev_ms, bound_ms=bound_ms,
                     bound_by=bound_by)
 
-    t = MOE_SPEC_K + 1
+    t = spec_t
     starts = ragged.clamp(max=s - t)
     qw = randn(b, t, h, d)
     got = verify_attention(qw, kc, vc, starts)
-    err, _ = compare("verify_attention (G 8, T 5)", got,
+    err, _ = compare(f"verify_attention ({tag}, T {t})", got,
                      verify_attention_plain(qw, kc, vc, starts))
     check(torch.equal(got, paged_verify_attention(qw, kp, vp, pages,
                                                   starts)),
-          "verify_attention (G 8, T 5) is not bit-identical to "
-          "paged_verify_attention through a shuffled page table")
-    check(_route(t, s, h, kvh, d, bf16) == "mma",
-          "verify at T 5, G 8 did not take the tensor-core tile route")
+          f"verify_attention ({tag}, T {t}) is not bit-identical to "
+          f"paged_verify_attention through a shuffled page table")
     out["verify_attention"] = dict(max_abs_err=err, **window_times(
-        "verify_attention (G 8)",
+        f"verify_attention ({tag})",
         lambda: verify_attention(qw, kc, vc, starts),
         lambda: verify_attention_plain(qw, kc, vc, starts), qw, kc, vc,
         starts, t, extra_bytes=b * 4))
 
     pv = {}
-    for t, start in ((200, 1024), (64, 704)):
+    for t, start in paged_windows:
         qw = randn(1, t, h, d)
         st = torch.tensor([start], dtype=torch.int32, device=dev)
         pg1 = pages[:1]
         got = paged_verify_attention(qw, kp, vp, pg1, st)
-        err, _ = compare(f"paged_verify_attention (G 8, T {t} at {start})",
+        err, _ = compare(f"paged_verify_attention ({tag}, T {t} at {start})",
                          got, paged_verify_attention_plain(qw, kp, vp, pg1,
                                                            st))
         check(torch.equal(got, verify_attention(qw, kc[:1], vc[:1], st)),
-              f"paged_verify_attention (G 8, T {t}) is not bit-identical "
+              f"paged_verify_attention ({tag}, T {t}) is not bit-identical "
               f"to verify_attention")
         pv[f"t{t}_at{start}"] = dict(max_abs_err=err, **window_times(
-            f"paged_verify_attention (G 8, at {start})",
+            f"paged_verify_attention ({tag}, at {start})",
             lambda: paged_verify_attention(qw, kp, vp, pg1, st),
             lambda: paged_verify_attention_plain(qw, kp, vp, pg1, st),
             qw, kc[:1], vc[:1], st, t,
             extra_bytes=-(-(start + t) // ps) * 4 + 4))
+    first = "t{}_at{}".format(*paged_windows[0])
     out["paged_verify_attention"] = dict(
-        pv["t200_at1024"], chunk=pv["t64_at704"],
+        pv[first], **{k: r for k, r in pv.items() if k != first},
         max_abs_err=max(r["max_abs_err"] for r in pv.values()))
 
     out["flash_attention"] = flash_at(torch, dev, gen, kvh, g,
-                                      "flash_attention (G 8, S 1,024)")
+                                      f"flash_attention ({tag}, S 1,024)", d)
     return out
 
 
@@ -5044,14 +5106,15 @@ def phase_mla(torch, dev) -> dict:
     return out
 
 
-def all_logits(torch, model, params, tokens):
-    """(S, Vp) float32 logits of every position of one (1, S) prefill
-    (``LM.prefill`` keeps only the last row's)."""
+def all_logits(torch, model, params, inputs):
+    """(B, S, Vp) float32 logits of every position of one prefill of
+    ``inputs`` (``LM.prefill`` keeps only the last row's): a VLM's patch
+    rows first, where ``inputs`` has ``patch_embeds``."""
     with torch.no_grad():
-        cache = model.init_cache(1, tokens.shape[1])["layers"]
-        x = model._run_stack(params, model._embed_inputs(
-            params, {"tokens": tokens}), "prefill", cache, None)
-        return model._logits(params, x)[0]
+        x = model._embed_inputs(params, inputs)
+        cache = model.init_cache(x.shape[0], x.shape[1])["layers"]
+        x = model._run_stack(params, x, "prefill", cache, None)
+        return model._logits(params, x)
 
 
 def jamba_consistency(torch, dev, cfg, params) -> dict:
@@ -5076,7 +5139,8 @@ def jamba_consistency(torch, dev, cfg, params) -> dict:
         calls, undo = routing_recorder(torch, L,
                                        routes[0] if force else None)
         try:
-            runs.append(all_logits(torch, model, params, tokens))
+            runs.append(all_logits(torch, model, params,
+                                   {"tokens": tokens})[0])
         finally:
             undo()
         routes.append(calls)
@@ -5310,6 +5374,317 @@ def phase_jamba(torch, dev) -> dict:
     return out
 
 
+def vlm_batch(torch, engine, plain, inputs, budget, label) -> dict:
+    """One patch-prefixed batch through ``ServeEngine.run_batch``
+    (``inputs``: the prompts' ``tokens`` and their ``patch_embeds``), every
+    launch counter set to 0 just before: every budget met, launches exact
+    (flash an attention layer for the prefill, decode an attention layer
+    a step, nothing else); then the batch's prefill logits at every
+    position (patch rows and tokens) through the kernel path against
+    ``plain`` (the same weights, ``kernels=False``) within
+    ``LOGIT_REL_TOL`` of max |logit|, and printed apart for each
+    request's last position (the logits that pick its first token).
+    Returns the launches and the errors."""
+    from repro_torch.serving import Request
+
+    model, params = engine.model, engine.params
+    tokens, patches = inputs["tokens"], inputs["patch_embeds"]
+    reqs = [Request(rid=i, prompt=t, max_new_tokens=budget)
+            for i, t in enumerate(tokens.cpu().numpy())]
+    done, wall_s, launches = count_launches(torch, lambda: engine.run_batch(
+        reqs, extra_inputs={"patch_embeds": patches}))
+    check_served(label, done, reqs, model.vp)
+    layers = attn_layers(model)
+    want = {"flash_attention": layers,
+            "decode_attention": layers * (budget - 1)}
+    check(launches == {k: want.get(k, 0) for k in launches},
+          f"{label}: launches {launches}, want {want} and no other")
+    got = all_logits(torch, model, params, inputs)
+    ref = all_logits(torch, plain, params, inputs)
+
+    def rel_agree(a, b):
+        return (float((a - b).abs().max() / b.abs().max()),
+                float((a.argmax(-1) == b.argmax(-1)).float().mean()))
+
+    rel, agree = rel_agree(got, ref)
+    rel_last, agree_last = rel_agree(got[:, -1], ref[:, -1])
+    b, n_p = patches.shape[:2]
+    print(f"  {label}: {b} requests of {n_p} patches + {tokens.shape[1]} "
+          f"tokens, {budget} new each in {wall_s:.3f} s; launches exact "
+          f"(flash {launches['flash_attention']}, decode "
+          f"{launches['decode_attention']} = {layers} x {budget - 1} "
+          f"steps); prefill logits, kernel vs plain path: max |kernel - "
+          f"plain| / max |plain| {rel:.3e}, argmax agreement {agree:.4f} "
+          f"over all {b} x {got.shape[1]} positions; {rel_last:.3e} and "
+          f"{agree_last:.4f} over the {b} last positions")
+    check(bool(torch.isfinite(got).all()), f"{label}: non-finite logits")
+    check(rel <= LOGIT_REL_TOL,
+          f"{label}: kernel-path prefill logits differ by {rel}")
+    return dict(launches=launches, rel=rel, argmax_agree=agree,
+                rel_last=rel_last, argmax_agree_last=agree_last)
+
+
+def phase_vlm(torch, dev) -> dict:
+    """Phase 25: phi-3-vision-4.2b at full width on all 32 layers (the
+    depth ``launch.profile_engine.fit_depth`` keeps), seeded weights, and
+    edge-vit.  (a) the five attention kernels at D 96, G 1 (H = KVH 32)
+    through ``gqa_kernels``, beside each D 96 build's ptxas registers;
+    (b) two patch-prefixed batches (576 float32 patch embeddings a
+    request, ``VLM_PROMPTS`` tokens) through ``ServeEngine.run_batch``
+    (``vlm_batch``), the 448-token batch at max_len + 1, and the refusal
+    one row past it; (c) phase 4's traffic text-only through the
+    contiguous slot engine behind ``measured_server``; the paged engine
+    refused (the reference's paged KV takes dense and moe only); the
+    same requests on one virtual clock through a contiguous and a
+    speculative engine (k = 4, the target's first 2 layers as the draft)
+    on the weights with the layers past 2 damped to 0.001 (phase 8's
+    high-acceptance pair): tokens equal, or parting at a near-tie; (d)
+    edge-vit at full
+    width, 196 patches, through ``vlm_batch``; (e) a decode chunk under
+    ``set_sync_debug_mode("error")``, a decode step and a
+    ``VLM_PREFILL``-token prefill profiled (``launch.profile_engine``:
+    GEMMs, attention, the rest), the peak memory and the phase's
+    seconds.  Returns (a)'s rows, the launches and the figures."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.launch import profile_engine as pe
+    from repro_torch.models import build_model
+    from repro_torch.models.param import tree_leaves, tree_map
+    from repro_torch.power.nvml import NVML
+    from repro_torch.serving import (ContinuousBatchingEngine, Request,
+                                     ServeEngine, damp_upper_layers)
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    out = {}
+    print("  (a) the five attention kernels at D 96, G 1 (H = KVH 32)")
+    for name, (_, log) in build.build_log.items():
+        for row in ptxas_at(log, "<96,", ", 96"):
+            print(f"  {name}.cu at D 96: {row}")
+    out["kernels"] = gqa_kernels(torch, dev, 32, 1, 96, 2525, "D 96, G 1",
+                                 5, ((200, 1024), (5, 1024)))
+    peak_gb(torch, "(a)")
+
+    full = get_config(VLM_ARCH)
+    card = torch.cuda.get_device_properties(0).total_memory
+    cfg, nbytes = pe.fit_depth(full, card)
+    check(cfg.n_layers == full.n_layers == VLM_LAYERS,
+          f"phase 25: fit_depth gave {cfg.n_layers} of {full.n_layers} "
+          f"layers, not all {VLM_LAYERS}")
+    model = build_model(cfg, dev)
+    plain = build_model(cfg, dev, kernels=False)
+    t0 = time.perf_counter()
+    params = model.init(seed=0)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    layers = attn_layers(model)
+    n_p = cfg.vlm.n_patches
+    print(f"  all {cfg.n_layers} layers at full width ({nbytes / 1e9:.2f} "
+          f"GB {cfg.dtype}, within {pe.CARD_SHARE:.0%} of the card's "
+          f"{card / 1e9:.2f} GB): d_model {cfg.d_model}, heads "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} of {cfg.head_dim}, d_ff "
+          f"{cfg.d_ff}, padded vocab {model.vp}, patch_proj "
+          f"{tuple(params['patch_proj'].shape)}, {n_p} patches: "
+          f"{n_params / 1e9:.3f} B params, drawn in "
+          f"{time.perf_counter() - t0:.2f} s")
+    peak_gb(torch, "weights")
+
+    print(f"  (b) patch-prefixed batches through ServeEngine (max_len "
+          f"{VLM_MAX_LEN})")
+    rng = np.random.default_rng(25)
+    serve = ServeEngine(model, params, max_len=VLM_MAX_LEN, batch_size=8,
+                        device=dev)
+    batches = {}
+    for s in VLM_PROMPTS:
+        inputs = {
+            "tokens": torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                                   (8, s)), device=dev),
+            "patch_embeds": torch.as_tensor(rng.standard_normal(
+                (8, n_p, cfg.d_model), dtype=np.float32), device=dev)}
+        batches[s] = vlm_batch(torch, serve, plain, inputs, VLM_BUDGET,
+                               f"phase 25 (b), {s}-token prompts")
+    past = [Request(rid=i, prompt=t, max_new_tokens=VLM_BUDGET + 1)
+            for i, t in enumerate(inputs["tokens"].cpu().numpy())]
+    try:
+        serve.run_batch(past, extra_inputs={
+            "patch_embeds": inputs["patch_embeds"]})
+        fail("phase 25 (b): a batch one row past max_len + 1 was served")
+    except ValueError as e:
+        print(f"  one row past max_len + 1 ({n_p} + {VLM_PROMPTS[-1]} + "
+              f"{VLM_BUDGET + 1} = {VLM_MAX_LEN + 2}): refused: {e}")
+    check(all(r.output is None for r in past),
+          "phase 25 (b): the refused batch emitted tokens")
+    out["batches"] = batches
+    del serve
+    gc.collect()
+    torch.cuda.empty_cache()
+    peak_gb(torch, "(b)")
+
+    print("  (c) phase 4's traffic, text-only, through the contiguous "
+          "engine under PowerRun (Server, phase 15's settings) with the "
+          "NVML meter")
+    engine = ContinuousBatchingEngine(model, params, max_len=2048,
+                                      n_slots=8, chunk_steps=8, device=dev)
+    requests = phase4_requests(cfg)
+    with NVML(dev) as nvml:
+        limit_w = nvml.power_limit_w()
+        meter = nvml.energy_meter()
+        torch.cuda.synchronize()
+        with meter() as idle:
+            time.sleep(1.0)
+        idle_w = idle.energy_j() / idle.window_s()
+        print(f"  idle {idle_w:.2f} W over {idle.window_s():.3f} s, "
+              f"enforced limit {limit_w:.2f} W")
+        f = measured_server(torch, engine, requests, VLM_ARCH, meter,
+                            idle_w, limit_w, "phase 25 (c)")
+    check(len(f["completed"]) == f["n_queries"],
+          f"phase 25 (c): {len(f['completed'])} of {f['n_queries']} "
+          f"queries completed")
+    for r in f["completed"]:
+        check(len(r.output) == r.max_new_tokens
+              and all(0 <= t < model.vp for t in r.output),
+              f"phase 25 (c): request {r.rid}: {len(r.output)} of "
+              f"{r.max_new_tokens} tokens, or one outside the vocabulary")
+    print(f"  (c) {f['n_queries']} requests, every budget met; launches "
+          f"exact: decode {f['launches']['decode_attention']} = {layers} x "
+          f"{f['decode_steps']} steps, flash "
+          f"{f['launches']['flash_attention']} = {layers} x "
+          f"{f['n_queries']} admissions; ACCEPTED: "
+          f"{f['tokens_per_s']:.1f} tok/s, {f['tok_per_j_accelerator']:.4f}"
+          f" tok/J at the accelerator, {f['tok_per_j_wall']:.4f} at the "
+          f"wall")
+    out["power"] = {k: v for k, v in f.items() if k != "completed"}
+    try:
+        ContinuousBatchingEngine(model, params, max_len=2048, n_slots=8,
+                                 kv_page_size=16, prefix_caching=True,
+                                 device=dev)
+        fail("phase 25 (c): the paged engine took a vlm")
+    except NotImplementedError as e:
+        print(f"  the paged + prefix-cached engine: refused, as in the "
+              f"reference: {e}")
+    # truncate_draft takes a dense target only (in both packages): the
+    # draft is the same cut, built here
+    n_draft = 2
+    damped = damp_upper_layers(params, n_keep=n_draft, damp=0.001)
+    dmodel = build_model(dataclasses.replace(cfg, n_layers=n_draft), dev)
+    dparams = dict(damped, blocks=tree_map(lambda a: a[:n_draft],
+                                           damped["blocks"]))
+    kw = dict(max_len=2048, n_slots=8, chunk_steps=8, device=dev)
+    base = ContinuousBatchingEngine(model, damped, **kw)
+    spec = ContinuousBatchingEngine(model, damped, draft_model=dmodel,
+                                    draft_params=dparams, spec_k=VLM_SPEC_K,
+                                    **kw)
+    want = clocked_serve(torch, base, requests)
+    got = clocked_serve(torch, spec, requests)
+    check_served("phase 25 (c) speculative", got[0], requests, model.vp)
+    a = {r.rid: list(map(int, r.output)) for r in want[0]}
+    b = {r.rid: list(map(int, r.output)) for r in got[0]}
+    by_rid = {r.rid: r for r in requests}
+    for rid in sorted(a):
+        near_tie(torch, model, damped, by_rid[rid].prompt, a[rid], b[rid],
+                 f"phase 25 (c) request {rid} (contiguous vs speculative)")
+    rounds, n = spec.spec_rounds, len(requests)
+    ls = got[2]
+    want_l = {"verify_attention": layers * rounds,
+              "decode_attention": n_draft * (VLM_SPEC_K + 1) * rounds,
+              "flash_attention": (layers + n_draft) * n}
+    check(ls == {k: want_l.get(k, 0) for k in ls},
+          f"phase 25 (c) speculative: launches {ls}, want {want_l}")
+    check(spec.host_syncs * spec.chunk_steps == rounds,
+          "phase 25 (c): more than one host copy per speculative chunk")
+    same = sum(a[rid] == b[rid] for rid in a)
+    print(f"  speculative k={VLM_SPEC_K} ({n_draft}-layer draft, damped "
+          f"weights) on one virtual clock beside the contiguous engine: "
+          f"{same}/{n} requests "
+          f"token-identical (the rest part at near-ties), acceptance "
+          f"{spec.acceptance_rate():.4f}, {rounds} rounds, launches exact "
+          f"(verify {ls['verify_attention']}, draft decode "
+          f"{ls['decode_attention']}, flash {ls['flash_attention']}); wall "
+          f"{got[1]:.3f} s vs {want[1]:.3f} s contiguous")
+    out["speculative"] = dict(same=same, n=n, rounds=rounds,
+                              acceptance=spec.acceptance_rate(),
+                              launches=ls)
+    out["launches"] = {k: f["launches"][k] + want[2][k] + ls[k]
+                       + sum(v["launches"][k] for v in batches.values())
+                       for k in ls}
+    del spec, base, dmodel, dparams, damped
+    gc.collect()
+    torch.cuda.empty_cache()
+    peak_gb(torch, "(c)")
+
+    print("  (e) host syncs, a decode step and a prefill profiled")
+    prompts = [torch.as_tensor(rng.integers(0, cfg.vocab_size, VLM_PREFILL),
+                               device=dev)[None] for _ in range(8)]
+    sync_free_chunk(torch, engine, model, params, prompts)
+
+    def chunk():
+        engine.state, _ = engine._decode_chunk(params, engine.state)
+
+    chunk()
+    step = pe._profiled(chunk, pe._wall_ms(chunk, 4))
+    steps = engine.chunk_steps
+    print(f"  decode step (8 slots at ~{VLM_PREFILL}): "
+          f"{step['wall_ms'] / steps:.3f} ms host wall, "
+          f"{step['kernel_ms'] / steps:.3f} ms of kernels (busy "
+          f"{step['busy_share']:.1%}), {step['n_kernels'] // steps} kernels "
+          f"a step")
+    for t in step["top"][:8]:
+        print(f"    {t['ms'] / steps:9.3f} ms a step x{t['count'] // steps:<5}"
+              f" {t['kernel']}")
+
+    def admit():
+        engine._prefill_slot(params, engine.state, prompts[0], 0, 64)
+
+    admit()
+    prefill = pe._profiled(admit, pe._wall_ms(admit, 2))
+    split = pe.prefill_split(admit)
+    print(f"  prefill ({VLM_PREFILL} tokens): {prefill['wall_ms']:.3f} ms "
+          f"wall, {prefill['kernel_ms']:.3f} ms of kernels (busy "
+          f"{prefill['busy_share']:.1%}, {prefill['n_kernels']} kernels); "
+          f"split, ms: GEMMs {split['gemm_ms']:.3f}, attention "
+          f"{split['attention_ms']:.3f}, the rest {split['other_ms']:.3f}")
+    for t in prefill["top"][:8]:
+        print(f"    {t['ms']:9.3f} ms x{t['count']:<5} {t['kernel']}")
+    out["step"] = dict(wall_ms=step["wall_ms"] / steps,
+                       kernel_ms=step["kernel_ms"] / steps,
+                       busy_share=step["busy_share"],
+                       kernels=step["n_kernels"] // steps)
+    out["prefill"] = dict(split, wall_ms=prefill["wall_ms"])
+    out["params_b"] = n_params / 1e9
+    out["peak_gb"] = peak_gb(torch, "(e), phi-3-vision")
+    del engine, model, plain, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    ecfg = get_config(EDGE_ARCH)
+    print(f"  (d) {EDGE_ARCH} at full width: {ecfg.n_layers} layers, "
+          f"d_model {ecfg.d_model}, heads {ecfg.n_heads}/{ecfg.n_kv_heads} "
+          f"of {ecfg.head_dim}, {ecfg.vlm.n_patches} patches, {ecfg.dtype}")
+    emodel = build_model(ecfg, dev)
+    eparams = emodel.init(seed=0)
+    eserve = ServeEngine(
+        emodel, eparams, batch_size=8, device=dev,
+        max_len=ecfg.vlm.n_patches + EDGE_PROMPT + EDGE_BUDGET - 1)
+    inputs = {
+        "tokens": torch.as_tensor(rng.integers(0, ecfg.vocab_size,
+                                               (8, EDGE_PROMPT)), device=dev),
+        "patch_embeds": torch.as_tensor(rng.standard_normal(
+            (8, ecfg.vlm.n_patches, ecfg.d_model), dtype=np.float32),
+            device=dev)}
+    edge = vlm_batch(torch, eserve, build_model(ecfg, dev, kernels=False),
+                     inputs, EDGE_BUDGET, f"phase 25 (d), {EDGE_ARCH}")
+    out["edge"] = edge
+    out["launches"] = {k: n + edge["launches"][k]
+                       for k, n in out["launches"].items()}
+    del eserve, emodel, eparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"  phase 25 took {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5466,12 +5841,17 @@ def main() -> int:
     print(smi.strip())
     jamba = phase_jamba(torch, dev)
 
+    phase(f"phase 25: full-width {VLM_ARCH} on all {VLM_LAYERS} layers "
+          f"(patch prefixes, D 96, G 1) and {EDGE_ARCH}")
+    print(smi.strip())
+    vlm = phase_vlm(torch, dev)
+
     # launches: each kernel's count on its own paths' runs (phases 4, 14,
-    # 15, 17, 20 and 24 for decode and flash, 16, 18 and 19 for flash, 18 for
-    # decode; phases 6, 16 and 18 for the paged kernels and 19 for paged
-    # decode, 8 and 18 for the verify kernel, phase 10 for the scan,
-    # phase 12 for the int8 GEMM; phase 21's sharded serves for decode,
-    # flash, the paged pair and verify)
+    # 15, 17, 20, 24 and 25 for decode and flash, 16, 18 and 19 for flash,
+    # 18 for decode; phases 6, 16 and 18 for the paged kernels and 19 for
+    # paged decode, 8, 18 and 25 for the verify kernel, phase 10 for the
+    # scan, phase 12 for the int8 GEMM; phase 21's sharded serves for
+    # decode, flash, the paged pair and verify)
     dec = "src/repro/kernels/decode_attention/decode_attention.py"
     by_phase = {"4": launches, "14": whisper_launches,
                 "22": {k: sum(part[k] for part in moe["launches"].values())
@@ -5481,14 +5861,15 @@ def main() -> int:
                     k: prefix_launches[k] + spec_bench_launches[k]
                     for k in prefix_launches},
                 "19": disagg_launches, "20": fleet_launches,
-                "21": tp["launches"], "24": jamba["launches"]}
+                "21": tp["launches"], "24": jamba["launches"],
+                "25": vlm["launches"]}
     uses = {"decode_attention": ("4", "14", "15", "17", "18", "20", "21",
-                                 "22", "24"),
+                                 "22", "24", "25"),
             "flash_attention": ("4", "14", "15", "16", "17", "18", "19",
-                                "20", "21", "22", "24"),
+                                "20", "21", "22", "24", "25"),
             "paged_decode_attention": ("6", "16", "18", "19", "21", "22"),
             "paged_verify_attention": ("6", "16", "18", "21", "22"),
-            "verify_attention": ("8", "18", "21", "22")}
+            "verify_attention": ("8", "18", "21", "22", "25")}
     by_phase["6"], by_phase["8"] = paged_launches, spec_launches
     totals = {}
     for name, phases in uses.items():
@@ -5503,6 +5884,10 @@ def main() -> int:
             kernels[name]["g4"] = g4
             kernels[name]["max_abs_err"] = max(kernels[name]["max_abs_err"],
                                                g4["max_abs_err"])
+        d96 = vlm["kernels"][name]
+        kernels[name]["d96"] = d96
+        kernels[name]["max_abs_err"] = max(kernels[name]["max_abs_err"],
+                                           d96["max_abs_err"])
         totals[name] = sum(kernels[name]["launches_by_phase"].values())
     sources = {
         "decode_attention": (f"{dec}:351", totals),
@@ -5534,6 +5919,14 @@ def main() -> int:
           f"{jamba['power']['tok_per_j_accelerator']:.4f} tok/J at the "
           f"accelerator, peak {jamba['peak_gb']:.2f} GB, "
           f"{jamba['seconds']:.1f} s")
+    print(f"phase 25: {vlm['params_b']:.3f} B params, "
+          f"{vlm['step']['wall_ms']:.3f} ms a decode step "
+          f"({vlm['step']['kernel_ms']:.3f} ms of kernels), a "
+          f"{VLM_PREFILL}-token prefill {vlm['prefill']['kernel_ms']:.3f} ms "
+          f"of kernels ({vlm['prefill']['attention_ms']:.3f} attention), "
+          f"{vlm['power']['tok_per_j_accelerator']:.4f} tok/J at the "
+          f"accelerator, peak {vlm['peak_gb']:.2f} GB, "
+          f"{vlm['seconds']:.1f} s")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi.strip())
     print(json.dumps(record))

@@ -1,10 +1,9 @@
 """Config registry: ``get_config("qwen3-1.7b")`` and reduced smoke configs.
 
-The dense decoder family, the MoE and MLA-MoE decoders (qwen3-moe,
-deepseek-v3), the Mamba + attention hybrid (jamba), rwkv6, the whisper
-encoder-decoder and the tiny keyword spotter are ported so far; asking
-for any other architecture the JAX package knows raises
-``NotImplementedError``.
+Every architecture of the JAX package: the dense decoders, the MoE and
+MLA-MoE decoders (qwen3-moe, deepseek-v3), the Mamba + attention hybrid
+(jamba), rwkv6, the whisper encoder-decoder, the VLMs (phi-3-vision,
+edge-vit) and the tiny keyword spotter.
 """
 from __future__ import annotations
 
@@ -22,17 +21,12 @@ _ARCH_MODULES = {
     "qwen3-1.7b": "qwen3_1_7b",
     "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
     "deepseek-v3-671b": "deepseek_v3_671b",
+    "phi-3-vision-4.2b": "phi_3_vision_4_2b",
     "jamba-v0.1-52b": "jamba_v0_1_52b",
     "rwkv6-3b": "rwkv6_3b",
     "tiny-kws": "tiny_kws",
     "whisper-small": "whisper_small",
     "yi-9b": "yi_9b",
-}
-
-# architectures of the reference package whose family (VLM) the port
-# does not run yet
-_NOT_PORTED = {
-    "phi-3-vision-4.2b": "phi_3_vision_4_2b",
     "edge-vit": "edge_vit",
 }
 
@@ -44,16 +38,9 @@ def list_archs() -> list[str]:
 
 def get_config(name: str, **overrides) -> ModelConfig:
     key = name.replace("_", "-") if name not in _ARCH_MODULES else name
-    for table in (_ARCH_MODULES, _NOT_PORTED):
-        for arch, mod in table.items():
-            if name == mod:
-                key = arch
-    if key in _NOT_PORTED:
-        raise NotImplementedError(
-            f"arch {key!r} is not ported yet, see ROADMAP §A.11 "
-            f"(the port runs the dense, moe, mla_moe, hybrid, rwkv, encdec "
-            f"and tiny families: "
-            f"{list_archs()})")
+    for arch, mod in _ARCH_MODULES.items():
+        if name == mod:
+            key = arch
     if key not in _ARCH_MODULES:
         raise KeyError(f"unknown arch {name!r}; have {list_archs()}")
     mod = importlib.import_module(
@@ -67,21 +54,17 @@ def get_config(name: str, **overrides) -> ModelConfig:
 def reduce_config(cfg: ModelConfig) -> ModelConfig:
     """Shrink a config to smoke-test scale, preserving the family.
 
-    The same cut as the reference ``reduce_config`` for the ported
-    families: at most 4 layers, width 128, 4/2 heads of 32, vocab 512,
-    float32; rwkv keeps 4/4 heads of 32; MoE keeps at most 8 experts,
-    top-2, of width 128 and at most 1 leading dense layer (of width 256
-    where the config has one); MLA takes ranks 64/32 and head dims
-    32 + 16 / 32; hybrid keeps 8 layers (one Jamba period); encdec keeps
-    2 encoder layers over 64 frames and 2 decoder layers.  A tiny config
-    is returned unchanged (it is already tiny).
+    The reference ``reduce_config``'s cut: at most 4 layers, width 128,
+    4/2 heads of 32, vocab 512, float32; rwkv keeps 4/4 heads of 32; MoE
+    keeps at most 8 experts, top-2, of width 128 and at most 1 leading
+    dense layer (of width 256 where the config has one); MLA takes ranks
+    64/32 and head dims 32 + 16 / 32; hybrid keeps 8 layers (one Jamba
+    period); encdec keeps 2 encoder layers over 64 frames and 2 decoder
+    layers; a VLM keeps 16 patches.  A tiny config is returned unchanged
+    (it is already tiny).
     """
     if cfg.family == "tiny":
         return cfg
-    if cfg.family not in ("dense", "moe", "mla_moe", "hybrid", "rwkv",
-                          "encdec"):
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet, see ROADMAP §A.11")
     changes: dict = dict(
         n_layers=min(cfg.n_layers, 4),
         d_model=128,
@@ -114,4 +97,6 @@ def reduce_config(cfg: ModelConfig) -> ModelConfig:
         changes["encdec"] = dataclasses.replace(cfg.encdec, enc_layers=2,
                                                 enc_len=64)
         changes["n_layers"] = 2
+    if cfg.vlm is not None:
+        changes["vlm"] = dataclasses.replace(cfg.vlm, n_patches=16)
     return dataclasses.replace(cfg, **changes)

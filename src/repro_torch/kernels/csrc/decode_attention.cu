@@ -105,6 +105,7 @@ extern "C" int decode_attention_launch(
                    scale, static_cast<cudaStream_t>(stream)};
   switch (D) {
     case 64: return dispatch_g<64>(G, a);
+    case 96: return dispatch_g<96>(G, a);
     case 128: return dispatch_g<128>(G, a);
     default: return repro::kUnsupported;
   }

@@ -17,15 +17,18 @@
 //     chunks of 16-byte cp.async copies, one address (page) lookup per
 //     row a thread copies: the next chunks' bytes are in flight while
 //     the current one is scored;
-//   * a key row is read by a group of D / 8 lanes, each taking one
-//     16-byte piece, so a warp scores 32 / (D / 8) keys at once (2 at
-//     D 128, 4 at D 64) and a dot product is reduced in log2(D / 8)
+//   * a key row is read by a group of kLanes lanes (a power of two),
+//     each taking kE adjacent columns: one 16-byte piece at D 64 (8
+//     lanes) and D 128 (16 lanes); at D 96 a row's 12 pieces split into
+//     no power of two of lanes, so 8 lanes take 24 bytes each, as three
+//     8-byte reads.  A warp scores 32 / kLanes keys at once (2 at D 128,
+//     4 at D 64 and 96) and a dot product is reduced in log2(kLanes)
 //     shuffle steps; each group takes kPer keys of a chunk at once, so
 //     their dot products and reductions are independent chains;
 //   * the G queries live in f32 registers, pre-multiplied by scale *
 //     log2(e); the softmax is online, in exp2, per query head, one
 //     rescale per kPer keys; P V accumulates in registers (each lane its
-//     8 columns); there is no shared-memory score matrix;
+//     kE columns); there is no shared-memory score matrix;
 //   * at the CTA's end the groups of a warp merge by log-sum-exp through
 //     shuffles, the warps through shared memory (the ring, no longer
 //     needed), and the CTA writes its f32 partial (o, m, l), m in log2
@@ -48,27 +51,54 @@ using bf16 = __nv_bfloat16;
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kStages = 3;
-// elements of K (and of V) a ring stage holds: 32 keys at D 128, 64 at
-// D 64; 3 stages of K and V fill the 48 KB a CTA gets without opting in
-constexpr int kStageElems = 4096;
+// the most elements of K (and of V) a ring stage holds: 3 stages of K
+// and V then fill the 48 KB a CTA gets without opting in
+constexpr int kMaxStageElems = 4096;
 
 template <int D>
 struct Shape {
-  static constexpr int kLanes = D / 8;            // lanes per key row
+  static constexpr int kPieces = D / 8;           // 16-byte pieces a row
+  // lanes per key row: a power of two, so that the shuffle reductions
+  // stay inside a group
+  static constexpr int kLanes = kPieces & (kPieces - 1) ? 8 : kPieces;
+  static constexpr int kE = D / kLanes;           // columns per lane
   static constexpr int kGroups = 32 / kLanes;     // keys a warp scores at once
-  static constexpr int kChunk = kStageElems / D;  // keys per stage
+  // keys per stage: whole groups under kMaxStageElems (64 at D 64, 32 at
+  // D 96 and 128)
+  static constexpr int kChunk = kMaxStageElems / D / (kWarps * kGroups) *
+                                (kWarps * kGroups);
+  static constexpr int kStageElems = kChunk * D;
   static constexpr int kPer = kChunk / (kWarps * kGroups);  // keys per group
-  static_assert(kPer * kWarps * kGroups == kChunk, "whole groups");
-  static_assert(kChunk * kLanes % kThreads == 0, "whole rounds of copies");
+  static_assert(kLanes * kE == D && (kE == 8 || kE == 12), "whole lanes");
+  static_assert(kPer >= 1, "a key per group");
+  static_assert(kChunk * kPieces % kThreads == 0, "whole rounds of copies");
 };
 
-__device__ __forceinline__ void unpack8(const uint4& x, float* f) {
+// N bf16 values (4 or 8: a uint2 or a uint4) to floats
+template <int N, typename V>
+__device__ __forceinline__ void unpack(const V& x, float* f) {
+  static_assert(sizeof(V) == 2 * N, "N bf16 values");
   const __nv_bfloat162* x2 = reinterpret_cast<const __nv_bfloat162*>(&x);
 #pragma unroll
-  for (int e = 0; e < 4; ++e) {
+  for (int e = 0; e < N / 2; ++e) {
     const float2 t = __bfloat1622float2(x2[e]);
     f[2 * e] = t.x;
     f[2 * e + 1] = t.y;
+  }
+}
+
+// a lane's kE columns at p as floats: one 16-byte read at kE 8, three
+// 8-byte reads at kE 12 (p is then 8-byte aligned)
+template <int kE>
+__device__ __forceinline__ void load_cols(const bf16* p, float* f) {
+  if constexpr (kE % 8 == 0) {
+#pragma unroll
+    for (int e = 0; e < kE / 8; ++e)
+      unpack<8>(reinterpret_cast<const uint4*>(p)[e], f + 8 * e);
+  } else {
+#pragma unroll
+    for (int e = 0; e < kE / 4; ++e)
+      unpack<4>(reinterpret_cast<const uint2*>(p)[e], f + 4 * e);
   }
 }
 
@@ -82,16 +112,16 @@ decode_split_kernel(const bf16* __restrict__ q, Cache kv,
                     float* __restrict__ o_part, float* __restrict__ ml_part,
                     int cap, int KVH, int keys_per_split, float scale_log2) {
   using S = Shape<D>;
-  constexpr int kLanes = S::kLanes, kGroups = S::kGroups;
-  constexpr int kChunk = S::kChunk, kPer = S::kPer;
-  __shared__ __align__(16) bf16 ring[kStages][2][kStageElems];  // K, V
+  constexpr int kLanes = S::kLanes, kGroups = S::kGroups, kE = S::kE;
+  constexpr int kChunk = S::kChunk, kPer = S::kPer, kPieces = S::kPieces;
+  __shared__ __align__(16) bf16 ring[kStages][2][S::kStageElems];  // K, V
 
   const int set = blockIdx.x, split = blockIdx.y, n_split = gridDim.y;
   const int b = set / KVH;
   const int kvh = set - b * KVH;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int grp = lane / kLanes;                 // the warp's key group
-  const int part = lane - grp * kLanes;          // 16-byte piece of a row
+  const int part = lane - grp * kLanes;          // columns part * kE ..
   const long long base = (static_cast<long long>(set) * n_split + split) * G;
 
   const int last = min(pos[static_cast<long long>(b) * pos_stride], cap - 1);
@@ -111,9 +141,9 @@ decode_split_kernel(const bf16* __restrict__ q, Cache kv,
   auto load = [&](int c, int st) {
     const int c0 = k_begin + c * kChunk;
 #pragma unroll
-    for (int it = 0; it < kChunk * kLanes / kThreads; ++it) {
+    for (int it = 0; it < kChunk * kPieces / kThreads; ++it) {
       const int i = tid + it * kThreads;
-      const int r = i / kLanes, piece = i - r * kLanes;
+      const int r = i / kPieces, piece = i - r * kPieces;
       const bool in = c0 + r < k_stop;
       const bf16 *kp, *vp;
       rows.at(in ? c0 + r : k_begin, kp, vp);
@@ -127,24 +157,22 @@ decode_split_kernel(const bf16* __restrict__ q, Cache kv,
     cp_async_commit();
   }
 
-  // this lane's 8 columns of the G queries, times scale * log2(e)
-  float qf[G][8];
+  // this lane's kE columns of the G queries, times scale * log2(e)
+  float qf[G][kE];
 #pragma unroll
   for (int g = 0; g < G; ++g) {
-    const uint4 x = __ldg(reinterpret_cast<const uint4*>(
-                              q + (static_cast<long long>(set) * G + g) * D) +
-                          part);
-    unpack8(x, qf[g]);
+    load_cols<kE>(q + (static_cast<long long>(set) * G + g) * D + part * kE,
+                  qf[g]);
 #pragma unroll
-    for (int e = 0; e < 8; ++e) qf[g][e] *= scale_log2;
+    for (int e = 0; e < kE; ++e) qf[g][e] *= scale_log2;
   }
-  float m[G], l[G], acc[G][8];
+  float m[G], l[G], acc[G][kE];
 #pragma unroll
   for (int g = 0; g < G; ++g) {
     m[g] = -INFINITY;
     l[g] = 0.f;
 #pragma unroll
-    for (int e = 0; e < 8; ++e) acc[g][e] = 0.f;
+    for (int e = 0; e < kE; ++e) acc[g][e] = 0.f;
   }
 
   for (int c = 0; c < n_chunks; ++c) {
@@ -163,13 +191,13 @@ decode_split_kernel(const bf16* __restrict__ q, Cache kv,
 #pragma unroll
     for (int u = 0; u < kPer; ++u) {
       const int j = (u * kWarps + warp) * kGroups + grp;
-      float kf[8];
-      unpack8(*reinterpret_cast<const uint4*>(ks + j * D + part * 8), kf);
+      float kf[kE];
+      load_cols<kE>(ks + j * D + part * kE, kf);
 #pragma unroll
       for (int g = 0; g < G; ++g) {
         float d = 0.f;
 #pragma unroll
-        for (int e = 0; e < 8; ++e) d += qf[g][e] * kf[e];
+        for (int e = 0; e < kE; ++e) d += qf[g][e] * kf[e];
         sc[u][g] = d;
       }
     }
@@ -205,17 +233,17 @@ decode_split_kernel(const bf16* __restrict__ q, Cache kv,
       l[g] = l[g] * alpha + sum;
       m[g] = mx;
 #pragma unroll
-      for (int e = 0; e < 8; ++e) acc[g][e] *= alpha;
+      for (int e = 0; e < kE; ++e) acc[g][e] *= alpha;
     }
 #pragma unroll
     for (int u = 0; u < kPer; ++u) {
       const int j = (u * kWarps + warp) * kGroups + grp;
-      float vf[8];
-      unpack8(*reinterpret_cast<const uint4*>(vs + j * D + part * 8), vf);
+      float vf[kE];
+      load_cols<kE>(vs + j * D + part * kE, vf);
 #pragma unroll
       for (int g = 0; g < G; ++g)
 #pragma unroll
-        for (int e = 0; e < 8; ++e) acc[g][e] += sc[u][g] * vf[e];
+        for (int e = 0; e < kE; ++e) acc[g][e] += sc[u][g] * vf[e];
     }
   }
   cp_async_wait<0>();
@@ -233,7 +261,7 @@ decode_split_kernel(const bf16* __restrict__ q, Cache kv,
       const float a = exp2f(m[g] - m_use), w = exp2f(mo - m_use);
       l[g] = l[g] * a + lo * w;
 #pragma unroll
-      for (int e = 0; e < 8; ++e) {
+      for (int e = 0; e < kE; ++e) {
         const float ao = __shfl_xor_sync(0xffffffffu, acc[g][e], off);
         acc[g][e] = acc[g][e] * a + ao * w;
       }
@@ -247,14 +275,14 @@ decode_split_kernel(const bf16* __restrict__ q, Cache kv,
   float* acc_s = reinterpret_cast<float*>(&ring[0][0][0]);
   float* ml_s = acc_s + kWarps * G * D;
   static_assert((kWarps * G * D + kWarps * G * 2) * sizeof(float) <=
-                    sizeof(bf16) * kStages * 2 * kStageElems,
+                    sizeof(bf16) * kStages * 2 * S::kStageElems,
                 "the merge fits in the ring");
   if (grp == 0) {
 #pragma unroll
     for (int g = 0; g < G; ++g) {
 #pragma unroll
-      for (int e = 0; e < 8; ++e)
-        acc_s[(warp * G + g) * D + part * 8 + e] = acc[g][e];
+      for (int e = 0; e < kE; ++e)
+        acc_s[(warp * G + g) * D + part * kE + e] = acc[g][e];
       if (part == 0) {
         ml_s[(warp * G + g) * 2] = m[g];
         ml_s[(warp * G + g) * 2 + 1] = l[g];
@@ -347,6 +375,7 @@ int launch(int G, int D, const void* q, const Cache& kv, const int* pos,
                keys_per_split, scale * kLog2e, stream};
   switch (D) {
     case 64: return launch_d<64>(G, kv, a);
+    case 96: return launch_d<96>(G, kv, a);
     case 128: return launch_d<128>(G, kv, a);
     default: return kUnsupported;
   }

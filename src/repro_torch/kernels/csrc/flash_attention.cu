@@ -121,6 +121,7 @@ int dispatch_f32(int D, const void* q, const void* k, const void* v,
                  cudaStream_t stream) {
   switch (D) {
     case 64: return launch<float, 64>(q, k, v, o, B, Sq, Skv, H, G, st, scale, causal, stream);
+    case 96: return launch<float, 96>(q, k, v, o, B, Sq, Skv, H, G, st, scale, causal, stream);
     case 128: return launch<float, 128>(q, k, v, o, B, Sq, Skv, H, G, st, scale, causal, stream);
     default: return repro::kUnsupported;
   }
@@ -145,6 +146,10 @@ int dispatch_mma(int D, const void* q, const void* k, const void* v,
   switch (D) {
     case 64:
       return repro::mma_tile::launch<64>(qq, kv, nullptr, oo, B, Sq, Skv, H,
+                                         G, st, st + 9, scale_log2, causal,
+                                         stream);
+    case 96:
+      return repro::mma_tile::launch<96>(qq, kv, nullptr, oo, B, Sq, Skv, H,
                                          G, st, st + 9, scale_log2, causal,
                                          stream);
     case 128:
@@ -215,6 +220,12 @@ extern "C" int flash_attention_split_launch(
   switch (D) {
     case 64:
       return repro::split_kv::launch<64>(qq, kv, nullptr, oo, op, ml, B, Sq,
+                                         Skv, H, KVH, st, st + 9, n_split,
+                                         keys_per_split,
+                                         scale * repro::kLog2e, causal != 0,
+                                         s);
+    case 96:
+      return repro::split_kv::launch<96>(qq, kv, nullptr, oo, op, ml, B, Sq,
                                          Skv, H, KVH, st, st + 9, n_split,
                                          keys_per_split,
                                          scale * repro::kLog2e, causal != 0,

@@ -16,7 +16,7 @@
 //     its f32 16 x D output accumulators stay in registers.  Every K/V
 //     fragment a warp reads from shared memory feeds its MT m-tiles, so
 //     MT = 2 halves the shared-memory traffic per flop; D 64 takes MT 2,
-//     D 128 (twice the accumulator) MT 1;
+//     D 96 and 128 (a larger accumulator) MT 1;
 //   * S = Q K^T and O += P V are mma.sync.m16n8k16 bf16 -> f32, their
 //     operands read from shared memory by ldmatrix (.trans for V, whose
 //     rows are keys); each 16-wide step issues all its ldmatrix loads
@@ -26,8 +26,8 @@
 //     and k + 2 are in flight while tile k is multiplied.  Each thread
 //     copies one 16-byte chunk of K and of V from each of its rows and
 //     looks the row up once (one page-table read per row for pages).
-//     Rows are XOR-swizzled in 16-byte chunks (chunk ^ (row & 7)), so
-//     the eight rows one ldmatrix reads sit in eight distinct bank groups;
+//     Rows are XOR-swizzled in 16-byte chunks (``swz``), so the eight
+//     rows one ldmatrix reads sit in eight distinct bank groups;
 //   * the online softmax is f32 in registers: a row's max and sum are
 //     reduced over the four threads of a quad by two shuffles; exps are
 //     exp2 of scores pre-multiplied by scale * log2(e).  P is rounded to
@@ -87,10 +87,25 @@ __host__ __device__ constexpr int smem_bytes() {
          static_cast<int>(sizeof(bf16));
 }
 
-// element offset of (row, 16-byte chunk) in a swizzled tile of D columns
+// element offset of (row, 16-byte chunk) in a swizzled tile of D
+// columns; every chunk stays inside its row.  With 8 or 16 chunks a row
+// the swizzle is chunk ^ (row & 7).  With 12 (D 96) a row starts 4 bank
+// groups (of 8) past the previous one: chunks 0-7 take chunk ^ (row & 7)
+// (16-byte unit row * 12 + that lands in group chunk ^ r ^ 4 (r & 1), r =
+// row & 7: distinct over 8 rows), chunks 8-11 stay in 8-11 as 8 + ((chunk
+// - 8) ^ ((row >> 1) & 3)) (group 4 (r & 1) + that: distinct too).  So the
+// eight rows of one ldmatrix (8 consecutive rows from a multiple of 8, one
+// logical chunk) hit eight distinct bank groups at every D.
 template <int D>
 __device__ __forceinline__ int swz(int row, int chunk) {
-  return row * D + ((chunk ^ (row & 7)) << 3);
+  if constexpr (D / 8 % 8 == 0) {
+    return row * D + ((chunk ^ (row & 7)) << 3);
+  } else {
+    static_assert(D / 8 == 12, "8, 12 or 16 chunks a row");
+    const int c = chunk < 8 ? chunk ^ (row & 7)
+                            : 8 + ((chunk - 8) ^ ((row >> 1) & 3));
+    return row * D + (c << 3);
+  }
 }
 
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
@@ -145,19 +160,20 @@ __device__ __forceinline__ void load_tile(bf16* tile, const bf16* g,
 
 // Key rows r0 .. r0 + kBK - 1 of one (slot, KV head) through its address
 // map into swizzled K and V tiles; rows at or past ``n_rows`` are
-// zero-filled.  Thread i copies chunk i % (D / 8) of rows i / (D / 8) +
-// kThreads / (D / 8) * it: one ``at`` lookup per row it touches.
+// zero-filled.  Round ``it`` of thread t copies chunk i % (D / 8) of row
+// i / (D / 8), i = t + kThreads * it, K's and V's: one ``at`` lookup per
+// row it touches (at D 64 and 128 a thread keeps its chunk and steps
+// whole rows; at D 96 both move).
 template <int D, typename Map>
 __device__ __forceinline__ void load_kv_tile(bf16* kt, bf16* vt,
                                              const Map& rows, int r0,
                                              int n_rows) {
   constexpr int kChunks = D / 8;
-  constexpr int kPass = kThreads / kChunks;      // rows per pass
-  static_assert(kBK % kPass == 0, "whole passes of copies");
-  const int c = threadIdx.x % kChunks;
+  static_assert(kBK * kChunks % kThreads == 0, "whole rounds of copies");
 #pragma unroll
-  for (int it = 0; it < kBK / kPass; ++it) {
-    const int r = threadIdx.x / kChunks + it * kPass;
+  for (int it = 0; it < kBK * kChunks / kThreads; ++it) {
+    const int i = threadIdx.x + it * kThreads;
+    const int r = i / kChunks, c = i % kChunks;
     const bool in = r0 + r < n_rows;
     const bf16 *kp, *vp;
     rows.at(in ? r0 + r : 0, kp, vp);

@@ -64,11 +64,12 @@ flash_split_kernel(const bf16* __restrict__ q, Cache kv,
                    bool causal) {
   constexpr int kChunks = D / 8;    // 16-byte pieces per row
   constexpr int kKRow = D + 8;      // padded K row, elements
-  constexpr int kRS = kThreads / D; // threads per output column (2 or 1)
+  // threads per output column (2 at D 64, 1 at D 96 and 128): threads
+  // kRS * D .. kThreads - 1 (32 at D 96) own no column
+  constexpr int kRS = kThreads / D;
   constexpr int kMine = kRows / kRS;  // rows a thread accumulates
-  static_assert(kChunk * kChunks % kThreads == 0 &&
-                    kRows * kChunks % kThreads == 0,
-                "whole rounds of copies");
+  static_assert(kRS >= 1 && kRows % kRS == 0, "whole rows a column");
+  static_assert(kChunk * kChunks % kThreads == 0, "whole rounds of copies");
   // qs and ps are read 4 floats at a time (16-byte aligned rows)
   __shared__ __align__(16) float qs[kRows][D];
   __shared__ __align__(16) bf16 ks[kChunk][kKRow];
@@ -100,8 +101,7 @@ flash_split_kernel(const bf16* __restrict__ q, Cache kv,
   // the query rows as 16-byte pieces, all in flight at once; rows past R
   // are zero
 #pragma unroll
-  for (int it = 0; it < kRows * kChunks / kThreads; ++it) {
-    const int i = tid + it * kThreads;
+  for (int i = tid; i < kRows * kChunks; i += kThreads) {
     const int r = i / kChunks, c = i - r * kChunks;
     uint4 x = make_uint4(0u, 0u, 0u, 0u);
     if (r < R) {
@@ -126,7 +126,9 @@ flash_split_kernel(const bf16* __restrict__ q, Cache kv,
   const int kj = tid % kChunk;                   // score role: key kj,
   const int kpar = tid / kChunk;                 // rows kpar, kpar + 2, ..
   const int dcol = tid % D;                      // P V role: column dcol,
-  const int dpar = tid / D;                      // rows dpar + kRS i
+  // rows dpar + kRS i; a thread past the columns gets rows past kRows,
+  // so every ``r < R`` test below keeps it out
+  const int dpar = tid < kRS * D ? tid / D : kRows;
   const int warp = tid >> 5, lane = tid & 31;
   float acc[kMine];
 #pragma unroll

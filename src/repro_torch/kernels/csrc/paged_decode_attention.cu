@@ -117,6 +117,7 @@ extern "C" int paged_decode_attention_launch(
   if (B <= 0 || NB <= 0) return 0;
   switch (D) {
     case 64: return dispatch_g<64>(G, a);
+    case 96: return dispatch_g<96>(G, a);
     case 128: return dispatch_g<128>(G, a);
     default: return repro::kUnsupported;
   }

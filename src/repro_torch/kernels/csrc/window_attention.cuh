@@ -75,6 +75,11 @@ int launch_tile(int D, const void* q, const Cache& kv, const int* pos,
             qq, kv, pos, oo, Tw, cap, KVH, G, qo[0], qo[1], qo[2], qo[3],
             qo[4], qo[5], scale);
         break;
+      case 96:
+        window_tile_kernel<T, 96, Cache><<<grid, kTileThreads, 0, stream>>>(
+            qq, kv, pos, oo, Tw, cap, KVH, G, qo[0], qo[1], qo[2], qo[3],
+            qo[4], qo[5], scale);
+        break;
       case 128:
         window_tile_kernel<T, 128, Cache><<<grid, kTileThreads, 0, stream>>>(
             qq, kv, pos, oo, Tw, cap, KVH, G, qo[0], qo[1], qo[2], qo[3],
@@ -87,6 +92,9 @@ int launch_tile(int D, const void* q, const Cache& kv, const int* pos,
     switch (D) {
       case 64:
         return mma_tile::launch<64>(qq, kv, pos, oo, B, Tw, cap, H, G, qo,
+                                    qo + 3, scale * kLog2e, true, stream);
+      case 96:
+        return mma_tile::launch<96>(qq, kv, pos, oo, B, Tw, cap, H, G, qo,
                                     qo + 3, scale * kLog2e, true, stream);
       case 128:
         return mma_tile::launch<128>(qq, kv, pos, oo, B, Tw, cap, H, G, qo,
@@ -112,6 +120,10 @@ int launch_split(int D, const void* q, const Cache& kv, const int* pos,
   switch (D) {
     case 64:
       return split_kv::launch<64>(qq, kv, pos, oo, op, ml, B, Tw, cap, H,
+                                  KVH, qo, qo + 3, n_split, keys_per_split,
+                                  scale * kLog2e, true, stream);
+    case 96:
+      return split_kv::launch<96>(qq, kv, pos, oo, op, ml, B, Tw, cap, H,
                                   KVH, qo, qo + 3, n_split, keys_per_split,
                                   scale * kLog2e, true, stream);
     case 128:

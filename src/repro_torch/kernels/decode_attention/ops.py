@@ -33,7 +33,7 @@ import torch
 
 from repro_torch.kernels import build, count_launch
 from repro_torch.kernels.flash_attention.ops import (
-    _check_aligned, _sm_count, _splits,
+    HEAD_DIMS, _check_aligned, _sm_count, _splits,
 )
 
 MASK_VALUE = -1e30
@@ -98,8 +98,8 @@ def plan(name: str, h: int, kvh: int, d: int, dtype, capacity: int,
     (0, 0) for float32.  Shapes only: two calls with equal shapes take
     the same route and split identically, whatever their positions.
     Raises on what no kernel takes."""
-    if d not in (64, 128):
-        raise ValueError(f"{name}: D = {d} not in (64, 128)")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"{name}: D = {d} not in {HEAD_DIMS}")
     if h % kvh or h // kvh not in GROUPS:
         raise ValueError(f"{name}: G = H / KVH = {h} / {kvh} not in "
                          f"{GROUPS}")
@@ -169,7 +169,7 @@ def launch(name: str, q, kvh: int, capacity: int, kv, ptrs, sizes,
 def decode_attention(q, k_cache, v_cache, pos):
     """q: (B, 1, H, D); caches: (B, S, KVH, D); pos: () or (B,) int.
     Returns (B, 1, H, D).  CPU tensors take the plain version; CUDA
-    tensors (G in {1, 2, 4, 8}, D in {64, 128}, float32 or bfloat16;
+    tensors (G in {1, 2, 4, 8}, D in {64, 96, 128}, float32 or bfloat16;
     in bfloat16 every row start 16-byte aligned) launch the route
     ``plan`` names or raise."""
     if q.device.type == "cpu":

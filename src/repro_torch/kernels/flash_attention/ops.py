@@ -45,6 +45,7 @@ import torch
 from repro_torch.kernels import build, count_launch
 
 MASK_VALUE = -1e30
+HEAD_DIMS = (64, 96, 128)   # D the attention kernels are built for
 
 # The split-KV route takes a (batch, KV head)'s query rows when there are
 # at most SPLIT_MAX_ROWS of them (one CTA holds them all); it streams keys
@@ -195,8 +196,8 @@ def _route(sq: int, skv: int, h: int, kvh: int, d: int, dtype,
     float32, for bfloat16 ``"mma"`` (the tensor-core tile kernel) when
     more than ``SPLIT_MAX_ROWS`` query rows G * Sq share a KV head, else
     ``"split"`` (split-KV + merge).  Raises on what no route takes."""
-    if d not in (64, 128):
-        raise ValueError(f"{name}: D = {d} not in (64, 128)")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"{name}: D = {d} not in {HEAD_DIMS}")
     if dtype == torch.float32:
         return "tile_f32"
     if dtype != torch.bfloat16:
@@ -310,7 +311,7 @@ def flash_attention(q, k, v, *, causal: bool = True):
     Skv >= 1; both sequences start at position 0.  ``causal`` lets query
     row i see keys j <= i; otherwise every row sees all Skv keys.
     Returns (B, Sq, H, D).  CPU tensors take the plain version; CUDA
-    tensors (D in {64, 128}, float32 or bfloat16, every row start
+    tensors (D in {64, 96, 128}, float32 or bfloat16, every row start
     16-byte aligned) launch the route ``_route`` names -- the
     tensor-core tile kernel, the split-KV kernel or the float32 tile
     loop -- or raise."""

@@ -80,9 +80,9 @@ def check_paged_args(name, q, k_pool, v_pool, pages, pos):
 def paged_decode_attention(q, k_pool, v_pool, pages, pos):
     """q: (B, 1, H, D); pools: (P, page_size, KVH, D); pages: (B, NB)
     int; pos: () or (B,) int.  Returns (B, 1, H, D).  CPU tensors take
-    the plain version; CUDA tensors (G in {1, 2, 4, 8}, D in {64, 128},
-    float32 or bfloat16; in bfloat16 every row start 16-byte aligned)
-    launch the route ``plan`` names or raise."""
+    the plain version; CUDA tensors (G in {1, 2, 4, 8}, D in {64, 96,
+    128}, float32 or bfloat16; in bfloat16 every row start 16-byte
+    aligned) launch the route ``plan`` names or raise."""
     if q.device.type == "cpu":
         return paged_decode_attention_plain(q, k_pool, v_pool, pages, pos)
     if q.device.type != "cuda":

@@ -42,7 +42,7 @@ def paged_verify_attention_plain(q, k_pool, v_pool, pages, pos):
 def paged_verify_attention(q, k_pool, v_pool, pages, pos):
     """q: (B, T, H, D); pools: (P, page_size, KVH, D); pages: (B, NB)
     int; pos: () or (B,) int window starts.  Returns (B, T, H, D).
-    CPU tensors take the plain version; CUDA tensors (D in {64, 128},
+    CPU tensors take the plain version; CUDA tensors (D in {64, 96, 128},
     float32 or bfloat16, any T >= 1, every row start 16-byte aligned)
     launch the route ``_route`` names or raise."""
     if q.device.type == "cpu":

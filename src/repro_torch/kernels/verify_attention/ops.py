@@ -67,7 +67,7 @@ def verify_attention_plain(q, k_cache, v_cache, pos):
 def verify_attention(q, k_cache, v_cache, pos):
     """q: (B, T, H, D); caches: (B, S, KVH, D); pos: () or (B,) int
     window starts.  Returns (B, T, H, D).  CPU tensors take the plain
-    version; CUDA tensors (D in {64, 128}, float32 or bfloat16, any T >=
+    version; CUDA tensors (D in {64, 96, 128}, float32 or bfloat16, any T >=
     1 and G = H / KVH, every row start 16-byte aligned) launch the route
     ``_route`` names -- the split-KV kernel, the tensor-core tile kernel
     or the float32 tile loop -- or raise."""

@@ -2,6 +2,7 @@
 
   python -m repro_torch.launch.profile_engine [--arch rwkv6-3b]
   python -m repro_torch.launch.profile_engine --arch jamba-v0.1-52b
+  python -m repro_torch.launch.profile_engine --arch phi-3-vision-4.2b
   python -m repro_torch.launch.profile_engine --arch whisper-small
 
 Fills every slot of the full-width ``--arch`` (default qwen3-1.7b)
@@ -10,7 +11,9 @@ at) with a prompt of ``PROMPT_LEN`` tokens (seeded random weights and
 tokens), then, after one warm-up chunk, measures the following.  An
 arch whose weights pass ``CARD_SHARE`` of the card's memory runs at
 full width on fewer layers (``fit_depth``: whole superblocks of a
-hybrid; jamba-v0.1-52b on 16 of its 32), and the output names the cut.
+hybrid; jamba-v0.1-52b on 16 of its 32), and the output names the cut
+(or that the whole depth runs: phi-3-vision-4.2b's 32 layers).  A VLM
+serves text-only here, as through the slot engine.
 
 - decode: host wall time per step over 4 chunks of 8 steps (ending in a
   synchronize), then one chunk under ``torch.profiler`` for its kernels'
@@ -30,7 +33,8 @@ hybrid; jamba-v0.1-52b on 16 of its 32), and the output names the cut.
   ``PAGE_SIZE``, the radix prefix cache on, ``chip_smoke.py`` phase 6's
   engine) whose first ``PROMPT_LEN`` tokens are cached: the
   ``SUFFIX_LEN``-token suffix runs through paged verify attention behind
-  them; for the GQA stacks (dense and moe: not rwkv6-3b, nor MLA).
+  them; for the dense and moe families (the paged engine takes no
+  other, as in the reference).
 
 whisper-small (an encoder-decoder, which the slot engine refuses) is
 profiled as ``chip_smoke.py`` phase 14 serves it through ``ServeEngine``:
@@ -369,6 +373,10 @@ def main(argv=None):
               f"full width ({nbytes / 1e9:.2f} GB of weights; all "
               f"{full.n_layers} pass {CARD_SHARE:.0%} of the card's "
               f"{card / 1e9:.2f} GB)")
+    else:
+        print(f"  depth: all {cfg.n_layers} layers at full width "
+              f"({nbytes / 1e9:.2f} GB of weights, within {CARD_SHARE:.0%} "
+              f"of the card's {card / 1e9:.2f} GB)")
     print(f"  decode: {decode['wall_ms_per_step']:.3f} ms/step host wall, "
           f"{decode['kernel_ms_per_step']:.3f} ms/step of kernels, busy "
           f"{decode['busy_share']:.1%}, {decode['n_kernels'] // steps} "

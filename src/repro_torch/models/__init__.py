@@ -1,5 +1,6 @@
-"""Model zoo entry point: ``build_model(cfg)`` (dense, rwkv, encdec and
-tiny families)."""
+"""Model zoo entry point: ``build_model(cfg)`` (every family: the
+decoder-only ones through ``lm.LM``, encdec and tiny through their own
+models)."""
 from __future__ import annotations
 
 from repro_torch.configs.base import ModelConfig

@@ -1,8 +1,11 @@
-"""Decoder-only language model: the dense, moe, mla_moe, hybrid and rwkv
-families (PyTorch port).
+"""Decoder-only language model: the dense, moe, mla_moe, hybrid, rwkv
+and vlm families (PyTorch port).
 
 The counterpart of the reference ``models/lm.py::LM`` for
-``family == "dense"`` (``attn_dense`` blocks), ``"moe"`` (``attn_moe``:
+``family == "dense"`` (``attn_dense`` blocks), ``"vlm"`` (a dense
+backbone behind a ``patch_proj`` prefix: ``prefill`` takes optional
+float32 ``patch_embeds`` (B, P, E) beside the tokens, projects them and
+puts them before the token embeddings), ``"moe"`` (``attn_moe``:
 GQA and a top-k MoE FFN), ``"mla_moe"`` (DeepSeek-V3: ``first_k_dense``
 ``mla_dense`` blocks, then ``mla_moe`` blocks with a sigmoid router and
 a shared expert), ``"hybrid"`` (jamba: superblocks of ``attn_period``
@@ -35,7 +38,8 @@ group, where the reference calls ``tp_psum``.  The paged engine's cache tree (``
 page pools shared by all slots plus a ``pages`` table; ``decode_step``
 and ``verify_step`` then go through the page table.  Both need
 random-access KV attention and raise ``NotImplementedError`` for rwkv,
-MLA and hybrid, as the reference does.
+MLA and hybrid, as the reference does; the paged cache, as the
+reference's, takes the dense and moe families only.
 """
 from __future__ import annotations
 
@@ -52,12 +56,12 @@ from repro_torch.models.param import (DTYPES, ParamDef, init_params,
                                       stack_tree, tree_map)
 from repro_torch.parallel.sharding import tp_all_reduce
 
-_FAMILIES = ("dense", "moe", "mla_moe", "hybrid", "rwkv")
+_FAMILIES = ("dense", "moe", "mla_moe", "hybrid", "rwkv", "vlm")
 
 
 class LM:
-    """Dense or MoE GQA decoder, MLA-MoE decoder, Mamba + GQA hybrid or
-    RWKV-6 stack.
+    """Dense or MoE GQA decoder, MLA-MoE decoder, Mamba + GQA hybrid,
+    RWKV-6 stack or VLM backbone.
     ``device`` defaults to ``cuda`` and raises when no GPU is visible.
     ``kernels=False`` sends attention and the scan to the plain PyTorch
     versions on any device (the on-card yardstick); with ``kernels=True``
@@ -72,8 +76,8 @@ class LM:
                  kernels: bool = True, tp_group=None):
         if cfg.family not in _FAMILIES:
             raise NotImplementedError(
-                f"family {cfg.family!r}: only the dense, moe, mla_moe, "
-                f"hybrid and rwkv families are ported; see ROADMAP §A.11")
+                f"family {cfg.family!r} has no decoder-only LM (encdec and "
+                f"tiny have their own models)")
         self.cfg = cfg
         self.vp = L.pad_vocab(cfg.vocab_size)
         self.device = resolve_device(device)
@@ -182,6 +186,10 @@ class LM:
         for name, subs, n in self.groups:
             defs[name] = stack_tree(self._sublayers(subs, self._block_defs),
                                     n)
+        if cfg.vlm is not None:
+            pe = cfg.vlm.patch_embed_dim or cfg.d_model
+            defs["patch_proj"] = ParamDef((pe, cfg.d_model), (None, "fsdp"),
+                                          "normal", dt)
         if cfg.mtp:         # DeepSeek-V3's training-only MTP module
             defs["mtp"] = {
                 "proj": ParamDef((2 * cfg.d_model, cfg.d_model),
@@ -399,9 +407,15 @@ class LM:
         """Shapes and dtypes of the paged engine's cache tree: stacked
         (L, P, page_size, KVH, D) K and V page pools shared by all
         slots, a per-slot (B,) ``pos`` and the (B, NB) int32 page
-        table.  GQA stacks (dense and moe) only."""
+        table.  GQA stacks of the dense and moe families only, as the
+        reference's ``paged_cache_specs`` takes: a vlm's is refused too."""
         self.check_verify()
         cfg = self.cfg
+        if cfg.family not in ("dense", "moe"):
+            raise NotImplementedError(
+                f"paged KV needs a homogeneous attention stack of the dense "
+                f"or moe family, as in the reference; family "
+                f"{cfg.family!r} is refused")
         pool = ((cfg.n_layers, n_pages, page_size, cfg.n_kv_heads,
                  cfg.head_dim), self.dtype)
         return {"layers": {"blocks": {"k": pool, "v": pool}},
@@ -419,7 +433,14 @@ class LM:
     # Embedding / head
     # ------------------------------------------------------------------
     def _embed_inputs(self, params, inputs):
-        return params["embed"][inputs["tokens"]]
+        """Token embeddings, behind a VLM's projected ``patch_embeds``
+        where the inputs have them (the reference's prefix: ``patch_embeds
+        .astype(x.dtype) @ patch_proj``, then the tokens)."""
+        x = params["embed"][inputs["tokens"]]
+        if self.cfg.vlm is not None and "patch_embeds" in inputs:
+            pe = inputs["patch_embeds"].to(x.dtype) @ params["patch_proj"]
+            x = torch.cat([pe, x], dim=1)
+        return x
 
     def _logits(self, params, x):
         x = L.rmsnorm(x, params["final_norm"], self.cfg.norm_eps)
@@ -431,7 +452,9 @@ class LM:
     def prefill(self, params, inputs, max_len: Optional[int] = None, *,
                 cache: Optional[dict] = None):
         """inputs["tokens"]: (B, S) -> last-token logits (B, 1, Vp) and
-        the cache, K/V at rows [0, S) and zeros up to ``max_len``.
+        the cache, K/V at rows [0, S) and zeros up to ``max_len``.  A VLM's
+        ``inputs["patch_embeds"]`` (B, P, E) go first: the sequence is then
+        P + S rows long, and so is the returned ``pos``.
 
         ``cache`` (a tree shaped like ``cache_specs(B, max_len)["layers"]``,
         e.g. views of one slot of an engine's cache) is written in place
@@ -442,7 +465,8 @@ class LM:
         b, seq = x.shape[0], x.shape[1]
         max_len = max_len or seq
         if seq > max_len:
-            raise ValueError(f"prompt of {seq} tokens > max_len {max_len}")
+            raise ValueError(f"prompt of {seq} rows (patches and tokens) > "
+                             f"max_len {max_len}")
         if cache is None:
             cache = self.init_cache(b, max_len)["layers"]
         x = self._run_stack(params, x, "prefill", cache, None)

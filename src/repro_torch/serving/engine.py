@@ -174,18 +174,21 @@ class ServeEngine:
         """Service one batch of requests synchronously.
 
         ``extra_inputs`` are further prefill inputs beside the prompts'
-        ``tokens`` (an encoder-decoder's ``frames``), tensors on the
-        engine's device."""
+        ``tokens`` (an encoder-decoder's ``frames``, a VLM's
+        ``patch_embeds``), tensors on the engine's device."""
         if len(requests) > self.batch:
             raise ValueError(f"{len(requests)} requests > batch size "
                              f"{self.batch}")
-        # the batch decodes at positions s .. s + max(budget) - 2, each
-        # inside the cache's max_len rows
+        # the batch decodes at positions p + s .. p + s + max(budget) - 2,
+        # each inside the cache's max_len rows, behind p patch rows
+        patches = (extra_inputs or {}).get("patch_embeds")
+        p = 0 if patches is None else patches.shape[1]
+        head = f"{p} patch rows + " if p else ""
         for r in requests:
             s = np.asarray(r.prompt).size
-            if s + r.max_new_tokens > self.max_len + 1:
-                raise ValueError(f"request {r.rid}: prompt {s} + budget "
-                                 f"{r.max_new_tokens} tokens exceed "
+            if p + s + r.max_new_tokens > self.max_len + 1:
+                raise ValueError(f"request {r.rid}: {head}prompt {s} + "
+                                 f"budget {r.max_new_tokens} tokens exceed "
                                  f"max_len {self.max_len} + 1")
         prompts = torch.cat([_prompt_tensor(r.prompt, self.device)
                              for r in requests])

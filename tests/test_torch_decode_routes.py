@@ -67,7 +67,7 @@ def _references(q, kc, vc, pos):
 
 
 @pytest.mark.parametrize("g", [1, 2, 4, 8])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 96, 128])
 def test_split_plain_matches_reference(g, d):
     """Ragged positions over 200 rows in splits of 64: a slot at 0 (every
     split past the first is beyond it), one at S - 1 (a ragged last
@@ -118,7 +118,8 @@ def test_split_plain_masks_splits_past_each_slot():
                                _references(q, kc, vc, pos)[0], **TOL)
 
 
-@pytest.mark.parametrize("g,d", [(1, 64), (2, 128), (4, 64), (8, 128)])
+@pytest.mark.parametrize("g,d", [(1, 64), (1, 96), (2, 128), (4, 64),
+                                 (8, 128)])
 def test_split_plain_through_pages_matches_paged_pallas(g, d):
     """The paged kernel's split route reads the slot's NB * ps positions
     through its page table: the split plain version on the gathered view
@@ -157,6 +158,10 @@ def test_split_plain_through_pages_matches_paged_pallas(g, d):
     # whisper's decoder: 8 windows x 12 heads over its 448-row cache
     pytest.param((12, 12, 64, BF16, 448, 96), ("split", 7, 64),
                  id="whisper-decode"),
+    # phi-3-vision: 8 slots x 32 KV heads (G 1, D 96) over 2,048 rows ->
+    # 5 splits of 448 keys (1,280 CTAs)
+    pytest.param((32, 32, 96, BF16, 2048, 256), ("split", 5, 448),
+                 id="phi3v-decode"),
     # one slot of a short cache: one split per 64-key chunk
     pytest.param((8, 2, 64, BF16, 304, 2), ("split", 5, 64),
                  id="small-cache"),
@@ -173,7 +178,7 @@ def test_decode_plan(args, plan):
 
 
 @pytest.mark.parametrize("args,exc", [
-    pytest.param((8, 2, 96, BF16), ValueError, id="d96"),
+    pytest.param((8, 2, 80, BF16), ValueError, id="d80"),
     pytest.param((6, 2, 64, BF16), ValueError, id="g3"),
     pytest.param((32, 2, 64, F32), ValueError, id="g16"),
     pytest.param((4, 2, 64, torch.float16), TypeError, id="fp16"),

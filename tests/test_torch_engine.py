@@ -248,6 +248,8 @@ def test_port_imports_neither_jax_nor_the_reference_package():
             "repro_torch/models/rwkv6.py",
             "repro_torch/models/mamba.py",
             "repro_torch/configs/jamba_v0_1_52b.py",
+            "repro_torch/configs/phi_3_vision_4_2b.py",
+            "repro_torch/configs/edge_vit.py",
             "repro_torch/models/tiny.py",
             "repro_torch/kernels/int8_matmul/ops.py",
             "repro_torch/benchmarks/quantization_efficiency.py",

@@ -49,6 +49,8 @@ def _inputs(seed, b, sq, skv, h, kvh, d):
     pytest.param(1, 1, 1500, 2, 2, 128, 192, 8, id="8-splits-d128"),
     # 16 rows per KV head (G 4 x Sq 4), the most the route takes
     pytest.param(1, 4, 200, 8, 2, 64, 64, 4, id="16-rows"),
+    # D 96 (phi-3-vision's head), G 1, 2 ragged splits
+    pytest.param(2, 3, 100, 2, 2, 96, 64, 2, id="2-splits-d96"),
 ])
 def test_split_plain_matches_reference(b, sq, skv, h, kvh, d, per, n_split,
                                        causal):
@@ -117,6 +119,9 @@ BF16, F32 = torch.bfloat16, torch.float32
     pytest.param((8, 8, 4, 2, 64, BF16), "split", id="rows-16"),
     pytest.param((17, 17, 4, 4, 64, BF16), "mma", id="rows-17"),
     pytest.param((2, 300, 16, 2, 128, BF16), "split", id="rows-16-g8"),
+    # phi-3-vision (G 1, D 96): a patch-prefixed prefill, a 16-row window
+    pytest.param((1024, 1024, 32, 32, 96, BF16), "mma", id="phi3v-prefill"),
+    pytest.param((16, 16, 32, 32, 96, BF16), "split", id="phi3v-rows-16"),
     # float32 takes the CUDA-core tile loop at every shape
     pytest.param((1, 1500, 12, 12, 64, F32), "tile_f32", id="f32-sq1"),
     pytest.param((1024, 1024, 16, 8, 128, F32), "tile_f32", id="f32-prefill"),
@@ -126,7 +131,7 @@ def test_route(args, route):
 
 
 @pytest.mark.parametrize("args,exc", [
-    pytest.param((4, 4, 4, 4, 96, BF16), ValueError, id="d96"),
+    pytest.param((4, 4, 4, 4, 80, BF16), ValueError, id="d80"),
     pytest.param((4, 4, 4, 4, 64, torch.float16), TypeError, id="fp16"),
 ])
 def test_route_raises_where_no_kernel_takes_the_call(args, exc):

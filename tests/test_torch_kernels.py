@@ -42,7 +42,7 @@ def _np(x):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 96, 128])
 @pytest.mark.parametrize("g", [1, 2, 4, 8])
 def test_decode_plain_matches_pallas_and_ref(g, d, dtype):
     """Ragged per-slot pos (0 and S-1 included) and a scalar pos."""
@@ -84,6 +84,8 @@ def test_decode_plain_matches_pallas_and_ref(g, d, dtype):
     pytest.param(200, 256, 8, 2, 128, False, id="bidir-200-256-8-2-128"),
     # bidirectional: one query row (a decoded token's cross-attention)
     pytest.param(1, 128, 4, 4, 64, False, id="bidir-1-128-4-4-64"),
+    # phi-3-vision's head: D 96, G 1, a ragged block
+    pytest.param(150, 150, 4, 4, 96, True, id="150-4-4-96"),
 ])
 def test_flash_plain_matches_pallas_and_ref(sq, skv, h, kvh, d, causal,
                                             dtype):

@@ -2,9 +2,10 @@
 weight bridge, the seeded init, each dense layer function, and the
 model's prefill/decode logits on the same weights (float32, reduced
 configs, within 1e-4), for the dense family and rwkv6 (whose own layers
-are in test_torch_rwkv); the moe and mla_moe families' configs here,
-their models in test_torch_moe and test_torch_mla; whisper's configs
-here, its model in test_torch_whisper."""
+are in test_torch_rwkv); the moe, mla_moe, hybrid and vlm families'
+configs here, their models in test_torch_moe, test_torch_mla,
+test_torch_hybrid and test_torch_vlm; whisper's configs here, its model
+in test_torch_whisper."""
 import dataclasses
 
 import jax
@@ -30,11 +31,11 @@ torch.set_num_threads(1)
 
 DENSE = ["qwen3-1.7b", "qwen2.5-3b", "granite-3-2b", "yi-9b"]
 LMS = DENSE + ["rwkv6-3b"]          # decoder-only: models/lm.py
-# encdec: tests/test_torch_whisper.py; moe, mla_moe and hybrid:
-# tests/test_torch_moe.py, tests/test_torch_mla.py and
-# tests/test_torch_hybrid.py
+# encdec: tests/test_torch_whisper.py; moe, mla_moe, hybrid and vlm:
+# tests/test_torch_moe.py, tests/test_torch_mla.py,
+# tests/test_torch_hybrid.py and tests/test_torch_vlm.py
 PORTED = LMS + ["whisper-small", "qwen3-moe-30b-a3b", "deepseek-v3-671b",
-                "jamba-v0.1-52b"]
+                "jamba-v0.1-52b", "phi-3-vision-4.2b", "edge-vit"]
 TOL = dict(rtol=1e-4, atol=1e-4)
 
 
@@ -71,14 +72,9 @@ def test_configs_match_reference(arch):
     assert full.head_dim == jcfg.get_config(arch).head_dim
 
 
-@pytest.mark.parametrize("arch", ["phi-3-vision-4.2b", "edge-vit"])
-def test_unported_families_raise(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP §A.11"):
-        tcfg.get_config(arch)
-
-
 @pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "deepseek-v3-671b",
-                                  "jamba-v0.1-52b", "rwkv6-3b"])
+                                  "jamba-v0.1-52b", "rwkv6-3b",
+                                  "phi-3-vision-4.2b", "edge-vit"])
 def test_tensor_parallelism_refuses_non_dense_families(arch):
     """A tp group shards dense GQA stacks only: expert parallelism is
     ROADMAP §A.8's later work."""

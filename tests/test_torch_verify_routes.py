@@ -65,6 +65,8 @@ def _split_plain(q, kc, vc, pos, per):
     pytest.param(2, 4, 1, 4, 128, 300, 128, (0, 296), id="rows16-t4-g4"),
     pytest.param(2, 2, 2, 8, 64, 96, 32, (0, 94), id="rows16-t2-g8"),
     pytest.param(3, 1, 2, 8, 128, 77, 64, (0, 40, 76), id="t1-g8"),
+    # phi-3-vision's head (D 96, G 1): the speculative window
+    pytest.param(3, 5, 2, 1, 96, 200, 64, (0, 77, 195), id="t5-g1-d96"),
 ])
 def test_split_plain_matches_reference(b, t, kvh, g, d, s, per, starts):
     q, kc, vc = _case(t * g + d + s, b, t, kvh, g, d, s)
@@ -110,7 +112,8 @@ def test_split_plain_masks_splits_past_each_window():
         **TOL)
 
 
-@pytest.mark.parametrize("g,d", [(1, 64), (2, 128), (4, 64), (8, 128)])
+@pytest.mark.parametrize("g,d", [(1, 64), (1, 96), (2, 128), (4, 64),
+                                 (8, 128)])
 def test_split_plain_through_pages_matches_paged_pallas(g, d):
     """The paged kernel's split route reads the slot's NB * ps positions
     through its page table: the split plain version on the gathered view
@@ -159,6 +162,12 @@ def test_split_plain_through_pages_matches_paged_pallas(g, d):
     # float32 takes the CUDA-core loop at every shape
     pytest.param((5, 16, 8, 128, F32, 2048, 64), ("tile_f32", 0, 0),
                  id="f32"),
+    # phi-3-vision (G 1, D 96), 8 slots over 2,048 rows: the speculative
+    # window splits (5 rows), a prefix hit's suffix takes the tile route
+    pytest.param((5, 32, 32, 96, BF16, 2048, 256), ("split", 5, 448),
+                 id="phi3v-spec-window"),
+    pytest.param((200, 32, 32, 96, BF16, 2048, 32), ("mma", 0, 0),
+                 id="phi3v-prefix-hit"),
     # one slot's window over a short cache: one split per 64-key chunk
     pytest.param((5, 4, 2, 64, BF16, 304, 6), ("split", 5, 64),
                  id="small-cache"),
@@ -171,7 +180,7 @@ def test_window_plan(args, plan):
 
 
 @pytest.mark.parametrize("args,exc", [
-    pytest.param((5, 4, 2, 96, BF16), ValueError, id="d96"),
+    pytest.param((5, 4, 2, 80, BF16), ValueError, id="d80"),
     pytest.param((5, 4, 2, 64, torch.float16), TypeError, id="fp16"),
 ])
 def test_window_plan_raises_where_no_kernel_takes_the_call(args, exc):
