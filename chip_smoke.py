@@ -331,6 +331,34 @@ Phases, each fatal on failure:
    ``set_sync_debug_mode("error")``, a decode step and a 1,024-token
    prefill profiled (GEMMs, attention, the rest), the peak memory and
    the phase's seconds.
+26. Training (after phase 25's models are freed; the free memory
+   printed first): (a) qwen3-1.7b at full width and depth (2.039 B,
+   bf16, remat) through ``make_train_step`` on ``SyntheticTokens`` at 8
+   x 1,024 tokens, peak lr 3e-4 after 2 warmup steps, 6 steps: each
+   step's loss, grad norm, lr, time and NVML energy delta printed; every
+   loss and grad norm finite; step 0 (lr 0) moves no parameter and
+   leaves every leaf a nonzero first moment (the gradient reached it);
+   step 1 changes every leaf but the norm weights at 1.0 (an update of
+   ~lr is under half a bf16 ulp there, as in the reference); the train
+   path's forward (``LM.train_forward``) against the kernel path's
+   prefill on the same batch (flash launched once a layer), every
+   position's logits and cross entropy within ``TRAIN_LOGIT_REL_TOL``
+   and ``TRAIN_CE_ABS_TOL``, and the same forward with attention's
+   output zeroed well outside both; a microbatches=2 step from the same
+   state against step 0: loss, grad norm and every leaf's first-moment
+   norm within ``TRAIN_MB_REL_TOL``, one microbatch's grad norm alone
+   well outside it; the median step time over steps 1-5, tok/s, 6 N T /
+   step time against 989 TFLOP/s, J a step and tok/J at the
+   accelerator, the peak memory over the 6 steps; one more step split
+   by CUDA events (forward, backward, AdamW) and profiled by kernel kind
+   (``profile_engine.train_step_split``).  (b) One step with int8
+   moments: its peak memory, over that step alone, under (a)'s.  (c)
+   ``launch.train_e2e``'s ~106M float32 model,
+   60 steps at 8 x 256 through ``run_with_recovery`` with a failure
+   injected at step 20 and checkpoints in a temporary directory removed
+   after: 60 steps with one failure, the newest checkpoint restored bit
+   for bit, the last 10 steps' mean loss under the first 10's, the
+   review rendered (its verdict printed).
 
 The line before the last holds the kernels' JSON record; the last line
 is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside
@@ -5685,6 +5713,346 @@ def phase_vlm(torch, dev) -> dict:
     return out
 
 
+# Phase 26: training.  (a) qwen3-1.7b at full width and depth, bf16,
+# remat, TRAIN_STEPS steps of make_train_step on SyntheticTokens at
+# TRAIN_BATCH x TRAIN_SEQ tokens; (b) one step with int8 moments; (c) the
+# ~106M float32 model of launch.train_e2e through run_with_recovery.
+TRAIN_ARCH = "qwen3-1.7b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 1024, 6
+TRAIN_PEAK_LR, TRAIN_WARMUP = 3e-4, 2
+# (a): the train path's forward against the kernel path's prefill on the
+# same batch, position by position: every logit within TRAIN_LOGIT_REL_TOL
+# of max |logit| and every token's cross entropy within TRAIN_CE_ABS_TOL
+# nats.  The train path runs the plain attention in bf16 and the prefill
+# the flash kernel, so they part by rounding alone: the logits by phase
+# 5's limit; a token's cross entropy moved by up to 7.02e-2 nats on the
+# H100 (logits 1.96e-2 of max |logit|), and its limit is about three
+# times that.  The same forward with every layer's attention output
+# projection set to 0 (attention contributing nothing) must part by more
+# than TRAIN_BLIND_FACTOR times each limit, or the gate could not tell
+# (1.48 of max |logit| and 5.43 nats there).  The
+# microbatches=2 step against the single-batch step 0 from the same state:
+# loss, grad_norm and every leaf's first-moment norm within
+# TRAIN_MB_REL_TOL relative; one microbatch's gradient norm alone (half of
+# the batch) must part from the whole batch's by more than
+# TRAIN_BLIND_FACTOR times that limit.
+TRAIN_LOGIT_REL_TOL = LOGIT_REL_TOL
+TRAIN_CE_ABS_TOL = 0.2
+TRAIN_MB_REL_TOL = 1e-2
+TRAIN_BLIND_FACTOR = 5
+E2E_STEPS, E2E_BATCH, E2E_SEQ = 60, 8, 256     # (c): failure at step 20
+
+
+def train_leaf_names(tree, prefix="") -> list:
+    """Each leaf's key path (``a/b/c``) in ``tree_leaves`` order."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree)
+                for n in train_leaf_names(tree[k], f"{prefix}{k}/")]
+    return [prefix[:-1]]
+
+
+def phase_train(torch, dev, smi: str) -> dict:
+    """Phase 26: training on the card (see the module docstring)."""
+    import shutil
+    import tempfile
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.launch import train_e2e
+    from repro_torch.launch.profile_engine import train_step_split
+    from repro_torch.models import build_model
+    from repro_torch.models.param import tree_leaves
+    from repro_torch.optim import AdamWConfig, global_norm
+    from repro_torch.power.nvml import NVML
+    from repro_torch.train import (TrainHParams, init_train_state,
+                                   make_train_step)
+    from repro_torch.train.train_step import backward_grads, forward_loss
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    print(f"  free memory at the phase's start {free / 1e9:.2f} of "
+          f"{total / 1e9:.2f} GB")
+    torch.cuda.reset_peak_memory_stats()
+    out = {}
+
+    # (a) full-width qwen3-1.7b
+    cfg = get_config(TRAIN_ARCH)
+    model = build_model(cfg, dev)
+    hp = TrainHParams(peak_lr=TRAIN_PEAK_LR, warmup=TRAIN_WARMUP,
+                      total_steps=TRAIN_STEPS)
+    state = init_train_state(model, 0, hp)
+    names = train_leaf_names(state.params)
+    n_params = sum(t.numel() for t in tree_leaves(state.params))
+    n_ref = cfg.param_count()
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    print(f"  (a) {TRAIN_ARCH}: {cfg.n_layers} layers, {n_params / 1e9:.3f}"
+          f" B params ({cfg.dtype}; param_count {n_ref / 1e9:.3f} B), remat "
+          f"{cfg.remat}, {len(names)} leaves; batch {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ}, peak_lr {TRAIN_PEAK_LR}, warmup {TRAIN_WARMUP}")
+    data = SyntheticTokens(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH,
+                           device=dev)
+    batch0 = data.batch(0)
+
+    # the kernel path's prefill logits on batch 0 (flash: one launch a
+    # layer) against the train path's forward, position by position, and
+    # against the same forward with attention's output zeroed
+    before = flash_attention.launches
+    logits = all_logits(torch, model, state.params,
+                        {"tokens": batch0["tokens"]})
+    flashes = flash_attention.launches - before
+    check(flashes == cfg.n_layers, f"phase 26 (a): the prefill launched "
+          f"flash {flashes} times, want {cfg.n_layers}")
+    blocks = state.params["blocks"]
+    blind = dict(state.params, blocks=dict(blocks, attn=dict(
+        blocks["attn"], wo=torch.zeros_like(blocks["attn"]["wo"]))))
+    with torch.no_grad():
+        gap = train_gap(model, logits,
+                        model.train_forward(state.params, batch0)[0],
+                        batch0["labels"])
+        gap_blind = train_gap(model, logits,
+                              model.train_forward(blind, batch0)[0],
+                              batch0["labels"])
+    del logits, blind, blocks
+    torch.cuda.empty_cache()
+    print(f"  train forward vs the kernel path's prefill, every one of "
+          f"{tokens} positions: logits {gap['logit_rel']:.3e} of max |logit| "
+          f"(gate {TRAIN_LOGIT_REL_TOL}), cross entropy {gap['ce_abs']:.3e} "
+          f"nats at most (gate {TRAIN_CE_ABS_TOL}); mean cross entropy "
+          f"{gap['ce_train']:.6f} vs {gap['ce_prefill']:.6f}")
+    print(f"  the same with attention's output zeroed: logits "
+          f"{gap_blind['logit_rel']:.3e}, cross entropy "
+          f"{gap_blind['ce_abs']:.3e} nats (must pass {TRAIN_BLIND_FACTOR}x "
+          f"each gate)")
+    check(gap["logit_rel"] <= TRAIN_LOGIT_REL_TOL
+          and gap["ce_abs"] <= TRAIN_CE_ABS_TOL,
+          "phase 26 (a): the train forward parts from the prefill")
+    check(gap_blind["logit_rel"] > TRAIN_BLIND_FACTOR * TRAIN_LOGIT_REL_TOL
+          and gap_blind["ce_abs"] > TRAIN_BLIND_FACTOR * TRAIN_CE_ABS_TOL,
+          "phase 26 (a): the gate cannot tell a forward without attention")
+
+    # a microbatches=2 step from the initial state: its loss, grad_norm
+    # and each leaf's first-moment norm, held against step 0's below
+    mb_step = make_train_step(model, dataclasses.replace(hp,
+                                                         microbatches=2))
+    s_mb, m_mb = mb_step(state, batch0)
+    loss_mb, gnorm_mb = float(m_mb["loss"]), float(m_mb["grad_norm"])
+    m_norms_mb = moment_norms(tree_leaves(s_mb.opt.m))
+    del s_mb, m_mb
+    # one microbatch alone: how far half of the batch moves grad_norm
+    half = {k: v[:TRAIN_BATCH // 2] for k, v in batch0.items()}
+    live, loss_half, half_metrics = forward_loss(model, state.params, half)
+    gnorm_half = float(global_norm(backward_grads(state.params, live,
+                                                  loss_half)))
+    # the metrics' graph reaches the leaves, views of the initial weights
+    del live, loss_half, half_metrics, half
+    torch.cuda.empty_cache()
+    pre_peak = peak_gb(torch, "phase 26 (a), before the timed steps "
+                       "(prefill, train forwards, microbatch step)")
+    print(f"  allocated at the timed steps' start "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+
+    step = make_train_step(model, hp)
+    times, joules, losses = [], [], []
+    with NVML(dev) as nvml:
+        torch.cuda.synchronize()
+        e_start = nvml.energy_mj()
+        for i in range(TRAIN_STEPS):
+            batch = batch0 if i == 0 else data.batch(i)
+            torch.cuda.synchronize()
+            e0, t0 = nvml.energy_mj(), time.perf_counter()
+            new, m = step(state, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            joules.append((nvml.energy_mj() - e0) / 1e3)
+            loss, gnorm, lr = (float(m["loss"]), float(m["grad_norm"]),
+                               float(m["lr"]))
+            losses.append(loss)
+            print(f"  step {i}: loss {loss:.6f}, grad_norm {gnorm:.6f}, lr "
+                  f"{lr:.3e}, {times[-1] * 1e3:.1f} ms, {joules[-1]:.1f} J "
+                  f"(NVML counter delta)")
+            check(np.isfinite(loss) and np.isfinite(gnorm),
+                  f"phase 26 (a): step {i} loss {loss} grad_norm {gnorm}")
+            if i == 0:
+                # lr 0 under warmup: the step moves no parameter, and
+                # every leaf's first moment is 0.1 g: nonzero where the
+                # gradient reached the leaf
+                moved = [n for n, a, b in zip(names,
+                                              tree_leaves(state.params),
+                                              tree_leaves(new.params))
+                         if not torch.equal(a, b)]
+                check(not moved, f"phase 26 (a): step 0 at lr 0 moved "
+                      f"{moved}")
+                no_grad = [n for n, mt in zip(names, tree_leaves(new.opt.m))
+                           if not bool(mt.ne(0).any())]
+                check(not no_grad, f"phase 26 (a): no gradient reached "
+                      f"{no_grad}")
+                print(f"  step 0 (lr 0): every one of {len(names)} leaves "
+                      f"kept, and each has a nonzero first moment")
+                mb = dict(
+                    loss=abs(loss_mb - loss) / loss,
+                    grad_norm=abs(gnorm_mb - gnorm) / gnorm,
+                    moments=float(np.max(np.abs(
+                        m_norms_mb - moment_norms(tree_leaves(new.opt.m)))
+                        / m_norms_mb)),
+                    half=abs(gnorm_half - gnorm) / gnorm)
+            if i == 1:
+                # the first step with lr > 0: every leaf moves but the
+                # norm weights at 1.0, where an update of lr x ~1 is
+                # under half a bf16 ulp (2^-8), as in the reference
+                # (no float32 master copy)
+                kept = [n for n, a, b in zip(names, tree_leaves(state.params),
+                                             tree_leaves(new.params))
+                        if torch.equal(a, b)]
+                ones = [n for n, a in zip(names, tree_leaves(state.params))
+                        if bool(a.eq(1).all())]
+                check(set(kept) <= set(ones), f"phase 26 (a): step 1 left "
+                      f"{sorted(set(kept) - set(ones))} unchanged")
+                print(f"  step 1 (lr {lr:.3e}): {len(names) - len(kept)} of "
+                      f"{len(names)} leaves changed; unchanged: {kept} (all "
+                      f"ones: norm weights)")
+            state = new
+            del new, m
+        e_end = nvml.energy_mj()
+        limit_w = nvml.power_limit_w()
+    steps_peak = peak_gb(torch, f"phase 26 (a), {TRAIN_STEPS} single-batch "
+                         f"steps")
+    # where a step's time goes: by stage (events) and by kernel kind
+    split = train_step_split(model, state, data.batch(TRAIN_STEPS), hp)
+    print(f"  a step split (events): forward {split['forward_ms']:.1f} ms, "
+          f"backward {split['backward_ms']:.1f} (remat's forwards inside), "
+          f"AdamW {split['adamw_ms']:.1f}; wall {split['wall_ms']:.1f}; "
+          f"kernels {split['kernel_ms']:.1f} ms ({split['n_kernels']}; busy "
+          f"{split['busy_share'] * 100:.1f} %): GEMMs {split['gemm_ms']:.1f},"
+          f" softmax {split['softmax_ms']:.1f}, reductions and norms "
+          f"{split['reduce_ms']:.1f}, the rest {split['other_ms']:.1f}")
+    for row in split["top"]:
+        print(f"    {row['ms']:9.3f} ms {row['count']:6d} x {row['kernel']}")
+    steady = times[1:]
+    med = float(np.median(steady))
+    j_steady = float(np.sum(joules[1:]))
+    out["a"] = dict(
+        losses=losses, step_ms=[t * 1e3 for t in times], median_ms=med * 1e3,
+        tok_per_s=tokens / med, mfu=6 * n_ref * tokens / med / BF16_FLOP_PER_S,
+        joules=joules, j_per_step=j_steady / len(steady), split=split,
+        tok_per_j=tokens * len(steady) / j_steady,
+        j_all=(e_end - e_start) / 1e3, gap=gap, gap_blind=gap_blind, mb=mb,
+        loss_mb=loss_mb, peak_gb=steps_peak, pre_peak_gb=pre_peak)
+    a = out["a"]
+    print(f"  microbatches=2 vs step 0, relative: loss {mb['loss']:.3e}, "
+          f"grad_norm {mb['grad_norm']:.3e}, first-moment norms "
+          f"{mb['moments']:.3e} at most (gate {TRAIN_MB_REL_TOL}); one "
+          f"microbatch alone: grad_norm {gnorm_half:.6f}, {mb['half']:.3e} "
+          f"(must pass {TRAIN_BLIND_FACTOR}x the gate)")
+    check(max(mb["loss"], mb["grad_norm"], mb["moments"]) <= TRAIN_MB_REL_TOL,
+          "phase 26 (a): the microbatch step parts from the single-batch one")
+    check(mb["half"] > TRAIN_BLIND_FACTOR * TRAIN_MB_REL_TOL,
+          "phase 26 (a): the gate cannot tell half of the batch")
+    print(f"  (a) steps 1-{TRAIN_STEPS - 1}: median {a['median_ms']:.1f} ms a "
+          f"step, {a['tok_per_s']:.0f} tok/s, 6 N T / step time "
+          f"{a['mfu'] * 100:.2f} % of {BF16_FLOP_PER_S / 1e12:.0f} TFLOP/s; "
+          f"{a['j_per_step']:.1f} J a step, {a['tok_per_j']:.2f} tok/J at the "
+          f"accelerator (NVML counter, limit {limit_w:.2f} W); peak "
+          f"{a['peak_gb']:.2f} GB over the {TRAIN_STEPS} steps")
+    print(smi.strip())
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) int8 moments, one step; its peak covers that step alone, as
+    # (a)'s covers its single-batch steps
+    torch.cuda.reset_peak_memory_stats()
+    print(f"  allocated at (b)'s start {torch.cuda.memory_allocated() / 1e9:.2f}"
+          f" GB")
+    hp_q = dataclasses.replace(hp, adamw=AdamWConfig(quant_moments=True))
+    state = init_train_state(model, 0, hp_q)
+    new, m = make_train_step(model, hp_q)(state, batch0)
+    loss_q = float(m["loss"])
+    check(np.isfinite(loss_q), f"phase 26 (b): loss {loss_q}")
+    del state, new, m
+    out["b"] = dict(loss=loss_q, peak_gb=peak_gb(torch, "phase 26 (b)"))
+    print(f"  (b) quant_moments: loss {loss_q:.6f}, peak "
+          f"{out['b']['peak_gb']:.2f} GB against (a)'s {a['peak_gb']:.2f}")
+    check(out["b"]["peak_gb"] < a["peak_gb"],
+          "phase 26 (b): int8 moments took no less memory")
+    del model, batch0, data
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) train_e2e's ~106M float32 model through run_with_recovery, a
+    # failure injected at step E2E_STEPS // 3
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        e2e = train_e2e.run(steps=E2E_STEPS, batch=E2E_BATCH, seq=E2E_SEQ,
+                            device=dev, ckpt_dir=tmp,
+                            log=lambda msg: print(f"  {msg}"))
+        rep = e2e["report"]
+        check(rep.final_step == E2E_STEPS and rep.failures == 1,
+              f"phase 26 (c): final step {rep.final_step}, failures "
+              f"{rep.failures}")
+        restored, meta = e2e["ckpt"].restore(e2e["state"])
+        check(meta["step"] == E2E_STEPS, f"phase 26 (c): newest "
+              f"checkpoint at {meta['step']}")
+        saved = train_e2e_leaves(e2e["state"])
+        back = train_e2e_leaves(restored)
+        check(len(saved) == len(back) and all(
+            torch.equal(x, y) for x, y in zip(saved, back)),
+            "phase 26 (c): restored leaves differ from the saved ones")
+        check(e2e["last"] < e2e["first"], f"phase 26 (c): loss "
+              f"{e2e['first']:.4f} -> {e2e['last']:.4f} did not fall")
+        text = e2e["review"].render()
+        check("compliance review" in text, "phase 26 (c): no review")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["c"] = dict(seconds=e2e["seconds"], first=e2e["first"],
+                    last=e2e["last"], failures=rep.failures,
+                    stragglers=len(rep.straggler_events),
+                    accepted=e2e["review"].passed)
+    print(f"  (c) {E2E_STEPS} steps in {e2e['seconds']:.1f} s, "
+          f"{rep.failures} failure recovered, {len(back)} leaves restored "
+          f"bit for bit, loss {e2e['first']:.4f} -> {e2e['last']:.4f}, "
+          f"review {'ACCEPTED' if e2e['review'].passed else 'REJECTED'} "
+          f"(modeled telemetry; R1 asks 60 s of a datacenter run)")
+    del e2e, restored, saved, back
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"  phase 26: {out['seconds']:.1f} s")
+    return out
+
+
+def train_gap(model, ref, got, labels) -> dict:
+    """Phase 26 (a): ``got`` (B, S, Vp) float32 logits against ``ref``,
+    every position: the largest logit difference over max |ref|, the
+    largest difference of a token's cross entropy, and both means."""
+    from repro_torch.models.lm import token_ce
+    cfg = model.cfg
+    rel = float((got - ref).abs_().amax() / ref.abs().amax())
+    ce_ref = token_ce(ref, labels, cfg.vocab_size, model.vp)
+    ce_got = token_ce(got, labels, cfg.vocab_size, model.vp)
+    del got
+    return {"logit_rel": rel,
+            "ce_abs": float((ce_got - ce_ref).abs().amax()),
+            "ce_prefill": float(ce_ref.mean()),
+            "ce_train": float(ce_got.mean())}
+
+
+def moment_norms(leaves):
+    """Each leaf's float32 norm, on the host."""
+    import numpy as np
+    return np.array([float(t.float().norm()) for t in leaves])
+
+
+def train_e2e_leaves(state) -> list:
+    """Every tensor of a ``TrainState`` (params, moments, steps)."""
+    from repro_torch.models.param import tree_leaves
+    return [*tree_leaves(state.params), state.opt.step,
+            *tree_leaves(state.opt.m), *tree_leaves(state.opt.v),
+            state.step]
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5846,6 +6214,11 @@ def main() -> int:
     print(smi.strip())
     vlm = phase_vlm(torch, dev)
 
+    phase(f"phase 26: training ({TRAIN_ARCH} at full width, int8 moments, "
+          f"train_e2e through a failure)")
+    print(smi.strip())
+    train = phase_train(torch, dev, smi)
+
     # launches: each kernel's count on its own paths' runs (phases 4, 14,
     # 15, 17, 20, 24 and 25 for decode and flash, 16, 18 and 19 for flash,
     # 18 for decode; phases 6, 16 and 18 for the paged kernels and 19 for
@@ -5927,6 +6300,13 @@ def main() -> int:
           f"{vlm['power']['tok_per_j_accelerator']:.4f} tok/J at the "
           f"accelerator, peak {vlm['peak_gb']:.2f} GB, "
           f"{vlm['seconds']:.1f} s")
+    ta = train["a"]
+    print(f"phase 26: {ta['median_ms']:.1f} ms a {TRAIN_ARCH} train step "
+          f"({ta['tok_per_s']:.0f} tok/s, {ta['mfu'] * 100:.2f} % of bf16 "
+          f"peak, {ta['tok_per_j']:.2f} tok/J at the accelerator), peak "
+          f"{ta['peak_gb']:.2f} GB (int8 moments {train['b']['peak_gb']:.2f})"
+          f", train_e2e {train['c']['seconds']:.1f} s, "
+          f"{train['seconds']:.1f} s")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi.strip())
     print(json.dumps(record))

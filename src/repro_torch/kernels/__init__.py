@@ -6,7 +6,23 @@ counter; ``build`` compiles ``csrc/*.cu`` with nvcc at first use.
 """
 import threading
 
+import torch
+
 _LAUNCH_LOCK = threading.Lock()
+
+
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise where autograd would record a kernel's call: the kernels
+    return tensors without a ``grad_fn``, so a launch under grad mode
+    with an input that requires grad would leave every weight behind it
+    without a gradient, silently.  Training runs the plain versions
+    (``models/lm.py:LM.train_loss``); no backward kernel exists."""
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad
+            for t in tensors):
+        raise RuntimeError(
+            f"{name}: an input requires grad and grad mode is on; the "
+            f"kernel has no backward (training runs the plain version)")
 
 
 def count_launch(wrapper) -> None:

@@ -31,7 +31,7 @@ import math
 
 import torch
 
-from repro_torch.kernels import build, count_launch
+from repro_torch.kernels import build, count_launch, refuse_grad
 from repro_torch.kernels.flash_attention.ops import (
     HEAD_DIMS, _check_aligned, _sm_count, _splits,
 )
@@ -174,6 +174,7 @@ def decode_attention(q, k_cache, v_cache, pos):
     ``plan`` names or raise."""
     if q.device.type == "cpu":
         return decode_attention_plain(q, k_cache, v_cache, pos)
+    refuse_grad("decode_attention", q, k_cache, v_cache)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention: no path for {q.device}")
     b, t, h, d = q.shape

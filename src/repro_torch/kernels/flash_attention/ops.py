@@ -42,7 +42,7 @@ import math
 
 import torch
 
-from repro_torch.kernels import build, count_launch
+from repro_torch.kernels import build, count_launch, refuse_grad
 
 MASK_VALUE = -1e30
 HEAD_DIMS = (64, 96, 128)   # D the attention kernels are built for
@@ -319,6 +319,7 @@ def flash_attention(q, k, v, *, causal: bool = True):
         raise ValueError("flash_attention: no keys (Skv = 0)")
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal)
+    refuse_grad("flash_attention", q, k, v)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no path for {q.device}")
     b, sq, h, d = q.shape

@@ -31,7 +31,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build, count_launch
+from repro_torch.kernels import build, count_launch, refuse_grad
 
 # the largest K whose int32 sum cannot overflow: 128 * 128 * K < 2^31
 MAX_K = 131_072
@@ -164,6 +164,7 @@ def int8_matmul(x, w, sx, sw, *, out_dtype=torch.bfloat16):
     route (any M, N, K >= 1 up to ``MAX_M`` and ``MAX_K``) or raise."""
     if x.device.type == "cpu":
         return int8_matmul_plain(x, w, sx, sw, out_dtype)
+    refuse_grad("int8_matmul", x, w, sx, sw)
     if x.device.type not in LAUNCH_DEVICES:
         raise ValueError(f"int8_matmul: no path for {x.device}")
     if x.dim() != 2 or w.dim() != 2:

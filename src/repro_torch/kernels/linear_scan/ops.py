@@ -32,7 +32,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build, count_launch
+from repro_torch.kernels import build, count_launch, refuse_grad
 
 # the reference model's chunk (``models/rwkv6.py:CHUNK``)
 CHUNK = 256
@@ -87,6 +87,12 @@ def linear_scan_plain(r, k, v, logw, u, chunk: int = CHUNK, state0=None,
     # s < t strict, broadcast over (B, ., ., H, dh)
     tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
                                 device=r.device), diagonal=-1)
+    # under autograd the pairwise decay's exp and products run out of
+    # place: backward needs exp's output, which the in-place products
+    # would overwrite (the same values, bit for bit, either way)
+    taped = torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad
+        for t in (r, k, v, logw, u, state0))
     ys = []
     for i in range(n):
         ri, ki, vi, lwi = rf[:, i], kf[:, i], vf[:, i], lw[:, i]
@@ -99,8 +105,12 @@ def linear_scan_plain(r, k, v, logw, u, chunk: int = CHUNK, state0=None,
         # intra-chunk: A[t,s] = sum_d r_t,d k_s,d exp(clw_prev_t - clw_s,d),
         # each exponent <= 0 for s < t
         decay = (clw_prev[:, :, None] - clw[:, None, :]).masked_fill_(
-            ~tri[None, :, :, None, None], float("-inf")).exp_()
-        att = decay.mul_(ri[:, :, None]).mul_(ki[:, None, :]).sum(-1)
+            ~tri[None, :, :, None, None], float("-inf"))
+        if taped:
+            att = (decay.exp() * ri[:, :, None] * ki[:, None, :]).sum(-1)
+        else:
+            att = decay.exp_().mul_(ri[:, :, None]).mul_(
+                ki[:, None, :]).sum(-1)
         del decay
         y_intra = torch.einsum("bcsh,bshd->bchd", att, vi)
         # diagonal bonus: u * (r_t . k_t) v_t
@@ -273,6 +283,7 @@ def linear_scan(r, k, v, logw, u):
     route (dh in {32, 64, 128}, any T >= 1) or raise."""
     if r.device.type == "cpu":
         return linear_scan_plain(r, k, v, logw, u, return_state=True)
+    refuse_grad("linear_scan", r, k, v, logw, u)
     if r.device.type != "cuda":
         raise ValueError(f"linear_scan: no path for {r.device}")
     b, t, h, dh = r.shape

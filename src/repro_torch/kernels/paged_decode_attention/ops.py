@@ -25,7 +25,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import count_launch
+from repro_torch.kernels import count_launch, refuse_grad
 from repro_torch.kernels.decode_attention.ops import (
     decode_attention_plain, launch,
 )
@@ -85,6 +85,7 @@ def paged_decode_attention(q, k_pool, v_pool, pages, pos):
     aligned) launch the route ``plan`` names or raise."""
     if q.device.type == "cpu":
         return paged_decode_attention_plain(q, k_pool, v_pool, pages, pos)
+    refuse_grad("paged_decode_attention", q, k_pool, v_pool)
     if q.device.type != "cuda":
         raise ValueError(f"paged_decode_attention: no path for {q.device}")
     if q.shape[1] != 1:

@@ -24,7 +24,7 @@ through strides.
 """
 from __future__ import annotations
 
-from repro_torch.kernels import count_launch
+from repro_torch.kernels import count_launch, refuse_grad
 from repro_torch.kernels.flash_attention.ops import launch
 from repro_torch.kernels.paged_decode_attention.ops import (
     check_paged_args, paged_view,
@@ -47,6 +47,7 @@ def paged_verify_attention(q, k_pool, v_pool, pages, pos):
     launch the route ``_route`` names or raise."""
     if q.device.type == "cpu":
         return paged_verify_attention_plain(q, k_pool, v_pool, pages, pos)
+    refuse_grad("paged_verify_attention", q, k_pool, v_pool)
     if q.device.type != "cuda":
         raise ValueError(f"paged_verify_attention: no path for {q.device}")
     pages, pos = check_paged_args("paged_verify_attention", q, k_pool,

@@ -32,7 +32,7 @@ import math
 
 import torch
 
-from repro_torch.kernels import count_launch
+from repro_torch.kernels import count_launch, refuse_grad
 from repro_torch.kernels.decode_attention.ops import MASK_VALUE
 from repro_torch.kernels.flash_attention.ops import launch
 
@@ -73,6 +73,7 @@ def verify_attention(q, k_cache, v_cache, pos):
     or the float32 tile loop -- or raise."""
     if q.device.type == "cpu":
         return verify_attention_plain(q, k_cache, v_cache, pos)
+    refuse_grad("verify_attention", q, k_cache, v_cache)
     if q.device.type != "cuda":
         raise ValueError(f"verify_attention: no path for {q.device}")
     b, t, h, d = q.shape

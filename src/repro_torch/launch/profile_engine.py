@@ -36,6 +36,11 @@ serves text-only here, as through the slot engine.
   them; for the dense and moe families (the paged engine takes no
   other, as in the reference).
 
+A train step (``train_step_split``, called by ``chip_smoke.py`` phase
+26) is split by CUDA events into the forward (``train_loss``), the
+backward (``torch.autograd.grad``, remat's recomputed forwards inside
+it) and the AdamW update, and profiled once for its kernels by kind.
+
 whisper-small (an encoder-decoder, which the slot engine refuses) is
 profiled as ``chip_smoke.py`` phase 14 serves it through ``ServeEngine``:
 ``SLOTS`` windows of frames with ``ENC_PROMPT``-token prompts and a
@@ -197,6 +202,70 @@ def prefill_split(fn) -> dict:
             "scan_calls": len(pairs),
             "other_ms": total - gemm - attention - scan,
             "n_kernels": sum(n for n, _ in per.values())}
+
+
+# kernel names by kind in a train step (lower case substrings); a GEMM
+# is a GEMM whatever its dtype: the projections' bf16 products and the
+# plain attention's float32 einsums alike
+SOFTMAX_NAMES = ("softmax",)
+REDUCE_NAMES = ("reduce", "norm", "logsumexp")
+
+
+def train_step_split(model, state, batch, hp) -> dict:
+    """One single-batch train step from ``state`` split in device ms by
+    stage (CUDA events: forward, backward, AdamW; the wall time around
+    them ends in a synchronize), then the same step under
+    ``torch.profiler``: its kernels by kind (GEMMs, softmax, reductions
+    and norms, the rest) and the kernels that take the most device time.
+    The stages are ``make_train_step``'s own pieces; the step's new state
+    is dropped."""
+    from repro_torch.train.train_step import (apply_update, backward_grads,
+                                              forward_loss)
+    if hp.microbatches != 1:
+        raise ValueError(f"train_step_split times a single-batch step; "
+                         f"got microbatches={hp.microbatches}")
+
+    def run(events=None):
+        def mark(i):
+            if events:
+                events[i].record()
+
+        mark(0)
+        live, loss, _ = forward_loss(model, state.params, batch)
+        mark(1)
+        grads = backward_grads(state.params, live, loss)
+        mark(2)
+        out = apply_update(state, grads, hp)
+        mark(3)
+        return out
+
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = run(events)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    del out
+    stages = {name: events[i].elapsed_time(events[i + 1])
+              for i, name in enumerate(("forward_ms", "backward_ms",
+                                        "adamw_ms"))}
+    per = _kernels(run)
+    total = sum(ms for _, ms in per.values())
+
+    def part(names):
+        return sum(ms for k, (_, ms) in per.items()
+                   if any(n in k.lower() for n in names))
+
+    gemm, softmax = part(GEMM_NAMES), part(SOFTMAX_NAMES)
+    reduce = part(REDUCE_NAMES)
+    ranked = sorted(per.items(), key=lambda kv: -kv[1][1])[:8]
+    return {"wall_ms": wall, **stages, "kernel_ms": total,
+            "busy_share": total / wall, "gemm_ms": gemm,
+            "softmax_ms": softmax, "reduce_ms": reduce,
+            "other_ms": total - gemm - softmax - reduce,
+            "n_kernels": sum(n for n, _ in per.values()),
+            "top": [{"kernel": k[:90], "count": n, "ms": ms}
+                    for k, (n, ms) in ranked]}
 
 
 def _profile_spec(model, params, rng) -> dict:

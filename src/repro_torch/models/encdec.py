@@ -18,7 +18,8 @@ through the flash kernel (encoder and cross-attention bidirectional,
 decoder prefill causal) except the decoder's one-token self-attention,
 which goes through the decode kernel.  Layers run as a Python loop;
 the self-attention cache is updated in place where the reference's
-jitted callers donate it.
+jitted callers donate it.  ``train_loss`` runs every attention on the
+plain path (the kernels have no backward).
 
   m = EncDecLM(cfg, device="cuda")
   params = m.init(seed=0)                  # or param.from_jax(tree)
@@ -127,9 +128,42 @@ class EncDecLM:
         return init_params(self.param_defs(), gen)
 
     def train_loss(self, params, batch):
-        raise NotImplementedError(
-            "EncDecLM.train_loss: training is not ported yet, see ROADMAP "
-            "§A.12")
+        """(loss, metrics) of one batch: ``frames`` (B, enc_len,
+        d_model), decoder ``tokens`` and ``labels`` (B, S), optional
+        ``loss_mask``.  The reference's ``train_loss``: the encoder, every
+        layer's cross K/V, the decoder stack in train mode (causal
+        self-attention from position 0, cross-attention, FFN), cross
+        entropy over the padded vocabulary; metrics ``ce`` and ``aux``
+        (0).  Every attention runs the plain version whatever
+        ``kernels`` says (the kernels have no backward); remat by
+        ``cfg.remat`` wraps each encoder and decoder layer."""
+        from repro_torch.models.lm import _ce_loss
+        cfg = self.cfg
+        L.check_train_attention(cfg)
+        enc_out = self.encode(params, batch["frames"], train=True)
+        cross_k, cross_v = self._cross_kv_all(params, enc_out)
+        x = self._embed_dec(params, batch["tokens"])
+        body = L.maybe_remat(self._train_dec_block, cfg.remat)
+        layers = tree_map(lambda a: a.unbind(0), params["dec_blocks"])
+        for i in range(cfg.n_layers):
+            x = body(x, tree_map(lambda t: t[i], layers), cross_k[i],
+                     cross_v[i])
+        loss = _ce_loss(self._logits(params, x), batch["labels"],
+                        cfg.vocab_size, self.vp, batch.get("loss_mask"))
+        return loss, {"ce": loss,
+                      "aux": torch.zeros((), dtype=torch.float32,
+                                         device=x.device)}
+
+    def _train_dec_block(self, x, bp, ck, cv):
+        """One decoder layer in train mode, on the plain path."""
+        cfg = self.cfg
+        h = L.rmsnorm(x, bp["ln1"], cfg.norm_eps)
+        x = x + L.gqa_attention(h, bp["attn"], cfg, kernels=False)
+        h = L.rmsnorm(x, bp["ln_x"], cfg.norm_eps)
+        x = x + cross_attention(h, ck, cv, bp["xattn"], cfg, kernels=False)
+        h = L.rmsnorm(x, bp["ln2"], cfg.norm_eps)
+        return x + L.ffn(h, bp["ffn"])
+
 
     # ------------------------------------------------------------------
     # Encoder, cross K/V, decoder stack
@@ -142,19 +176,28 @@ class EncDecLM:
                                        self.device)
         return self._tables[s]
 
-    def encode(self, params, frames):
+    def encode(self, params, frames, *, train: bool = False):
         """frames: (B, enc_len, d_model), the stubbed frontend's output
-        -> the normed encoder output, same shape, in the model's dtype."""
+        -> the normed encoder output, same shape, in the model's dtype.
+        ``train``: the plain attention path and remat by ``cfg.remat``,
+        as ``train_loss`` needs."""
         cfg = self.cfg
-        x = frames.to(self.dtype)
-        x = x + self._table(x.shape[1])[None]
-        for i in range(cfg.encdec.enc_layers):
-            bp = tree_map(lambda a: a[i], params["enc_blocks"])
+        kernels = self.kernels and not train
+
+        def block(x, bp):
             h = L.rmsnorm(x, bp["ln1"], cfg.norm_eps)
             x = x + L.gqa_attention(h, bp["attn"], cfg, causal=False,
-                                    use_rope=False, kernels=self.kernels)
+                                    use_rope=False, kernels=kernels)
             h = L.rmsnorm(x, bp["ln2"], cfg.norm_eps)
-            x = x + L.ffn(h, bp["ffn"])
+            return x + L.ffn(h, bp["ffn"])
+
+        if train:
+            block = L.maybe_remat(block, cfg.remat)
+        x = frames.to(self.dtype)
+        x = x + self._table(x.shape[1])[None]
+        layers = tree_map(lambda a: a.unbind(0), params["enc_blocks"])
+        for i in range(cfg.encdec.enc_layers):
+            x = block(x, tree_map(lambda t: t[i], layers))
         return L.rmsnorm(x, params["enc_norm"], cfg.norm_eps)
 
     def _cross_kv_all(self, params, enc_out):

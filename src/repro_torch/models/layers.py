@@ -1,17 +1,18 @@
 """Transformer layers of the decoders and the encoder-decoder (PyTorch
 port).
 
-The reference ``models/layers.py`` but for training: norms, RoPE,
-full-sequence GQA attention (an encoder's, bidirectional), GQA
-prefill/decode/verify with the KV-cache write, the paged-KV decode and
-verify paths, absorbed MLA (DeepSeek's latent attention) with its
-latent cache, the SwiGLU FFN and the sort-based, capacity-limited MoE
-layer on its local path (no expert parallelism).  The reference's
-``shard`` is an identity outside a mesh and is dropped; its ``tp_psum``
-after each row-parallel projection is ``LM``'s all-reduce over its
-``tp_group`` (``models/lm.py``).  Attention goes through the kernel
-wrappers when ``kernels`` is set (CPU tensors still take the plain
-version inside them) and straight to the plain versions otherwise.
+The reference ``models/layers.py``: norms, RoPE, full-sequence GQA
+attention (an encoder's bidirectional; training's on the plain path),
+GQA prefill/decode/verify with the KV-cache write, the paged-KV decode
+and verify paths, absorbed MLA (DeepSeek's latent attention) with its
+latent cache and without it (training), the SwiGLU FFN and the
+sort-based, capacity-limited MoE layer on its local path (no expert
+parallelism).  The reference's ``shard`` is an identity outside a mesh
+and is dropped; its ``tp_psum`` after each row-parallel projection is
+``LM``'s all-reduce over its ``tp_group`` (``models/lm.py``).
+Attention goes through the kernel wrappers when ``kernels`` is set (CPU
+tensors still take the plain version inside them) and straight to the
+plain versions otherwise.
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from repro_torch.kernels.decode_attention.ops import (
     decode_attention, decode_attention_plain,
@@ -43,6 +45,33 @@ VOCAB_PAD = 2048
 
 def pad_vocab(v: int) -> int:
     return -(-v // VOCAB_PAD) * VOCAB_PAD
+
+
+# ----------------------------------------------------------------------
+# Training helpers
+# ----------------------------------------------------------------------
+def maybe_remat(fn, enabled: bool):
+    """``fn`` recomputed in backward when ``enabled`` (the reference's
+    ``jax.checkpoint`` with the ``nothing_saveable`` policy: only the
+    inputs are kept), else ``fn`` itself."""
+    if not enabled:
+        return fn
+
+    def rematted(*args):
+        return torch.utils.checkpoint.checkpoint(fn, *args,
+                                                 use_reentrant=False)
+
+    return rematted
+
+
+def check_train_attention(cfg) -> None:
+    """Raise on the attention options train mode does not port: the
+    plain path implements neither, and no config sets them."""
+    for opt in ("causal_skip", "attn_bf16_scores"):
+        if getattr(cfg, opt):
+            raise NotImplementedError(
+                f"{opt}: the plain attention path does not implement it, "
+                f"and no config sets it")
 
 
 # ----------------------------------------------------------------------
@@ -508,6 +537,13 @@ def mla_prefill(x, p, cfg):
     q_abs, q_rope, c_kv, k_rope = _mla_qc(x, p, cfg, positions)
     o_l = _mla_ol_chunked(q_abs, q_rope, c_kv, k_rope, cfg)
     return _mla_o(o_l, p), (c_kv, k_rope)
+
+
+def mla_attention(x, p, cfg):
+    """Training MLA (reference ``mla_attention``): the prefill's
+    attention, chunked over ``_mla_ol_chunked``'s queries, without the
+    cache."""
+    return mla_prefill(x, p, cfg)[0]
 
 
 def mla_decode(x, p, cfg, cache, pos):

@@ -29,6 +29,16 @@ state ``h`` and conv rows.
   logits, cache = lm.prefill(params, {"tokens": toks}, max_len=2048)
   logits, cache = lm.decode_step(params, cache, next_tokens)
 
+``train_loss`` is the reference's ``mode == "train"`` path: every
+block on the plain PyTorch versions whatever ``kernels`` says (the
+kernels have no backward; the reference's train mode runs jnp under
+autodiff, with no Pallas kernel), the MoE layers' load-balance ``aux``
+averaged as the reference averages it, remat by ``cfg.remat`` and
+``sublayer_remat`` through ``torch.utils.checkpoint``, cross entropy
+over the padded vocabulary, and DeepSeek's MTP loss.
+
+  loss, metrics = lm.train_loss(params, {"tokens": t, "labels": y})
+
 ``verify_step`` scores a T-token window per slot (speculative
 decoding).  With a ``tp_group`` (tensor parallelism, one process per
 shard: ``repro_torch.serving.sharded``) the LM is one shard of the
@@ -43,6 +53,7 @@ reference's, takes the dense and moe families only.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Optional
 
 import torch
@@ -57,6 +68,32 @@ from repro_torch.models.param import (DTYPES, ParamDef, init_params,
 from repro_torch.parallel.sharding import tp_all_reduce
 
 _FAMILIES = ("dense", "moe", "mla_moe", "hybrid", "rwkv", "vlm")
+
+AUX_COEF = 0.01
+MTP_COEF = 0.3
+
+
+def token_ce(logits_f32, labels, vocab: int, vocab_padded: int):
+    """Each position's cross entropy over the padded vocabulary: the
+    padded columns set to ``MASK_VALUE``, logsumexp minus the target's
+    logit.  logits: (..., Vp) float32; labels: (...) int -> (...)."""
+    if vocab_padded > vocab:
+        pad = torch.arange(vocab_padded, device=logits_f32.device) >= vocab
+        logits_f32 = logits_f32.masked_fill(pad, L.MASK_VALUE)
+    lse = torch.logsumexp(logits_f32, dim=-1)
+    tgt = torch.gather(logits_f32, -1, labels.long()[..., None])[..., 0]
+    return lse - tgt
+
+
+def _ce_loss(logits_f32, labels, vocab: int, vocab_padded: int,
+             weights=None):
+    """Cross entropy (reference ``_ce_loss``): ``token_ce``'s mean, or
+    sum(ce * w) / max(sum w, 1) under ``weights``."""
+    ce = token_ce(logits_f32, labels, vocab, vocab_padded)
+    if weights is None:
+        return ce.mean()
+    w = weights.to(ce.dtype)
+    return (ce * w).sum() / torch.clamp(w.sum(), min=1.0)
 
 
 class LM:
@@ -228,8 +265,8 @@ class LM:
         h = L.rmsnorm(x, bp["ln1"], cfg.norm_eps)
         if mode not in ("prefill", "decode", "verify"):
             raise NotImplementedError(
-                f"mode {mode!r}: training is not ported yet, see ROADMAP "
-                f"§A.12")
+                f"mode {mode!r}: serving modes are prefill, decode and "
+                f"verify; training runs through train_loss")
         if mix == "mla":
             o = self._mla(h, bp["attn"], mode, cache, pos)
         elif mix == "mamba":
@@ -323,8 +360,8 @@ class LM:
             cache["x_prev_t"].copy_(h)
         else:
             raise NotImplementedError(
-                f"mode {mode!r}: an rwkv stack has prefill and decode "
-                f"only (training: ROADMAP §A.12)")
+                f"mode {mode!r}: an rwkv stack serves through prefill and "
+                f"decode only (training runs through train_loss)")
         x = x + o
         h2 = L.rmsnorm(x, bp["ln2"], cfg.norm_eps)
         if mode == "prefill":
@@ -356,6 +393,146 @@ class LM:
                         {leaf: t[i] for leaf, t in c.items()}, pos, pages,
                         dest)
         return x
+
+    # ------------------------------------------------------------------
+    # Training (the reference's mode == "train")
+    # ------------------------------------------------------------------
+    def _train_block(self, x, bp, kind):
+        """One block in train mode: (x, aux), ``aux`` the MoE layer's
+        load-balance loss (0 elsewhere).  Attention through the plain
+        ``flash_attention_plain`` at ``cfg.attn_chunk`` (the reference's
+        ``gqa_attention``), MLA through ``mla_attention``, Mamba and
+        RWKV-6 from a zero state with no cache written."""
+        cfg = self.cfg
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        h = L.rmsnorm(x, bp["ln1"], cfg.norm_eps)
+        if kind == "rwkv":
+            x = x + R.time_mix(h, bp["time"], cfg, kernels=False)[0]
+            h2 = L.rmsnorm(x, bp["ln2"], cfg.norm_eps)
+            return x + R.channel_mix(h2, bp["chan"]), aux
+        mix, ff = kind.split("_")
+        if mix == "attn":
+            o = L.gqa_attention(h, bp["attn"], cfg, kernels=False)
+        elif mix == "mla":
+            o = L.mla_attention(h, bp["attn"], cfg)
+        else:
+            o = M.mamba_block(h, bp["mamba"], cfg)
+        x = x + o
+        h2 = L.rmsnorm(x, bp["ln2"], cfg.norm_eps)
+        if ff == "moe":
+            router = "sigmoid" if cfg.family == "mla_moe" else "softmax"
+            o2, aux = L.moe_ffn(h2, bp["moe"], cfg, router)
+        else:
+            o2 = L.ffn(h2, bp["ffn"])
+        return x + o2, aux
+
+    def _train_stack(self, params, x):
+        """All blocks in train mode (the reference's ``_run_stack`` with
+        mode "train"): (x, aux).  ``aux`` is the mean over a stack's
+        layers, a hybrid's mean over superblocks of (the sum over its
+        sublayers, dense ones counted as 0) / period, and for mla_moe
+        the MoE stack's mean alone.  A stack's leaves are unbound once,
+        so that backward stacks each leaf's gradient in one write."""
+        cfg = self.cfg
+        aux = None
+        for name, subs, n in self.groups:
+            unbound = tree_map(lambda a: a.unbind(0), params[name])
+            if subs[0][0] is None:
+                body = L.maybe_remat(functools.partial(
+                    self._train_block, kind=subs[0][1]), cfg.remat)
+            else:
+                body = self._superblock(subs)
+            auxes = []
+            for i in range(n):
+                x, a = body(x, tree_map(lambda t: t[i], unbound))
+                auxes.append(a)
+            aux = torch.stack(auxes).mean()
+        return x, aux
+
+    def _superblock(self, subs):
+        """A hybrid superblock's train body: its sublayers in order,
+        (x, sum of their aux / period); remat wraps the whole superblock,
+        or each sublayer under ``sublayer_remat``."""
+        remat, sub_remat = self.cfg.remat, self.cfg.sublayer_remat
+        blocks = [(key, L.maybe_remat(functools.partial(
+            self._train_block, kind=kind), remat and sub_remat))
+            for key, kind in subs]
+
+        def body(x, bp):
+            aux_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+            for key, fn in blocks:
+                x, a = fn(x, bp[key])
+                aux_sum = aux_sum + a
+            return x, aux_sum / len(blocks)
+
+        return L.maybe_remat(body, remat and not sub_remat)
+
+    def _check_train(self) -> None:
+        """Raise on the options train mode does not port."""
+        cfg = self.cfg
+        if self.tp_group is not None:
+            raise NotImplementedError(
+                "sharded training (tensor, FSDP or pipeline parallel) waits "
+                "for a 4-chip cell, see ROADMAP §A.8")
+        L.check_train_attention(cfg)
+        if cfg.remat and cfg.remat_policy != "nothing":
+            raise NotImplementedError(
+                f"remat_policy {cfg.remat_policy!r}: only 'nothing' (keep "
+                f"the inputs alone) is ported; no config uses another")
+
+    def train_forward(self, params, batch):
+        """The train path's forward: (logits (B, S, Vp) float32 of the
+        tokens' positions, a VLM's patch rows sliced off; the last
+        hidden states (B, P + S, D); aux)."""
+        cfg = self.cfg
+        self._check_train()
+        x = self._embed_inputs(params, batch)
+        x, aux = self._train_stack(params, x)
+        logits = self._logits(params, x)
+        if cfg.vlm is not None and "patch_embeds" in batch:
+            logits = logits[:, batch["patch_embeds"].shape[1]:]
+        return logits, x, aux
+
+    def train_loss(self, params, batch):
+        """(loss, metrics) of one batch: ``tokens`` and ``labels`` (B, S),
+        optional ``loss_mask`` (B, S) weights, a VLM's ``patch_embeds``
+        (B, P, E) (their rows are sliced off the logits).  The loss is the
+        cross entropy, plus ``AUX_COEF`` x aux for MoE and ``MTP_COEF`` x
+        the MTP loss for DeepSeek; metrics ``ce``, ``aux`` (and ``mtp``),
+        as in the reference."""
+        cfg = self.cfg
+        logits, x, aux = self.train_forward(params, batch)
+        loss = _ce_loss(logits, batch["labels"], cfg.vocab_size, self.vp,
+                        batch.get("loss_mask"))
+        metrics = {"ce": loss, "aux": aux}
+        if cfg.moe is not None:
+            loss = loss + AUX_COEF * aux
+        if cfg.mtp:
+            mtp = self._mtp_loss(params, x, batch)
+            metrics["mtp"] = mtp
+            loss = loss + MTP_COEF * mtp
+        return loss, metrics
+
+    def _mtp_loss(self, params, h, batch):
+        """DeepSeek-V3's depth-1 multi-token prediction: h_t joined with
+        emb(tok_{t+1}) predicts label_{t+1} (= tok_{t+2}); the last two
+        positions weigh 0."""
+        cfg = self.cfg
+        mp = params["mtp"]
+        emb_next = params["embed"][torch.roll(batch["tokens"], -1, dims=1)]
+        z = torch.cat([L.rmsnorm(h, mp["norm_h"], cfg.norm_eps),
+                       L.rmsnorm(emb_next, mp["norm_e"], cfg.norm_eps)],
+                      dim=-1) @ mp["proj"]
+        kind = "mla_dense" if cfg.mla is not None else "attn_dense"
+        z = self._train_block(z, mp["block"], kind)[0]
+        logits = self._logits(params, z)
+        labels = torch.roll(batch["labels"], -1, dims=1)
+        w = torch.ones(labels.shape, dtype=torch.float32,
+                       device=labels.device)
+        w[:, -2:] = 0.0
+        if "loss_mask" in batch:
+            w = w * batch["loss_mask"]
+        return _ce_loss(logits, labels, cfg.vocab_size, self.vp, w)
 
     # ------------------------------------------------------------------
     # Caches

@@ -58,13 +58,21 @@ def mamba_defs(cfg) -> dict:
 def _ssm_chunk(a, b, h=None):
     """Every h_t of one chunk of h_t = a_t h_{t-1} + b_t along axis 1,
     from the carried state ``h`` (B, Din, N), or zeros when ``None``.
-    a, b: (B, T, Din, N) float32, overwritten.  Hillis-Steele: after the
-    step of distance d, (a_t, b_t) is the composition of the affine maps
-    of tokens (t - 2d, t], so after log2(T) steps h_t = a_t h + b_t."""
+    a, b: (B, T, Din, N) float32, overwritten (under autograd, where
+    backward needs every step's operands, each step builds new tensors:
+    the same values, bit for bit).  Hillis-Steele: after the step of
+    distance d, (a_t, b_t) is the composition of the affine maps of
+    tokens (t - 2d, t], so after log2(T) steps h_t = a_t h + b_t."""
     t, d = a.shape[1], 1
+    taped = torch.is_grad_enabled() and any(
+        x is not None and x.requires_grad for x in (a, b, h))
     while d < t:
-        b[:, d:] += a[:, d:] * b[:, :-d]
-        a[:, d:] = a[:, d:] * a[:, :-d]
+        if taped:
+            b = torch.cat([b[:, :d], b[:, d:] + a[:, d:] * b[:, :-d]], 1)
+            a = torch.cat([a[:, :d], a[:, d:] * a[:, :-d]], 1)
+        else:
+            b[:, d:] += a[:, d:] * b[:, :-d]
+            a[:, d:] = a[:, d:] * a[:, :-d]
         d *= 2
     return b if h is None else torch.addcmul(b, a, h[:, None])
 

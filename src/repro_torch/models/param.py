@@ -41,6 +41,27 @@ def tree_leaves(tree) -> list:
     return [tree]
 
 
+def tree_unflatten(like, leaves):
+    """A nested dict shaped like ``like`` holding ``leaves``, given in
+    ``tree_leaves`` order."""
+    it = iter(leaves)
+
+    def walk(t):
+        if isinstance(t, dict):
+            return {k: walk(t[k]) for k in sorted(t)}
+        return next(it)
+
+    return walk(like)
+
+
+def tree_zip_map(fn, *trees):
+    """``fn`` over the matching leaves of nested dicts of one structure."""
+    if isinstance(trees[0], dict):
+        return {k: tree_zip_map(fn, *(t[k] for t in trees))
+                for k in trees[0]}
+    return fn(*trees)
+
+
 # the largest float32 temporary a leaf's draw may take
 SLICE_BYTES = 1 << 30
 

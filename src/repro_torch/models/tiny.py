@@ -105,9 +105,13 @@ class TinyModel:
         return forward(params, x, self.cfg)
 
     def train_loss(self, params, batch):
-        raise NotImplementedError(
-            "TinyModel.train_loss: training is not ported yet, see "
-            "ROADMAP §A.12")
+        """(loss, {"ce": loss}): the mean cross entropy of the forward's
+        logits on ``batch["mfcc"]`` (B, 49, 10) against ``labels`` (B,)."""
+        logits = forward(params, batch["mfcc"], self.cfg)
+        lse = torch.logsumexp(logits, -1)
+        tgt = torch.gather(logits, 1, batch["labels"].long()[:, None])[:, 0]
+        loss = torch.mean(lse - tgt)
+        return loss, {"ce": loss}
 
     @property
     def macs(self) -> int:

@@ -1,0 +1,132 @@
+"""The train step: loss and gradients by autograd, global-norm clip and
+AdamW, with optional gradient accumulation over microbatches (PyTorch
+port of the reference ``train/train_step.py``).
+
+  hp = TrainHParams(peak_lr=3e-4, warmup=2, total_steps=6)
+  state = init_train_state(model, seed=0, hp=hp)
+  step = make_train_step(model, hp)
+  state, metrics = step(state, batch)
+
+Gradients come from ``torch.autograd.grad`` over the parameter leaves
+(detached copies that require grad), so the state is never changed in
+place: a step returns a new ``TrainState`` and leaves the old one as it
+was.  The metrics are 0-d tensors on the model's device (``loss``,
+``grad_norm``, ``lr`` and the model's own): a step makes no host read.
+The reference's ``train_state_pspecs`` (GSPMD partition specs) has no
+counterpart here: sharded training waits for a 4-chip cell.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, NamedTuple
+
+import torch
+
+from repro_torch.models.param import (tree_leaves, tree_map,
+                                      tree_unflatten, tree_zip_map)
+from repro_torch.optim import (AdamWConfig, OptState, adamw_init,
+                               adamw_update)
+from repro_torch.optim.schedule import warmup_cosine
+
+
+class TrainState(NamedTuple):
+    params: Any
+    opt: OptState
+    step: Any
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainHParams:
+    peak_lr: float = 3e-4
+    warmup: int = 100
+    total_steps: int = 10_000
+    microbatches: int = 1
+    adamw: AdamWConfig = AdamWConfig()
+
+
+def init_train_state(model, seed: int, hp: TrainHParams) -> TrainState:
+    """Seeded parameters (``model.init(seed)``: the model's
+    ``torch.Generator`` on its device), zero moments, step 0."""
+    params = model.init(seed=seed)
+    step = torch.zeros((), dtype=torch.int32,
+                       device=tree_leaves(params)[0].device)
+    return TrainState(params, adamw_init(params, hp.adamw), step)
+
+
+def _split_micro(batch, n: int) -> list:
+    """``batch`` cut along its leading axis into ``n`` equal parts."""
+    for x in batch.values():
+        if x.shape[0] % n:
+            raise ValueError(f"batch of {x.shape[0]} rows does not split "
+                             f"into {n} microbatches")
+    return [{k: x.view(n, x.shape[0] // n, *x.shape[1:])[i]
+             for k, x in batch.items()} for i in range(n)]
+
+
+def forward_loss(model, params, batch):
+    """(live, loss, metrics): ``model.train_loss`` at ``live``, detached
+    copies of ``params``' leaves that require grad; the graph is kept
+    for ``backward_grads``."""
+    with torch.enable_grad():
+        live = tree_map(lambda t: t.detach().requires_grad_(), params)
+        loss, metrics = model.train_loss(live, batch)
+    return live, loss, metrics
+
+
+def backward_grads(params, live, loss):
+    """The gradients of ``loss`` with respect to ``live``'s leaves, as a
+    tree shaped like ``params`` (remat's forwards rerun here)."""
+    with torch.enable_grad():
+        grads = torch.autograd.grad(loss, tree_leaves(live))
+    return tree_unflatten(params, grads)
+
+
+def _value_and_grad(model, params, batch):
+    """((loss, metrics), grads) of ``model.train_loss`` at ``params``;
+    everything returned is detached."""
+    live, loss, metrics = forward_loss(model, params, batch)
+    grads = backward_grads(params, live, loss)
+    return ((loss.detach(), {k: v.detach() for k, v in metrics.items()}),
+            grads)
+
+
+def apply_update(state: TrainState, grads, hp: TrainHParams):
+    """The step's learning rate (``warmup_cosine`` at ``state.step``) and
+    the AdamW update: (new TrainState, lr, grad norm before clipping)."""
+    lr = warmup_cosine(state.step, peak_lr=hp.peak_lr, warmup=hp.warmup,
+                       total=hp.total_steps)
+    params, opt, gnorm = adamw_update(state.params, grads, state.opt, lr,
+                                      hp.adamw)
+    return TrainState(params, opt, state.step + 1), lr, gnorm
+
+
+def make_train_step(model, hp: TrainHParams):
+    """Returns step(state, batch) -> (state, metrics)."""
+
+    def step(state: TrainState, batch) -> tuple[TrainState, dict]:
+        if hp.microbatches > 1:
+            gsum = tree_map(lambda p: torch.zeros(p.shape,
+                                                  dtype=torch.float32,
+                                                  device=p.device),
+                            state.params)
+            lsum = torch.zeros((), dtype=torch.float32,
+                               device=state.step.device)
+            for micro in _split_micro(batch, hp.microbatches):
+                (loss, _), g = _value_and_grad(model, state.params, micro)
+                # the sum and the mean in place: the buffers are the
+                # step's own
+                tree_zip_map(torch.Tensor.add_, gsum, g)
+                del g
+                lsum = lsum + loss
+            grads = tree_map(lambda g: g.div_(hp.microbatches), gsum)
+            loss = lsum / hp.microbatches
+            metrics = {"ce": loss}
+        else:
+            (loss, metrics), grads = _value_and_grad(model, state.params,
+                                                     batch)
+        new, lr, gnorm = apply_update(state, grads, hp)
+        out = {"loss": loss, "grad_norm": gnorm, "lr": lr}
+        out.update(metrics)
+        return new, out
+
+    return step

@@ -69,8 +69,27 @@ def test_build_model_dispatches_to_the_tiny_model():
     for k, d in defs.items():
         assert tuple(params[k].shape) == d.shape
         assert params[k].dtype == torch.float32
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.train_loss(params, {})
+    # train mode: the loss and every gradient leaf on bridged weights,
+    # against the reference (loss 1e-5 relative, gradients 1e-4 x each
+    # leaf's max, as tests/test_torch_train_lm.py holds every arch)
+    jcfg, jp, params_np = _jax_params()
+    rng = np.random.default_rng(0)
+    batch = {"mfcc": rng.standard_normal((4, jtiny.IN_T, jtiny.IN_F)).astype(
+        np.float32), "labels": rng.integers(0, cfg.vocab_size,
+                                            (4,)).astype(np.int32)}
+    (jl, jm), jg = jax.value_and_grad(jtiny.TinyModel(jcfg).train_loss,
+                                      has_aux=True)(
+        jp, {k: jnp.asarray(v) for k, v in batch.items()})
+    tp = {k: v.requires_grad_() for k, v in from_jax(params_np,
+                                                      "cpu").items()}
+    loss, metrics = model.train_loss(tp, {k: torch.from_numpy(v)
+                                          for k, v in batch.items()})
+    assert set(metrics) == {"ce"}
+    assert abs(float(loss.detach()) - float(jl)) <= 1e-5 * abs(float(jl))
+    grads = torch.autograd.grad(loss, list(tp.values()))
+    for k, g in zip(tp, grads):
+        want = np.asarray(jg[k])
+        assert np.abs(g.numpy() - want).max() <= 1e-4 * np.abs(want).max()
 
 
 @pytest.mark.parametrize("batch", [1, 8, 256])

@@ -279,14 +279,26 @@ def test_continuous_engine_tokens_per_request_matches_reference():
 
 
 def test_refusals():
-    """Missing frames, training and the slot engine each raise with a
-    clear message; frames on another device or not a tensor are
-    refused by the engine."""
+    """Missing frames and the slot engine each raise with a clear
+    message; frames on another device or not a tensor are refused by
+    the engine; training runs (it raised before it was ported) and
+    matches the reference's loss."""
     jm, jp, tm, tp = _models()
     with pytest.raises(ValueError, match="frames"):
         tm.prefill(tp, {"tokens": torch.zeros((1, 4), dtype=torch.long)})
-    with pytest.raises(NotImplementedError, match="ROADMAP §A.12"):
-        tm.train_loss(tp, {})
+    # train mode: the loss against the reference's on the same weights
+    # and batch (1e-5 relative; gradients in tests/test_torch_train_lm.py)
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, 512, (2, 9))
+    frames = rng.standard_normal((2, 64, 128)).astype(np.float32)
+    batch = {"frames": frames, "tokens": toks[:, :-1].astype(np.int32),
+             "labels": toks[:, 1:].astype(np.int32)}
+    jl, jmet = jm.train_loss(jp, {k: jnp.asarray(v)
+                                  for k, v in batch.items()})
+    tl, tmet = tm.train_loss(tp, {k: torch.from_numpy(v)
+                                  for k, v in batch.items()})
+    assert set(tmet) == set(jmet) == {"ce", "aux"}
+    assert abs(float(tl) - float(jl)) <= 1e-5 * abs(float(jl))
     with pytest.raises(NotImplementedError, match="ServeEngine"):
         ContinuousBatchingEngine(tm, tp, max_len=16, device="cpu")
     eng = ServeEngine(tm, tp, max_len=16, batch_size=1, device="cpu")
