@@ -245,9 +245,9 @@ Phases, each fatal on failure:
    of a decode step sharded and not, tok/s and tok/J,
    ``torch.cuda.device_count()``, the card's name and power limit.  A
    run across cards waits for a 4-chip cell.
-22. Full-width qwen3-moe-30b-a3b on the first 12 of its 48 layers (after
-   phase 14, every earlier model freed; 12 layers since phase 25 joined,
-   so that the script stays inside its time limit): d_model 2,048, 32
+22. Full-width qwen3-moe-30b-a3b on the first 6 of its 48 layers (after
+   phase 14, every earlier model freed; cut so that the script stays
+   inside its time limit): d_model 2,048, 32
    query and 4 KV heads of 128, so G 8; 128 experts top-8 of width 768;
    padded vocab 153,600; bf16 seeded random weights, drawn a slice of the
    leading axis at a time; the peak of allocated memory printed after
@@ -286,15 +286,16 @@ Phases, each fatal on failure:
    length), all budgets met; the same through ``kernels=False``: equal
    tokens (MLA and the MoE have no kernel); no kernel launched; a
    decode chunk under ``set_sync_debug_mode("error")``.
-24. Full-width jamba-v0.1-52b on 16 of its 32 layers (2 of 4
-   superblocks: 14 Mamba mixers, 2 GQA layers of H 32, KVH 8, 8
-   top-2-of-16-expert MoE FFNs; 26.1 B seeded bf16 weights, after phase
-   23's model is freed): (a) decode (8 slots over 2,048 rows at ragged
+24. Full-width jamba-v0.1-52b on 8 of its 32 layers (1 of 4
+   superblocks: 7 Mamba mixers, 1 GQA layer of H 32, KVH 8, 4
+   top-2-of-16-expert MoE FFNs; 13.3 B seeded bf16 weights, after phase
+   23's model is freed; 16 layers fit, cut to 8 since phase 27 joined so
+   that the script stays inside its time limit): (a) decode (8 slots over 2,048 rows at ragged
    depths) and flash (causal, S 1,024) at G 4 against their plain
    versions, timed by events and kernel-only beside SDPA and their
    bounds; (b) phase 4's traffic through the contiguous engine behind
-   phase 15's measured Server run (ACCEPT; decode 2 launches a step,
-   flash 2 an admission; every budget met; prompts longer than a
+   phase 15's measured Server run (ACCEPT; decode 1 launch a step,
+   flash 1 an admission; every budget met; prompts longer than a
    512-token scan chunk and no multiple of it, where the reference
    asserts); (c) one 1,024-token prefill through the kernel and the
    plain path: the (token, layer) routing agreement, then every logit
@@ -359,6 +360,31 @@ Phases, each fatal on failure:
    after: 60 steps with one failure, the newest checkpoint restored bit
    for bit, the last 10 steps' mean loss under the first 10's, the
    review rendered (its verdict printed).
+27. The dry-run (after phase 26).  (b) first, qwen3-1.7b at full
+   width and depth (seeded bf16 weights, ``build_cell(mesh=None)``) for
+   real: decode at 8 rows of 32,768 (decode_32k's per-device batch at
+   the pod mesh; a 30.1 GB cache, drawn from a seeded generator, and
+   4.1 GB of weights) and a 2 x 32,768-token prefill.  Before each cell
+   its kernel is held against its plain version at the cell's shape on
+   seeded inputs (phase 3's bf16 tolerances): the whole decode call,
+   also against the split plain version at the kernel's split layout,
+   and the whole causal flash output.  Each step's logits finite, its
+   launches exact (28 ``decode_attention`` a decode step, 28
+   ``flash_attention`` a prefill), its median over 5 calls by events
+   beside the roofline report's step and bottleneck and one step
+   profiled (kernels' device ms, busy share, the costliest); the decode
+   step's host side (ms until it returns against ms until the device is
+   done, and one step under ``cProfile``); its count on the card under
+   ``opcount`` within 1 % of the ``meta`` count of the same cell in
+   FLOPs and bytes (the ops that differ listed), and the counted peak
+   (arguments + temp) within 0.5-2.0 of
+   ``torch.cuda.max_memory_allocated``; the card's name and power limit
+   beside every number.  (a) then, with nothing else running: every
+   (arch x shape) cell at the pod (16 x 16) and multipod (2 x 16 x 16)
+   meshes counted on ``meta`` by ``launch.dryrun.run_cell`` (no
+   calibration) in one worker process a host core (at most 8): every
+   cell ok with FLOPs and bytes above 0, the ``render_table`` rows and
+   the seconds printed.
 
 The line before the last holds the kernels' JSON record; the last line
 is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside
@@ -378,6 +404,9 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
+# repro_torch.kernels.work, once main() has put SRC on the path: each
+# kernel's FLOPs and bytes, for its bound
+work = None
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, dense bf16 flop/s and
 # dense int8 op/s
@@ -651,9 +680,10 @@ def fmt_ms(ms) -> str:
 
 def bound(nbytes: float, flops: float,
           peak: float = BF16_FLOP_PER_S) -> tuple[float, str]:
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / peak * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    """A call's least time in ms on the H100 and what bounds it, from
+    its work (``repro_torch.kernels.work``: the formulas the dry-run
+    counts a kernel's call by)."""
+    return work.bound_ms(flops, nbytes, HBM_BYTES_PER_S, peak)
 
 
 def compare(label: str, got, want, tols=None) -> tuple[float, float]:
@@ -710,7 +740,7 @@ def scan_inputs(torch, gen, dev, b, t, h, dh, dtype, strong=False):
 
 
 def decode_times(torch, label, F, kernel, plain, q, kc, vc, mask, pos,
-                 extra_bytes: int = 0) -> dict:
+                 kernel_work: tuple) -> dict:
     """Time a decode call at a phase-3 shape: the kernel by events, its
     kernel-only device time (both grids of the split route) with the L2
     warm from the last call and cold, and its host work per call; the
@@ -718,7 +748,8 @@ def decode_times(torch, label, F, kernel, plain, q, kc, vc, mask, pos,
     boolean (B, 1, 1, S) mask of ``pos`` (a yardstick the port never
     calls) by events and kernel-only, warm and cold; and the bound: the K/V
     rows up to each slot's ``pos`` read once, q read and o written once,
-    plus ``extra_bytes`` (a page table's entries)."""
+    plus a page table's entries for a paged call: ``kernel_work``, the
+    call's (flops, bytes) from ``repro_torch.kernels.work``."""
     b, _, h, d = q.shape
     kvh = kc.shape[2]
     ms = time_ms(kernel)
@@ -735,9 +766,8 @@ def decode_times(torch, label, F, kernel, plain, q, kc, vc, mask, pos,
     library_ms = time_ms(sdpa)
     lib_dev_ms, lib_kerns = device_ms(torch, sdpa)
     lib_cold_ms, _ = device_ms(torch, sdpa, cold=True)
-    rows = int((pos.long() + 1).sum())              # positions read
-    nbytes = rows * kvh * d * 2 * 2 + 2 * q.numel() * 2 + extra_bytes
-    bound_ms, bound_by = bound(nbytes, rows * h * d * 4)
+    flops, nbytes = kernel_work
+    bound_ms, bound_by = bound(nbytes, flops)
     print(f"  {label} B={b} KVH={kvh} G={h // kvh} D={d} S={kc.shape[1]}: "
           f"kernel {ms:.4f} ms (kernel-only {fmt_ms(dev_ms)}: {kerns}; "
           f"L2 cold {fmt_ms(cold_ms)}: {cold_kerns}; host {h_us:.1f} us a "
@@ -811,7 +841,8 @@ def phase_kernels(torch, dev):
         **decode_times(torch, "decode_attention", F,
                        lambda: decode_attention(q, kc, vc, ragged),
                        lambda: decode_attention_plain(q, kc, vc, ragged),
-                       q, kc, vc, mask, ragged))
+                       q, kc, vc, mask, ragged,
+                       work.decode(q, kc, ragged)))
     # the same call through the float32 loop (one grid, no scratch): what
     # the split route's merge launch and scratch add to the host's work
     qf, kf, vf = q.float(), kc.float(), vc.float()
@@ -875,7 +906,8 @@ def phase_kernels(torch, dev):
         **decode_times(torch, "decode_attention (whisper shape)", F,
                        lambda: decode_attention(wq, wk, wv, wpos),
                        lambda: decode_attention_plain(wq, wk, wv, wpos),
-                       wq, wk, wv, wmask, wpos))
+                       wq, wk, wv, wmask, wpos,
+                       work.decode(wq, wk, wpos)))
 
     # --- flash: Sq = Skv in {17, 511, 1024}, H 16, KVH 8, D 128 ----------
     h, kvh = 16, 8
@@ -904,9 +936,7 @@ def phase_kernels(torch, dev):
 
     library_ms = time_ms(sdpa)
     lib_dev_ms, lib_kerns = device_ms(torch, sdpa)
-    sq = q.shape[1]
-    flops = 4 * h * d * sq * (sq + 1) // 2          # causal pairs only
-    nbytes = (2 * sq * h * d + 2 * sq * kvh * d) * 2
+    flops, nbytes = work.flash(q, k, v, True)       # causal pairs only
     bound_ms, bound_by = bound(nbytes, flops)
     out["flash_attention"] = dict(
         max_abs_err=max(errs), rel_norm_err=max(rels), ms=ms,
@@ -950,7 +980,6 @@ def phase_kernels(torch, dev):
     print(f"  paged_decode_attention route {pplan[0]}: max |kernel - plain| "
           f"{err:.3e}, ||kernel - plain|| / ||plain|| {rel:.3e}, "
           f"torch.equal to decode_attention: True")
-    blocks = int(((ragged.long() + ps) // ps).sum())   # table entries read
     out["paged_decode_attention"] = dict(
         max_abs_err=err, rel_norm_err=rel, kernel_route=pplan[0],
         **decode_times(torch, "paged_decode_attention (SDPA: contiguous, "
@@ -960,7 +989,7 @@ def phase_kernels(torch, dev):
                        lambda: paged_decode_attention_plain(q, kp, vp, pages,
                                                             ragged),
                        q, kc, vc, mask, ragged,
-                       extra_bytes=blocks * 4 + b * 4))
+                       work.paged_decode(q, kp, pages, ragged)))
 
     # --- paged verify: windows at ragged starts, across page boundaries
     errs, rels = [], []
@@ -1029,10 +1058,7 @@ def phase_kernels(torch, dev):
 
     library_ms = time_ms(sdpa)
     lib_dev_ms, lib_kerns = device_ms(torch, sdpa)
-    pairs = t * start + t * (t + 1) // 2            # visible (query, key)
-    flops = 4 * h * d * pairs
-    nbytes = (skv * kvh * d * 2 * 2 + 2 * q.numel() * 2
-              + -(-skv // ps) * 4 + 4)
+    flops, nbytes = work.paged_verify(q, kp, pg1, pos)
     bound_ms, bound_by = bound(nbytes, flops)
     out["paged_verify_attention"] = dict(
         max_abs_err=max(errs), rel_norm_err=max(rels), ms=ms,
@@ -1073,9 +1099,7 @@ def phase_kernels(torch, dev):
 
     library_ms = time_ms(sdpa)
     lib_dev_ms, lib_kerns = device_ms(torch, sdpa)
-    rows = int((pos.long() + t).sum())              # positions read
-    nbytes = rows * kvh * d * 2 * 2 + 2 * q.numel() * 2 + b * 4
-    flops = int((q_pos.long() + 1).sum()) * h * d * 4   # visible pairs
+    flops, nbytes = work.verify(q, kc, pos)
     bound_ms, bound_by = bound(nbytes, flops)
     # the paged speculative window (phase 9) at the same shape and values
     p_ms = time_ms(lambda: paged_verify_attention(q, kp, vp, pages, pos))
@@ -1150,9 +1174,7 @@ def phase_scan(torch, dev):
                                                  return_state=True))
     # r, k, v, y in bf16, logw in f32, read or written once; u and the
     # f32 state; the recurrence's 5 dh^2 flop per step and head
-    nbytes = (4 * r.numel() * 2 + logw.numel() * 4 + u.numel() * 4
-              + b * h * dh * dh * 4)
-    flops = 5 * b * t * h * dh * dh
+    flops, nbytes = work.linear_scan(r, k, v, logw, u)
     bound_ms, bound_by = bound(nbytes, flops)
     regs = [ln for ln in ptxas_report(build.build_log.get(
         "linear_scan", (0, ""))[1]) if "scan" in ln]
@@ -1257,8 +1279,7 @@ def phase_flash_bidir(torch, dev):
         lib_dev_ms, lib_kerns = device_ms(torch, sdpa)
         # q, k, v read once and o written once, bf16; every (query, key)
         # pair scores: 2 D flop for q.k and 2 D for p.v
-        nbytes = (2 * b * sq * h * d + 2 * b * skv * kvh * d) * 2
-        flops = 4 * b * h * d * sq * skv
+        flops, nbytes = work.flash(q, k, v, False)
         bound_ms, bound_by = bound(nbytes, flops)
         out[tag] = dict(sq=sq, skv=skv, max_abs_err=err, rel_norm_err=rel,
                         ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
@@ -1570,9 +1591,7 @@ def phase_int8(torch, dev):
         mm_dev_ms, mm_kerns = device_ms(torch, int_mm)
         mm_cold_ms, _ = device_ms(torch, int_mm, cold=True)
         # x, w read once, the scales once, the output written once
-        out_bytes = 4 if out_dtype == torch.float32 else 2
-        nbytes = m * k + k * n + 4 * (m + n) + m * n * out_bytes
-        ops = 2 * m * n * k
+        ops, nbytes = work.int8_matmul(xq, wq, out_dtype)
         bound_ms, bound_by = bound(nbytes, ops, INT8_OP_PER_S)
         print(f"  {name}: route {route}, tile {bm}x{bn} ({WGMMA_STAGES} "
               f"stages, one CTA an SM): {ctas} CTAs on {n_sm} SMs, "
@@ -2627,10 +2646,7 @@ def phase_slo_kernel(torch, dev) -> dict:
         plain_ms = time_ms(plain)
         library_ms = time_ms(sdpa)
         lib_dev_ms, _ = device_ms(torch, sdpa)
-        pairs = t * start + t * (t + 1) // 2        # visible (query, key)
-        flops = 4 * h * d * pairs
-        nbytes = (skv * kvh * d * 2 * 2 + 2 * q.numel() * 2
-                  + -(-skv // ps) * 4 + 4)
+        flops, nbytes = work.paged_verify(q, kp, pages, pos)
         bound_ms, bound_by = bound(nbytes, flops)
         rows[f"T{t}@{start}"] = dict(
             max_abs_err=err, rel_norm_err=rel, kernel_route=route, ms=ms,
@@ -2695,7 +2711,7 @@ def phase_slo_kernel(torch, dev) -> dict:
                        lambda: paged_decode_attention_plain(q, kp, vp, table,
                                                             pos),
                        q, kc, vc, mask, pos,
-                       extra_bytes=sum(need) * 4 + b * 4))
+                       work.paged_decode(q, kp, table, pos)))
     return rows, decode
 
 
@@ -4361,9 +4377,9 @@ def phase_rwkv_consistency(torch, dev, cfg, params):
 # 32 query heads and 4 KV heads of 128 (G 8), 128 experts top-8 of
 # width 768, padded vocab 153,600, bf16, seeded random weights).
 MOE_ARCH = "qwen3-moe-30b-a3b"
-# its first 12 of 48 layers since phase 25 joined (24 with phase 24, 48
-# before; full width; the script stays well inside its time limit)
-MOE_LAYERS = 12
+# its first 6 of 48 layers at full width, so that the script stays
+# inside its time limit
+MOE_LAYERS = 6
 # (d): chunked prefill over phase 6's traffic, in chunks of this many
 # prompt tokens (a 1,536-token prompt fills in 6)
 MOE_PREFILL_CHUNK = 256
@@ -4379,10 +4395,11 @@ MOE_SPEC_TOKENS = 32
 MLA_ARCH = "deepseek-v3-671b"
 MLA_LAYERS = 4
 MLA_LONG = 1100     # a prompt the reference's MLA query chunking refuses
-# Phase 24: jamba-v0.1-52b at full width on as many whole superblocks as
-# fit (launch.profile_engine.fit_depth: 2 of 4, 16 of 32 layers)
+# Phase 24: jamba-v0.1-52b at full width on its first superblock (8 of 32
+# layers; launch.profile_engine.fit_depth allows 2 of 4, 16 layers, and
+# phase 24 ran on those until phase 27 joined the script)
 JAMBA_ARCH = "jamba-v0.1-52b"
-JAMBA_LAYERS = 16
+JAMBA_LAYERS = 8
 JAMBA_PREFILL = 1024        # (c) and (e): one prefill of this many tokens
 JAMBA_HANDOFF = (1024, 76)  # (d): prefill, then decode steps (1,100 in all)
 JAMBA_CONSISTENCY_TOL = 1e-4  # (d): float32, by norm
@@ -4459,7 +4476,7 @@ def decode_at(torch, dev, gen, kvh: int, g: int, label: str, d: int = 128):
     row = dict(max_abs_err=err, kernel_route=route, **decode_times(
         torch, label, F, lambda: decode_attention(q, kc, vc, ragged),
         lambda: decode_attention_plain(q, kc, vc, ragged),
-        q, kc, vc, mask, ragged))
+        q, kc, vc, mask, ragged, work.decode(q, kc, ragged)))
     return row, (q, kc, vc, ragged, mask)
 
 
@@ -4497,8 +4514,7 @@ def flash_at(torch, dev, gen, kvh: int, g: int, label: str,
 
     lib_ms = time_ms(sdpa)
     lib_dev_ms, _ = device_ms(torch, sdpa)
-    flops = 4 * h * d * sq * (sq + 1) // 2
-    nbytes = (2 * sq * h * d + 2 * sq * kvh * d) * 2
+    flops, nbytes = work.flash(qf, kf, vf, True)
     bound_ms, bound_by = bound(nbytes, flops)
     rt = _route(sq, sq, h, kvh, d, bf16)
     print(f"  {label} S={sq} H={h} KVH={kvh} route {rt}: kernel "
@@ -4584,16 +4600,16 @@ def gqa_kernels(torch, dev, kvh: int, g: int, d: int, seed: int, tag: str,
     check(torch.equal(got, decode_attention(q, kc, vc, ragged)),
           f"paged_decode_attention ({tag}) is not bit-identical to "
           f"decode_attention through a shuffled page table")
-    blocks = int(((ragged.long() + ps) // ps).sum())
     out["paged_decode_attention"] = dict(
         max_abs_err=err, kernel_route=route, **decode_times(
             torch, f"paged_decode_attention ({tag}; SDPA: contiguous)", F,
             lambda: paged_decode_attention(q, kp, vp, pages, ragged),
             lambda: paged_decode_attention_plain(q, kp, vp, pages, ragged),
-            q, kc, vc, mask, ragged, extra_bytes=blocks * 4 + b * 4))
+            q, kc, vc, mask, ragged,
+            work.paged_decode(q, kp, pages, ragged)))
 
     def window_times(name, kernel, plain, qw, kfull, vfull, starts, t,
-                     extra_bytes=0):
+                     kernel_work):
         """Events, kernel-only, plain, SDPA (boolean mask on the
         contiguous rows) and the bound of a T-token window call."""
         bw = qw.shape[0]
@@ -4613,9 +4629,7 @@ def gqa_kernels(torch, dev, kvh: int, g: int, d: int, seed: int, tag: str,
         plain_ms = time_ms(plain)
         lib_ms = time_ms(sdpa)
         lib_dev_ms, _ = device_ms(torch, sdpa)
-        rows = int((starts.long() + t).sum())
-        nbytes = rows * kvh * d * 2 * 2 + 2 * qw.numel() * 2 + extra_bytes
-        flops = int((q_pos + 1).sum()) * h * d * 4
+        flops, nbytes = kernel_work
         bound_ms, bound_by = bound(nbytes, flops)
         rt = _route(t, kfull.shape[1], h, kvh, d, bf16)
         print(f"  {name} B={bw} T={t} G={g} route {rt}: kernel {ms:.4f} ms "
@@ -4642,7 +4656,7 @@ def gqa_kernels(torch, dev, kvh: int, g: int, d: int, seed: int, tag: str,
         f"verify_attention ({tag})",
         lambda: verify_attention(qw, kc, vc, starts),
         lambda: verify_attention_plain(qw, kc, vc, starts), qw, kc, vc,
-        starts, t, extra_bytes=b * 4))
+        starts, t, work.verify(qw, kc, starts)))
 
     pv = {}
     for t, start in paged_windows:
@@ -4660,8 +4674,7 @@ def gqa_kernels(torch, dev, kvh: int, g: int, d: int, seed: int, tag: str,
             f"paged_verify_attention ({tag}, at {start})",
             lambda: paged_verify_attention(qw, kp, vp, pg1, st),
             lambda: paged_verify_attention_plain(qw, kp, vp, pg1, st),
-            qw, kc[:1], vc[:1], st, t,
-            extra_bytes=-(-(start + t) // ps) * 4 + 4))
+            qw, kc[:1], vc[:1], st, t, work.paged_verify(qw, kp, pg1, st)))
     first = "t{}_at{}".format(*paged_windows[0])
     out["paged_verify_attention"] = dict(
         pv[first], **{k: r for k, r in pv.items() if k != first},
@@ -5238,11 +5251,11 @@ def jamba_mamba_handoff(torch, dev, cfg, params) -> dict:
 
 def phase_jamba(torch, dev) -> dict:
     """Phase 24: jamba-v0.1-52b at full width on ``JAMBA_LAYERS`` of its
-    32 layers (2 of 4 superblocks: ``launch.profile_engine.fit_depth``),
+    32 layers (whole superblocks, within ``launch.profile_engine.fit_depth``),
     seeded weights.  (a) decode and flash at G 4 (H 32, KVH 8, D 128,
     bf16; ``decode_at``, ``flash_at``) against their plain versions,
     timed; (b) phase 4's traffic through the contiguous engine behind
-    ``measured_server`` (ACCEPT; launches exact: 2 attention layers);
+    ``measured_server`` (ACCEPT; launches exact: one a GQA layer);
     (c) ``jamba_consistency``; (d) ``jamba_mamba_handoff``; (e) a decode
     chunk under ``set_sync_debug_mode("error")``, a decode step and a
     ``JAMBA_PREFILL``-token prefill profiled by ``launch.profile_engine``
@@ -5272,10 +5285,12 @@ def phase_jamba(torch, dev) -> dict:
 
     full = get_config(JAMBA_ARCH)
     card = torch.cuda.get_device_properties(0).total_memory
-    cfg, nbytes = pe.fit_depth(full, card)
-    check(cfg.n_layers == JAMBA_LAYERS,
-          f"phase 24: fit_depth gave {cfg.n_layers} layers, not "
+    fit, _ = pe.fit_depth(full, card)
+    check(fit.n_layers >= JAMBA_LAYERS,
+          f"phase 24: fit_depth gave {fit.n_layers} layers, under "
           f"{JAMBA_LAYERS}")
+    cfg = dataclasses.replace(fit, n_layers=JAMBA_LAYERS)
+    nbytes = pe.weight_bytes(cfg)
     model = build_model(cfg, dev)
     t0 = time.perf_counter()
     params = model.init(seed=0)
@@ -5285,7 +5300,8 @@ def phase_jamba(torch, dev) -> dict:
     layers = attn_layers(model)
     print(f"  depth cut: {cfg.n_layers} of {full.n_layers} layers "
           f"({cfg.n_layers // cfg.hybrid.attn_period} superblocks of "
-          f"{cfg.hybrid.attn_period}; all {full.n_layers} pass "
+          f"{cfg.hybrid.attn_period}; {fit.n_layers} fit, all "
+          f"{full.n_layers} pass "
           f"{pe.CARD_SHARE:.0%} of the card's {card / 1e9:.2f} GB), d_model "
           f"{cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads} of "
           f"{cfg.head_dim}, {cfg.moe.n_experts} experts top-"
@@ -6053,6 +6069,275 @@ def train_e2e_leaves(state) -> list:
             state.step]
 
 
+# Phase 27: qwen3-1.7b's decode and prefill cells for real on the card,
+# then the dry-run of every cell on meta.  (b) first: decode_32k's
+# per-device batch at the pod mesh (128 / 16 = 8 rows of 32,768) and a
+# 2 x 32,768 prefill.  Before each cell its kernel is held against its
+# plain version at the cell's shape on seeded inputs (phase 3's bf16
+# tolerances); the decode cell's K/V cache is drawn from a seeded
+# generator.  Each step is timed by events over DRYRUN_STEP_CALLS calls
+# after DRYRUN_WARMUP (and the launch-counted run), the decode step's
+# host side timed and profiled, each step counted on the
+# card under opcount (FLOPs and bytes within DRYRUN_COUNT_TOL of the
+# meta count of the same cell) and its counted peak held to
+# max_memory_allocated within DRYRUN_PEAK_RATIO.  (a) then counts all 64
+# cells in worker processes (at most DRYRUN_JOBS, one a host core), when
+# nothing else is measured.
+DRYRUN_ARCH = "qwen3-1.7b"
+DRYRUN_REAL = (("decode", 32768, 8, "decode_attention"),
+               ("prefill", 32768, 2, "flash_attention"))
+DRYRUN_WARMUP, DRYRUN_STEP_CALLS = 1, 5   # the launch-counted run warms too
+DRYRUN_JOBS = 8
+DRYRUN_COUNT_TOL = 0.01
+DRYRUN_PEAK_RATIO = (0.5, 2.0)
+DRYRUN_HOST_TOP = 6         # host profile: the costliest functions shown
+
+
+def count_diff(a: dict, b: dict) -> list:
+    """The ops whose (calls, flops, bytes) differ between two
+    ``OpCount.by_op`` tables, as text."""
+    out = []
+    for name in sorted(set(a) | set(b)):
+        x, y = a.get(name, [0, 0, 0]), b.get(name, [0, 0, 0])
+        if list(x) != list(y):
+            out.append(f"{name}: card {y} meta {x}")
+    return out
+
+
+def phase_dryrun(torch, dev, smi: str) -> dict:
+    """Phase 27 (see the comment above): (b), then (a)."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.roofline import CellReport, render_table
+
+    t_phase = time.perf_counter()
+    out = phase_dryrun_cells(torch, dev, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    todo = dryrun.cells()
+    jobs = max(1, min(DRYRUN_JOBS, len(os.sched_getaffinity(0))))
+    t0 = time.perf_counter()
+    done = dryrun.count_cells(todo, jobs=jobs, calibrate=lambda m: False)
+    a_s = time.perf_counter() - t0
+    fields = {f.name for f in dataclasses.fields(CellReport)}
+    reports = []
+    for c in todo:
+        rec, err = done[c]
+        check(rec is not None, f"dry-run cell {c} failed:\n{err}")
+        check(rec["ok"] and rec["flops"] > 0 and rec["hbm_bytes"] > 0,
+              f"dry-run cell {c}: flops {rec['flops']}, bytes "
+              f"{rec['hbm_bytes']}")
+        reports.append(CellReport.from_json(
+            {k: v for k, v in rec.items() if k in fields}))
+    print(render_table(reports))
+    print(f"  (a) {len(todo)} cells counted on meta by {jobs} processes in "
+          f"{a_s:.1f} s, nothing else running; roofline terms on the H100 "
+          f"SXM spec (989 TFLOP/s bf16, 3.35 TB/s, one 50 GB/s NVLink "
+          f"link)")
+    out.update(cells=len(todo), count_s=a_s,
+               seconds=time.perf_counter() - t_phase)
+    return out
+
+
+def dryrun_kernel_check(torch, dev, kind: str, seq: int, batch: int,
+                        cfg) -> dict:
+    """Phase 27 (b)'s kernel at its cell's shape, on inputs drawn from a
+    seeded generator, against its plain version at phase 3's bf16
+    tolerances: the decode kernel's whole call (every slot at the last
+    row, as the cell's step) also against the split algorithm's plain
+    version at the kernel's own split layout; the flash kernel's whole
+    causal output against the chunked plain version.  Returns (max abs
+    error, the relative norm error)."""
+    from repro_torch.kernels.decode_attention.ops import (
+        decode_attention, decode_attention_plain)
+    from repro_torch.kernels.decode_attention.ops import plan as decode_plan
+    from repro_torch.kernels.flash_attention.ops import (
+        _route, _sm_count, flash_attention, flash_attention_plain,
+        flash_attention_split_plain)
+
+    bf16 = torch.bfloat16
+    h, kvh, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    gen = torch.Generator(device=dev).manual_seed(2027)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(bf16)
+
+    label = f"{kind} kernel at {batch} x {seq} (H {h}, KVH {kvh}, D {d})"
+    sq = 1 if kind == "decode" else seq
+    q = randn(batch, sq, h, d)
+    k, v = randn(batch, seq, kvh, d), randn(batch, seq, kvh, d)
+    if kind == "decode":
+        pos = torch.full((batch,), seq - 1, dtype=torch.int32, device=dev)
+        route, n_split, per = decode_plan("decode_attention", h, kvh, d,
+                                          bf16, seq, batch * kvh,
+                                          _sm_count(dev.index))
+        got = decode_attention(q, k, v, pos)
+        err, rel = compare(label, got, decode_attention_plain(q, k, v, pos))
+        serr, _ = compare(f"{label} vs the split plain version", got,
+                          flash_attention_split_plain(
+                              q, k, v, causal=True, keys_per_split=per,
+                              offsets=pos))
+        how = (f"route {route} ({n_split} splits of {per}); vs the split "
+               f"plain version {serr:.3e}")
+    else:
+        got = flash_attention(q, k, v, causal=True)
+        err, rel = compare(label, got,
+                           flash_attention_plain(q, k, v, causal=True))
+        how = f"route {_route(seq, seq, h, kvh, d, bf16)}"
+    print(f"  (b) {label} vs its plain version on seeded inputs: max "
+          f"|kernel - plain| {err:.3e}, rel {rel:.3e}; {how}")
+    del q, k, v, got
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=err, rel=rel)
+
+
+def seed_kv(torch, tree, gen) -> None:
+    """Draw every K/V cache leaf (``k``, ``v``) of ``tree`` from ``gen``,
+    in place."""
+    for key, val in tree.items():
+        if isinstance(val, dict):
+            seed_kv(torch, val, gen)
+        elif key in ("k", "v"):
+            val.normal_(generator=gen)
+
+
+def host_side(torch, fn, reps: int = 5) -> dict:
+    """The host side of ``fn()``: the median ms until it returns (its
+    launches queued; the device synced before each call) and the ms
+    until the device is done, then one call under ``cProfile``: the
+    ``DRYRUN_HOST_TOP`` functions of most own time.  A diagnostic:
+    printed, not gated."""
+    import cProfile
+    import pstats
+    enq, total = [], []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        enq.append((t1 - t0) * 1e3)
+        total.append((time.perf_counter() - t0) * 1e3)
+    prof = cProfile.Profile()
+    torch.cuda.synchronize()
+    prof.enable()
+    fn()
+    prof.disable()
+    torch.cuda.synchronize()
+    st = pstats.Stats(prof)
+    rows = sorted(st.stats.items(), key=lambda kv: -kv[1][2])
+    top = "; ".join(
+        f"{tt * 1e3:.2f} ms in {nc} x "
+        f"{os.path.basename(f)}:{ln}({name})"
+        for (f, ln, name), (_, nc, tt, _, _) in rows[:DRYRUN_HOST_TOP])
+    return dict(enqueue_ms=sorted(enq)[reps // 2],
+                total_ms=sorted(total)[reps // 2],
+                profiled_ms=st.total_tt * 1e3, top=top)
+
+
+def top_kernels(fn, ms: float, n: int = 4) -> tuple:
+    """One call of ``fn`` profiled (``launch.profile_engine``): (its
+    kernels' device ms, the busy share of ``ms``, text of the ``n``
+    costliest kernels).  A diagnostic: printed, not gated."""
+    import repro_torch.launch.profile_engine as pe
+    p = pe._profiled(fn, ms, top=n)
+    return p["kernel_ms"], p["busy_share"], "; ".join(
+        f"{t['ms']:.3f} ms in {t['count']} x {t['kernel'][:60]}"
+        for t in p["top"])
+
+
+def phase_dryrun_cells(torch, dev, smi: str) -> dict:
+    """Phase 27 (b): qwen3-1.7b's decode and prefill cells on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.opcount import OpCount
+    from repro_torch.launch.roofline import analyze
+    from repro_torch.launch.specs import build_cell, count_cell
+
+    cfg = get_config(DRYRUN_ARCH)
+    out = {"kernels": {}}
+    for kind, seq, batch, kernel in DRYRUN_REAL:
+        shape = ShapeConfig(f"{kind}_32k", seq, batch, kind)
+        label = f"{DRYRUN_ARCH} {kind} {batch} x {seq}"
+        out["kernels"][kernel] = dryrun_kernel_check(torch, dev, kind, seq,
+                                                     batch, cfg)
+        meta = build_cell(cfg, shape, None)
+        oc_meta, _ = count_cell(meta)
+        rep = analyze(meta, oc_meta, mesh_name="1 card")
+        del meta
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        cell = build_cell(cfg, shape, None, device=dev, seed=0)
+        if kind == "decode":
+            seed_kv(torch, cell.args[1],
+                    torch.Generator(device=dev).manual_seed(3))
+        res, _, launches = count_launches(torch, cell.run)
+        check(launches[kernel] == cfg.n_layers and all(
+            n == 0 for k, n in launches.items() if k != kernel),
+            f"{label}: launches {launches}, want {cfg.n_layers} of {kernel}")
+        logits = res[0]
+        check(tuple(logits.shape) == (batch, 1, cell.model.vp)
+              and bool(torch.isfinite(logits).all()),
+              f"{label}: logits {tuple(logits.shape)}, finite "
+              f"{bool(torch.isfinite(logits).all())}")
+        del res, logits
+        ms = time_ms(cell.run, reps=DRYRUN_STEP_CALLS, warmup=DRYRUN_WARMUP)
+        kern_ms, busy, top = top_kernels(cell.run, ms)
+        # the host side of the decode step (a prefill's launches fill
+        # the queue: its host waits on the device)
+        host = host_side(torch, cell.run) if kind == "decode" else None
+        torch.cuda.synchronize()
+        with OpCount(args=cell.args) as oc:
+            res = cell.run()
+            torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        del res
+        dflops = abs(oc.flops - oc_meta.flops) / oc_meta.flops
+        dbytes = abs(oc.bytes - oc_meta.bytes) / oc_meta.bytes
+        diff = count_diff(oc_meta.by_op, oc.by_op)
+        ratio = oc_meta.peak_bytes / peak
+        print(f"  (b) {label}: {ms:.3f} ms a step (median of "
+              f"{DRYRUN_STEP_CALLS} by events), {cfg.n_layers} {kernel} "
+              f"launches; roofline step {rep.step_s * 1e3:.3f} ms "
+              f"({rep.bottleneck}-bound: compute {rep.compute_s * 1e3:.3f} "
+              f"ms, memory {rep.memory_s * 1e3:.3f} ms; floor "
+              f"{rep.memory_floor_s * 1e3:.3f} ms), measured / roofline "
+              f"{ms / (rep.step_s * 1e3):.3f}; {smi}")
+        print(f"      one step profiled: {kern_ms:.3f} ms of kernels "
+              f"({busy * 100:.1f} % of the step); costliest: {top}")
+        if host:
+            print(f"      host side: {host['enqueue_ms']:.3f} ms until the "
+                  f"step returns, {host['total_ms']:.3f} ms until the device "
+                  f"is done (medians of 5); one step under cProfile "
+                  f"{host['profiled_ms']:.3f} ms, most own time: "
+                  f"{host['top']}")
+        print(f"      counted on the card {oc.flops:.6g} flop, "
+              f"{oc.bytes:.6g} B; on meta {oc_meta.flops:.6g} flop, "
+              f"{oc_meta.bytes:.6g} B (differ by {dflops:.2e} and "
+              f"{dbytes:.2e}); ops that differ: {diff or 'none'}")
+        print(f"      counted peak {oc_meta.peak_bytes / 1e9:.3f} GB (args "
+              f"{oc_meta.arg_bytes / 1e9:.3f} + temp "
+              f"{oc_meta.temp_bytes / 1e9:.3f}), max_memory_allocated "
+              f"{peak / 1e9:.3f} GB: ratio {ratio:.3f}; {smi}")
+        check(dflops <= DRYRUN_COUNT_TOL and dbytes <= DRYRUN_COUNT_TOL,
+              f"{label}: the card's count differs from meta's by "
+              f"{dflops:.3e} (flops) and {dbytes:.3e} (bytes): {diff}")
+        check(DRYRUN_PEAK_RATIO[0] <= ratio <= DRYRUN_PEAK_RATIO[1],
+              f"{label}: counted peak / max_memory_allocated = {ratio}")
+        out[kind] = dict(ms=ms, step_s=rep.step_s, bottleneck=rep.bottleneck,
+                         flops=oc.flops, bytes=oc.bytes, peak_ratio=ratio,
+                         kernel_ms=kern_ms, launches=launches, host=host)
+        del cell
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["launches"] = {k: out["decode"]["launches"][k]
+                       + out["prefill"]["launches"][k]
+                       for k in out["decode"]["launches"]}
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6064,8 +6349,9 @@ def main() -> int:
               f"checkout of the repository", file=sys.stderr)
         return 1
     sys.path.insert(0, SRC)
+    global work
     from repro_torch.configs import get_config
-    from repro_torch.kernels import build
+    from repro_torch.kernels import build, work
     from repro_torch.models import build_model
     from repro_torch.models.param import tree_leaves
 
@@ -6218,6 +6504,13 @@ def main() -> int:
           f"train_e2e through a failure)")
     print(smi.strip())
     train = phase_train(torch, dev, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    phase(f"phase 27: two dry-run cells for real on the card "
+          f"({DRYRUN_ARCH}), then the dry-run of every cell")
+    print(smi.strip())
+    dry = phase_dryrun(torch, dev, smi.strip())
 
     # launches: each kernel's count on its own paths' runs (phases 4, 14,
     # 15, 17, 20, 24 and 25 for decode and flash, 16, 18 and 19 for flash,
@@ -6235,11 +6528,11 @@ def main() -> int:
                     for k in prefix_launches},
                 "19": disagg_launches, "20": fleet_launches,
                 "21": tp["launches"], "24": jamba["launches"],
-                "25": vlm["launches"]}
+                "25": vlm["launches"], "27": dry["launches"]}
     uses = {"decode_attention": ("4", "14", "15", "17", "18", "20", "21",
-                                 "22", "24", "25"),
+                                 "22", "24", "25", "27"),
             "flash_attention": ("4", "14", "15", "16", "17", "18", "19",
-                                "20", "21", "22", "24", "25"),
+                                "20", "21", "22", "24", "25", "27"),
             "paged_decode_attention": ("6", "16", "18", "19", "21", "22"),
             "paged_verify_attention": ("6", "16", "18", "21", "22"),
             "verify_attention": ("8", "18", "21", "22", "25")}
@@ -6261,6 +6554,11 @@ def main() -> int:
         kernels[name]["d96"] = d96
         kernels[name]["max_abs_err"] = max(kernels[name]["max_abs_err"],
                                            d96["max_abs_err"])
+        if name in dry["kernels"]:
+            k32 = dry["kernels"][name]
+            kernels[name]["at_32k"] = k32
+            kernels[name]["max_abs_err"] = max(kernels[name]["max_abs_err"],
+                                               k32["max_abs_err"])
         totals[name] = sum(kernels[name]["launches_by_phase"].values())
     sources = {
         "decode_attention": (f"{dec}:351", totals),
@@ -6307,6 +6605,13 @@ def main() -> int:
           f"{ta['peak_gb']:.2f} GB (int8 moments {train['b']['peak_gb']:.2f})"
           f", train_e2e {train['c']['seconds']:.1f} s, "
           f"{train['seconds']:.1f} s")
+    print(f"phase 27: {dry['cells']} cells counted in "
+          f"{dry['count_s']:.1f} s; {DRYRUN_ARCH} decode "
+          f"{dry['decode']['ms']:.3f} ms a step ("
+          f"{dry['decode']['host']['enqueue_ms']:.3f} ms to queue) against a "
+          f"{dry['decode']['step_s'] * 1e3:.3f} ms roofline, prefill "
+          f"{dry['prefill']['ms']:.3f} ms against "
+          f"{dry['prefill']['step_s'] * 1e3:.3f} ms; {dry['seconds']:.1f} s")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi.strip())
     print(json.dumps(record))

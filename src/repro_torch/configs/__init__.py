@@ -31,6 +31,16 @@ _ARCH_MODULES = {
 }
 
 
+# The ten assigned LM architectures (tiny/edge are paper-own extras),
+# in the reference's order: the dry-run's cells and the paper-figure
+# benchmarks walk them.
+ASSIGNED_ARCHS = [
+    "granite-3-2b", "qwen2.5-3b", "qwen3-1.7b", "yi-9b",
+    "qwen3-moe-30b-a3b", "deepseek-v3-671b", "phi-3-vision-4.2b",
+    "jamba-v0.1-52b", "rwkv6-3b", "whisper-small",
+]
+
+
 def list_archs() -> list[str]:
     """The architectures the port can build."""
     return list(_ARCH_MODULES)

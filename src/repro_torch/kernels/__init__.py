@@ -3,12 +3,26 @@
 Each kernel package holds the wrapper the model calls, its plain
 PyTorch versions (the CPU path and the on-card yardstick) and a launch
 counter; ``build`` compiles ``csrc/*.cu`` with nvcc at first use.
+Tensors on a ``PLAIN_DEVICES`` device (the CPU, and ``meta``, on which
+the dry-run counts a program without running it) take the plain
+version; CUDA tensors launch the kernel; any other device raises.  Each
+wrapper reports its call's work (``work``) to an active counter on
+every route.
 """
 import threading
 
 import torch
 
 _LAUNCH_LOCK = threading.Lock()
+
+# the device types whose tensors take a kernel's plain version
+PLAIN_DEVICES = ("cpu", "meta")
+
+
+def plain_route(t: torch.Tensor) -> bool:
+    """Whether a call on ``t`` takes the plain version (``t`` lies on a
+    ``PLAIN_DEVICES`` device)."""
+    return t.device.type in PLAIN_DEVICES
 
 
 def refuse_grad(name: str, *tensors) -> None:

@@ -31,7 +31,8 @@ import math
 
 import torch
 
-from repro_torch.kernels import build, count_launch, refuse_grad
+from repro_torch.kernels import (build, count_launch, plain_route,
+                                 refuse_grad, work)
 from repro_torch.kernels.flash_attention.ops import (
     HEAD_DIMS, _check_aligned, _sm_count, _splits,
 )
@@ -168,11 +169,19 @@ def launch(name: str, q, kvh: int, capacity: int, kv, ptrs, sizes,
 
 def decode_attention(q, k_cache, v_cache, pos):
     """q: (B, 1, H, D); caches: (B, S, KVH, D); pos: () or (B,) int.
-    Returns (B, 1, H, D).  CPU tensors take the plain version; CUDA
-    tensors (G in {1, 2, 4, 8}, D in {64, 96, 128}, float32 or bfloat16;
-    in bfloat16 every row start 16-byte aligned) launch the route
-    ``plan`` names or raise."""
-    if q.device.type == "cpu":
+    Returns (B, 1, H, D).  CPU and meta tensors take the plain version;
+    CUDA tensors (G in {1, 2, 4, 8}, D in {64, 96, 128}, float32 or
+    bfloat16; in bfloat16 every row start 16-byte aligned) launch the
+    route ``plan`` names or raise.  The call's work goes to an active
+    counter (``work.decode``)."""
+    return work.call("decode_attention", _decode_attention,
+                     (q, k_cache, v_cache, pos),
+                     lambda: work.decode(q, k_cache, pos),
+                     lambda: torch.empty_like(q))
+
+
+def _decode_attention(q, k_cache, v_cache, pos):
+    if plain_route(q):
         return decode_attention_plain(q, k_cache, v_cache, pos)
     refuse_grad("decode_attention", q, k_cache, v_cache)
     if q.device.type != "cuda":

@@ -42,7 +42,8 @@ import math
 
 import torch
 
-from repro_torch.kernels import build, count_launch, refuse_grad
+from repro_torch.kernels import (build, count_launch, plain_route,
+                                 refuse_grad, work)
 
 MASK_VALUE = -1e30
 HEAD_DIMS = (64, 96, 128)   # D the attention kernels are built for
@@ -314,10 +315,17 @@ def flash_attention(q, k, v, *, causal: bool = True):
     tensors (D in {64, 96, 128}, float32 or bfloat16, every row start
     16-byte aligned) launch the route ``_route`` names -- the
     tensor-core tile kernel, the split-KV kernel or the float32 tile
-    loop -- or raise."""
+    loop -- or raise.  Meta tensors take the plain version too.  The
+    call's work goes to an active counter (``work.flash``)."""
     if k.shape[1] < 1:
         raise ValueError("flash_attention: no keys (Skv = 0)")
-    if q.device.type == "cpu":
+    return work.call("flash_attention", _flash_attention, (q, k, v, causal),
+                     lambda: work.flash(q, k, v, causal),
+                     lambda: torch.empty_like(q))
+
+
+def _flash_attention(q, k, v, causal):
+    if plain_route(q):
         return flash_attention_plain(q, k, v, causal=causal)
     refuse_grad("flash_attention", q, k, v)
     if q.device.type != "cuda":

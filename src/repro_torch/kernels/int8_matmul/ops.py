@@ -31,7 +31,8 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build, count_launch, refuse_grad
+from repro_torch.kernels import (build, count_launch, plain_route,
+                                 refuse_grad, work)
 
 # the largest K whose int32 sum cannot overflow: 128 * 128 * K < 2^31
 MAX_K = 131_072
@@ -161,8 +162,18 @@ def int8_matmul(x, w, sx, sw, *, out_dtype=torch.bfloat16):
     """x: (M, K) int8; w: (K, N) int8; sx: (M, 1) float32; sw: (1, N)
     float32 -> (M, N) ``out_dtype`` (float32 or bfloat16).  CPU tensors
     take the plain version; CUDA tensors launch the kernel of ``plan``'s
-    route (any M, N, K >= 1 up to ``MAX_M`` and ``MAX_K``) or raise."""
-    if x.device.type == "cpu":
+    route (any M, N, K >= 1 up to ``MAX_M`` and ``MAX_K``) or raise.
+    Meta tensors take the plain version too, unless ``LAUNCH_DEVICES``
+    names meta.  The call's work goes to an active counter
+    (``work.int8_matmul``)."""
+    return work.call("int8_matmul", _int8_matmul, (x, w, sx, sw, out_dtype),
+                     lambda: work.int8_matmul(x, w, out_dtype),
+                     lambda: torch.empty((x.shape[0], w.shape[1]),
+                                         dtype=out_dtype, device=x.device))
+
+
+def _int8_matmul(x, w, sx, sw, out_dtype):
+    if plain_route(x) and x.device.type not in LAUNCH_DEVICES:
         return int8_matmul_plain(x, w, sx, sw, out_dtype)
     refuse_grad("int8_matmul", x, w, sx, sw)
     if x.device.type not in LAUNCH_DEVICES:

@@ -32,7 +32,8 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build, count_launch, refuse_grad
+from repro_torch.kernels import (build, count_launch, plain_route,
+                                 refuse_grad, work)
 
 # the reference model's chunk (``models/rwkv6.py:CHUNK``)
 CHUNK = 256
@@ -280,8 +281,18 @@ def linear_scan(r, k, v, logw, u):
     float32; u: (H, dh) float32.  Returns (y (B, T, H, dh) in r's dtype,
     final state (B, H, dh, dh) float32) from a zero state.  CPU tensors
     take the plain version; CUDA tensors launch the kernel on ``plan``'s
-    route (dh in {32, 64, 128}, any T >= 1) or raise."""
-    if r.device.type == "cpu":
+    route (dh in {32, 64, 128}, any T >= 1) or raise.  Meta tensors take
+    the plain version too.  The call's work goes to an active counter
+    (``work.linear_scan``)."""
+    return work.call("linear_scan", _linear_scan, (r, k, v, logw, u),
+                     lambda: work.linear_scan(r, k, v, logw, u),
+                     lambda: (torch.empty_like(r), torch.empty(
+                         (r.shape[0], r.shape[2], r.shape[3], r.shape[3]),
+                         dtype=torch.float32, device=r.device)))
+
+
+def _linear_scan(r, k, v, logw, u):
+    if plain_route(r):
         return linear_scan_plain(r, k, v, logw, u, return_state=True)
     refuse_grad("linear_scan", r, k, v, logw, u)
     if r.device.type != "cuda":

@@ -25,7 +25,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import count_launch, refuse_grad
+from repro_torch.kernels import (count_launch, plain_route, refuse_grad,
+                                 work)
 from repro_torch.kernels.decode_attention.ops import (
     decode_attention_plain, launch,
 )
@@ -82,8 +83,17 @@ def paged_decode_attention(q, k_pool, v_pool, pages, pos):
     int; pos: () or (B,) int.  Returns (B, 1, H, D).  CPU tensors take
     the plain version; CUDA tensors (G in {1, 2, 4, 8}, D in {64, 96,
     128}, float32 or bfloat16; in bfloat16 every row start 16-byte
-    aligned) launch the route ``plan`` names or raise."""
-    if q.device.type == "cpu":
+    aligned) launch the route ``plan`` names or raise.  Meta tensors
+    take the plain version too.  The call's work goes to an active
+    counter (``work.paged_decode``)."""
+    return work.call("paged_decode_attention", _paged_decode_attention,
+                     (q, k_pool, v_pool, pages, pos),
+                     lambda: work.paged_decode(q, k_pool, pages, pos),
+                     lambda: torch.empty_like(q))
+
+
+def _paged_decode_attention(q, k_pool, v_pool, pages, pos):
+    if plain_route(q):
         return paged_decode_attention_plain(q, k_pool, v_pool, pages, pos)
     refuse_grad("paged_decode_attention", q, k_pool, v_pool)
     if q.device.type != "cuda":

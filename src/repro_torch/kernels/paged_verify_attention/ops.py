@@ -24,7 +24,10 @@ through strides.
 """
 from __future__ import annotations
 
-from repro_torch.kernels import count_launch, refuse_grad
+import torch
+
+from repro_torch.kernels import (count_launch, plain_route, refuse_grad,
+                                 work)
 from repro_torch.kernels.flash_attention.ops import launch
 from repro_torch.kernels.paged_decode_attention.ops import (
     check_paged_args, paged_view,
@@ -44,8 +47,17 @@ def paged_verify_attention(q, k_pool, v_pool, pages, pos):
     int; pos: () or (B,) int window starts.  Returns (B, T, H, D).
     CPU tensors take the plain version; CUDA tensors (D in {64, 96, 128},
     float32 or bfloat16, any T >= 1, every row start 16-byte aligned)
-    launch the route ``_route`` names or raise."""
-    if q.device.type == "cpu":
+    launch the route ``_route`` names or raise.  Meta tensors take the
+    plain version too.  The call's work goes to an active counter
+    (``work.paged_verify``)."""
+    return work.call("paged_verify_attention", _paged_verify_attention,
+                     (q, k_pool, v_pool, pages, pos),
+                     lambda: work.paged_verify(q, k_pool, pages, pos),
+                     lambda: torch.empty_like(q))
+
+
+def _paged_verify_attention(q, k_pool, v_pool, pages, pos):
+    if plain_route(q):
         return paged_verify_attention_plain(q, k_pool, v_pool, pages, pos)
     refuse_grad("paged_verify_attention", q, k_pool, v_pool)
     if q.device.type != "cuda":

@@ -32,7 +32,8 @@ import math
 
 import torch
 
-from repro_torch.kernels import count_launch, refuse_grad
+from repro_torch.kernels import (count_launch, plain_route, refuse_grad,
+                                 work)
 from repro_torch.kernels.decode_attention.ops import MASK_VALUE
 from repro_torch.kernels.flash_attention.ops import launch
 
@@ -70,8 +71,17 @@ def verify_attention(q, k_cache, v_cache, pos):
     version; CUDA tensors (D in {64, 96, 128}, float32 or bfloat16, any T >=
     1 and G = H / KVH, every row start 16-byte aligned) launch the route
     ``_route`` names -- the split-KV kernel, the tensor-core tile kernel
-    or the float32 tile loop -- or raise."""
-    if q.device.type == "cpu":
+    or the float32 tile loop -- or raise.  Meta tensors take the plain
+    version too.  The call's work goes to an active counter
+    (``work.verify``)."""
+    return work.call("verify_attention", _verify_attention,
+                     (q, k_cache, v_cache, pos),
+                     lambda: work.verify(q, k_cache, pos),
+                     lambda: torch.empty_like(q))
+
+
+def _verify_attention(q, k_cache, v_cache, pos):
+    if plain_route(q):
         return verify_attention_plain(q, k_cache, v_cache, pos)
     refuse_grad("verify_attention", q, k_cache, v_cache)
     if q.device.type != "cuda":

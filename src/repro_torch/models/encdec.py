@@ -141,7 +141,10 @@ class EncDecLM:
         cfg = self.cfg
         L.check_train_attention(cfg)
         enc_out = self.encode(params, batch["frames"], train=True)
-        cross_k, cross_v = self._cross_kv_all(params, enc_out)
+        # unbound once, so that backward stacks each layer's gradient
+        # once (indexing the stack would write a whole stack a layer)
+        cross_k, cross_v = (t.unbind(0) for t in
+                            self._cross_kv_all(params, enc_out))
         x = self._embed_dec(params, batch["tokens"])
         body = L.maybe_remat(self._train_dec_block, cfg.remat)
         layers = tree_map(lambda a: a.unbind(0), params["dec_blocks"])
@@ -202,11 +205,13 @@ class EncDecLM:
 
     def _cross_kv_all(self, params, enc_out):
         """Every decoder layer's cross K and V, computed once at prefill:
-        (k, v), each (L, B, enc_len, KVH, D)."""
+        (k, v), each (L, B, enc_len, KVH, D).  The stacked weights are
+        unbound once (under autograd, indexing the stack a layer at a
+        time would write a whole stack's gradient a layer)."""
         ks, vs = [], []
+        xattn = tree_map(lambda a: a.unbind(0), params["dec_blocks"]["xattn"])
         for i in range(self.cfg.n_layers):
-            k, v = cross_kv(enc_out, tree_map(lambda a: a[i],
-                                              params["dec_blocks"]["xattn"]),
+            k, v = cross_kv(enc_out, tree_map(lambda a: a[i], xattn),
                             self.cfg)
             ks.append(k)
             vs.append(v)
@@ -264,6 +269,22 @@ class EncDecLM:
         return {"self_k": kv(max_len), "self_v": kv(max_len),
                 "cross_k": kv(e), "cross_v": kv(e),
                 "pos": ((), torch.int32)}
+
+    def cache_names(self) -> dict[str, Any]:
+        """The logical axis names of every cache leaf: self K/V (None,
+        batch, kv_seq, kv_heads, None), cross K/V (None, batch, None,
+        kv_heads, None), ``pos`` ()."""
+        kvs = (None, "batch", "kv_seq", "kv_heads", None)
+        kvx = (None, "batch", None, "kv_heads", None)
+        return {"self_k": kvs, "self_v": kvs, "cross_k": kvx,
+                "cross_v": kvx, "pos": ()}
+
+    def cache_pspecs(self, rules):
+        """Partition specs matching ``cache_specs`` (the reference's
+        ``EncDecLM.cache_pspecs``)."""
+        from repro_torch.parallel.sharding import logical_pspec
+        return tree_map(lambda n: logical_pspec(n, rules),
+                        self.cache_names())
 
     def init_cache(self, batch: int, max_len: int):
         return tree_map(

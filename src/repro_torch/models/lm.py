@@ -573,6 +573,44 @@ class LM:
         pos_shape = (batch,) if per_slot_pos else ()
         return {"layers": layers, "pos": (pos_shape, torch.int32)}
 
+    def cache_names(self, per_slot_pos: bool = False) -> dict[str, Any]:
+        """The logical axis names of every cache leaf (the reference's
+        ``cache_pspecs`` path map): K/V (L, B, S, KVH, D) as (None,
+        batch, kv_seq, kv_heads, None), MLA latents (None, batch,
+        kv_seq, None), the RWKV state (None, batch, rwkv_heads, None,
+        None), a Mamba state ``h`` (None, batch, d_inner, None) and its
+        ``conv`` rows (None, batch, None, d_inner), any other leaf
+        (None, batch, ...), ``pos`` (batch,) per slot or ()."""
+        def names(path, spec):
+            ndim = len(spec[0])
+            if path == "pos":
+                return ("batch",)[:ndim]
+            leaf = path.rsplit("/", 1)[-1]
+            full = {"k": (None, "batch", "kv_seq", "kv_heads", None),
+                    "v": (None, "batch", "kv_seq", "kv_heads", None),
+                    "c_kv": (None, "batch", "kv_seq", None),
+                    "k_rope": (None, "batch", "kv_seq", None),
+                    "S": (None, "batch", "rwkv_heads", None, None),
+                    "h": (None, "batch", "d_inner", None),
+                    "conv": (None, "batch", None, "d_inner")}.get(
+                        leaf, (None, "batch") + (None,) * (ndim - 2))
+            return full[:ndim]
+
+        def walk(tree, prefix):
+            if isinstance(tree, dict):
+                return {k: walk(v, f"{prefix}/{k}" if prefix else k)
+                        for k, v in tree.items()}
+            return names(prefix, tree)
+
+        return walk(self.cache_specs(1, 2, per_slot_pos), "")
+
+    def cache_pspecs(self, rules, per_slot_pos: bool = False):
+        """Partition specs matching ``cache_specs``' structure (the
+        reference's ``LM.cache_pspecs``), from ``cache_names``."""
+        from repro_torch.parallel.sharding import logical_pspec
+        return tree_map(lambda n: logical_pspec(n, rules),
+                        self.cache_names(per_slot_pos))
+
     def init_cache(self, batch: int, max_len: int,
                    per_slot_pos: bool = False):
         return tree_map(

@@ -94,8 +94,15 @@ def _group_norm(x, w, n_heads, eps=1e-5):
     return (xh.reshape(b, s, -1) * w).to(x.dtype)
 
 
+def _local_heads(p, cfg) -> int:
+    """The (padded) heads of the time-mix weights ``p``: every padded
+    head, or one device's share of them under a sharding table
+    (``parallel.sharding.local_shape``)."""
+    return p["w_r"].shape[1] // cfg.head_dim
+
+
 def _time_mix_io(x, p, cfg, x_prev):
-    hp = padded_heads(cfg)
+    hp = _local_heads(p, cfg)
     dh = cfg.head_dim
     b, s, _ = x.shape
     xs = _token_shift(x, x_prev)
@@ -114,7 +121,7 @@ def _time_mix_io(x, p, cfg, x_prev):
 def time_mix(x, p, cfg, *, kernels: bool = True):
     """RWKV-6 time-mix over a full sequence from a zero state.  x: (B, S,
     d).  Returns (out (B, S, d), final state (B, H, dh, dh) float32)."""
-    hp = padded_heads(cfg)
+    hp = _local_heads(p, cfg)
     b, s, _ = x.shape
     r, k, v, g, logw = _time_mix_io(x, p, cfg, None)
     u = p["bonus_u"].reshape(hp, cfg.head_dim)
@@ -131,7 +138,7 @@ def time_mix_decode(x, p, cfg, state):
     """One token.  state = {"S": (B, H, dh, dh) float32, "x_prev": (B, 1,
     d)}; ``state["S"]`` is updated in place (the reference returns a new
     one).  Returns (out (B, 1, d), {"S": S, "x_prev": x})."""
-    hp = padded_heads(cfg)
+    hp = _local_heads(p, cfg)
     dh = cfg.head_dim
     b = x.shape[0]
     r, k, v, g, logw = _time_mix_io(x, p, cfg, state["x_prev"])

@@ -12,8 +12,10 @@ Gradients come from ``torch.autograd.grad`` over the parameter leaves
 place: a step returns a new ``TrainState`` and leaves the old one as it
 was.  The metrics are 0-d tensors on the model's device (``loss``,
 ``grad_norm``, ``lr`` and the model's own): a step makes no host read.
-The reference's ``train_state_pspecs`` (GSPMD partition specs) has no
-counterpart here: sharded training waits for a 4-chip cell.
+``train_state_pspecs`` gives the reference's partition specs of the
+state under a mesh's rules (``parallel.sharding.make_rules``): the
+dry-run reads them for the bytes each device holds; training itself
+runs on one card (sharded training waits for a 4-chip cell).
 """
 from __future__ import annotations
 
@@ -130,3 +132,24 @@ def make_train_step(model, hp: TrainHParams):
         return new, out
 
     return step
+
+
+def train_state_pspecs(model, rules, hp: TrainHParams) -> TrainState:
+    """Partition specs matching ``init_train_state``'s output (the
+    reference's ``train_state_pspecs``): the parameters' specs for the
+    parameters and both moments, and with int8 moments the per-row
+    scales' specs, whose size-1 last dimension cannot stay sharded;
+    ``()`` for the steps."""
+    from repro_torch.parallel.sharding import logical_pspec, param_pspecs
+    pspecs = param_pspecs(model.param_defs(), rules)
+    scalar = logical_pspec((), rules)
+
+    def scale_spec(ps):
+        return ps if len(ps) == 0 else (*ps[:-1], None)
+
+    if hp.adamw.quant_moments:
+        opt = OptState(scalar, pspecs, pspecs, tree_map(scale_spec, pspecs),
+                       None)
+    else:
+        opt = OptState(scalar, pspecs, pspecs)
+    return TrainState(pspecs, opt, scalar)

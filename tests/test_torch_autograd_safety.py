@@ -8,9 +8,11 @@
 - Every kernel wrapper refuses a launch under grad mode when an input
   requires grad (the kernels return tensors without a ``grad_fn``, so
   the weights behind them would get no gradient, silently): checked on
-  meta tensors through the wrappers' CUDA branch, where the refusal
-  comes before the device check; on CPU tensors the wrappers take the
-  plain versions, which are differentiable.
+  meta tensors driven through the wrappers' CUDA branch (meta taken out
+  of ``kernels.PLAIN_DEVICES``, as int8's tests add it to
+  ``LAUNCH_DEVICES``), where the refusal comes before the device check;
+  on CPU and meta tensors the wrappers take the plain versions, which
+  are differentiable.
 """
 import pytest
 import torch
@@ -128,7 +130,9 @@ def _calls(grad: bool):
 
 
 @pytest.mark.parametrize("name", sorted(_calls(False)))
-def test_wrappers_refuse_a_launch_under_grad(name):
+def test_wrappers_refuse_a_launch_under_grad(name, monkeypatch):
+    import repro_torch.kernels as K
+    monkeypatch.setattr(K, "PLAIN_DEVICES", ("cpu",))
     with pytest.raises(RuntimeError, match=f"{name}: an input requires "
                                            f"grad"):
         _calls(True)[name]()

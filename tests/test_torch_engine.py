@@ -286,6 +286,13 @@ def test_port_imports_neither_jax_nor_the_reference_package():
                 "data/pipeline", "checkpoint/__init__", "checkpoint/manager",
                 "checkpoint/supervisor", "parallel/pipeline", "launch/train",
                 "launch/train_e2e")),
+            *(f"repro_torch/launch/{m}.py" for m in (
+                "mesh", "opcount", "specs", "roofline", "calibrate",
+                "dryrun")),
+            "repro_torch/kernels/work.py",
+            *(f"repro_torch/benchmarks/{m}.py" for m in (
+                "roofline_table", "energy_per_inference", "power_range",
+                "accuracy_cost", "scaling_energy", "power_breakdown")),
             os.path.join("..", "chip_smoke.py")} <= seen
     assert not offenders, offenders
 

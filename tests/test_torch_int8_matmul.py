@@ -117,8 +117,14 @@ def test_cpu_wrapper_takes_the_plain_version_and_never_launches():
     assert tq.int8_matmul.launches == before
 
 
-def test_wrapper_has_no_path_off_cpu_and_cuda():
+def test_wrapper_has_no_path_off_cpu_and_cuda(monkeypatch):
+    """Meta (a plain-route device, on which the dry-run counts) takes
+    the plain version; taken out of ``PLAIN_DEVICES`` it stands for a
+    device with neither a kernel nor a plain route, and raises."""
+    import repro_torch.kernels as K
     x = torch.zeros((4, 4), dtype=torch.int8, device="meta")
     s = torch.ones((4, 1), device="meta")
+    assert tq.int8_matmul(x, x, s, s.reshape(1, 4)).shape == (4, 4)
+    monkeypatch.setattr(K, "PLAIN_DEVICES", ("cpu",))
     with pytest.raises(ValueError, match="no path"):
         tq.int8_matmul(x, x, s, s.reshape(1, 4))

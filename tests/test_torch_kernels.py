@@ -176,10 +176,16 @@ def test_wrappers_route_cpu_tensors_to_plain_versions():
     assert tflash.flash_attention.launches == n_fl
 
 
-def test_wrappers_have_no_fallback_for_other_devices():
-    """Neither wrapper quietly computes on a device it has no kernel for."""
+def test_wrappers_have_no_fallback_for_other_devices(monkeypatch):
+    """Neither wrapper quietly computes on a device it has neither a
+    kernel nor a plain route for: meta (a plain-route device, on which
+    the dry-run counts) is taken out of ``PLAIN_DEVICES`` to stand for
+    one.  On meta itself both take their plain versions."""
+    import repro_torch.kernels as K
     q = torch.empty((1, 1, 4, 64), device="meta")
     k = torch.empty((1, 16, 2, 64), device="meta")
+    assert tdec.decode_attention(q, k, k, 3).shape == q.shape
+    monkeypatch.setattr(K, "PLAIN_DEVICES", ("cpu",))
     with pytest.raises(ValueError, match="no path"):
         tdec.decode_attention(q, k, k, 3)
     with pytest.raises(ValueError, match="no path"):

@@ -152,10 +152,17 @@ def test_wrapper_routes_cpu_tensors_to_the_plain_version():
     assert tscan.linear_scan is TR.linear_scan
 
 
-def test_wrapper_has_no_fallback_for_other_devices():
-    """The wrapper never quietly computes on a device it has no kernel
-    for."""
+def test_wrapper_has_no_fallback_for_other_devices(monkeypatch):
+    """The wrapper never quietly computes on a device it has neither a
+    kernel nor a plain route for: meta (a plain-route device, on which
+    the dry-run counts) is taken out of ``PLAIN_DEVICES`` to stand for
+    one.  On meta itself it takes the plain version."""
+    import repro_torch.kernels as K
     x = torch.empty((1, 8, 2, 64), device="meta")
+    y, s = tscan.linear_scan(x, x, x, x.float(),
+                             torch.empty((2, 64), device="meta"))
+    assert y.shape == x.shape and s.shape == (1, 2, 64, 64)
+    monkeypatch.setattr(K, "PLAIN_DEVICES", ("cpu",))
     with pytest.raises(ValueError, match="no path"):
         tscan.linear_scan(x, x, x, x.float(),
                           torch.empty((2, 64), device="meta"))

@@ -155,12 +155,20 @@ def test_paged_wrappers_route_cpu_tensors_to_plain_versions():
     assert tpv.paged_verify_attention.launches == n_ver
 
 
-def test_paged_wrappers_have_no_fallback_for_other_devices():
-    """Neither wrapper quietly computes on a device it has no kernel
-    for."""
+def test_paged_wrappers_have_no_fallback_for_other_devices(monkeypatch):
+    """Neither wrapper quietly computes on a device it has neither a
+    kernel nor a plain route for: meta (a plain-route device, on which
+    the dry-run counts) is taken out of ``PLAIN_DEVICES`` to stand for
+    one.  On meta itself both take their plain versions."""
+    import repro_torch.kernels as K
     q = torch.empty((1, 1, 4, 64), device="meta")
     pool = torch.empty((3, 8, 2, 64), device="meta")
     pages = torch.empty((1, 2), dtype=torch.int32, device="meta")
+    assert tpd.paged_decode_attention(q, pool, pool, pages, 3).shape == \
+        q.shape
+    assert tpv.paged_verify_attention(q, pool, pool, pages, 3).shape == \
+        q.shape
+    monkeypatch.setattr(K, "PLAIN_DEVICES", ("cpu",))
     with pytest.raises(ValueError, match="no path"):
         tpd.paged_decode_attention(q, pool, pool, pages, 3)
     with pytest.raises(ValueError, match="no path"):

@@ -113,10 +113,15 @@ def test_verify_wrapper_routes_cpu_tensors_to_plain_version():
     assert tva_pkg.verify_attention is tva.verify_attention
 
 
-def test_verify_wrapper_has_no_fallback_for_other_devices():
-    """The wrapper does not quietly compute on a device it has no
-    kernel for."""
+def test_verify_wrapper_has_no_fallback_for_other_devices(monkeypatch):
+    """The wrapper does not quietly compute on a device it has neither a
+    kernel nor a plain route for: meta (a plain-route device, on which
+    the dry-run counts) is taken out of ``PLAIN_DEVICES`` to stand for
+    one.  On meta itself it takes the plain version."""
+    import repro_torch.kernels as K
     q = torch.empty((1, 5, 4, 64), device="meta")
     cache = torch.empty((1, 16, 2, 64), device="meta")
+    assert tva.verify_attention(q, cache, cache, 3).shape == q.shape
+    monkeypatch.setattr(K, "PLAIN_DEVICES", ("cpu",))
     with pytest.raises(ValueError, match="no path"):
         tva.verify_attention(q, cache, cache, 3)
