@@ -136,10 +136,12 @@ Phases, each fatal on failure:
    the enforced limit, launches exact (flash 28 per admission, decode
    28 per decode step); tok/s, TTFT, TPOT, Joules by channel (measured
    or modeled), tok/J at the accelerator and at the wall.  Then
-   ``serving_throughput.metrics(smoke=True)`` on the card (both SUTs
-   ACCEPT) and the launcher's fixed engine under Offline through
+   ``serving_throughput.metrics(smoke=True)`` on the card, on the first
+   14 of qwen3-1.7b's 28 layers (both SUTs ACCEPT), and the launcher's
+   fixed engine under Offline through
    ``ServeEngineSUT`` (ACCEPT).
-16. SLO-aware serving (run after phase 15, on phase 4's weights), in
+16. SLO-aware serving (run after phase 15, on phase 4's weights; (b)-(d)
+   on their first 14 layers since phase 28 joined the script), in
    ``repro_torch.benchmarks.slo_sweep``'s geometry (64-row pages, 832
    rows a slot, 27 pages, chunks of 64): (a) paged verify at the chunk
    shapes (T 64 at window starts 0, 64 and 704: the tile route; T 8 at
@@ -150,8 +152,8 @@ Phases, each fatal on failure:
    sweep's bimodal mix (longs of 768, shorts of 16, mids of 72, 8 new
    tokens) offline through its monolithic and chunked engines: tokens
    equal except from a near-tie on, launches exact (chunked: paged
-   verify 28 per chunk, no flash; monolithic: flash 28 per admission;
-   paged decode 28 per step), and every non-final chunk runs with each
+   verify 14 per chunk, no flash; monolithic: flash 14 per admission;
+   paged decode 14 per step), and every non-final chunk runs with each
    tensor-to-host conversion raising; (c) the reference's preemption
    test at 64-row pages under its virtual clock: at least one
    preemption and one resume, only priority 0 parked, tokens as an
@@ -198,25 +200,27 @@ Phases, each fatal on failure:
    5 and 9 and decode in speculative_efficiency's 4 x 128-row cache;
    flash over both benchmarks' prompts (120 and 8 tokens).  (b) Each
    benchmark on its own engines and seed-0 weights (phase 4's seed):
-   ``prefix_cache.metrics(smoke=True)`` (flash 28 per miss, paged
-   verify 28 per hit, paged decode 28 per step; hits, lookups and
+   ``prefix_cache.metrics(smoke=True)`` (flash 14 per miss, paged
+   verify 14 per hit, paged decode 14 per step; hits, lookups and
    cached tokens those of the CPU run) and
-   ``speculative_efficiency.metrics(smoke=True, n_reps=2)`` (k 0/2/4/8
-   and the random draft over the full 28-layer target; verify 28 a
-   round, the draft's decode k + 1 per round, flash 29 per admission):
-   launches exact, every review ACCEPTs; acceptance, speedup, draft
+   ``speculative_efficiency.metrics(smoke=True, n_reps=1)`` (k 0/2/4/8
+   and the random draft over a 14-layer target; verify 14 a round, the
+   draft's decode k + 1 per round, flash 15 per admission), both on
+   the first 14 of qwen3-1.7b's 28 layers since phase 28 joined the
+   script: launches exact, every review ACCEPTs; acceptance, speedup, draft
    energy share, tok/s and tok/J at the accelerator and the wall, and
    every repetition's tok/J beside its window in counter periods, are
    printed (not gated).
-19. Prefill/decode disaggregation (after phase 18, phase 4's weights):
+19. Prefill/decode disaggregation (after phase 18, phase 4's weights on
+   their first 14 layers since phase 28 joined the script):
    (a) ``DisaggregatedEngine`` with two ``PrefillWorker``s, each
    prefilling in a thread of its own, and a paged decode engine in
    slo_sweep's geometry (64-row pages, 8 slots, chunks of 2; 1,088 rows
    a slot for phase 4's longest request) serves phase 4's 16 requests
    offline and with their arrivals: every budget completed, tokens
    those of the colocated paged engine except from a near-tie on,
-   launches exact (flash 28 per request from the worker threads, paged
-   decode 28 per decode step, nothing else), one host read per decode
+   launches exact (flash 14 per request from the worker threads, paged
+   decode 14 per decode step, nothing else), one host read per decode
    chunk; (b) a worker whose third prefill raises ends ``serve`` with
    that error within 30 s; (c) ``DisaggregatedSUT`` with the NVML meter
    is refused.
@@ -307,10 +311,11 @@ Phases, each fatal on failure:
    prefill profiled (``launch.profile_engine``: the prefill's kernels
    split into GEMMs, attention, the Mamba scan and the rest), the peak
    memory and the phase's seconds.
-25. Full-width phi-3-vision-4.2b on all 32 layers (d_model 3,072, 32
-   heads of 96 with 32 KV heads: D 96, G 1; SwiGLU 8,192; padded vocab
-   32,768; ``patch_proj`` over 576 patches; 3.83 B seeded bf16 weights,
-   after phase 24's model is freed) and edge-vit: (a) the five attention
+25. Full-width phi-3-vision-4.2b on 8 of its 32 layers (all fit; cut
+   since phase 28 joined; d_model 3,072, 32 heads of 96 with 32 KV
+   heads: D 96, G 1; SwiGLU 8,192; padded vocab 32,768; ``patch_proj``
+   over 576 patches; seeded bf16 weights, after phase 24's model is
+   freed) and edge-vit: (a) the five attention
    kernels at D 96, G 1 against their plain versions and timed beside
    SDPA and their bounds (decode and paged decode at 8 slots over 2,048
    rows, bit for bit to each other; verify at T 5, bit for bit to paged
@@ -384,7 +389,38 @@ Phases, each fatal on failure:
    meshes counted on ``meta`` by ``launch.dryrun.run_cell`` (no
    calibration) in one worker process a host core (at most 8): every
    cell ok with FLOPs and bytes above 0, the ``render_table`` rows and
-   the seconds printed.
+   the seconds printed.  With them, in the same pool, run phase 28 (e)'s
+   hillclimb iterations.
+28. The hillclimb, the examples and the measured tiny/edge runs (after
+   phase 26, before phase 27, with no worker process running): (a)
+   ``repro_torch.examples.serve_power`` at full width: granite-3-2b (40
+   layers, d_model 2,048, 32/8 heads of 64, so D 64, G 4; d_ff 8,192;
+   vocabulary 49,155 padded; seeded bf16 weights) under Offline
+   through ``ServeEngineSUT`` and Server through
+   ``ContinuousBatchingSUT``, 2 s windows, modeled rails as in the
+   reference; before the serve its decode and flash kernels are held
+   against their plain versions at the serve's shapes and at 8 x 2,048 /
+   2 x 1,024 (phase 27 (b)'s seeded inputs and gates); the serve
+   launches only those two, each a whole multiple of 40; each review's
+   verdict printed.  (b) A hillclimbed variant for real: qwen3-1.7b at
+   full width and depth (remat) through ``launch.specs.build_cell``,
+   train steps at 2 x 4,096 base, with ``causal_skip`` and with
+   ``causal_skip`` + ``attn_bf16_scores``: each loss within
+   ``HILL_LOSS_REL_TOL`` (1e-4) of base's, each train forward within
+   phase 26's gates of base's at every position (and causal_skip's
+   with every key one position late must fail them), the card's count
+   within 1 % of meta's; ms a step, tok/s and peak memory printed.  (c)
+   ``benchmarks.tiny_edge_measured.run()`` on the card (edge-vit's loss
+   forward at full width: 12 layers of 384, 196 patches): every review
+   ACCEPTs; latencies the card's, energy modeled.  (d)
+   ``examples.quickstart`` on the card (10 steps of reduced qwen3-1.7b,
+   modeled edge watts): every loss finite, the review's verdict printed
+   (10 steps on the card can fall under its 1 s window).  (e) After
+   phase 27 (a): the 10 iterations read against their base cells, the
+   before/after table, then ``sw_hw_optimizations`` (Figs. 9-10, the
+   hardware half modeled on the A100/H100/H200 data sheets) and
+   ``efficiency_trends`` (Fig. 4) over a temporary directory holding
+   both sets of records.
 
 The line before the last holds the kernels' JSON record; the last line
 is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside
@@ -397,6 +433,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import math
 import os
 import subprocess
 import sys
@@ -2372,9 +2409,10 @@ def phase_power(torch, dev, model, engine, requests) -> dict:
     ``ENERGY_ALIGN_TOL`` of the counter's delta over the serve, the
     accelerator's average watts between half the idle draw and 1.05 x
     the enforced limit, and the launches be exact.  (c)
-    ``serving_throughput.metrics(smoke=True)`` on the card: both SUTs
-    ACCEPT.  (d) the launcher's fixed engine under Offline through
-    ``ServeEngineSUT``: ACCEPT.  Returns (b)'s launches."""
+    ``serving_throughput.metrics(smoke=True)`` on the card, on
+    ``CUT_LAYERS`` layers: both SUTs ACCEPT.  (d) the launcher's fixed
+    engine under Offline through ``ServeEngineSUT``: ACCEPT.  Returns
+    (b)'s launches."""
     from repro_torch.benchmarks import serving_throughput
     from repro_torch.hw import H100_SXM
     from repro_torch.launch import serve as tserve
@@ -2405,7 +2443,8 @@ def phase_power(torch, dev, model, engine, requests) -> dict:
         b["counter_j"]
 
     # (c) the serving-throughput benchmark on the card
-    st = serving_throughput.metrics(device=dev, smoke=True)
+    with qwen3_depth(CUT_LAYERS):
+        st = serving_throughput.metrics(device=dev, smoke=True)
     for name in ("fixed", "continuous"):
         p = st[name]
         check(p["review_passed"],
@@ -2414,7 +2453,8 @@ def phase_power(torch, dev, model, engine, requests) -> dict:
               f"tok/s, {p['tok_per_j']:.4f} tok/J at the wall, "
               f"{p['tok_per_j_accelerator']:.4f} tok/J at the accelerator "
               f"({p['accelerator_j']:.3f} J measured); review ACCEPTED")
-    print(f"  (c) speedup {st['speedup']:.3f}x, chunk_syncs "
+    print(f"  (c) on {CUT_LAYERS} layers: speedup {st['speedup']:.3f}x, "
+          f"chunk_syncs "
           f"{st['chunk_syncs']}")
     gc.collect()
     torch.cuda.empty_cache()
@@ -2751,12 +2791,14 @@ def guard_host_reads(torch, engine, method: str) -> list:
 
 def phase_slo(torch, dev, model, params, kernels: dict) -> dict:
     """Phase 16: SLO-aware serving at full width (qwen3-1.7b, phase 4's
-    weights).  (a) ``phase_slo_kernel``.  (b) slo_sweep's bimodal mix
+    weights; (b)-(d) on the first ``CUT_LAYERS`` layers).  (a)
+    ``phase_slo_kernel``.  (b) slo_sweep's bimodal mix
     (longs of 768, shorts of 16, mids of 72, 8 new tokens each) offline
     through its monolithic and chunked engines: tokens equal except
-    from a near-tie on, launches exact (chunked: paged verify 28 per
-    chunk and no flash; monolithic: flash 28 per admission; both paged
-    decode 28 per step), no host read inside a non-final chunk.  (c)
+    from a near-tie on, launches exact (chunked: paged verify one a
+    layer per chunk and no flash; monolithic: flash one a layer per
+    admission; both paged decode one a layer per step), no host read
+    inside a non-final chunk.  (c)
     the reference's preemption test at 64-row pages (two 240 + 16-token
     best-effort requests fill the 8 usable pages; a priority-1 112 +
     16-token one arrives at 10 ms of a virtual clock that ticks 2 ms a
@@ -2767,9 +2809,10 @@ def phase_slo(torch, dev, model, params, kernels: dict) -> dict:
     import numpy as np
     from repro_torch.benchmarks import slo_sweep as sw
     from repro_torch.serving import (ContinuousBatchingEngine, Request,
-                                     Scheduler)
+                                     Scheduler, truncate_draft)
 
     t_phase = time.perf_counter()
+    model, params = truncate_draft(model, params, CUT_LAYERS)
     cfg = model.cfg
     layers = cfg.n_layers
     print("  (a) paged verify at the chunk shapes, paged decode in the "
@@ -2782,6 +2825,7 @@ def phase_slo(torch, dev, model, params, kernels: dict) -> dict:
                               + [r["max_abs_err"] for r in verify.values()])
     pdec["max_abs_err"] = max(pdec["max_abs_err"], decode["max_abs_err"])
 
+    print(f"  (b)-(d) on the first {CUT_LAYERS} of phase 4's 28 layers")
     # (b) chunked vs monolithic on the bimodal mix
     lens = (768, 16, 72, 16, 16, 768, 72, 16)
     rng = np.random.default_rng(16)
@@ -2905,9 +2949,11 @@ def phase_slo(torch, dev, model, params, kernels: dict) -> dict:
     torch.cuda.empty_cache()
 
     # (d) the SLO sweep on the card
-    m = sw.metrics(device=dev, smoke=True)
+    with qwen3_depth(CUT_LAYERS):
+        m = sw.metrics(device=dev, smoke=True)
     cal = m["calibration"]
-    print(f"  (d) {cal['device']}: t_long {cal['t_long_ms']:.3f} ms, TTFT "
+    print(f"  (d) {cal['device']}, {CUT_LAYERS} layers: t_long "
+          f"{cal['t_long_ms']:.3f} ms, TTFT "
           f"SLO {cal['ttft_slo_ms']:.3f} ms, grid {cal['grid_qps']} QPS, "
           f"{24} queries a point")
     for name in ("monolithic", "chunked", "chunked_preempt",
@@ -2971,8 +3017,9 @@ FAULT_DEADLINE_S = 5.0
 # Phase 17 (c): the replicas' virtual clock advances this much a read.
 FAULT_CLOCK_TICK_S = 0.1
 
-# Phase 18: speculative_efficiency's repetitions (its N_REPS is 4).
-SPEC_BENCH_REPS = 2
+# Phase 18: speculative_efficiency's repetitions (its N_REPS is 4; 2
+# until phase 28 joined the script, ~120 s a repetition)
+SPEC_BENCH_REPS = 1
 
 # Phase 18 (a): positions in the benchmarks' own pools.  prefix_cache's
 # 4 slots decode from 120 (a 112 + 8-token prompt) and the last slot
@@ -3548,15 +3595,16 @@ def phase_bench_kernels(torch, dev) -> dict:
 def phase_benchmarks(torch, dev, kernels: dict, period_s: float) -> dict:
     """Phase 18: (a) ``phase_bench_kernels``, whose errors join the
     JSON line's (``bench_shapes``).  (b) ``prefix_cache`` and
-    ``speculative_efficiency`` on the card at full width with the NVML
-    meter, each through its own engines on its own seeded weights (seed
-    0, as phase 4's).  Every review ACCEPTs and every kernel's launches
-    are those each serve's request stream and counts fix
-    (``check_launches``).  prefix_cache's hits,
-    lookups and cached tokens must be those of the same request stream
-    on the CPU (0/4/8 hits of 10 lookups at hit rates 0/0.5/0.9, 112
-    cached tokens a hit; tests/test_torch_prefix_cache_bench.py holds
-    the CPU run to the reference's).  Returns each benchmark's launches
+    ``speculative_efficiency`` on the card at full width, on
+    ``CUT_LAYERS`` layers (``qwen3_depth``), with the NVML meter, each
+    through its own engines on its own seeded weights (seed 0, as phase
+    4's).  Every review ACCEPTs and every kernel's launches are those
+    each serve's request stream and counts fix (``check_launches``).
+    prefix_cache's hits, lookups and cached tokens must be those of the
+    same request stream on the CPU (0/4/8 hits of 10 lookups at hit
+    rates 0/0.5/0.9, 112 cached tokens a hit;
+    tests/test_torch_prefix_cache_bench.py holds the CPU run to the
+    reference's).  Returns each benchmark's launches
     and figures."""
     from repro_torch.benchmarks import prefix_cache as pc
     from repro_torch.benchmarks import speculative_efficiency as se
@@ -3569,12 +3617,14 @@ def phase_benchmarks(torch, dev, kernels: dict, period_s: float) -> dict:
         kernels[name]["max_abs_err"] = max(
             [kernels[name]["max_abs_err"]]
             + [r["max_abs_err"] for r in shapes.values()])
-    layers = get_config("qwen3-1.7b").n_layers
+    layers = CUT_LAYERS
+    print(f"  (b) both benchmarks on {layers} of qwen3-1.7b's "
+          f"{get_config('qwen3-1.7b').n_layers} layers")
     counters = launch_counters()
     out = {}
-    # the speculative sweep at 2 interleaved repetitions, not its 4:
-    # at 4 it takes ~170 s of the script (its random-draft point emits
-    # one token a round)
+    # the speculative sweep at SPEC_BENCH_REPS repetitions, not its 4:
+    # one takes ~120 s of the script (its random-draft point emits one
+    # token a round)
     for name, paged, reps, run in (
             ("prefix_cache", True, pc.N_REPS,
              lambda: pc.metrics(device=dev, smoke=True)),
@@ -3586,7 +3636,8 @@ def phase_benchmarks(torch, dev, kernels: dict, period_s: float) -> dict:
             torch.cuda.synchronize()
             for k in counters.values():
                 k.launches = 0
-            m = run()
+            with qwen3_depth(layers):
+                m = run()
             torch.cuda.synchronize()
             got = {n: k.launches for n, k in counters.items()}
         print(f"  (b) {name}: best of {reps} repetitions, {len(log)} serves "
@@ -3654,13 +3705,15 @@ DISAGG_FAIL_S = 30.0
 
 def phase_disagg(torch, dev, model, params, requests) -> dict:
     """Phase 19: prefill/decode disaggregation at full width on phase
-    4's weights.  (a) ``DisaggregatedEngine`` with two ``PrefillWorker``s
-    (each prefilling in a thread of its own) and a paged decode engine
-    serves phase 4's 16 requests offline and then with their arrivals:
-    every request completes its budget; its tokens are the colocated
+    4's weights, on their first ``CUT_LAYERS`` layers.  (a)
+    ``DisaggregatedEngine`` with two ``PrefillWorker``s (each
+    prefilling in a thread of its own) and a paged decode engine serves
+    phase 4's 16 requests offline and then with their arrivals: every
+    request completes its budget; its tokens are the colocated
     paged engine's on the same weights and requests, except from a
-    near-tie on; launches exact (flash 28 per request, counted from the
-    worker threads; paged decode 28 per decode step; nothing else); one
+    near-tie on; launches exact (flash one a layer per request, counted
+    from the worker threads; paged decode one a layer per decode step;
+    nothing else); one
     host read per decode chunk.  (b) A worker whose third prefill raises
     ends ``serve`` with that error within ``DISAGG_FAIL_S``.  (c)
     ``DisaggregatedSUT`` with the NVML meter is refused.  Returns (a)'s
@@ -3675,9 +3728,11 @@ def phase_disagg(torch, dev, model, params, requests) -> dict:
     from repro_torch.power.nvml import NVML
     from repro_torch.serving import (ContinuousBatchingEngine,
                                      DisaggregatedEngine, PrefillWorker,
-                                     Request)
+                                     Request, truncate_draft)
 
     t_phase = time.perf_counter()
+    model, params = truncate_draft(model, params, CUT_LAYERS)
+    print(f"  on the first {CUT_LAYERS} of phase 4's 28 layers")
     layers = model.cfg.n_layers
     geometry = dict(max_len=DISAGG_MAX_LEN, n_slots=sw.SLOTS,
                     chunk_steps=sw.CHUNK_STEPS, kv_page_size=sw.PAGE_SIZE,
@@ -3907,11 +3962,34 @@ def phase_fleet(torch, dev) -> dict:
 # 17 (c)'s): the unsharded and the sharded engine then admit, chunk and
 # retire alike, so their tokens, launches and counts compare exactly.
 TP_TICK_S = 0.1
-# Phases 17 and 21 run on the first CUT_LAYERS of phase 4's 28 layers
+# Phases 16-19 and 21 run on the first CUT_LAYERS of phase 4's 28 layers
 # (shared weights, an engine of the truncated model's own in phase 4's
-# geometry), so that the script, phases 22-23 included, keeps inside its
-# time limit.
+# geometry; the benchmarks of phases 15 (c), 16 (d) and 18 (b) on
+# qwen3-1.7b at that depth, ``qwen3_depth``), so that the script keeps
+# inside its time limit on a host that runs the host-bound serves 30-40 %
+# slower.
 CUT_LAYERS = 14
+
+
+@contextlib.contextmanager
+def qwen3_depth(n_layers: int):
+    """The benchmarks' qwen3-1.7b at full width on ``n_layers`` layers:
+    each benchmark reads its config through
+    ``repro_torch.configs.get_config`` when it runs, so the call is
+    wrapped for the duration (other archs pass through)."""
+    import repro_torch.configs as configs
+    full = configs.get_config
+
+    def cut(name, **over):
+        cfg = full(name, **over)
+        return (dataclasses.replace(cfg, n_layers=n_layers)
+                if name == "qwen3-1.7b" else cfg)
+
+    configs.get_config = cut
+    try:
+        yield
+    finally:
+        configs.get_config = full
 
 
 def clocked_serve(torch, engine, requests, honor_arrivals=True) -> tuple:
@@ -4404,9 +4482,11 @@ JAMBA_PREFILL = 1024        # (c) and (e): one prefill of this many tokens
 JAMBA_HANDOFF = (1024, 76)  # (d): prefill, then decode steps (1,100 in all)
 JAMBA_CONSISTENCY_TOL = 1e-4  # (d): float32, by norm
 
-# Phase 25: phi-3-vision-4.2b at full width and depth, and edge-vit.
+# Phase 25: phi-3-vision-4.2b at full width on 8 of its 32 layers (all
+# 32 fit; cut since phase 28 joined, so that the script stays inside its
+# time limit), and edge-vit.
 VLM_ARCH = "phi-3-vision-4.2b"
-VLM_LAYERS = 32
+VLM_LAYERS = 8
 VLM_PROMPTS = (64, 448)     # (b): a batch's prompt tokens behind 576 patches
 VLM_BUDGET = 32
 # (b)'s cache: the 448-token batch ends at 576 + 448 + 32 = max_len + 1
@@ -5469,8 +5549,9 @@ def vlm_batch(torch, engine, plain, inputs, budget, label) -> dict:
 
 
 def phase_vlm(torch, dev) -> dict:
-    """Phase 25: phi-3-vision-4.2b at full width on all 32 layers (the
-    depth ``launch.profile_engine.fit_depth`` keeps), seeded weights, and
+    """Phase 25: phi-3-vision-4.2b at full width on ``VLM_LAYERS`` of its
+    32 layers (``launch.profile_engine.fit_depth`` keeps all 32), seeded
+    weights, and
     edge-vit.  (a) the five attention kernels at D 96, G 1 (H = KVH 32)
     through ``gqa_kernels``, beside each D 96 build's ptxas registers;
     (b) two patch-prefixed batches (576 float32 patch embeddings a
@@ -5512,10 +5593,12 @@ def phase_vlm(torch, dev) -> dict:
 
     full = get_config(VLM_ARCH)
     card = torch.cuda.get_device_properties(0).total_memory
-    cfg, nbytes = pe.fit_depth(full, card)
-    check(cfg.n_layers == full.n_layers == VLM_LAYERS,
-          f"phase 25: fit_depth gave {cfg.n_layers} of {full.n_layers} "
-          f"layers, not all {VLM_LAYERS}")
+    fit, nbytes = pe.fit_depth(full, card)
+    check(fit.n_layers == full.n_layers >= VLM_LAYERS,
+          f"phase 25: fit_depth gave {fit.n_layers} of {full.n_layers} "
+          f"layers, not all")
+    cfg = dataclasses.replace(fit, n_layers=VLM_LAYERS)
+    nbytes = nbytes * VLM_LAYERS / fit.n_layers
     model = build_model(cfg, dev)
     plain = build_model(cfg, dev, kernels=False)
     t0 = time.perf_counter()
@@ -5524,8 +5607,9 @@ def phase_vlm(torch, dev) -> dict:
     n_params = sum(t.numel() for t in tree_leaves(params))
     layers = attn_layers(model)
     n_p = cfg.vlm.n_patches
-    print(f"  all {cfg.n_layers} layers at full width ({nbytes / 1e9:.2f} "
-          f"GB {cfg.dtype}, within {pe.CARD_SHARE:.0%} of the card's "
+    print(f"  {cfg.n_layers} of {full.n_layers} layers (all fit) at full "
+          f"width (~{nbytes / 1e9:.2f} GB {cfg.dtype}, within "
+          f"{pe.CARD_SHARE:.0%} of the card's "
           f"{card / 1e9:.2f} GB): d_model {cfg.d_model}, heads "
           f"{cfg.n_heads}/{cfg.n_kv_heads} of {cfg.head_dim}, d_ff "
           f"{cfg.d_ff}, padded vocab {model.vp}, patch_proj "
@@ -6113,10 +6197,19 @@ def phase_dryrun(torch, dev, smi: str) -> dict:
     out = phase_dryrun_cells(torch, dev, smi)
     gc.collect()
     torch.cuda.empty_cache()
+    from repro_torch.launch import hillclimb
+
     todo = dryrun.cells()
     jobs = max(1, min(DRYRUN_JOBS, len(os.sched_getaffinity(0))))
     t0 = time.perf_counter()
-    done = dryrun.count_cells(todo, jobs=jobs, calibrate=lambda m: False)
+    with dryrun.worker_pool(jobs) as pool:
+        # phase 28 (e): the hillclimb's iterations (heavy train cells
+        # among them) first, then the 64 cells, costliest first
+        hill = {it: pool.submit(hillclimb.count_iteration, *it, "pod",
+                                False) for it in hillclimb.iterations()}
+        futs = dryrun.submit_cells(pool, todo, calibrate=lambda m: False)
+        done = {c: futs[c].result() for c in todo}
+        hill_recs = {it: f.result() for it, f in hill.items()}
     a_s = time.perf_counter() - t0
     fields = {f.name for f in dataclasses.fields(CellReport)}
     reports = []
@@ -6129,17 +6222,76 @@ def phase_dryrun(torch, dev, smi: str) -> dict:
         reports.append(CellReport.from_json(
             {k: v for k, v in rec.items() if k in fields}))
     print(render_table(reports))
-    print(f"  (a) {len(todo)} cells counted on meta by {jobs} processes in "
-          f"{a_s:.1f} s, nothing else running; roofline terms on the H100 "
-          f"SXM spec (989 TFLOP/s bf16, 3.35 TB/s, one 50 GB/s NVLink "
-          f"link)")
+    print(f"  (a) {len(todo)} cells and phase 28 (e)'s "
+          f"{len(hill_recs)} hillclimb iterations counted on meta by "
+          f"{jobs} processes in {a_s:.1f} s, nothing else running; roofline "
+          f"terms on the H100 SXM spec (989 TFLOP/s bf16, 3.35 TB/s, one "
+          f"50 GB/s NVLink link)")
     out.update(cells=len(todo), count_s=a_s,
                seconds=time.perf_counter() - t_phase)
+    t0 = time.perf_counter()
+    out["hill"] = phase_hill_readers(
+        {c: done[c][0] for c in todo}, hill_recs)
+    out["hill"]["seconds"] = time.perf_counter() - t0
     return out
 
 
+def phase_hill_readers(base: dict, hill_recs: dict) -> dict:
+    """Phase 28 (e), after phase 27 (a): the hillclimb's records read
+    against their base cells (``hillclimb.finish_iteration``), its
+    before/after table, then ``sw_hw_optimizations`` (Figs. 9-10, the
+    hardware half modeled on the A100, H100 and H200 data sheets) and
+    ``efficiency_trends`` (Fig. 4) over a temporary directory holding
+    both sets of records."""
+    import tempfile
+
+    from repro_torch.benchmarks import common
+    from repro_torch.benchmarks import efficiency_trends as trends
+    from repro_torch.benchmarks import sw_hw_optimizations as swhw
+    from repro_torch.launch import hillclimb
+
+    n_iters = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        for (arch, shape, mesh), rec in base.items():
+            with open(os.path.join(tmp, f"{arch}__{shape}__{mesh}.json"),
+                      "w") as f:
+                json.dump(rec, f)
+        for cell_id, spec in hillclimb.CELLS.items():
+            arch, shape = spec["arch"], spec["shape"]
+            prev = cell = base[(arch, shape, "pod")]
+            print(f"  28 (e) cell {cell_id}: {arch} / {shape}")
+            for tag, _, _ in spec["iters"]:
+                raw = hill_recs[(cell_id, tag)]
+                check(raw is not None and raw["ok"],
+                      f"hillclimb {cell_id} {tag}: {raw}")
+                rec = hillclimb.finish_iteration(cell_id, tag, raw, cell)
+                print(f"   {tag}:")
+                hillclimb.print_delta(prev, rec)
+                with open(os.path.join(
+                        tmp, f"{arch}__{shape}__pod__{tag}.json"), "w") as f:
+                    json.dump(rec, f)
+                prev = rec
+                n_iters += 1
+        saved = common.DRYRUN_DIR
+        common.DRYRUN_DIR = tmp
+        try:
+            sw = swhw.csv()
+            tr = trends.csv()
+        finally:
+            common.DRYRUN_DIR = saved
+    for row in sw + tr:
+        print(f"  28 (e) {row}")
+    check(len(sw) == 3 and sw[0].startswith("fig9_sw_isolated")
+          and len(tr) >= 3,
+          f"phase 28 (e): sw_hw rows {sw}, trend rows {tr}")
+    print("  28 (e) the Fig. 10b generations are modeled from NVIDIA's data "
+          "sheets (repro_torch.hw: A100 SXM 312 TFLOP/s, 2.039 TB/s, 400 W; "
+          "H100 SXM 989, 3.35, 700; H200 SXM 989, 4.8, 700), none measured")
+    return dict(iterations=n_iters, sw_hw=sw, trends=tr)
+
+
 def dryrun_kernel_check(torch, dev, kind: str, seq: int, batch: int,
-                        cfg) -> dict:
+                        cfg, part: str = "27 (b)") -> dict:
     """Phase 27 (b)'s kernel at its cell's shape, on inputs drawn from a
     seeded generator, against its plain version at phase 3's bf16
     tolerances: the decode kernel's whole call (every slot at the last
@@ -6183,7 +6335,7 @@ def dryrun_kernel_check(torch, dev, kind: str, seq: int, batch: int,
         err, rel = compare(label, got,
                            flash_attention_plain(q, k, v, causal=True))
         how = f"route {_route(seq, seq, h, kvh, d, bf16)}"
-    print(f"  (b) {label} vs its plain version on seeded inputs: max "
+    print(f"  {part} {label} vs its plain version on seeded inputs: max "
           f"|kernel - plain| {err:.3e}, rel {rel:.3e}; {how}")
     del q, k, v, got
     gc.collect()
@@ -6336,6 +6488,257 @@ def phase_dryrun_cells(torch, dev, smi: str) -> dict:
                        + out["prefill"]["launches"][k]
                        for k in out["decode"]["launches"]}
     return out
+
+
+# Phase 28 (a): granite-3-2b served by the serve_power example at full
+# width; its kernels first held against their plain versions at the
+# serve's shapes (decode: the slots over max_len rows; flash: a batch of
+# prompts) and at 8 x 2,048 / 2 x 1,024
+SERVE_POWER_WINDOW_S = 2.0      # the Offline and Server runs' windows
+# Phase 28 (b): a hillclimbed variant for real, full-width qwen3-1.7b
+# train steps (remat) at B 2 x S 4,096, three ways
+HILL_TRAIN = (2, 4096)
+HILL_TRAIN_VARIANTS = (
+    ("base", {}),
+    ("causal_skip", dict(causal_skip=True)),
+    ("causal_skip + attn_bf16_scores",
+     dict(causal_skip=True, attn_bf16_scores=True)))
+HILL_STEP_CALLS = 3
+# Each variant's first-step loss within HILL_LOSS_REL_TOL of base's (the
+# H100 read 3.7e-6 and 1.1e-5), and its train forward before the steps,
+# on the same weights and batch, against base's position by position
+# under phase 26's gates (TRAIN_LOGIT_REL_TOL, TRAIN_CE_ABS_TOL).  The
+# causal_skip forward with every key one position late (each row blind
+# to its own key, as a triangular bound one short of the diagonal) must
+# part from base by more than TRAIN_BLIND_FACTOR times a gate.
+HILL_LOSS_REL_TOL = 1e-4
+# Phase 28 (c): the Offline and MultiStream windows (the reference's 1.0
+# and 0.5 s can miss R12's coverage by one 10 Hz sample)
+TINY_EDGE_WINDOW_S = 3.0
+
+
+def phase_paper(torch, dev, smi: str) -> dict:
+    """Phase 28 (a)-(d), before phase 27, with nothing else running."""
+    t0 = time.perf_counter()
+    out = {"a": phase28_serve_power(torch, dev, smi)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["b"] = phase28_train_variants(torch, dev, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["c"] = phase28_tiny_edge(torch, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["d"] = phase28_quickstart(torch, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def phase28_serve_power(torch, dev, smi: str) -> dict:
+    """Phase 28 (a): ``repro_torch.examples.serve_power`` at full width
+    (granite-3-2b: 40 layers, H 32, KVH 8, D 64, so G 4), its decode and
+    flash kernels held first against their plain versions at the serve's
+    shapes (phase 27 (b)'s seeded inputs and gates); the serve's
+    launches only those two kernels, each a whole multiple of the 40
+    layers; each review's verdict printed."""
+    from repro_torch.configs import get_config
+    from repro_torch.examples import serve_power as sp
+
+    t0 = time.perf_counter()
+    cfg = get_config(sp.ARCH)
+    kernels = {}
+    for kind, name, shapes in (
+            ("decode", "decode_attention", ((sp.MAX_LEN, sp.BATCH),
+                                            (2048, 8))),
+            ("prefill", "flash_attention", ((sp.PROMPT, sp.BATCH),
+                                            (1024, 2)))):
+        errs = [dryrun_kernel_check(torch, dev, kind, seq, batch, cfg,
+                                    part="28 (a)")["max_abs_err"]
+                for seq, batch in shapes]
+        kernels[name] = dict(max_abs_err=max(errs))
+    res, wall, launches = count_launches(torch, lambda: sp.main(
+        ["--device", "cuda", "--min-duration", str(SERVE_POWER_WINDOW_S),
+         "--server-duration", str(SERVE_POWER_WINDOW_S)]))
+    n = cfg.n_layers
+    for name in ("decode_attention", "flash_attention"):
+        check(launches[name] > 0 and launches[name] % n == 0,
+              f"28 (a): {launches[name]} {name} launches, want a positive "
+              f"multiple of {n}")
+    check(all(v == 0 for k, v in launches.items()
+              if k not in ("decode_attention", "flash_attention")),
+          f"28 (a): launches {launches}")
+    off, srv = res["offline"], res["server"]
+    print(f"  28 (a) {sp.ARCH} at full width ({n} layers, d_model "
+          f"{cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads} of "
+          f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}): "
+          f"Offline review {'ACCEPTED' if off.passed else 'REJECTED'}, "
+          f"{off.outcome.result.qps:.2f} samples/s; Server review "
+          f"{'ACCEPTED' if srv.passed else 'REJECTED'}, "
+          f"{srv.outcome.server.tokens_per_s:.1f} tok/s; launches "
+          f"{launches}; {wall:.1f} s; {smi}")
+    del res
+    return dict(launches=launches, kernels=kernels,
+                offline_passed=off.passed, server_passed=srv.passed,
+                seconds=time.perf_counter() - t0)
+
+
+@contextlib.contextmanager
+def keys_one_late(torch):
+    """The train path's plain attention with its keys and values moved
+    one position later (key 0 twice): under the causal mask each row
+    sees the keys before it but not its own."""
+    from repro_torch.models import layers
+    plain = layers.flash_attention_plain
+
+    def late(q, k, v, **kw):
+        return plain(q, torch.cat([k[:, :1], k[:, :-1]], 1),
+                     torch.cat([v[:, :1], v[:, :-1]], 1), **kw)
+
+    layers.flash_attention_plain = late
+    try:
+        yield
+    finally:
+        layers.flash_attention_plain = plain
+
+
+def phase28_train_variants(torch, dev, smi: str) -> dict:
+    """Phase 28 (b): qwen3-1.7b at full width and depth (remat), train
+    steps at B 2 x S 4,096 through ``launch.specs.build_cell`` (seeded
+    weights and tokens), base, ``causal_skip`` and ``causal_skip`` +
+    ``attn_bf16_scores``: each variant's loss within
+    ``HILL_LOSS_REL_TOL`` of base's and its train forward within phase
+    26's gates of base's at every position, which ``keys_one_late``
+    must fail; its median step of ``HILL_STEP_CALLS`` by events and
+    peak memory (printed, not gated); its count on the card within
+    ``DRYRUN_COUNT_TOL`` of meta's."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.opcount import OpCount
+    from repro_torch.launch.specs import build_cell, count_cell
+
+    t0 = time.perf_counter()
+    b, seq = HILL_TRAIN
+    shape = ShapeConfig("train_4k", seq, b, "train")
+    rows, gaps, ref = {}, {}, None
+    for name, over in HILL_TRAIN_VARIANTS:
+        cfg = get_config(TRAIN_ARCH, **over)
+        check(cfg.remat, f"28 (b) {name}: remat off")
+        meta = build_cell(cfg, shape, None)
+        oc_meta, _ = count_cell(meta)
+        del meta
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base_mem = torch.cuda.memory_allocated()
+        cell = build_cell(cfg, shape, None, device=dev, seed=0)
+        params, batch = cell.args[0].params, cell.args[1]
+        with torch.no_grad():
+            logits = cell.model.train_forward(params, batch)[0]
+            if ref is None:
+                ref = logits        # held apart from base's peak
+                base_mem += ref.numel() * ref.element_size()
+            else:
+                gaps[name] = train_gap(cell.model, ref, logits,
+                                       batch["labels"])
+            del logits
+            if over == dict(causal_skip=True):
+                with keys_one_late(torch):
+                    gaps["probe: keys one late"] = train_gap(
+                        cell.model, ref,
+                        cell.model.train_forward(params, batch)[0],
+                        batch["labels"])
+        del params, batch
+        torch.cuda.synchronize()
+        with OpCount(args=cell.args) as oc:     # warms the step too
+            res = cell.run()
+            torch.cuda.synchronize()
+        loss = float(res[1]["loss"])
+        del res
+        ms = time_ms(cell.run, reps=HILL_STEP_CALLS, warmup=0)
+        peak = torch.cuda.max_memory_allocated() - base_mem
+        dflops = abs(oc.flops - oc_meta.flops) / oc_meta.flops
+        dbytes = abs(oc.bytes - oc_meta.bytes) / oc_meta.bytes
+        diff = count_diff(oc_meta.by_op, oc.by_op)
+        print(f"  28 (b) {TRAIN_ARCH} train step {b} x {seq}, {name}: loss "
+              f"{loss:.6f}, {ms:.1f} ms a step (median of "
+              f"{HILL_STEP_CALLS} by events), {b * seq / ms * 1e3:.0f} "
+              f"tok/s, peak memory {peak / 1e9:.2f} GB (counted "
+              f"{oc_meta.peak_bytes / 1e9:.2f}); counted on the card "
+              f"{oc.flops:.6g} flop, {oc.bytes:.6g} B, on meta "
+              f"{oc_meta.flops:.6g}, {oc_meta.bytes:.6g} (differ by "
+              f"{dflops:.2e} and {dbytes:.2e}); {smi}")
+        check(dflops <= DRYRUN_COUNT_TOL and dbytes <= DRYRUN_COUNT_TOL,
+              f"28 (b) {name}: the card's count differs from meta's by "
+              f"{dflops:.3e} (flops) and {dbytes:.3e} (bytes): {diff}")
+        check(math.isfinite(loss), f"28 (b) {name}: loss {loss}")
+        rows[name] = dict(loss=loss, ms=ms, peak_gb=peak / 1e9,
+                          counted_peak_gb=oc_meta.peak_bytes / 1e9,
+                          flops=oc.flops, bytes=oc.bytes)
+        del cell
+        gc.collect()
+        torch.cuda.empty_cache()
+    del ref
+    torch.cuda.empty_cache()
+    base = rows["base"]["loss"]
+    for name, r in rows.items():
+        rel = abs(r["loss"] - base) / abs(base)
+        print(f"  28 (b) {name}: loss vs base {rel:.3e} relative (gate "
+              f"{HILL_LOSS_REL_TOL}); step {r['ms'] / rows['base']['ms']:.3f}"
+              f" x base's, peak {r['peak_gb'] / rows['base']['peak_gb']:.3f}"
+              f" x, counted bytes {r['bytes'] / rows['base']['bytes']:.3f} x")
+        check(rel <= HILL_LOSS_REL_TOL,
+              f"28 (b) {name}: loss {r['loss']} vs base {base}")
+    for name, g in gaps.items():
+        print(f"  28 (b) {name} vs base's forward, every one of {b * seq} "
+              f"positions: logits {g['logit_rel']:.3e} of max |logit| "
+              f"(gate {TRAIN_LOGIT_REL_TOL}), cross entropy "
+              f"{g['ce_abs']:.3e} nats at most (gate {TRAIN_CE_ABS_TOL}); "
+              f"mean {g['ce_train']:.6f} vs {g['ce_prefill']:.6f}")
+    probe = gaps.pop("probe: keys one late")
+    for name, g in gaps.items():
+        check(g["logit_rel"] <= TRAIN_LOGIT_REL_TOL
+              and g["ce_abs"] <= TRAIN_CE_ABS_TOL,
+              f"28 (b) {name}: the train forward parts from base's")
+    check(probe["logit_rel"] > TRAIN_BLIND_FACTOR * TRAIN_LOGIT_REL_TOL
+          or probe["ce_abs"] > TRAIN_BLIND_FACTOR * TRAIN_CE_ABS_TOL,
+          f"28 (b): the gate cannot tell keys one position late (must "
+          f"pass {TRAIN_BLIND_FACTOR}x a gate)")
+    return dict(rows=rows, gaps=gaps, probe=probe,
+                seconds=time.perf_counter() - t0)
+
+
+def phase28_tiny_edge(torch, dev) -> dict:
+    """Phase 28 (c): ``benchmarks.tiny_edge_measured.run()`` on the card
+    (edge-vit at full width, ``TINY_EDGE_WINDOW_S`` windows); every
+    review ACCEPTs."""
+    from repro_torch.benchmarks import tiny_edge_measured as tem
+
+    t0 = time.perf_counter()
+    rows, _, launches = count_launches(
+        torch, lambda: tem.run("cuda", window_s=TINY_EDGE_WINDOW_S))
+    for r in rows:
+        print(f"  28 (c) {r}")
+        check(r["review_passed"], f"28 (c) {r['name']}: review REJECTED")
+    return dict(rows=rows, launches=launches,
+                seconds=time.perf_counter() - t0)
+
+
+def phase28_quickstart(torch, dev) -> dict:
+    """Phase 28 (d): ``examples.quickstart`` on the card: 10 steps of
+    reduced qwen3-1.7b, every loss finite; the review's verdict printed
+    (a short run on the card may fall under its 1 s window)."""
+    from repro_torch.examples import quickstart
+
+    t0 = time.perf_counter()
+    out = quickstart.main(["--device", "cuda", "--reduce"])
+    print(f"  28 (d) quickstart: losses {out['losses'][0]:.4f} -> "
+          f"{out['losses'][-1]:.4f} in {out['seconds']:.2f} s, modeled "
+          f"{out['watts']:.1f} W, review "
+          f"{'ACCEPTED' if out['review'].passed else 'REJECTED'}")
+    return dict(passed=out["review"].passed, seconds=out["seconds"],
+                wall_s=time.perf_counter() - t0)
 
 
 def main() -> int:
@@ -6495,7 +6898,7 @@ def main() -> int:
     print(smi.strip())
     jamba = phase_jamba(torch, dev)
 
-    phase(f"phase 25: full-width {VLM_ARCH} on all {VLM_LAYERS} layers "
+    phase(f"phase 25: full-width {VLM_ARCH} on {VLM_LAYERS} of its 32 layers "
           f"(patch prefixes, D 96, G 1) and {EDGE_ARCH}")
     print(smi.strip())
     vlm = phase_vlm(torch, dev)
@@ -6507,8 +6910,15 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    phase("phase 28: granite-3-2b through serve_power at full width, a "
+          "hillclimbed train variant for real, tiny_edge_measured, "
+          "quickstart")
+    print(smi.strip())
+    paper = phase_paper(torch, dev, smi.strip())
+
     phase(f"phase 27: two dry-run cells for real on the card "
-          f"({DRYRUN_ARCH}), then the dry-run of every cell")
+          f"({DRYRUN_ARCH}), then the dry-run of every cell and phase 28 "
+          f"(e)'s hillclimb iterations")
     print(smi.strip())
     dry = phase_dryrun(torch, dev, smi.strip())
 
@@ -6528,11 +6938,12 @@ def main() -> int:
                     for k in prefix_launches},
                 "19": disagg_launches, "20": fleet_launches,
                 "21": tp["launches"], "24": jamba["launches"],
-                "25": vlm["launches"], "27": dry["launches"]}
+                "25": vlm["launches"], "27": dry["launches"],
+                "28": paper["a"]["launches"]}
     uses = {"decode_attention": ("4", "14", "15", "17", "18", "20", "21",
-                                 "22", "24", "25", "27"),
+                                 "22", "24", "25", "27", "28"),
             "flash_attention": ("4", "14", "15", "16", "17", "18", "19",
-                                "20", "21", "22", "24", "25", "27"),
+                                "20", "21", "22", "24", "25", "27", "28"),
             "paged_decode_attention": ("6", "16", "18", "19", "21", "22"),
             "paged_verify_attention": ("6", "16", "18", "21", "22"),
             "verify_attention": ("8", "18", "21", "22", "25")}
@@ -6559,6 +6970,11 @@ def main() -> int:
             kernels[name]["at_32k"] = k32
             kernels[name]["max_abs_err"] = max(kernels[name]["max_abs_err"],
                                                k32["max_abs_err"])
+        if name in paper["a"]["kernels"]:
+            gr = paper["a"]["kernels"][name]
+            kernels[name]["granite"] = gr
+            kernels[name]["max_abs_err"] = max(kernels[name]["max_abs_err"],
+                                               gr["max_abs_err"])
         totals[name] = sum(kernels[name]["launches_by_phase"].values())
     sources = {
         "decode_attention": (f"{dec}:351", totals),
@@ -6612,6 +7028,15 @@ def main() -> int:
           f"{dry['decode']['step_s'] * 1e3:.3f} ms roofline, prefill "
           f"{dry['prefill']['ms']:.3f} ms against "
           f"{dry['prefill']['step_s'] * 1e3:.3f} ms; {dry['seconds']:.1f} s")
+    pb = paper["b"]["rows"]
+    print(f"phase 28: {paper['seconds'] + dry['hill']['seconds']:.1f} s "
+          f"((a) {paper['a']['seconds']:.1f}, (b) "
+          f"{paper['b']['seconds']:.1f}, (c) {paper['c']['seconds']:.1f}, "
+          f"(d) {paper['d']['wall_s']:.1f}, (e) after phase 27 (a) "
+          f"{dry['hill']['seconds']:.1f}); {TRAIN_ARCH} {HILL_TRAIN[0]} x "
+          f"{HILL_TRAIN[1]} train step " + ", ".join(
+              f"{k} {v['ms']:.1f} ms / {v['peak_gb']:.2f} GB"
+              for k, v in pb.items()))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi.strip())
     print(json.dumps(record))

@@ -3,10 +3,12 @@
 The non-TPU part of the reference ``src/repro/hw.py`` (``ChipSpec``,
 the edge SoC and its ``SystemSpec``, the MLPerf-Tiny MCU) and the
 port's own target, the NVIDIA H100 SXM and its datacenter
-``SystemSpec``.  The edge and MCU power/energy figures are the
-reference's documented engineering estimates; the H100's peaks are
-NVIDIA's data sheet, its idle draw and energy coefficients are
-estimates (see ``H100_SXM``).  They feed the analytical power model in
+``SystemSpec``, with the A100 and H200 around it: the port's
+counterpart of the reference's TPU generations (v4, v5e, v5p) in Fig.
+10b.  The edge and MCU power/energy figures are the reference's
+documented engineering estimates; the NVIDIA parts' peaks are NVIDIA's
+data sheets, their idle draw and energy coefficients are estimates (see
+``H100_SXM``).  They feed the analytical power model in
 ``repro_torch.core``.  On the H100 the accelerator rail is measured
 instead (``repro_torch.power.nvml``), and the spec's constants model
 only what is not measured (the host rail, the PSU) and the roofline.
@@ -92,6 +94,58 @@ H100_SXM = ChipSpec(
 )
 
 
+# NVIDIA A100 SXM4 80 GB, the generation before the H100 (Fig. 10b's
+# hardware-isolated comparison).  Data sheet: 312 TFLOP/s bf16 dense,
+# 624 TOP/s int8, 2.039 TB/s HBM2e, 80 GB, NVLink 3: 12 links of 50 GB/s
+# = 600 GB/s, 400 W board power.  Estimates, in H100_SXM's manner:
+#   idle    ~ 50 W board power, powered and idle (estimate)
+#   e_flop  = (peak_watts - idle_watts) / peak_flops  ~ 1.12 pJ/FLOP
+#   e_int8  = half of e_flop
+#   e_hbm   ~ 4.5 pJ/bit HBM2e                         ~ 36  pJ/B
+#   e_ici   ~ 5 pJ/bit NVLink SerDes                    ~ 40  pJ/B
+A100_SXM = ChipSpec(
+    name="a100-sxm",
+    peak_flops_bf16=312e12,
+    peak_flops_int8=624e12,
+    hbm_bandwidth=2.039e12,
+    hbm_capacity=80e9,
+    ici_bandwidth=50e9,
+    ici_links=12,
+    idle_watts=50.0,
+    peak_watts=400.0,
+    e_flop_bf16=1.12e-12,
+    e_flop_int8=0.56e-12,
+    e_hbm_byte=36e-12,
+    e_ici_byte=40e-12,
+)
+
+
+# NVIDIA H200 SXM 141 GB, the H100's die with HBM3e (Fig. 10b).  Data
+# sheet: 989 TFLOP/s bf16 dense, 1,979 TOP/s int8, 4.8 TB/s HBM3e,
+# 141 GB, NVLink 4: 18 links of 50 GB/s, 700 W board power.  Estimates,
+# in H100_SXM's manner:
+#   idle    ~ 75 W board power, powered and idle (estimate; the H100's)
+#   e_flop  = (peak_watts - idle_watts) / peak_flops  ~ 0.63 pJ/FLOP
+#   e_int8  = half of e_flop
+#   e_hbm   ~ 3.5 pJ/bit HBM3e                         ~ 28  pJ/B
+#   e_ici   ~ 5 pJ/bit NVLink SerDes                    ~ 40  pJ/B
+H200_SXM = ChipSpec(
+    name="h200-sxm",
+    peak_flops_bf16=989e12,
+    peak_flops_int8=1979e12,
+    hbm_bandwidth=4.8e12,
+    hbm_capacity=141e9,
+    ici_bandwidth=50e9,
+    ici_links=18,
+    idle_watts=75.0,
+    peak_watts=700.0,
+    e_flop_bf16=0.63e-12,
+    e_flop_int8=0.32e-12,
+    e_hbm_byte=28e-12,
+    e_ici_byte=40e-12,
+)
+
+
 @dataclasses.dataclass(frozen=True)
 class TinyDeviceSpec:
     """Microcontroller-class device for the MLPerf-Tiny scale.
@@ -162,6 +216,12 @@ EDGE_SYSTEM = SystemSpec(chip=EDGE_SOC, chips_per_host=1,
 # datacenter defaults (estimates), which model the host rail and the
 # wall of a measured H100 run.
 DATACENTER_H100 = SystemSpec(chip=H100_SXM)
+# the NVIDIA generations around it (Fig. 10b), eight cards a host as in
+# NVIDIA's HGX boards; modeled from data sheets only
+DATACENTER_A100 = SystemSpec(chip=A100_SXM)
+DATACENTER_H200 = SystemSpec(chip=H200_SXM)
 
-CHIPS = {c.name: c for c in (H100_SXM, EDGE_SOC)}
-SYSTEMS = {"datacenter-h100": DATACENTER_H100, "edge": EDGE_SYSTEM}
+CHIPS = {c.name: c for c in (H100_SXM, A100_SXM, H200_SXM, EDGE_SOC)}
+SYSTEMS = {"datacenter-h100": DATACENTER_H100,
+           "datacenter-a100": DATACENTER_A100,
+           "datacenter-h200": DATACENTER_H200, "edge": EDGE_SYSTEM}

@@ -74,15 +74,33 @@ def flash_attention_ref(q, k, v, *, causal: bool = True):
     return o.to(q.dtype)
 
 
-def _attend_block(q, k, v, bias, scale):
+def _attend_block(q, k, v, bias, scale, bf16_scores: bool = False):
     """One (q-chunk x full-KV) attention with f32 softmax.
 
     q: (B, Cq, H, D); k, v: (B, S, KVH, D); bias broadcastable to
-    (B, H, Cq, S)."""
+    (B, H, Cq, S).  ``bf16_scores`` is the reference's option: both
+    products take bf16 operands and accumulate in f32, the scores, their
+    row max and the denominator stay f32, and the exponentials and
+    probabilities are bf16.  A PyTorch GEMM returns its operands' type,
+    so the score product runs on the bf16-rounded operands upcast to
+    f32 (exact products, f32 sums), and the probability product returns
+    bf16 where the reference's returns f32 before its cast to q's
+    dtype."""
     b, cq, h, d = q.shape
     kvh = k.shape[2]
     g = h // kvh
     qg = q.reshape(b, cq, kvh, g, d)
+    if bf16_scores:
+        bf = torch.bfloat16
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qg.to(bf).float(),
+                         k.to(bf).float()) * scale
+        s = s.reshape(b, h, cq, k.shape[1]) + bias
+        m = s.detach().amax(dim=-1, keepdim=True)
+        e = torch.exp(s - m).to(bf)
+        denom = e.sum(dim=-1, keepdim=True, dtype=torch.float32)
+        p = (e / denom.to(bf)).reshape(b, kvh, g, cq, k.shape[1])
+        o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.to(bf))
+        return o.reshape(b, cq, h, d).to(q.dtype)
     s = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float()) * scale
     s = s.reshape(b, h, cq, k.shape[1]) + bias
     p = torch.softmax(s, dim=-1)
@@ -91,11 +109,16 @@ def _attend_block(q, k, v, bias, scale):
     return o.reshape(b, cq, h, d).to(q.dtype)
 
 
-def flash_attention_plain(q, k, v, *, causal: bool, chunk: int = 1024):
+def flash_attention_plain(q, k, v, *, causal: bool, chunk: int = 1024,
+                          triangular: bool = False,
+                          bf16_scores: bool = False):
     """Model-layout plain version, the copy of
     ``models/layers.py:flash_attention_jnp`` (q and KV both from
     position 0): a loop over q chunks of ``chunk`` rows, full KV per
-    chunk, so no S x S matrix is formed.
+    chunk, so no S x S matrix is formed.  ``triangular`` (causal, with
+    more than one chunk): each chunk visits only the keys at or below
+    its last row, as the reference's unrolled loop does;
+    ``bf16_scores``: see ``_attend_block``.
 
     q: (B, Sq, H, D); k, v: (B, Skv, KVH, D)."""
     sq, d = q.shape[1], q.shape[3]
@@ -103,23 +126,25 @@ def flash_attention_plain(q, k, v, *, causal: bool, chunk: int = 1024):
     scale = 1.0 / math.sqrt(d)
     kv_pos = torch.arange(skv, device=q.device)
 
-    def bias_for(q_pos):
+    def bias_for(q_pos, keys):
         if causal:
-            m = kv_pos[None, :] <= q_pos[:, None]
+            m = kv_pos[None, :keys] <= q_pos[:, None]
         else:
-            m = torch.ones((len(q_pos), skv), dtype=torch.bool,
+            m = torch.ones((len(q_pos), keys), dtype=torch.bool,
                            device=q.device)
         return torch.where(m, 0.0, MASK_VALUE)[None, None]   # (1,1,Cq,S)
 
     if sq <= chunk:
         return _attend_block(q, k, v,
-                             bias_for(torch.arange(sq, device=q.device)),
-                             scale)
+                             bias_for(torch.arange(sq, device=q.device),
+                                      skv), scale, bf16_scores)
     outs = []
     for i in range(-(-sq // chunk)):
         qi = q[:, i * chunk:(i + 1) * chunk]
         pos = i * chunk + torch.arange(qi.shape[1], device=q.device)
-        outs.append(_attend_block(qi, k, v, bias_for(pos), scale))
+        keys = min((i + 1) * chunk, skv) if triangular and causal else skv
+        outs.append(_attend_block(qi, k[:, :keys], v[:, :keys],
+                                  bias_for(pos, keys), scale, bf16_scores))
     return torch.cat(outs, dim=1)
 
 

@@ -252,7 +252,9 @@ def unattended_kv_work(cfg: ModelConfig, shape: ShapeConfig,
     the device's tokens (T x d) by the other heads' columns (d x e),
     each 2 T d e FLOPs and T d + d e + T e elements moved, once at
     prefill and decode, three times in training (the forward product
-    and the two of its backward pass) and four under remat.  An encdec
+    and the two of its backward pass) and four under remat, but three
+    under ``remat_policy="dots"``, which saves the product (the encdec
+    has no such policy).  An encdec
     projects over the decoder's tokens in its decoder layers and, but
     at decode (the cross K/V are cached), over the frames in its
     encoder layers and its cross-attention.  Their bias adds, rope and
@@ -273,7 +275,10 @@ def unattended_kv_work(cfg: ModelConfig, shape: ShapeConfig,
     else:
         runs = [(sum(k.startswith("attn") for k in model._layer_kinds()),
                  t)]
-    passes = (4 if cfg.remat else 3) if shape.kind == "train" else 1
+    passes = 1
+    if shape.kind == "train":
+        passes = 4 if cfg.remat and (cfg.remat_policy == "nothing"
+                                     or cfg.family == "encdec") else 3
     flops = nbytes = 0
     for layers, tok in runs:
         n = 2 * layers * passes
@@ -470,6 +475,24 @@ def collective_records(cfg, shape, rules, model, defs) -> list:
       backward pass and, under remat, the recomputed forward; the
       all-gathers again in the backward pass under remat; and a
       reduce-scatter of each such leaf's gradient.
+
+    Under remat the recomputed forward repeats every activation
+    all-reduce of its remat unit (a layer; a hybrid's superblock, or
+    each sublayer under ``sublayer_remat``) but the unit's last: that
+    one only adds into the unit's output, which is saved as the next
+    unit's input, so the backward pass needs it from no recomputation.
+    ``remat_policy="dots"`` (the products' outputs saved; the encdec
+    has no such policy) repeats none: each all-reduce reduces a saved
+    product's output, which the recomputed forward takes as it was.
+    The all-to-alls (their outputs feed batched products, which are
+    recomputed) and the all-gathers (a gathered weight is a product's
+    input, not its output) run again under either policy.  The
+    reference's compiled program shows the all-reduce rule: granite-3-2b
+    on a (2, 4) host mesh at train_4k, 2 and 3 layers, counts per layer
+    5 activation all-reduces under "nothing", 4 under "dots" and 4
+    without remat, and all-gathers of 3.389e9, 3.380e9 and 2.235e9
+    elements (``tests/test_torch_hillclimb.py::
+    test_the_dots_rule_is_the_reference_s_compiled_program``).
     """
     if rules.mesh is None:
         return []
@@ -477,13 +500,16 @@ def collective_records(cfg, shape, rules, model, defs) -> list:
     it = DTYPES[cfg.dtype].itemsize
     train = shape.kind == "train"
     passes = (3 if cfg.remat else 2) if train else 1
+    dots = cfg.remat_policy == "dots" and cfg.family != "encdec"
     batch = local_shape((shape.global_batch,), ("batch",), rules)[0]
     tokens = batch * (1 if shape.kind == "decode" else shape.seq_len)
     act = tokens * cfg.d_model * it
 
-    def reduce(on: bool, nbytes: int, group: int, n: int = 1):
+    def reduce(on: bool, nbytes: int, group: int, n: int = 1,
+               last: bool = False):
         if on and group > 1:
-            out.extend([("all-reduce", nbytes, group)] * (n * passes))
+            k = passes - (train and cfg.remat and (dots or last))
+            out.extend([("all-reduce", nbytes, group)] * (n * k))
 
     tp = {n: rules.axis_size(n) for n in ("heads_flat", "d_ff", "d_inner",
                                           "rwkv_heads", "vocab",
@@ -495,26 +521,33 @@ def collective_records(cfg, shape, rules, model, defs) -> list:
         if shape.kind != "decode":
             enc = batch * cfg.encdec.enc_len * cfg.d_model * it
             reduce(True, enc, tp["heads_flat"], cfg.encdec.enc_layers)
-            reduce(f_ok, enc, tp["d_ff"], cfg.encdec.enc_layers)
+            reduce(f_ok, enc, tp["d_ff"], cfg.encdec.enc_layers, last=True)
         reduce(True, act, tp["heads_flat"], 2 * n_dec)
-        reduce(f_ok, act, tp["d_ff"], n_dec)
+        reduce(f_ok, act, tp["d_ff"], n_dec, last=True)
     else:
-        for kind in model._layer_kinds():
+        kinds = model._layer_kinds()
+        unit = (cfg.hybrid.attn_period
+                if cfg.hybrid is not None and not cfg.sublayer_remat else 1)
+        for i, kind in enumerate(kinds):
+            # the FFN's all-reduce ends the layer; it ends the remat unit
+            # where the layer does
+            last = (i + 1) % unit == 0 or i + 1 == len(kinds)
             if kind == "rwkv":
                 reduce(True, act, tp["rwkv_heads"])
-                reduce(cfg.d_ff % tp["d_ff"] == 0, act, tp["d_ff"])
+                reduce(cfg.d_ff % tp["d_ff"] == 0, act, tp["d_ff"],
+                       last=last)
                 continue
             mix, ff = kind.split("_")
             reduce(True, act, tp["d_inner"] if mix == "mamba"
                    else tp["heads_flat"])
             if ff == "dense":
                 width = _ffn_width(cfg, kind)
-                reduce(width % tp["d_ff"] == 0, act, tp["d_ff"])
+                reduce(width % tp["d_ff"] == 0, act, tp["d_ff"], last=last)
                 continue
             mo = cfg.moe
             if mo.n_shared:
                 width = mo.d_expert * mo.n_shared
-                reduce(width % tp["d_ff"] == 0, act, tp["d_ff"])
+                reduce(width % tp["d_ff"] == 0, act, tp["d_ff"], last=last)
             if tp["experts"] > 1:
                 from repro_torch.models.layers import _capacity
                 local_e = math.ceil(mo.n_experts / tp["experts"])

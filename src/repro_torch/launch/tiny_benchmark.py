@@ -96,6 +96,7 @@ def single_stream(device="cuda", *, min_duration_s: float = 60.0,
     return {
         "scenario": "single", "device": str(dev), "macs": macs,
         "sram_bytes": sram, "n_queries": n, "n_forwards": len(lat),
+        "mean_us": float(np.mean(lat) * 1e6),
         "p50_us": float(np.percentile(lat, 50) * 1e6),
         "p90_us": float(np.percentile(lat, 90) * 1e6),
         "modeled_energy_j": r.summary.energy_j,

@@ -135,11 +135,12 @@ class EncDecLM:
         self-attention from position 0, cross-attention, FFN), cross
         entropy over the padded vocabulary; metrics ``ce`` and ``aux``
         (0).  Every attention runs the plain version whatever
-        ``kernels`` says (the kernels have no backward); remat by
-        ``cfg.remat`` wraps each encoder and decoder layer."""
+        ``kernels`` says (the kernels have no backward), self-attention
+        with ``cfg.causal_skip`` and ``cfg.attn_bf16_scores``; remat by
+        ``cfg.remat`` wraps each encoder and decoder layer, keeping only
+        its inputs (the reference's encdec takes no ``remat_policy``)."""
         from repro_torch.models.lm import _ce_loss
         cfg = self.cfg
-        L.check_train_attention(cfg)
         enc_out = self.encode(params, batch["frames"], train=True)
         # unbound once, so that backward stacks each layer's gradient
         # once (indexing the stack would write a whole stack a layer)

@@ -16,6 +16,7 @@ plain versions otherwise.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
@@ -50,28 +51,40 @@ def pad_vocab(v: int) -> int:
 # ----------------------------------------------------------------------
 # Training helpers
 # ----------------------------------------------------------------------
-def maybe_remat(fn, enabled: bool):
-    """``fn`` recomputed in backward when ``enabled`` (the reference's
-    ``jax.checkpoint`` with the ``nothing_saveable`` policy: only the
-    inputs are kept), else ``fn`` itself."""
+# the products ``remat_policy="dots"`` saves: 2-D matrix products, the
+# reference's dots with no batch dimensions (x @ W; the attention
+# einsums and batched expert GEMMs reach ``bmm`` and are recomputed)
+SAVED_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_products(ctx, op, *args, **kwargs):
+    policy = torch.utils.checkpoint.CheckpointPolicy
+    return (policy.MUST_SAVE if op in SAVED_PRODUCTS
+            else policy.PREFER_RECOMPUTE)
+
+
+def maybe_remat(fn, enabled: bool, policy: str = "nothing"):
+    """``fn`` recomputed in backward when ``enabled``, else ``fn``
+    itself.  ``policy`` is the reference's ``remat_policy``:
+    ``"nothing"`` (``jax.checkpoint_policies.nothing_saveable``) keeps
+    only the inputs; ``"dots"`` (``dots_with_no_batch_dims_saveable``)
+    also keeps the outputs of ``SAVED_PRODUCTS`` and recomputes the
+    rest, through ``torch.utils.checkpoint``'s selective contexts."""
     if not enabled:
         return fn
+    if policy not in ("nothing", "dots"):
+        raise ValueError(f"remat_policy {policy!r}: 'nothing' or 'dots'")
+    context_fn = torch.utils.checkpoint.noop_context_fn
+    if policy == "dots":
+        context_fn = functools.partial(
+            torch.utils.checkpoint.create_selective_checkpoint_contexts,
+            _save_products)
 
     def rematted(*args):
-        return torch.utils.checkpoint.checkpoint(fn, *args,
-                                                 use_reentrant=False)
+        return torch.utils.checkpoint.checkpoint(
+            fn, *args, use_reentrant=False, context_fn=context_fn)
 
     return rematted
-
-
-def check_train_attention(cfg) -> None:
-    """Raise on the attention options train mode does not port: the
-    plain path implements neither, and no config sets them."""
-    for opt in ("causal_skip", "attn_bf16_scores"):
-        if getattr(cfg, opt):
-            raise NotImplementedError(
-                f"{opt}: the plain attention path does not implement it, "
-                f"and no config sets it")
 
 
 # ----------------------------------------------------------------------
@@ -259,7 +272,9 @@ def _full_attention(x, p, cfg, *, causal: bool, use_rope: bool,
         o = flash_attention(q, k, v, causal=causal)
     else:
         o = flash_attention_plain(q, k, v, causal=causal,
-                                  chunk=cfg.attn_chunk)
+                                  chunk=cfg.attn_chunk,
+                                  triangular=cfg.causal_skip,
+                                  bf16_scores=cfg.attn_bf16_scores)
     return o.reshape(b, s, -1) @ p["wo"], k, v
 
 

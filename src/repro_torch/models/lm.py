@@ -33,8 +33,10 @@ state ``h`` and conv rows.
 block on the plain PyTorch versions whatever ``kernels`` says (the
 kernels have no backward; the reference's train mode runs jnp under
 autodiff, with no Pallas kernel), the MoE layers' load-balance ``aux``
-averaged as the reference averages it, remat by ``cfg.remat`` and
-``sublayer_remat`` through ``torch.utils.checkpoint``, cross entropy
+averaged as the reference averages it, remat by ``cfg.remat``,
+``remat_policy`` and ``sublayer_remat`` through
+``torch.utils.checkpoint``, the attention options ``causal_skip`` and
+``attn_bf16_scores`` on the plain path, cross entropy
 over the padded vocabulary, and DeepSeek's MTP loss.
 
   loss, metrics = lm.train_loss(params, {"tokens": t, "labels": y})
@@ -439,7 +441,8 @@ class LM:
             unbound = tree_map(lambda a: a.unbind(0), params[name])
             if subs[0][0] is None:
                 body = L.maybe_remat(functools.partial(
-                    self._train_block, kind=subs[0][1]), cfg.remat)
+                    self._train_block, kind=subs[0][1]), cfg.remat,
+                    cfg.remat_policy)
             else:
                 body = self._superblock(subs)
             auxes = []
@@ -454,8 +457,9 @@ class LM:
         (x, sum of their aux / period); remat wraps the whole superblock,
         or each sublayer under ``sublayer_remat``."""
         remat, sub_remat = self.cfg.remat, self.cfg.sublayer_remat
+        policy = self.cfg.remat_policy
         blocks = [(key, L.maybe_remat(functools.partial(
-            self._train_block, kind=kind), remat and sub_remat))
+            self._train_block, kind=kind), remat and sub_remat, policy))
             for key, kind in subs]
 
         def body(x, bp):
@@ -465,20 +469,15 @@ class LM:
                 aux_sum = aux_sum + a
             return x, aux_sum / len(blocks)
 
-        return L.maybe_remat(body, remat and not sub_remat)
+        return L.maybe_remat(body, remat and not sub_remat, policy)
 
     def _check_train(self) -> None:
-        """Raise on the options train mode does not port."""
-        cfg = self.cfg
+        """Raise on the one train-mode option not ported: sharded
+        training."""
         if self.tp_group is not None:
             raise NotImplementedError(
                 "sharded training (tensor, FSDP or pipeline parallel) waits "
                 "for a 4-chip cell, see ROADMAP §A.8")
-        L.check_train_attention(cfg)
-        if cfg.remat and cfg.remat_policy != "nothing":
-            raise NotImplementedError(
-                f"remat_policy {cfg.remat_policy!r}: only 'nothing' (keep "
-                f"the inputs alone) is ported; no config uses another")
 
     def train_forward(self, params, batch):
         """The train path's forward: (logits (B, S, Vp) float32 of the

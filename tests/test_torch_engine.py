@@ -219,8 +219,11 @@ def _port_files():
 
 
 def test_port_imports_neither_jax_nor_the_reference_package():
-    """AST guard over src/repro_torch/ and chip_smoke.py."""
-    banned = ("jax", "jaxlib", "repro", "ml_dtypes")
+    """AST guard over src/repro_torch/ and chip_smoke.py: neither JAX
+    nor the reference package, nor the reference's top-level
+    ``benchmarks``, ``examples`` and ``scripts``."""
+    banned = ("jax", "jaxlib", "repro", "ml_dtypes", "benchmarks",
+              "examples", "scripts")
     offenders, seen = [], set()
     for path in _port_files():
         seen.add(os.path.relpath(path, os.path.join(ROOT, "src")))
@@ -293,6 +296,14 @@ def test_port_imports_neither_jax_nor_the_reference_package():
             *(f"repro_torch/benchmarks/{m}.py" for m in (
                 "roofline_table", "energy_per_inference", "power_range",
                 "accuracy_cost", "scaling_energy", "power_breakdown")),
+            "repro_torch/launch/hillclimb.py",
+            *(f"repro_torch/benchmarks/{m}.py" for m in (
+                "sw_hw_optimizations", "efficiency_trends",
+                "tiny_edge_measured", "run")),
+            *(f"repro_torch/{m}.py" for m in (
+                "examples/__init__", "examples/quickstart",
+                "examples/serve_power", "scripts/__init__",
+                "scripts/dev_smoke", "scripts/paged_smoke")),
             os.path.join("..", "chip_smoke.py")} <= seen
     assert not offenders, offenders
 

@@ -163,11 +163,14 @@ def test_io_manager_cross_check_equals_the_reference():
 
 
 def test_port_hw_holds_no_tpu_figures():
-    """The port's chips are the edge SoC and its own H100 (data-sheet
-    peaks); none of the reference's TPU chips or systems came along."""
+    """The port's chips are the edge SoC, its own H100 and the A100 and
+    H200 around it (data-sheet peaks); none of the reference's TPU chips
+    or systems came along."""
     import repro_torch.hw as thw
-    assert set(thw.CHIPS) == {"edge-soc", "h100-sxm"}
-    assert set(thw.SYSTEMS) == {"edge", "datacenter-h100"}
+    assert set(thw.CHIPS) == {"edge-soc", "a100-sxm", "h100-sxm",
+                              "h200-sxm"}
+    assert set(thw.SYSTEMS) == {"edge", "datacenter-a100",
+                                "datacenter-h100", "datacenter-h200"}
     assert not [n for n in dir(thw) if "TPU" in n or "V5E" in n]
     assert not [n for n in list(thw.CHIPS) + list(thw.SYSTEMS)
                 if "tpu" in n or "v5" in n or "v4" in n]
@@ -177,3 +180,14 @@ def test_port_hw_holds_no_tpu_figures():
                                                     3.35e12, 80e9, 700.0)
     assert h100.ici_bandwidth * h100.ici_links == 900e9
     assert thw.SYSTEMS["datacenter-h100"].chip is h100
+    a100, h200 = thw.CHIPS["a100-sxm"], thw.CHIPS["h200-sxm"]
+    assert (a100.peak_flops_bf16, a100.peak_flops_int8, a100.hbm_bandwidth,
+            a100.hbm_capacity, a100.peak_watts) == (312e12, 624e12,
+                                                    2.039e12, 80e9, 400.0)
+    assert (h200.peak_flops_bf16, h200.peak_flops_int8, h200.hbm_bandwidth,
+            h200.hbm_capacity, h200.peak_watts) == (989e12, 1979e12,
+                                                    4.8e12, 141e9, 700.0)
+    assert a100.ici_bandwidth * a100.ici_links == 600e9
+    assert h200.ici_bandwidth * h200.ici_links == 900e9
+    assert thw.SYSTEMS["datacenter-a100"].chip is a100
+    assert thw.SYSTEMS["datacenter-h200"].chip is h200

@@ -13,35 +13,46 @@ within 1e-12 relative.  The tiny model's int8 measurement, a real run
 on either side, is held elsewhere (``test_torch_tiny.py``) and stubbed
 alike here.  ``power_breakdown.run(smoke=True)`` gives the reference's
 per-domain watts and energy under that system, and every review
-ACCEPTs.
+ACCEPTs.  ``sw_hw_optimizations`` (Figs. 9-10) and
+``efficiency_trends`` (Fig. 4) read seeded tagged records of every
+hillclimb iteration beside those cells; with the port's generations
+(A100, H100, H200) replaced by systems equal to the reference's v4,
+v5e and v5p, their rows equal the reference's within 1e-12.
 """
 import dataclasses
+import glob
 import json
 import math
+import shutil
 
 import numpy as np
 import pytest
 
 import benchmarks.accuracy_cost as j_acc
 import benchmarks.common as j_common
+import benchmarks.efficiency_trends as j_trend
 import benchmarks.energy_per_inference as j_epi
 import benchmarks.power_breakdown as j_pb
 import benchmarks.power_range as j_pr
 import benchmarks.quantization_efficiency as j_quant
 import benchmarks.roofline_table as j_roof
 import benchmarks.scaling_energy as j_scale
+import benchmarks.sw_hw_optimizations as j_sw
 from repro import hw as jhw
 from repro_torch import hw as thw
 from repro_torch.benchmarks import accuracy_cost as t_acc
 from repro_torch.benchmarks import common as t_common
+from repro_torch.benchmarks import efficiency_trends as t_trend
 from repro_torch.benchmarks import energy_per_inference as t_epi
 from repro_torch.benchmarks import power_breakdown as t_pb
 from repro_torch.benchmarks import power_range as t_pr
 from repro_torch.benchmarks import quantization_efficiency as t_quant
 from repro_torch.benchmarks import roofline_table as t_roof
 from repro_torch.benchmarks import scaling_energy as t_scale
+from repro_torch.benchmarks import sw_hw_optimizations as t_sw
 from repro_torch.configs import SHAPES
 from repro_torch.launch import dryrun
+from repro_torch.launch import hillclimb as t_hill
 from repro_torch.launch.roofline import CellReport
 
 TINY = {"arch": "tiny-kws(real)", "int8_argmax_agreement": 0.99,
@@ -202,3 +213,99 @@ def test_power_breakdown_equals_the_reference_and_accepts(monkeypatch):
         _same(g.summary.energy_j, w.summary.energy_j, point)
         _same(g.samples_per_joule, w.samples_per_joule, point)
         assert t_pb._row(point, g) == j_pb._row(point, w)
+
+
+# -- Figs. 4 and 9-10: the readers of the hillclimb's tagged cells ---------
+# the port's generations and the reference's they stand for in the test
+GEN_AS_REF = {"datacenter-a100": "datacenter-v4",
+              "datacenter-h100": "datacenter-v5e",
+              "datacenter-h200": "datacenter-v5p"}
+
+
+def _ref_system(key):
+    """The port's ``SystemSpec`` equal to the reference's ``key`` field
+    for field."""
+    ref = jhw.SYSTEMS[key]
+    chip = thw.ChipSpec(**dataclasses.asdict(ref.chip))
+    rest = {f.name: getattr(ref, f.name) for f in dataclasses.fields(ref)
+            if f.name != "chip"}
+    return thw.SystemSpec(chip=chip, **rest)
+
+
+@pytest.fixture(scope="module")
+def tagged_dir(records, tmp_path_factory):
+    """The seeded cells plus seeded tagged records (opt1-opt3) of every
+    hillclimb iteration's pod cell, in a directory of their own."""
+    root = tmp_path_factory.mktemp("tagged")
+    for p in sorted(glob.glob(records[0] + "/*.json")):
+        shutil.copy(p, root)
+    rng = np.random.default_rng(1)
+    for cell_id, tag in t_hill.iterations():
+        spec = t_hill.CELLS[cell_id]
+        rec = _record(rng, spec["arch"], spec["shape"], "pod", 256)
+        with open(root / f"{spec['arch']}__{spec['shape']}__pod__{tag}.json",
+                  "w") as f:
+            json.dump(rec, f)
+    return str(root)
+
+
+@pytest.fixture
+def gens(tagged_dir, monkeypatch):
+    for mod in (j_common, t_common):
+        monkeypatch.setattr(mod, "DRYRUN_DIR", tagged_dir)
+    monkeypatch.setattr(t_sw, "SYSTEMS", {
+        port: _ref_system(ref) for port, ref in GEN_AS_REF.items()})
+
+
+def _as_ref(x):
+    """The port's rows with its generation names as the reference's."""
+    if isinstance(x, dict):
+        return {GEN_AS_REF.get(k, k): _as_ref(v) for k, v in x.items()}
+    if isinstance(x, list):
+        return [_as_ref(v) for v in x]
+    if isinstance(x, str):
+        for port, ref in GEN_AS_REF.items():
+            x = x.replace(port, ref).replace(
+                port.split("-")[1] + "=", ref.split("-")[1] + "=")
+        return x
+    return x
+
+
+def test_the_generations_stand_for_the_reference_s_in_order():
+    assert t_sw.HW_GENS == list(GEN_AS_REF)
+    assert j_sw.HW_GENS == list(GEN_AS_REF.values())
+    assert t_sw.PERF_TAGS == j_sw.PERF_TAGS
+    assert t_sw.SW_SYSTEM == "datacenter-h100"
+    for key in t_sw.HW_GENS:
+        assert key in thw.SYSTEMS
+    assert [thw.SYSTEMS[k].chip.peak_flops_bf16 for k in t_sw.HW_GENS] \
+        == [312e12, 989e12, 989e12]
+
+
+@pytest.mark.parametrize("name,port,ref", [
+    ("run_software", t_sw.run_software, j_sw.run_software),
+    ("run_hardware", t_sw.run_hardware, j_sw.run_hardware),
+    ("sw_hw csv", t_sw.csv, j_sw.csv),
+    ("efficiency_trends.run", t_trend.run, j_trend.run),
+    ("efficiency_trends csv", t_trend.csv, j_trend.csv),
+])
+def test_sw_hw_and_trend_rows_equal_the_reference(gens, name, port, ref):
+    """Seeded tagged records under the generations patched to the
+    reference's v4/v5e/v5p: every row within 1e-12 (names mapped)."""
+    want = ref()
+    assert want, name
+    _same(_as_ref(port()), want)
+
+
+def test_sw_hw_rows_on_the_port_s_own_generations(tagged_dir, monkeypatch):
+    """Unpatched, the hardware half models the A100, H100 and H200 data
+    sheets: each row normalised to the A100, the H200 at least the
+    H100 (same peak, more memory bandwidth)."""
+    monkeypatch.setattr(t_common, "DRYRUN_DIR", tagged_dir)
+    rows = t_sw.run_hardware()
+    assert [r["workload"] for r in rows] == ["yi-9b/train_4k",
+                                             "qwen3-1.7b/prefill_32k"]
+    for r in rows:
+        assert r["datacenter-a100"] == 1.0
+        assert r["datacenter-h200"] >= r["datacenter-h100"] > 0
+    assert t_sw.csv()[1].split(",", 2)[2].startswith("a100=1.000;h100=")

@@ -1,7 +1,7 @@
 """Train mode of the port's dense, vlm, encdec and tiny models on the
 CPU against the JAX reference: ``train_loss`` and every gradient leaf
 on bridged weights, remat on and off, the cross entropy's padded
-vocabulary and ``loss_mask``, and the options train mode refuses.
+vocabulary and ``loss_mask``, and the options the hillclimb turns.
 
 Reduced configs, float32, weights through ``from_jax``, batches (tokens,
 labels, patch embeddings, frames, MFCC) from a numpy seed.  Tolerances:
@@ -183,17 +183,25 @@ def test_ce_loss_masks_the_padded_vocabulary(weights):
 @pytest.mark.parametrize("option", [dict(causal_skip=True),
                                     dict(attn_bf16_scores=True),
                                     dict(remat=True, remat_policy="dots")])
-def test_unported_options_raise(option):
-    """What the plain path does not implement raises, rather than being
-    approximated: no config sets these options."""
-    cfg = dataclasses.replace(
-        tcfg.reduce_config(tcfg.get_config("qwen3-1.7b")), **option)
-    model = build_model(cfg, "cpu")
+def test_hillclimb_options_train_like_the_reference(option):
+    """The options train mode refused until the hillclimb ported them
+    raise no more: each trains, and its loss equals the reference's
+    (1e-5 relative in float32, 1e-3 with bf16 scores; gradients in
+    tests/test_torch_hillclimb.py).  An unknown remat policy still
+    raises."""
+    arch = "qwen3-1.7b"
+    cfg = dataclasses.replace(tcfg.reduce_config(tcfg.get_config(arch)),
+                              **option)
     bn = batch_np(cfg)
-    with pytest.raises(NotImplementedError, match=next(iter(
-            k for k in option if k != "remat"))):
-        model.train_loss(model.init(0), {k: torch.from_numpy(v)
-                                         for k, v in bn.items()})
+    want, _, _, params = reference(arch, bn, **option)
+    got, _, _ = port(arch, params, bn, **option)
+    tol = 1e-3 if option.get("attn_bf16_scores") else LOSS_RTOL
+    assert abs(got - want) <= tol * abs(want)
+    bad = build_model(dataclasses.replace(cfg, remat=True,
+                                          remat_policy="everything"), "cpu")
+    with pytest.raises(ValueError, match="remat_policy"):
+        bad.train_loss(bad.init(0), {k: torch.from_numpy(v)
+                                     for k, v in bn.items()})
 
 
 def test_train_loss_ignores_the_kernels_setting():
