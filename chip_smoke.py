@@ -421,6 +421,19 @@ Phases, each fatal on failure:
    hardware half modeled on the A100/H100/H200 data sheets) and
    ``efficiency_trends`` (Fig. 4) over a temporary directory holding
    both sets of records.
+29. Launch contracts (right after phase 2's build, before any other
+   launch): each kernel package's ``CONTRACTS``
+   (``repro_torch.analysis``) held against the card.  For one case of
+   every route of every kernel at a main-path shape (``CONTRACT_CASES``:
+   23 launches), the wrapper is called once under ``torch.profiler`` and
+   each kernel record of the exported trace must equal the contract's
+   launch in kernel and template, grid, block and shared memory (static
+   + dynamic); its registers (the trace's, else ptxas's) times its
+   threads within 65,536 and at most 255; ptxas's static shared memory
+   and spill stores equal to the contract's, and every build of every
+   library (93) with the static shared memory ``geometry.static_smem``
+   gives it, spilling only where ``geometry.KNOWN_SPILLS`` says.  One line
+   a launch, beside ``nvidia-smi``'s name and power limit.
 
 The line before the last holds the kernels' JSON record; the last line
 is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside
@@ -536,29 +549,13 @@ ENERGY_ALIGN_TOL = 0.03
 
 def ptxas_report(log: str) -> list[str]:
     """One entry per kernel of ``nvcc -Xptxas -v`` output: its name
-    (demangled by ``c++filt`` where the machine has it), registers and
-    spill bytes."""
-    rows, name, spill = [], "?", ""
-    for ln in log.splitlines():
-        if "Compiling entry function" in ln:
-            name = ln.split("'")[1] if "'" in ln else ln.strip()
-        elif "spill stores" in ln:
-            spill = ln.strip().split(",", 1)[1].strip()
-        elif "Used" in ln and "registers" in ln:
-            regs = ln.split("Used", 1)[1].split("registers")[0].strip()
-            rows.append((name, regs, spill))
-    try:
-        names = subprocess.run(
-            ["c++filt"], input="\n".join(n for n, _, _ in rows),
-            capture_output=True, text=True, check=True).stdout.splitlines()
-    except (OSError, subprocess.CalledProcessError):
-        names = []
-    if len(names) != len(rows):
-        names = [n for n, _, _ in rows]
-    names = [n.replace("(anonymous namespace)::", "").split("(")[0]
-             .removeprefix("void ") for n in names]
-    return [f"{n}: {regs} registers, {spill}"
-            for n, (_, regs, spill) in zip(names, rows)]
+    (demangled, without namespaces or spaces:
+    ``repro_torch.analysis.launches.parse_ptxas``), registers and spill
+    bytes."""
+    from repro_torch.analysis.launches import parse_ptxas
+    return [f"{n}: {e['registers']} registers, {e['spill_stores']} bytes "
+            f"spill stores, {e['spill_loads']} bytes spill loads"
+            for n, e in parse_ptxas(log).items()]
 
 
 def sass_ops(lib: str) -> dict:
@@ -4510,8 +4507,8 @@ def peak_gb(torch, label: str) -> float:
 
 def ptxas_at(log: str, *marks: str) -> list[str]:
     """The rows of ``ptxas_report`` whose kernel name holds one of
-    ``marks`` (a template argument: ``"<8,", ", 8,"`` for G 8, ``"<96,",
-    ", 96"`` for head dim 96)."""
+    ``marks`` (a template argument: ``"<8,", ",8,"`` for G 8, ``"<96,",
+    ",96"`` for head dim 96)."""
     names = [(r, r.rsplit(": ", 1)[0]) for r in ptxas_report(log)]
     return [r for r, n in names if any(m in n for m in marks)]
 
@@ -4618,7 +4615,7 @@ def phase_moe_kernels(torch, dev) -> dict:
     from repro_torch.kernels import build
 
     for name, (_, log) in build.build_log.items():
-        for row in ptxas_at(log, "<8,", ", 8,"):
+        for row in ptxas_at(log, "<8,", ",8,"):
             print(f"  {name}.cu at G 8: {row}")
     out = gqa_kernels(torch, dev, 4, 8, 128, 2222, "G 8", MOE_SPEC_K + 1,
                       ((200, 1024), (64, 704)))
@@ -5585,7 +5582,7 @@ def phase_vlm(torch, dev) -> dict:
     out = {}
     print("  (a) the five attention kernels at D 96, G 1 (H = KVH 32)")
     for name, (_, log) in build.build_log.items():
-        for row in ptxas_at(log, "<96,", ", 96"):
+        for row in ptxas_at(log, "<96,", ",96"):
             print(f"  {name}.cu at D 96: {row}")
     out["kernels"] = gqa_kernels(torch, dev, 32, 1, 96, 2525, "D 96, G 1",
                                  5, ((200, 1024), (5, 1024)))
@@ -6741,6 +6738,193 @@ def phase28_quickstart(torch, dev) -> dict:
                 wall_s=time.perf_counter() - t0)
 
 
+# Phase 29: one case of every route of every kernel at a main-path shape:
+# (kernel package, contract case).  Decode and verify at qwen3-1.7b's
+# serving shape (8 slots, 2,048 rows; H 16, KVH 8, D 128), flash at its
+# 1,024-token prefill and whisper-small's cross-attention (Sq 1 over
+# 1,500 frames), paged verify at a prefix hit's suffix and slo_sweep's
+# chunk (T 64 over 13 pages of 64), int8 at tiny-kws's GEMM and the
+# reference test's ragged shape, the scan at rwkv6-3b's ragged prefill.
+_QWEN = {"h": 16, "kvh": 8, "d": 128}
+_POOL = {"nb": 16, "page_size": 128, "n_pages": 129}
+_F32 = {"dtype": "float32"}
+CONTRACT_CASES = (
+    ("decode_attention", {"b": 8, "s": 2048, **_QWEN}),
+    ("decode_attention", {"b": 8, "s": 2048, **_QWEN, **_F32}),
+    ("paged_decode_attention", {"b": 8, **_POOL, **_QWEN}),
+    ("paged_decode_attention", {"b": 8, **_POOL, **_QWEN, **_F32}),
+    ("flash_attention", {"b": 1, "sq": 1024, "skv": 1024, **_QWEN}),
+    ("flash_attention", {"b": 8, "sq": 1, "skv": 1500, "h": 12, "kvh": 12,
+                         "d": 64, "causal": False}),
+    ("flash_attention", {"b": 1, "sq": 1024, "skv": 1024, **_QWEN, **_F32}),
+    ("verify_attention", {"b": 8, "t": 5, "s": 2048, **_QWEN}),
+    ("verify_attention", {"b": 1, "t": 200, "s": 2048, **_QWEN}),
+    ("verify_attention", {"b": 8, "t": 5, "s": 2048, **_QWEN, **_F32}),
+    ("paged_verify_attention", {"b": 8, "t": 5, **_POOL, **_QWEN}),
+    ("paged_verify_attention", {"b": 1, "t": 64, "nb": 13, "page_size": 64,
+                                "n_pages": 27, **_QWEN}),
+    ("paged_verify_attention", {"b": 8, "t": 5, **_POOL, **_QWEN, **_F32}),
+    ("int8_matmul", {"m": 12544, "k": 64, "n": 64, "out_dtype": "float32"}),
+    ("int8_matmul", {"m": 300, "k": 500, "n": 260}),
+    ("linear_scan", {"b": 1, "t": 1000, "h": 40, "dh": 64,
+                     "dtype": "bfloat16"}),
+    ("linear_scan", {"b": 1, "t": 1000, "h": 40, "dh": 64, **_F32}),
+)
+# a window's window start of the verify cases (the window ends inside
+# the cache)
+CONTRACT_VERIFY_POS = {5: 1024, 200: 1024, 64: 704}
+
+
+def contract_call(torch, dev, name: str, case: dict):
+    """A zero-argument call of kernel package ``name``'s wrapper at a
+    contract case's shape, on seeded inputs on the card."""
+    import importlib
+    mod = importlib.import_module(f"repro_torch.kernels.{name}.ops")
+    fn = getattr(mod, name)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(29)
+    dt = getattr(torch, case.get("dtype", "bfloat16"))
+
+    def randn(*shape, dtype=dt):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def pages(b, nb):
+        perm = torch.randperm(b * nb, generator=gen, device=dev) + 1
+        return perm.to(torch.int32).reshape(b, nb)
+
+    b = case.get("b")
+    if name == "int8_matmul":
+        m, k, n = case["m"], case["k"], case["n"]
+        xq, wq, sx, sw = int8_inputs(torch, gen, dev, m, k, n)
+        return lambda: fn(xq, wq, sx, sw, out_dtype=getattr(
+            torch, case.get("out_dtype", "bfloat16")))
+    if name == "linear_scan":
+        t, h, dh = case["t"], case["h"], case["dh"]
+        r, k, v, logw, u = scan_inputs(torch, gen, dev, b, t, h, dh, dt)
+        return lambda: fn(r, k, v, logw, u)
+    h, kvh, d = case["h"], case["kvh"], case["d"]
+    if name == "flash_attention":
+        q = randn(b, case["sq"], h, d)
+        k, v = (randn(b, case["skv"], kvh, d) for _ in range(2))
+        return lambda: fn(q, k, v, causal=case.get("causal", True))
+    t = case.get("t", 1)
+    q = randn(b, t, h, d)
+    if "page_size" in case:
+        ps, nb = case["page_size"], case["nb"]
+        kp, vp = (randn(case["n_pages"], ps, kvh, d) for _ in range(2))
+        table = pages(b, nb)
+        cap = nb * ps
+    else:
+        kp, vp = (randn(b, case["s"], kvh, d) for _ in range(2))
+        cap = case["s"]
+    start = CONTRACT_VERIFY_POS.get(t, cap - 1) if "t" in case else cap - 1
+    pos = torch.full((b,), start, dtype=torch.int32, device=dev)
+    if "page_size" in case:
+        return lambda: fn(q, kp, vp, table, pos)
+    return lambda: fn(q, kp, vp, pos)
+
+
+def phase_contracts(torch, dev, smi: str) -> None:
+    """Phase 29: every case of ``CONTRACT_CASES`` called once under
+    ``torch.profiler`` (after a warm-up call, behind
+    ``PROFILE_LEAD_IN`` one-byte fills), each kernel record of the
+    exported trace held to the contract's launch
+    (``repro_torch.analysis.launches.hold``); a window that lacks a
+    record is profiled again, up to ``PROFILE_WINDOWS`` times.  Then
+    every build of every library against ``geometry.static_smem`` and
+    ``KNOWN_SPILLS``; fails on any mismatch."""
+    import importlib
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.analysis import launches as ln_check
+    from repro_torch.kernels import build, geometry
+    from repro_torch.kernels.linear_scan.ops import chunk_steps
+
+    t0 = time.perf_counter()
+    print(f"  {smi}")
+    ptxas = {name: ln_check.parse_ptxas(build.ptxas_log(name))
+             for name in build.SOURCES}
+    lead = torch.empty(1, dtype=torch.uint8, device=dev)
+    bad, n_launches, seconds = [], 0, {}
+    with torch.no_grad(), tempfile.TemporaryDirectory() as tmp:
+        for name, case in CONTRACT_CASES:
+            t_case = time.perf_counter()
+            mod = importlib.import_module(f"repro_torch.kernels.{name}.ops")
+            inst = mod.CONTRACTS[0].build(dict(case))
+            call = contract_call(torch, dev, name, case)
+            call()
+            torch.cuda.synchronize()
+            recs = []
+            for window in range(1, PROFILE_WINDOWS + 1):
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    for _ in range(PROFILE_LEAD_IN):
+                        lead.fill_(0)
+                    call()
+                    torch.cuda.synchronize()
+                path = os.path.join(tmp, f"trace{n_launches}.json")
+                prof.export_chrome_trace(path)
+                recs = ln_check.match(inst.launches,
+                                      ln_check.kernel_records(path))
+                if len(recs) == len(inst.launches) and None not in recs:
+                    break
+                print(f"  torch.profiler window {window} of "
+                      f"{PROFILE_WINDOWS}: {sum(r is not None for r in recs)}"
+                      f" of {len(inst.launches)} records of {name} "
+                      f"{inst.route}")
+            if len(recs) != len(inst.launches):
+                bad.append(f"{name} {case}: {len(recs)} kernel records for "
+                           f"{len(inst.launches)} contract launches")
+            if name == "linear_scan" and inst.route == "chunked":
+                c = geometry.scan_chunk_steps(case["dh"])
+                if chunk_steps(case["dh"]) != c:
+                    bad.append(f"linear_scan: the library's chunk "
+                               f"{chunk_steps(case['dh'])} != contract {c}")
+            for launch, rec in zip(inst.launches, recs):
+                row, why = ln_check.hold(launch, rec,
+                                         ptxas[name].get(launch.signature))
+                n_launches += 1
+                bad += [f"{name} {inst.route}: {w}" for w in why]
+                print(f"  {name} {inst.route}: {launch.signature} grid "
+                      f"{launch.grid} block {launch.threads} smem "
+                      f"{launch.static_smem} + {launch.dynamic_smem}"
+                      f"{' (opt-in)' if launch.opt_in else ''}; trace: "
+                      f"grid {rec and rec['grid']} block "
+                      f"{rec and rec['block']} smem {rec and rec['smem']} "
+                      f"registers {rec and rec['registers']}; ptxas: "
+                      f"{row.get('ptxas_registers')} registers, "
+                      f"{row.get('ptxas_smem')} bytes smem, spills "
+                      f"{row.get('spill_stores')}/{row.get('spill_loads')}"
+                      f" -> {'ok' if not why else 'MISMATCH'}")
+                if rec is not None and n_launches == 1:
+                    print(f"  (the trace's kernel args: {rec['args']})")
+            seconds[f"{name} {inst.route}"] = time.perf_counter() - t_case
+    for name, entries in ptxas.items():
+        for sig, e in entries.items():
+            want = geometry.KNOWN_SPILLS.get(sig, 0)
+            if e["spill_stores"] != want:
+                bad.append(f"{name}: {sig} spills {e['spill_stores']} "
+                           f"bytes, {want} declared")
+            elif want:
+                print(f"  {name}: {sig} spills {want} bytes as declared "
+                      f"({e['registers']} registers)")
+            if e["smem"] != geometry.static_smem(sig):
+                bad.append(f"{name}: {sig} has {e['smem']} bytes of static "
+                           f"shared memory, {geometry.static_smem(sig)} "
+                           f"in its contract")
+    print(f"  {n_launches} launches of {len(CONTRACT_CASES)} calls held to "
+          f"their contracts in {time.perf_counter() - t0:.1f} s; "
+          f"{sum(len(e) for e in ptxas.values())} builds' spills and static "
+          f"shared memory checked; the slowest calls: " + ", ".join(
+              f"{k} {v:.2f} s" for k, v in sorted(
+                  seconds.items(), key=lambda kv: -kv[1])[:3]))
+    for why in bad:
+        print(f"  MISMATCH: {why}")
+    check(not bad, f"phase 29: {len(bad)} launch(es) differ from their "
+                   f"contracts")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6781,6 +6965,9 @@ def main() -> int:
     for name, (secs, log) in build.build_log.items():
         print(f"  {name}.cu: nvcc {secs:.2f} s; " + " | ".join(
             ptxas_report(log)))
+
+    phase("phase 29: the kernels' launch contracts against the card")
+    phase_contracts(torch, dev, smi.strip())
 
     phase("phase 3: kernels vs plain versions (bf16, main-path shapes)")
     kernels = phase_kernels(torch, dev)

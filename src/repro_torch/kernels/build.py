@@ -4,7 +4,8 @@ Each ``csrc/<name>.cu`` exposes a plain C entry point, so it compiles in
 seconds without PyTorch's headers.  The first call to ``library`` builds
 every source that has no up-to-date library yet, one ``nvcc`` process
 per source, all started together, into ``_build/`` beside this file
-(named by a hash of the sources and flags, so an edit rebuilds).
+(named by a hash of the sources and flags, so an edit rebuilds), with
+nvcc's output beside each library (``ptxas_log``).
 Nothing is built when the package is imported: the CPU tests import
 every module on a machine without ``nvcc``.
 """
@@ -78,10 +79,23 @@ def build_all() -> dict[str, tuple[float, str]]:
         if proc.returncode:
             failed.append(f"nvcc failed for {name}.cu:\n{out}")
         else:
+            with open(f"{so}.log", "w") as f:
+                f.write(out)
             os.replace(tmp, so)
     if failed:
         raise RuntimeError("\n".join(failed))
     return build_log
+
+
+def ptxas_log(name: str) -> str:
+    """nvcc's output for ``csrc/<name>.cu``'s current library (ptxas's
+    registers, spills and shared memory of every kernel): this
+    process's ``build_log`` entry, else the log written beside the
+    library when it was built."""
+    if name in build_log:
+        return build_log[name][1]
+    with open(f"{library_path(name)}.log") as f:
+        return f.read()
 
 
 def library(name: str) -> ctypes.CDLL:

@@ -31,8 +31,10 @@ import math
 
 import torch
 
-from repro_torch.kernels import (build, count_launch, plain_route,
-                                 refuse_grad, work)
+from repro_torch.analysis.contracts import (Buffer, KernelContract,
+                                            planned)
+from repro_torch.kernels import (build, count_launch, geometry,
+                                 plain_route, refuse_grad, work)
 from repro_torch.kernels.flash_attention.ops import (
     HEAD_DIMS, _check_aligned, _sm_count, _splits,
 )
@@ -86,7 +88,7 @@ def decode_attention_plain(q, k_cache, v_cache, pos):
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
-GROUPS = (1, 2, 4, 8)       # G = H / KVH the kernels are built for
+GROUPS = geometry.GROUPS    # G = H / KVH the kernels are built for
 
 
 @functools.lru_cache(maxsize=None)
@@ -214,3 +216,49 @@ def _decode_attention(q, k_cache, v_cache, pos):
 
 
 decode_attention.launches = 0
+
+
+# --- launch contract (repro_torch.analysis) --------------------------------
+
+def contract_cases(small: dict, main: dict) -> tuple:
+    """Each route (bf16 split, float32 loop) at D 64/96/128 and G
+    1/2/4/8 on a small ragged cache (``small``: its size keys), then the
+    main paths' shapes at 8 slots (``main``: 2,048 rows): qwen3-1.7b (H
+    16, KVH 8, D 128), qwen3-moe (G 8), phi-3-vision (D 96, G 1),
+    granite-3-2b (D 64, G 4)."""
+    grid = tuple({"b": 2, "h": 2 * g, "kvh": 2, "d": d, "dtype": dt,
+                  **small}
+                 for dt in ("bfloat16", "float32")
+                 for d in HEAD_DIMS for g in GROUPS)
+    return grid + tuple({"b": 8, "h": h, "kvh": kvh, "d": d, **main}
+                        for h, kvh, d in ((16, 8, 128), (32, 4, 128),
+                                          (32, 32, 96), (32, 8, 64)))
+
+
+def _decode_contract(case):
+    b, s, h, kvh, d = (case[k] for k in ("b", "s", "h", "kvh", "d"))
+    dt = case.get("dtype", "bfloat16")
+    route, n_split, per = planned(
+        plan, "decode_attention", h, kvh, d, getattr(torch, dt), s, b * kvh,
+        case.get("n_sm", geometry.N_SM))
+    return geometry.decode_instance(
+        route, n_split, per, b, kvh, h // kvh, d, dt, "ContiguousCache",
+        "decode_attention_kernel", (b, s, kvh, d),
+        (Buffer("pos", (b,), "int32", "input"),))
+
+
+CONTRACTS = (
+    KernelContract(
+        name="decode_attention",
+        build=_decode_contract,
+        cases=(
+            # the reference contract's cases (its block_k is Pallas's)
+            {"b": 8, "s": 4096, "h": 16, "kvh": 4, "d": 128},
+            {"b": 1, "s": 160, "h": 8, "kvh": 8, "d": 64},
+            {"b": 2, "s": 1024, "h": 8, "kvh": 8, "d": 128,
+             "block_k": 256},
+            *contract_cases({"s": 300}, {"s": 2048}),
+        ),
+        dtype_groups=(("q", "k", "v", "o"), ("o_part", "ml_part")),
+    ),
+)

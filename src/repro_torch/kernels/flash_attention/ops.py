@@ -42,8 +42,10 @@ import math
 
 import torch
 
-from repro_torch.kernels import (build, count_launch, plain_route,
-                                 refuse_grad, work)
+from repro_torch.analysis.contracts import (Buffer, KernelContract,
+                                            KernelInstance, planned)
+from repro_torch.kernels import (build, count_launch, geometry,
+                                 plain_route, refuse_grad, work)
 
 MASK_VALUE = -1e30
 HEAD_DIMS = (64, 96, 128)   # D the attention kernels are built for
@@ -51,8 +53,8 @@ HEAD_DIMS = (64, 96, 128)   # D the attention kernels are built for
 # The split-KV route takes a (batch, KV head)'s query rows when there are
 # at most SPLIT_MAX_ROWS of them (one CTA holds them all); it streams keys
 # in SPLIT_CHUNK-key chunks and aims at SPLIT_CTAS_PER_SM CTAs per SM.
-SPLIT_MAX_ROWS = 16
-SPLIT_CHUNK = 64
+SPLIT_MAX_ROWS = geometry.SPLIT_ROWS
+SPLIT_CHUNK = geometry.SPLIT_CHUNK
 SPLIT_CTAS_PER_SM = 8
 LOG2E = 1.4426950408889634
 
@@ -374,3 +376,94 @@ def _flash_attention(q, k, v, causal):
 
 
 flash_attention.launches = 0
+
+
+# --- launch contract (repro_torch.analysis) --------------------------------
+
+def _flash_contract(case):
+    """``flash_attention.cu``'s launches at one shape: the tile route
+    (``geometry.mma_launch``), the split route (rows r = t * G + g of a
+    (batch, KV head)) or the float32 loop (``flash_attention_kernel``,
+    grid (ceil(Sq / kBQ), B * H)).  ``o`` is (B * KVH, G, Sq, D), the
+    reference contract's layout without its padding."""
+    b, sq, skv = case["b"], case["sq"], case["skv"]
+    h, kvh, d = case["h"], case["kvh"], case["d"]
+    causal = case.get("causal", True)
+    dt = case.get("dtype", "bfloat16")
+    g, sets = h // kvh, b * kvh
+    route, n_split, per = planned(
+        plan, "flash_attention", sq, h, kvh, d, getattr(torch, dt), skv,
+        sets, case.get("n_sm", geometry.N_SM))
+    shape = (sets, g, sq, d)
+    ins = geometry.attention_inputs((b, sq, h, d), (b, skv, kvh, d), dt)
+
+    def head_tile(bb, hh, qt):
+        return bb * kvh + hh // g, hh % g, qt, 0
+
+    if route == "mma":
+        o = Buffer("o", shape, dt, "output",
+                   (1, 1, geometry.mma_block_q(d), d), masked=True)
+        ln = geometry.mma_launch(d, b, h, sq, causal, "ContiguousCache",
+                                 head_tile)
+        return KernelInstance(route, (ln,), (*ins, o))
+    if route == "split":
+        o = Buffer("o", shape, dt, "output", (1, 1, 1, d))
+        lns = geometry.flash_split_launches(
+            d, sets, n_split, g * sq, "ContiguousCache",
+            lambda x, r: (x, r % g, r // g, 0))
+        return KernelInstance(
+            route, lns, (*ins, o, *geometry.split_buffers(sets, n_split,
+                                                          g * sq, d)),
+            split=(n_split, per))
+    o = Buffer("o", shape, dt, "output", (1, 1, geometry.TILE_BQ, d),
+               masked=True)
+    ln = geometry.tile_f32_launch(
+        "flash_attention_kernel", ("float", str(d)),
+        (geometry.ceil_div(sq, geometry.TILE_BQ), b * h, 1),
+        lambda x, y, z: (("o", head_tile(y // h, y % h, x)),))
+    return KernelInstance(route, (ln,), (*ins, o))
+
+
+def _flash_cases() -> tuple:
+    """Each route at D 64/96/128 and G 1/2/4/8, causal and not, with a
+    ragged tail on every ceil-div grid (Sq 150 on the tile routes, Skv
+    300 on the split route); the main paths' shapes."""
+    cases = []
+    for dt, sq in (("bfloat16", 150), ("bfloat16", 2), ("float32", 150)):
+        for d in HEAD_DIMS:
+            for g in geometry.GROUPS:
+                for causal in (True, False):
+                    cases.append({"b": 2, "sq": sq, "skv": 300,
+                                  "h": 2 * g, "kvh": 2, "d": d,
+                                  "causal": causal, "dtype": dt})
+    return tuple(cases) + (
+        # qwen3-1.7b's prefill, 8 x 1,024 (H 16, KVH 8, D 128)
+        {"b": 8, "sq": 1024, "skv": 1024, "h": 16, "kvh": 8, "d": 128},
+        # qwen3-moe (G 8) and phi-3-vision (D 96, G 1) at 1,024
+        {"b": 2, "sq": 1024, "skv": 1024, "h": 32, "kvh": 4, "d": 128},
+        {"b": 2, "sq": 1024, "skv": 1024, "h": 32, "kvh": 32, "d": 96},
+        # whisper-small: encoder (1,500 frames, bidirectional),
+        # cross-attention at decode (Sq 1) and prefill (Sq 4)
+        {"b": 8, "sq": 1500, "skv": 1500, "h": 12, "kvh": 12, "d": 64,
+         "causal": False},
+        {"b": 8, "sq": 1, "skv": 1500, "h": 12, "kvh": 12, "d": 64,
+         "causal": False},
+        {"b": 8, "sq": 4, "skv": 1500, "h": 12, "kvh": 12, "d": 64,
+         "causal": False},
+    )
+
+
+CONTRACTS = (
+    KernelContract(
+        name="flash_attention",
+        build=_flash_contract,
+        cases=(
+            # the reference contract's cases (its blocks are Pallas's)
+            {"b": 2, "sq": 700, "skv": 700, "h": 16, "kvh": 4, "d": 128},
+            {"b": 1, "sq": 512, "skv": 1024, "h": 8, "kvh": 8, "d": 64,
+             "block_q": 256, "block_k": 128},
+            *_flash_cases(),
+        ),
+        dtype_groups=(("q", "k", "v", "o"), ("o_part", "ml_part")),
+    ),
+)

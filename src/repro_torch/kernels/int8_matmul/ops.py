@@ -31,8 +31,10 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import (build, count_launch, plain_route,
-                                 refuse_grad, work)
+from repro_torch.analysis.contracts import (Buffer, KernelContract,
+                                            KernelInstance, planned)
+from repro_torch.kernels import (build, count_launch, geometry,
+                                 plain_route, refuse_grad, work)
 
 # the largest K whose int32 sum cannot overflow: 128 * 128 * K < 2^31
 MAX_K = 131_072
@@ -45,9 +47,9 @@ MAX_N_WGMMA = 65_535 * 128
 LAUNCH_DEVICES = ("cuda",)
 # the wgmma route's CTA tile (128 x 128 outputs) and ring (4 stages of
 # K 128 bytes; 192 KB of shared memory: one CTA an SM), for the reports
-# (``csrc/int8_wgmma.cuh``: kBM, kBN, kStages)
-WGMMA_TILE = (128, 128)
-WGMMA_STAGES = 4
+# (``csrc/int8_wgmma.cuh``: kBM, kBN, kStages; ``geometry`` mirrors them)
+WGMMA_TILE = (geometry.WGMMA_BM, geometry.WGMMA_BN)
+WGMMA_STAGES = geometry.WGMMA_STAGES
 
 
 def plan(m: int, k: int, n: int, out_dtype) -> str:
@@ -203,3 +205,80 @@ def _int8_matmul(x, w, sx, sw, out_dtype):
 
 
 int8_matmul.launches = 0
+
+
+# --- launch contract (repro_torch.analysis) --------------------------------
+
+_C_TYPES = {"float32": "float", "bfloat16": "__nv_bfloat16"}
+
+
+def _matmul_contract(case):
+    """``int8_matmul.cu``'s launch at one shape: the wgmma route, grid
+    (ceil(M / 128), ceil(N / 128)) of 416 threads (two consumer
+    warpgroups, a transposer warpgroup, a producer warp) with ``kSmem``
+    of dynamic shared memory (opted in), or the mma.sync route, grid
+    (ceil(N / 64), ceil(M / 128)) of 256.  ``o`` (M, N) is the
+    reference contract's output without its padding."""
+    m, n, k = case["m"], case["n"], case["k"]
+    out_dt = case.get("out_dtype", "bfloat16")
+    route = planned(plan, m, k, n, getattr(torch, out_dt))
+    bufs = (Buffer("x", (m, k), "int8", "input"),
+            Buffer("w", (k, n), "int8", "input"),
+            Buffer("sx", (m, 1), "float32", "input"),
+            Buffer("sw", (1, n), "float32", "input"))
+    cd = geometry.ceil_div
+    if route == "wgmma":
+        o = Buffer("o", (m, n), out_dt, "output",
+                   (geometry.WGMMA_BM, geometry.WGMMA_BN), masked=True)
+        ln = geometry.make_launch(
+            kernel="int8_wgmma_kernel", template=(_C_TYPES[out_dt],),
+            grid=(cd(m, geometry.WGMMA_BM), cd(n, geometry.WGMMA_BN), 1),
+            threads=geometry.WGMMA_THREADS,
+            launch_bound=geometry.WGMMA_THREADS,
+            dynamic_smem=geometry.WGMMA_SMEM, opt_in=True,
+            writes=lambda x, y, z: (("o", (x, y)),),
+            loops=(f"K, {geometry.WGMMA_BK} bytes a stage through a "
+                   f"{geometry.WGMMA_STAGES}-stage TMA ring",))
+    else:
+        o = Buffer("o", (m, n), out_dt, "output",
+                   (geometry.SYNC_BM, geometry.SYNC_BN), masked=True)
+        ln = geometry.make_launch(
+            kernel="int8_matmul_kernel", template=(_C_TYPES[out_dt],),
+            grid=(cd(n, geometry.SYNC_BN), cd(m, geometry.SYNC_BM), 1),
+            threads=geometry.SYNC_THREADS,
+            launch_bound=geometry.SYNC_THREADS,
+            static_smem=geometry.SYNC_SMEM,
+            writes=lambda x, y, z: (("o", (y, x)),),
+            loops=(f"K, {geometry.SYNC_BK} a stage, double-buffered",))
+    return KernelInstance(route, (ln,), (*bufs, o))
+
+
+# chip_smoke.py's shapes (M, K, N): the reference test's, ragged edges
+# on the sync route (every dimension off its tiles, K off 16 and 4) and
+# on the wgmma route (ragged M, N and K tiles, a lone row, one stage,
+# 64 stages)
+_EDGE_SHAPES = ((256, 256, 256), (300, 500, 260), (128, 1024, 512),
+                (1, 1, 1), (17, 500, 9), (130, 77, 65), (129, 64, 63),
+                (300, 272, 528), (1, 16, 16), (65, 128, 80),
+                (200, 8192, 400))
+
+CONTRACTS = (
+    KernelContract(
+        name="int8_matmul",
+        build=_matmul_contract,
+        cases=(
+            # the reference contract's cases (its blocks are Pallas's)
+            {"m": 300, "n": 1100, "k": 700},
+            {"m": 512, "n": 512, "k": 1024, "block_m": 128,
+             "block_n": 256, "block_k": 512, "out_dtype": "float32"},
+            # the main paths: tiny-kws's pointwise GEMM, a qwen3-1.7b
+            # FFN up-projection
+            {"m": 12544, "k": 64, "n": 64, "out_dtype": "float32"},
+            {"m": 1024, "k": 2048, "n": 6144},
+            *({"m": m, "k": k, "n": n, "out_dtype": dt}
+              for m, k, n in _EDGE_SHAPES
+              for dt in ("float32", "bfloat16")),
+        ),
+        dtype_groups=(("x", "w"), ("sx", "sw")),
+    ),
+)

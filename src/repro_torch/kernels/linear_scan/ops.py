@@ -32,8 +32,10 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import (build, count_launch, plain_route,
-                                 refuse_grad, work)
+from repro_torch.analysis.contracts import (Buffer, KernelContract,
+                                            KernelInstance, planned)
+from repro_torch.kernels import (build, count_launch, geometry,
+                                 plain_route, refuse_grad, work)
 
 # the reference model's chunk (``models/rwkv6.py:CHUNK``)
 CHUNK = 256
@@ -322,3 +324,86 @@ def _linear_scan(r, k, v, logw, u):
 
 
 linear_scan.launches = 0
+
+
+# --- launch contract (repro_torch.analysis) --------------------------------
+
+def _scan_contract(case):
+    """``linear_scan.cu``'s launches at one shape, in the reference
+    contract's folded layout ((B * H, T, dh) sequences): the chunked
+    route's intra-chunk grid (B * H, chunks) writing each chunk's
+    float32 parts to the scratch, then the carry grid (B * H, dh / 32)
+    reading every chunk's parts of its (slot, head) in order and writing
+    its 32 columns of y and of the state; or the float32 loop, one CTA
+    of dh threads a (slot, head) walking every step."""
+    b, t, h, dh = case["b"], case["t"], case["h"], case["dh"]
+    dt = case.get("dtype", "float32")
+    route = planned(plan, getattr(torch, dt), dh)
+    bh = b * h
+    seq = (bh, t, dh)
+    ins = (Buffer("r", seq, dt, "input"), Buffer("k", seq, dt, "input"),
+           Buffer("v", seq, dt, "input"),
+           Buffer("logw", seq, "float32", "input"),
+           Buffer("u", (h, dh), "float32", "input"))
+    if route == "loop":
+        outs = (Buffer("y", seq, dt, "output", (1, t, dh)),
+                Buffer("s_final", (bh, dh, dh), "float32", "output",
+                       (1, dh, dh)))
+        ln = geometry.make_launch(
+            kernel="linear_scan_kernel", template=("float", str(dh)),
+            grid=(bh, 1, 1), threads=dh, launch_bound=dh,
+            static_smem=geometry.scan_loop_smem(dh),
+            writes=lambda x, y, z: (("y", (x, 0, 0)),
+                                    ("s_final", (x, 0, 0))),
+            loops=("every step of the sequence, in order",))
+        return KernelInstance(route, (ln,), (*ins, *outs))
+    c = geometry.scan_chunk_steps(dh)
+    n_chunks = geometry.ceil_div(t, c)
+    vb = geometry.SCAN_VB
+    floats = geometry.scan_chunk_floats(dh, c)
+    outs = (Buffer("y", seq, dt, "output", (1, c, vb), masked=True),
+            Buffer("s_final", (bh, dh, dh), "float32", "output",
+                   (1, dh, vb)),
+            Buffer("part", (bh, n_chunks, floats), "float32", "scratch",
+                   (1, 1, floats)))
+    intra = geometry.make_launch(
+        kernel="scan_intra_kernel", template=(str(dh), str(c)),
+        grid=(bh, n_chunks, 1), threads=geometry.SCAN_P,
+        launch_bound=geometry.SCAN_P,
+        dynamic_smem=geometry.scan_intra_smem(dh, c), opt_in=True,
+        writes=lambda x, y, z: (("part", (x, y, 0)),),
+        loops=(f"the chunk's sub-blocks of {geometry.SCAN_SUB} steps",))
+    carry = geometry.make_launch(
+        kernel="scan_carry_kernel", template=(str(dh), str(c)),
+        grid=(bh, dh // vb, 1), threads=geometry.SCAN_Q,
+        launch_bound=geometry.SCAN_Q,
+        dynamic_smem=geometry.scan_carry_smem(dh, c), opt_in=True,
+        writes=lambda x, y, z: [("y", (x, i, y)) for i in range(n_chunks)]
+        + [("s_final", (x, 0, y))],
+        reads=lambda x, y, z: [("part", (x, i, 0))
+                               for i in range(n_chunks)],
+        loops=(f"the chunks in order, through a "
+               f"{geometry.SCAN_CARRY_STAGES}-stage ring",))
+    return KernelInstance(route, (intra, carry), (*ins, *outs))
+
+
+CONTRACTS = (
+    KernelContract(
+        name="linear_scan",
+        build=_scan_contract,
+        cases=(
+            # the reference contract's cases (its chunk is Pallas's)
+            {"b": 4, "t": 1024, "h": 8, "dh": 64},
+            {"b": 1, "t": 256, "h": 2, "dh": 128, "chunk": 128,
+             "dtype": "bfloat16"},
+            # each route at every dh, ragged T
+            *({"b": 2, "t": t, "h": 3, "dh": dh, "dtype": dt}
+              for dt in ("bfloat16", "float32") for dh in HEAD_DIMS
+              for t in (1, 77, 300)),
+            # rwkv6-3b's prefill (H 40, dh 64), whole and ragged
+            {"b": 1, "t": 1024, "h": 40, "dh": 64, "dtype": "bfloat16"},
+            {"b": 1, "t": 1000, "h": 40, "dh": 64, "dtype": "bfloat16"},
+        ),
+        dtype_groups=(("r", "k", "v", "y"), ("logw", "u", "s_final")),
+    ),
+)

@@ -25,10 +25,12 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import (count_launch, plain_route, refuse_grad,
-                                 work)
+from repro_torch.analysis.contracts import (Buffer, KernelContract,
+                                            planned)
+from repro_torch.kernels import (count_launch, geometry, plain_route,
+                                 refuse_grad, work)
 from repro_torch.kernels.decode_attention.ops import (
-    decode_attention_plain, launch,
+    contract_cases, decode_attention_plain, launch, plan,
 )
 
 
@@ -116,3 +118,40 @@ def _paged_decode_attention(q, k_pool, v_pool, pages, pos):
 
 
 paged_decode_attention.launches = 0
+
+
+# --- launch contract (repro_torch.analysis) --------------------------------
+
+def _paged_decode_contract(case):
+    b, nb, ps = case["b"], case["nb"], case["page_size"]
+    h, kvh, d = case["h"], case["kvh"], case["d"]
+    dt = case.get("dtype", "bfloat16")
+    route, n_split, per = planned(
+        plan, "paged_decode_attention", h, kvh, d, getattr(torch, dt),
+        nb * ps, b * kvh, case.get("n_sm", geometry.N_SM))
+    return geometry.decode_instance(
+        route, n_split, per, b, kvh, h // kvh, d, dt, "PagedCache",
+        "paged_decode_attention_kernel", (case["n_pages"], ps, kvh, d),
+        (Buffer("pages", (b, nb), "int32", "input"),
+         Buffer("pos", (b,), "int32", "input")))
+
+
+CONTRACTS = (
+    KernelContract(
+        name="paged_decode_attention",
+        build=_paged_decode_contract,
+        cases=(
+            # the reference contract's cases
+            {"b": 8, "nb": 32, "page_size": 128, "n_pages": 257,
+             "h": 16, "kvh": 4, "d": 128},
+            {"b": 3, "nb": 8, "page_size": 128, "n_pages": 25,
+             "h": 8, "kvh": 2, "d": 64},
+            # slo_sweep's pool: 8 slots of 13 pages of 64 rows
+            {"b": 8, "nb": 13, "page_size": 64, "n_pages": 27,
+             "h": 16, "kvh": 8, "d": 128},
+            *contract_cases({"nb": 5, "page_size": 60, "n_pages": 11},
+                            {"nb": 16, "page_size": 128, "n_pages": 129}),
+        ),
+        dtype_groups=(("q", "k", "v", "o"), ("o_part", "ml_part")),
+    ),
+)

@@ -26,13 +26,17 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import (count_launch, plain_route, refuse_grad,
-                                 work)
-from repro_torch.kernels.flash_attention.ops import launch
+from repro_torch.analysis.contracts import (Buffer, KernelContract,
+                                            planned)
+from repro_torch.kernels import (count_launch, geometry, plain_route,
+                                 refuse_grad, work)
+from repro_torch.kernels.flash_attention.ops import launch, plan
 from repro_torch.kernels.paged_decode_attention.ops import (
     check_paged_args, paged_view,
 )
-from repro_torch.kernels.verify_attention.ops import verify_attention_plain
+from repro_torch.kernels.verify_attention.ops import (
+    verify_attention_plain, window_cases,
+)
 
 
 def paged_verify_attention_plain(q, k_pool, v_pool, pages, pos):
@@ -80,3 +84,42 @@ def _paged_verify_attention(q, k_pool, v_pool, pages, pos):
 
 
 paged_verify_attention.launches = 0
+
+
+# --- launch contract (repro_torch.analysis) --------------------------------
+
+def _paged_verify_contract(case):
+    b, t, nb, ps = case["b"], case["t"], case["nb"], case["page_size"]
+    h, kvh, d = case["h"], case["kvh"], case["d"]
+    dt = case.get("dtype", "bfloat16")
+    route, n_split, per = planned(
+        plan, "paged_verify_attention", t, h, kvh, d, getattr(torch, dt),
+        nb * ps, b * kvh, case.get("n_sm", geometry.N_SM))
+    return geometry.window_instance(
+        route, n_split, per, b, t, h, kvh, d, dt, "PagedCache",
+        (case["n_pages"], ps, kvh, d),
+        (Buffer("pages", (b, nb), "int32", "input"),
+         Buffer("pos", (b,), "int32", "input")))
+
+
+CONTRACTS = (
+    KernelContract(
+        name="paged_verify_attention",
+        build=_paged_verify_contract,
+        cases=(
+            # the reference contract's cases
+            {"b": 8, "t": 4, "nb": 32, "page_size": 128, "n_pages": 257,
+             "h": 16, "kvh": 4, "d": 128},
+            {"b": 2, "t": 8, "nb": 8, "page_size": 128, "n_pages": 17,
+             "h": 8, "kvh": 2, "d": 64},
+            # slo_sweep's chunk shapes: T 64 and T 8 over 13 pages of 64
+            {"b": 1, "t": 64, "nb": 13, "page_size": 64, "n_pages": 27,
+             "h": 16, "kvh": 8, "d": 128},
+            {"b": 1, "t": 8, "nb": 13, "page_size": 64, "n_pages": 27,
+             "h": 16, "kvh": 8, "d": 128},
+            *window_cases({"nb": 5, "page_size": 60, "n_pages": 11},
+                          {"nb": 16, "page_size": 128, "n_pages": 129}),
+        ),
+        dtype_groups=(("q", "k", "v", "o"), ("o_part", "ml_part")),
+    ),
+)

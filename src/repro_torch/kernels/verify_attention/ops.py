@@ -32,10 +32,12 @@ import math
 
 import torch
 
-from repro_torch.kernels import (count_launch, plain_route, refuse_grad,
-                                 work)
+from repro_torch.analysis.contracts import (Buffer, KernelContract,
+                                            planned)
+from repro_torch.kernels import (count_launch, geometry, plain_route,
+                                 refuse_grad, work)
 from repro_torch.kernels.decode_attention.ops import MASK_VALUE
-from repro_torch.kernels.flash_attention.ops import launch
+from repro_torch.kernels.flash_attention.ops import HEAD_DIMS, launch, plan
 
 
 def verify_attention_plain(q, k_cache, v_cache, pos):
@@ -115,3 +117,54 @@ def _verify_attention(q, k_cache, v_cache, pos):
 
 
 verify_attention.launches = 0
+
+
+# --- launch contract (repro_torch.analysis) --------------------------------
+
+def window_cases(small: dict, main: dict) -> tuple:
+    """Each route at D 64/96/128 and G 1/2/4/8 on a small ragged cache
+    (``small``: its size keys): bf16 T 2 (the split route), bf16 T 37
+    (the tile route: T * G > 16 at every G, a ragged q-tile) and float32
+    T 37 (the loop, a ragged row tile); then the main paths (``main``:
+    2,048 rows): qwen3-1.7b's speculative window (T 5, G 2: split) and a
+    prefix hit's suffix (T 200: tile), qwen3-moe's window (T 5, G 8:
+    tile), phi-3-vision's (T 5, D 96, G 1: split)."""
+    grid = tuple({"b": 2, "t": t, "h": 2 * g, "kvh": 2, "d": d,
+                  "dtype": dt, **small}
+                 for dt, t in (("bfloat16", 2), ("bfloat16", 37),
+                               ("float32", 37))
+                 for d in HEAD_DIMS for g in geometry.GROUPS)
+    return grid + tuple({"b": 8, "t": t, "h": h, "kvh": kvh, "d": d,
+                         **main}
+                        for t, h, kvh, d in ((5, 16, 8, 128),
+                                             (200, 16, 8, 128),
+                                             (5, 32, 4, 128),
+                                             (5, 32, 32, 96)))
+
+
+def _verify_contract(case):
+    b, t, s = case["b"], case["t"], case["s"]
+    h, kvh, d = case["h"], case["kvh"], case["d"]
+    dt = case.get("dtype", "bfloat16")
+    route, n_split, per = planned(
+        plan, "verify_attention", t, h, kvh, d, getattr(torch, dt), s,
+        b * kvh, case.get("n_sm", geometry.N_SM))
+    return geometry.window_instance(
+        route, n_split, per, b, t, h, kvh, d, dt, "ContiguousCache",
+        (b, s, kvh, d), (Buffer("pos", (b,), "int32", "input"),))
+
+
+CONTRACTS = (
+    KernelContract(
+        name="verify_attention",
+        build=_verify_contract,
+        cases=(
+            # the reference contract's cases (its block_k is Pallas's)
+            {"b": 8, "t": 4, "s": 4096, "h": 16, "kvh": 4, "d": 128},
+            {"b": 2, "t": 8, "s": 512, "h": 8, "kvh": 2, "d": 64,
+             "block_k": 128},
+            *window_cases({"s": 300}, {"s": 2048}),
+        ),
+        dtype_groups=(("q", "k", "v", "o"), ("o_part", "ml_part")),
+    ),
+)

@@ -304,6 +304,10 @@ def test_port_imports_neither_jax_nor_the_reference_package():
                 "examples/__init__", "examples/quickstart",
                 "examples/serve_power", "scripts/__init__",
                 "scripts/dev_smoke", "scripts/paged_smoke")),
+            *(f"repro_torch/analysis/{m}.py" for m in (
+                "__init__", "__main__", "contracts", "findings", "kernels",
+                "launches", "purity", "runner", "units")),
+            "repro_torch/kernels/geometry.py",
             os.path.join("..", "chip_smoke.py")} <= seen
     assert not offenders, offenders
 
