@@ -434,6 +434,21 @@ Phases, each fatal on failure:
    library (93) with the static shared memory ``geometry.static_smem``
    gives it, spilling only where ``geometry.KNOWN_SPILLS`` says.  One line
    a launch, beside ``nvidia-smi``'s name and power limit.
+30. Sharded training (last, after phase 27; ``parallel.grid``) on a grid
+   of one NCCL rank in-process, every collective still issued: (a)
+   full-width qwen3-1.7b at phase 26's seed, hyperparameters and batch
+   0, one step against phase 26's step 0 (loss, grad_norm and every
+   leaf's first-moment norm within ``TRAIN_MB_REL_TOL``), each
+   collective's calls equal to ``spmd_plan``, and a second step timed
+   against phase 26's median; (b) qwen3-moe-30b-a3b at full width on 2
+   of its 48 layers (the cut), 2 x 1,024, int8 moments, one sharded
+   step against one unsharded step (loss, ce, aux, grad_norm), calls
+   equal to the plan (all_to_all 6 a layer); (c) a world-1 save of
+   ``launch.train_e2e``'s float32 model restored unsharded bit for bit;
+   (d) ``scripts.make_experiments_md`` over phase 27's records into a
+   temporary file: one dry-run row a counted cell, every block filled.
+   No kernel is launched: the train path runs the plain versions, as
+   the reference trains in jnp.
 
 The line before the last holds the kernels' JSON record; the last line
 is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside
@@ -3997,7 +4012,7 @@ def clocked_serve(torch, engine, requests, honor_arrivals=True) -> tuple:
     import copy
 
     import numpy as np
-    from repro_torch.parallel import tp_all_reduce
+    from repro_torch.parallel import collectives
     from repro_torch.serving import Request
 
     engine.serve([Request(rid=-1, prompt=np.arange(64), max_new_tokens=9)],
@@ -4006,7 +4021,7 @@ def clocked_serve(torch, engine, requests, honor_arrivals=True) -> tuple:
     kernels = launch_counters()
     for k in kernels.values():
         k.launches = 0
-    tp_all_reduce.calls = 0
+    collectives.reset_counts()
     t = [0.0]
 
     def now():
@@ -4022,7 +4037,7 @@ def clocked_serve(torch, engine, requests, honor_arrivals=True) -> tuple:
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     return (done, wall_s, {n: k.launches for n, k in kernels.items()},
-            tp_all_reduce.calls)
+            collectives.counts()["all_reduce"])
 
 
 def same_serves(label: str, engine, ref_engine, got: tuple, want: tuple):
@@ -4060,7 +4075,7 @@ def profile_decode_chunk(torch, engine, reps: int = 3) -> dict:
     (``PROFILE_LEAD_IN`` fills open it, as in ``device_ms``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.parallel import tp_all_reduce
+    from repro_torch.parallel import collectives
 
     lead = torch.empty(1, dtype=torch.uint8, device="cuda")
 
@@ -4071,7 +4086,7 @@ def profile_decode_chunk(torch, engine, reps: int = 3) -> dict:
     torch.cuda.synchronize()
     steps = reps * engine.chunk_steps
     for window in range(1, PROFILE_WINDOWS + 1):
-        tp_all_reduce.calls = 0
+        collectives.reset_counts()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(PROFILE_LEAD_IN):
@@ -4079,7 +4094,7 @@ def profile_decode_chunk(torch, engine, reps: int = 3) -> dict:
             for _ in range(reps):
                 chunk()
             torch.cuda.synchronize()
-        calls = tp_all_reduce.calls
+        calls = collectives.counts()["all_reduce"]
         per, count = {}, {}
         for e in prof.events():
             if (e.device_type != DeviceType.CUDA
@@ -4153,7 +4168,7 @@ def phase_tp(torch, dev, model, params, requests) -> dict:
 def tp_serves(torch, dev, model, params, engine, requests, np) -> dict:
     """Phase 21's serves inside its process group (see ``phase_tp``)."""
     from repro_torch.harness import PowerRun, Server, ShardedSUT
-    from repro_torch.parallel import tp_all_reduce
+    from repro_torch.parallel.collectives import all_reduce_sum
     from repro_torch.power.nvml import NVML
     from repro_torch.serving import (ContinuousBatchingEngine, Request,
                                      ShardedContinuousBatchingEngine,
@@ -4204,8 +4219,8 @@ def tp_serves(torch, dev, model, params, engine, requests, np) -> dict:
     prof = profile_decode_chunk(torch, sharded)
     x = torch.randn(sharded.n_slots, 1, cfg.d_model, device=dev,
                     dtype=model.dtype)
-    ar_ms = time_ms(lambda: tp_all_reduce(x, sharded.group))
-    ar_us = host_us(torch, lambda: tp_all_reduce(x, sharded.group))
+    ar_ms = time_ms(lambda: all_reduce_sum(x, sharded.group))
+    ar_us = host_us(torch, lambda: all_reduce_sum(x, sharded.group))
     clock_us = host_us(torch, sharded._agreed(time.monotonic))
     # one all-reduce behind queued device work: its host time against
     # the time the queue takes to drain says whether it waits for it
@@ -4214,7 +4229,7 @@ def tp_serves(torch, dev, model, params, engine, requests, np) -> dict:
     for _ in range(10):
         big @ big
     t0 = time.perf_counter()
-    tp_all_reduce(x, sharded.group)
+    all_reduce_sum(x, sharded.group)
     t1 = time.perf_counter()
     torch.cuda.synchronize()
     queued_us = ((t1 - t0) * 1e6, (time.perf_counter() - t0) * 1e6)
@@ -5988,6 +6003,9 @@ def phase_train(torch, dev, smi: str) -> dict:
                       f"{no_grad}")
                 print(f"  step 0 (lr 0): every one of {len(names)} leaves "
                       f"kept, and each has a nonzero first moment")
+                step0 = dict(loss=loss, grad_norm=gnorm,
+                             m_norms=moment_norms(tree_leaves(new.opt.m)),
+                             ms=times[-1] * 1e3)
                 mb = dict(
                     loss=abs(loss_mb - loss) / loss,
                     grad_norm=abs(gnorm_mb - gnorm) / gnorm,
@@ -6036,6 +6054,7 @@ def phase_train(torch, dev, smi: str) -> dict:
         joules=joules, j_per_step=j_steady / len(steady), split=split,
         tok_per_j=tokens * len(steady) / j_steady,
         j_all=(e_end - e_start) / 1e3, gap=gap, gap_blind=gap_blind, mb=mb,
+        step0=step0,
         loss_mb=loss_mb, peak_gb=steps_peak, pre_peak_gb=pre_peak)
     a = out["a"]
     print(f"  microbatches=2 vs step 0, relative: loss {mb['loss']:.3e}, "
@@ -6225,7 +6244,8 @@ def phase_dryrun(torch, dev, smi: str) -> dict:
           f"terms on the H100 SXM spec (989 TFLOP/s bf16, 3.35 TB/s, one "
           f"50 GB/s NVLink link)")
     out.update(cells=len(todo), count_s=a_s,
-               seconds=time.perf_counter() - t_phase)
+               seconds=time.perf_counter() - t_phase,
+               records=[done[c][0] for c in todo] + list(hill_recs.values()))
     t0 = time.perf_counter()
     out["hill"] = phase_hill_readers(
         {c: done[c][0] for c in todo}, hill_recs)
@@ -6925,6 +6945,283 @@ def phase_contracts(torch, dev, smi: str) -> None:
                    f"contracts")
 
 
+# Phase 30: sharded training (parallel.grid, ROADMAP §A.8) on a grid of
+# one rank: an NCCL process group of world 1 on cuda:0, in-process, as
+# phase 21's.  Every collective runs at size 1 (none is skipped), so the
+# step issues the calls a wide grid would.  (a) TRAIN_ARCH at full width
+# and depth, phase 26's seed, hyperparameters and batch 0: one sharded
+# step against phase 26's unsharded step 0 (loss, grad_norm and every
+# leaf's first-moment norm within TRAIN_MB_REL_TOL), then a second step
+# for its time; (b) SPMD_MOE_ARCH at full width on its first
+# SPMD_MOE_LAYERS of 48 layers (the cut), SPMD_MOE_BATCH x TRAIN_SEQ,
+# int8 moments: one sharded step against one unsharded step from the
+# same seed (loss, ce, aux, grad_norm within TRAIN_MB_REL_TOL); (c) a
+# world-1 save of launch.train_e2e's float32 model restores unsharded
+# bit for bit; (d) make_experiments_md renders phase 27's records.
+SPMD_MOE_ARCH, SPMD_MOE_LAYERS, SPMD_MOE_BATCH = "qwen3-moe-30b-a3b", 2, 2
+
+
+def spmd_plan(cfg, q8_leaves: int = 0) -> dict:
+    """The collective calls of one sharded ``make_train_step`` step
+    (microbatches 1) of a dense or moe ``cfg`` on a (1, 1) grid, written
+    before the run from the layers' code:
+
+    - outside the layers: the embedding's FSDP gather and its
+      vocab-parallel all-reduce, the head's gather; the cross entropy's
+      row max (all_reduce_max) and one all-reduce of its stacked sums;
+      the metrics' all-reduce over data; backward: the head input's
+      ``copy_to`` (all-reduce), the head's and the embedding's
+      reduce-scatters; the step: one all-reduce a dtype of the leaves
+      replicated over data (the norms, bf16; moe's float32 router too),
+      two for the global norm, and with int8 moments one all_reduce_max
+      a leaf whose last dim is split (``q8_leaves``); "a dtype": the
+      config's, and moe's float32 router;
+    - a layer's forward: 7 FSDP gathers (wq, wk, wv, wo and the FFN's or
+      the experts' three), the attention's ``reduce_from`` (all-reduce);
+      dense: the FFN's ``reduce_from``; moe: the router's gather over the
+      model axis, the sequence's ``gather_rep`` (all_gather), the aux's
+      ``reduce_from`` and 2 all_to_all;
+    - a layer's backward: the attention input's ``copy_to`` and q/k
+      norms' (3 all-reduces), 7 reduce-scatters; dense: the FFN input's
+      ``copy_to``; moe: the router's reduce-scatter, the sequence
+      split's all-gather, 2 all_to_all;
+    - remat (``cfg.remat``) runs each layer's forward again in backward,
+      up to its last product that backward needs (``torch.utils.
+      checkpoint`` stops its recompute there): the trailing
+      ``reduce_from`` of the FFN (dense) or the sequence's
+      ``gather_rep`` and the aux's ``reduce_from`` (moe) run once.
+    """
+    n = cfg.n_layers
+    moe = cfg.moe is not None
+    qk = 2 if cfg.qk_norm else 0
+    fwd = dict(all_gather=9 if moe else 7, all_reduce=2,
+               all_to_all=2 if moe else 0)
+    tail = dict(all_gather=1, all_reduce=1) if moe else dict(all_reduce=1)
+    recompute = {k: v - tail.get(k, 0) for k, v in fwd.items()} \
+        if cfg.remat else {}
+    bwd = dict(all_reduce=1 + qk + (0 if moe else 1),
+               reduce_scatter=8 if moe else 7, all_gather=1 if moe else 0,
+               all_to_all=2 if moe else 0)
+    dtypes = len({cfg.dtype} | ({"float32"} if moe else set()))
+    outer = dict(all_gather=2, all_reduce=4 + dtypes + 2,
+                 reduce_scatter=2, all_to_all=0,
+                 all_reduce_max=1 + q8_leaves)
+    return {k: outer.get(k, 0) + n * (fwd.get(k, 0) + recompute.get(k, 0)
+                                      + bwd.get(k, 0))
+            for k in ("all_reduce", "all_gather", "reduce_scatter",
+                      "all_to_all", "all_reduce_max")}
+
+
+def q8_leaf_count(model) -> int:
+    """Parameter leaves whose last dim a mesh axis splits: one
+    all_reduce_max each in an int8-moment step."""
+    from repro_torch.models.param import tree_leaves
+    return sum(1 for sp in tree_leaves(model.pspecs) if sp and sp[-1])
+
+
+def phase_spmd(torch, dev, smi: str, train: dict, dry: dict) -> dict:
+    """Phase 30 (see the comment above)."""
+    import datetime
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-spmd-")
+    dist.init_process_group(
+        "nccl", init_method=f"file://{os.path.join(tmp, 'rdzv')}", rank=0,
+        world_size=1, timeout=datetime.timedelta(seconds=300))
+    try:
+        out = spmd_steps(torch, dev, smi, train, dry, tmp)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"  phase 30 took {out['seconds']:.1f} s")
+    return out
+
+
+def timed_step(torch, step, state, batch):
+    """(new state, metrics as floats, ms, collective calls) of one step,
+    the counts zeroed just before it."""
+    from repro_torch.parallel import collectives as C
+    torch.cuda.synchronize()
+    C.reset_counts()
+    t0 = time.perf_counter()
+    new, m = step(state, batch)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    return new, {k: float(v) for k, v in m.items()}, ms, C.counts()
+
+
+def rel_gap(a: float, b: float) -> float:
+    return abs(a - b) / max(abs(b), 1e-12)
+
+
+def spmd_steps(torch, dev, smi, train, dry, tmp) -> dict:
+    """Phase 30's parts inside the world-1 process group."""
+    import numpy as np
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.launch import train_e2e
+    from repro_torch.models import build_model
+    from repro_torch.models.param import tree_leaves
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.parallel.grid import Grid
+    from repro_torch.scripts import make_experiments_md as emd
+    from repro_torch.train import (TrainHParams, init_train_state,
+                                   make_train_step)
+    from repro_torch.train.train_step import train_state_pspecs
+
+    grid = Grid(1, 1, device=dev)
+    out = {}
+
+    # (a) full-width qwen3-1.7b: phase 26's seed, hp and batch 0
+    cfg = get_config(TRAIN_ARCH)
+    model = build_model(cfg, dev, grid=grid)
+    hp = TrainHParams(peak_lr=TRAIN_PEAK_LR, warmup=TRAIN_WARMUP,
+                      total_steps=TRAIN_STEPS)
+    plan = spmd_plan(cfg)
+    print(f"  (a) {TRAIN_ARCH}, {cfg.n_layers} layers, batch {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ}, remat {cfg.remat}, grid 1 x 1 (NCCL); planned "
+          f"collective calls a step: {plan}")
+    data = SyntheticTokens(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH,
+                           device=dev)
+    batch0 = data.batch(0)
+    state = init_train_state(model, 0, hp)
+    step = make_train_step(model, hp)
+    new, m, ms0, calls = timed_step(torch, step, state, batch0)
+    ref = train["a"]["step0"]
+    norms = moment_norms(tree_leaves(new.opt.m))
+    gaps = dict(loss=rel_gap(m["loss"], ref["loss"]),
+                grad_norm=rel_gap(m["grad_norm"], ref["grad_norm"]),
+                moments=float(np.max(np.abs(norms - ref["m_norms"])
+                                     / ref["m_norms"])))
+    print(f"  sharded step 0: loss {m['loss']:.6f} (phase 26 "
+          f"{ref['loss']:.6f}), grad_norm {m['grad_norm']:.6f} "
+          f"({ref['grad_norm']:.6f}); relative gaps: loss "
+          f"{gaps['loss']:.3e}, grad_norm {gaps['grad_norm']:.3e}, "
+          f"first-moment norms {gaps['moments']:.3e} at most over "
+          f"{len(norms)} leaves (gate {TRAIN_MB_REL_TOL})")
+    print(f"  collective calls: {calls}")
+    check(max(gaps.values()) <= TRAIN_MB_REL_TOL,
+          "phase 30 (a): the sharded step parts from phase 26's step 0")
+    check(calls == plan, f"phase 30 (a): collective calls {calls} != plan "
+                         f"{plan}")
+    del state
+    state, m1, ms1, _ = timed_step(torch, step, new, data.batch(1))
+    del new
+    check(np.isfinite(m1["loss"]), f"phase 30 (a): step 1 loss {m1['loss']}")
+    print(f"  sharded step 0 {ms0:.1f} ms, step 1 {ms1:.1f} ms; phase 26: "
+          f"step 0 {ref['ms']:.1f} ms, median {train['a']['median_ms']:.1f} "
+          f"ms (unsharded)")
+    out["a"] = dict(gaps=gaps, calls=calls, plan=plan, ms=[ms0, ms1],
+                    loss=m["loss"], grad_norm=m["grad_norm"])
+    del state, model, step, batch0, data
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) qwen3-moe at full width on its first SPMD_MOE_LAYERS layers
+    cfg = get_config(SPMD_MOE_ARCH, n_layers=SPMD_MOE_LAYERS)
+    hp_q = TrainHParams(peak_lr=TRAIN_PEAK_LR, warmup=TRAIN_WARMUP,
+                        total_steps=TRAIN_STEPS,
+                        adamw=AdamWConfig(quant_moments=True))
+    batch = SyntheticTokens(cfg.vocab_size, TRAIN_SEQ, SPMD_MOE_BATCH,
+                            device=dev).batch(0)
+    whole = build_model(cfg, dev)
+    state = init_train_state(whole, 0, hp_q)
+    _, mu, ms_u, _ = timed_step(torch, make_train_step(whole, hp_q), state,
+                                batch)
+    del state, whole
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = build_model(cfg, dev, grid=grid)
+    plan = spmd_plan(cfg, q8_leaf_count(model))
+    state = init_train_state(model, 0, hp_q)
+    _, ms_, ms_s, calls = timed_step(torch, make_train_step(model, hp_q),
+                                     state, batch)
+    del state, model
+    gaps = {k: rel_gap(ms_[k], mu[k]) for k in ("loss", "ce", "aux",
+                                               "grad_norm")}
+    print(f"  (b) {SPMD_MOE_ARCH} at full width on {SPMD_MOE_LAYERS} of 48 "
+          f"layers (the cut), {cfg.moe.n_experts} experts top "
+          f"{cfg.moe.top_k}, batch {SPMD_MOE_BATCH} x {TRAIN_SEQ}, int8 "
+          f"moments: sharded " + ", ".join(
+              f"{k} {ms_[k]:.6f}" for k in gaps) + "; unsharded " +
+          ", ".join(f"{k} {mu[k]:.6f}" for k in gaps) + "; relative gaps "
+          + ", ".join(f"{k} {v:.3e}" for k, v in gaps.items()) +
+          f" (gate {TRAIN_MB_REL_TOL})")
+    print(f"  planned {plan}; counted {calls}; step {ms_s:.1f} ms sharded, "
+          f"{ms_u:.1f} ms unsharded (each a process's first of its kind)")
+    check(max(gaps.values()) <= TRAIN_MB_REL_TOL,
+          "phase 30 (b): the sharded MoE step parts from the unsharded one")
+    check(calls == plan, f"phase 30 (b): collective calls {calls} != plan "
+                         f"{plan}")
+    check(calls["all_to_all"] == 6 * SPMD_MOE_LAYERS,
+          "phase 30 (b): all_to_all calls are not 2 a MoE layer's forward, "
+          "recompute and backward")
+    out["b"] = dict(gaps=gaps, calls=calls, plan=plan, ms_sharded=ms_s,
+                    ms_unsharded=ms_u)
+    del batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) a world-1 save restores unsharded bit for bit
+    cfg = train_e2e.model_100m()
+    hp = TrainHParams()
+    model = build_model(cfg, dev, grid=grid)
+    state = init_train_state(model, 0, hp)
+    d = os.path.join(tmp, "ckpt")
+    CheckpointManager(d, grid=grid, pspecs=train_state_pspecs(
+        model, model.rules, hp)).save(3, state)
+    back, meta = CheckpointManager(d).restore(
+        init_train_state(build_model(cfg, dev), 1, hp))
+    saved, got = train_e2e_leaves(state), train_e2e_leaves(back)
+    check(meta["mesh"] == "1x1" and len(saved) == len(got) and all(
+        torch.equal(x, y) for x, y in zip(saved, got)),
+        "phase 30 (c): the world-1 checkpoint does not restore bit for bit")
+    print(f"  (c) {cfg.param_count() / 1e6:.1f}M float32 model: a world-1 "
+          f"save ({meta['mesh']}) restored unsharded, {len(got)} tensors "
+          f"bit for bit")
+    del state, back, model
+
+    # (d) make_experiments_md over phase 27's records
+    recs = os.path.join(tmp, "records")
+    os.makedirs(recs)
+    for r in dry["records"]:
+        tag = f"__{r['tag']}" if r.get("tag") else ""
+        with open(os.path.join(recs, f"{r['arch']}__{r['shape']}__"
+                                     f"{r['mesh']}{tag}.json"), "w") as f:
+            json.dump(r, f)
+    md = os.path.join(tmp, "EXPERIMENTS.md")
+    with open(md, "w") as f:
+        f.write("".join(f"<!-- AUTOGEN:{k} -->\n<!-- /AUTOGEN:{k} -->\n"
+                        for k in ("dryrun", "roofline", "perf")))
+    emd.main([md, "--records", recs])
+    with open(md) as f:
+        text = f.read()
+    blocks = {k: text.split(f"<!-- AUTOGEN:{k} -->\n")[1].split(
+        f"\n<!-- /AUTOGEN:{k} -->")[0] for k in ("dryrun", "roofline",
+                                                 "perf")}
+    rows = blocks["dryrun"].count("\n| ")
+    check(rows == dry["cells"],
+          f"phase 30 (d): {rows} dry-run rows for {dry['cells']} cells")
+    check(all(blocks.values()), f"phase 30 (d): empty blocks "
+          f"{[k for k, v in blocks.items() if not v]}")
+    print(f"  (d) make_experiments_md: {rows} dry-run rows ({dry['cells']} "
+          f"cells), {blocks['roofline'].count(chr(10)) - 1} roofline rows, "
+          f"{blocks['perf'].count('#### Cell')} hillclimb tables")
+    out["d"] = dict(rows=rows)
+    print(smi.strip())
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -7109,6 +7406,13 @@ def main() -> int:
     print(smi.strip())
     dry = phase_dryrun(torch, dev, smi.strip())
 
+    phase(f"phase 30: sharded training on a one-rank NCCL grid "
+          f"({TRAIN_ARCH} at full width, {SPMD_MOE_ARCH} on "
+          f"{SPMD_MOE_LAYERS} layers, a world-1 checkpoint, "
+          f"make_experiments_md)")
+    print(smi.strip())
+    spmd = phase_spmd(torch, dev, smi, train, dry)
+
     # launches: each kernel's count on its own paths' runs (phases 4, 14,
     # 15, 17, 20, 24 and 25 for decode and flash, 16, 18 and 19 for flash,
     # 18 for decode; phases 6, 16 and 18 for the paged kernels and 19 for
@@ -7224,6 +7528,12 @@ def main() -> int:
           f"{HILL_TRAIN[1]} train step " + ", ".join(
               f"{k} {v['ms']:.1f} ms / {v['peak_gb']:.2f} GB"
               for k, v in pb.items()))
+    print(f"phase 30: {TRAIN_ARCH} sharded step "
+          f"{spmd['a']['ms'][1]:.1f} ms (phase 26 median "
+          f"{ta['median_ms']:.1f}), {SPMD_MOE_ARCH} "
+          f"{spmd['b']['ms_sharded']:.1f} ms sharded / "
+          f"{spmd['b']['ms_unsharded']:.1f} unsharded, "
+          f"{spmd['seconds']:.1f} s")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi.strip())
     print(json.dumps(record))

@@ -3,10 +3,12 @@
 A ``MeshSpec`` names the mesh axes and their sizes and holds no device:
 the dry-run counts the program one device runs under a mesh's sharding
 rules (``launch/specs.py``), so a 512-device mesh costs nothing here.
-The reference's ``make_host_mesh`` (whatever devices jax sees) has no
-counterpart: a ``MeshSpec`` is never built from devices, and the port
-runs across cards through ``torch.distributed`` process groups
-(``parallel.launch.run_tp``), not through a device mesh.
+A ``MeshSpec`` is never built from devices: the port runs across
+cards through ``torch.distributed`` process groups
+(``parallel.launch.run_tp``, ``run_grid``), not through a device mesh.
+``make_host_mesh`` (the reference's: whatever devices jax sees) takes
+the visible cards on ``cuda`` and a rank count the caller gives on the
+CPU, the counterpart of ``--xla_force_host_platform_device_count``.
 
   mesh = make_production_mesh(multi_pod=True)   # 2x16x16 pod, data, model
   mesh.shape["model"], mesh.axis_names, mesh.size
@@ -51,6 +53,32 @@ def make_production_mesh(*, multi_pod: bool = False) -> MeshSpec:
 def make_mesh(shape: tuple[int, ...], axes: tuple[str, ...]) -> MeshSpec:
     """Arbitrary mesh (scaling studies, tests, pipeline stages)."""
     return MeshSpec(tuple(axes), tuple(shape))
+
+
+def make_host_mesh(model: int = 1, *, device="cuda",
+                   devices: int | None = None) -> MeshSpec:
+    """The (data, model) mesh of this host: on ``cuda`` its visible
+    cards (``devices``, when given, must not exceed them), on the CPU
+    ``devices`` ranks (required).  Raises unless ``model`` divides the
+    world."""
+    import torch
+    kind = torch.device(device).type
+    if kind == "cuda":
+        have = torch.cuda.device_count()
+        if have < 1:
+            raise RuntimeError("make_host_mesh: no CUDA device is visible")
+        n = have if devices is None else devices
+        if n > have:
+            raise ValueError(f"{n} ranks need {n} cards, {have} visible")
+    elif devices is None:
+        raise ValueError("make_host_mesh on the CPU needs a rank count "
+                         "(devices=N)")
+    else:
+        n = devices
+    if model < 1 or n % model:
+        raise ValueError(f"model axis {model} does not divide a world of "
+                         f"{n}")
+    return make_mesh((n // model, model), ("data", "model"))
 
 
 def make_tp_mesh(tp: int, axis: str = "model") -> MeshSpec:

@@ -12,8 +12,21 @@ nothing here is read from the card's counter.
       --steps 20 --batch 8 --seq 128 --device cpu
 
 ``--device`` defaults to ``cuda`` and raises without a GPU.
-``--model-axis`` above 1 (sharded training) raises: it waits for a
-4-chip cell.
+
+Sharded training (the reference's ``make_host_mesh(model=...)`` and
+``make_rules(cfg, mesh, "train")``): the world is the visible cards on
+``cuda`` (NCCL, one process a card) and ``--devices N`` ranks on the
+CPU (gloo; the counterpart of ``--xla_force_host_platform_device_count``);
+``--model-axis`` splits it into (world / model, model).  A world of one
+trains unsharded, as the reference does on one device.  Rank 0 prints
+and its report is returned (the state stays with the ranks):
+
+  python -m repro_torch.launch.train --arch qwen3-1.7b --reduce \
+      --steps 6 --model-axis 2 --devices 4 --device cpu
+
+It raises when ``--model-axis`` does not divide the world, and for a
+family the model axis does not shard yet (mla_moe, hybrid, rwkv and vlm
+above 1: ROADMAP §A.8).
 """
 from __future__ import annotations
 
@@ -31,6 +44,7 @@ from repro_torch.core.summarizer import energy_to_train
 from repro_torch.data import SyntheticTokens
 from repro_torch.hw import DATACENTER_H100
 from repro_torch.models import build_model
+from repro_torch.models.lm import check_model_axis
 from repro_torch.optim import AdamWConfig
 from repro_torch.train import (TrainHParams, init_train_state,
                                make_train_step)
@@ -50,13 +64,29 @@ def main(argv=None):
     ap.add_argument("--quant-opt", action="store_true",
                     help="int8-m / bf16-sqrt-v optimizer states")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--devices", type=int, default=None,
+                    help="ranks of a sharded run (CPU: gloo processes; "
+                         "cuda: at most the visible cards)")
     args = ap.parse_args(argv)
-    if args.model_axis > 1:
-        raise NotImplementedError(
-            f"--model-axis {args.model_axis}: sharded training waits for a "
-            f"4-chip cell, see ROADMAP §A.8")
 
     dev = resolve_device(args.device)
+    cfg = _config(args)
+    # before any rank is spawned
+    check_model_axis(cfg, args.model_axis)
+    from repro_torch.launch.mesh import make_host_mesh
+    mesh = make_host_mesh(args.model_axis, device=dev, devices=(
+        args.devices if dev.type == "cuda" else args.devices or 1))
+    if mesh.size == 1:
+        return _train(args, dev)
+    from repro_torch.parallel.launch import run_grid
+    d, m = mesh.axis_sizes
+    rep, summary = run_grid(_train_rank, d, m, args=(args,),
+                            backend="nccl" if dev.type == "cuda" else "gloo",
+                            timeout_s=3600.0)
+    return None, rep, summary
+
+
+def _config(args):
     cfg = get_config(args.arch)
     if args.reduce:
         cfg = reduce_config(cfg)
@@ -65,18 +95,40 @@ def main(argv=None):
             f"{args.arch}: the launcher's SyntheticTokens batches hold "
             f"tokens only (no mfcc, frames or patch embeddings), as the "
             f"reference's")
-    model = build_model(cfg, dev)
-    print(f"arch={cfg.name} params={cfg.param_count() / 1e6:.1f}M "
-          f"(reduced={args.reduce}) device={dev}")
+    return cfg
+
+
+def _train_rank(grid, args):
+    """One rank of a sharded run: rank 0's (report, summary)."""
+    _, rep, summary = _train(args, grid.device, grid)
+    return (rep, summary) if grid.rank == 0 else None
+
+
+def _train(args, dev, grid=None):
+    """The training run on ``dev``, sharded on ``grid`` where given:
+    (state, report, energy summary)."""
+    cfg = _config(args)
+    say = print if grid is None or grid.rank == 0 else (lambda *a: None)
+    model = build_model(cfg, dev, grid=grid)
+    say(f"arch={cfg.name} params={cfg.param_count() / 1e6:.1f}M "
+        f"(reduced={args.reduce}) device={dev}")
+    if grid is not None:
+        say(f"mesh data={grid.data} model={grid.model} "
+            f"({'nccl' if dev.type == 'cuda' else 'gloo'})")
 
     hp = TrainHParams(total_steps=args.steps, warmup=max(2, args.steps // 10),
                       adamw=AdamWConfig(quant_moments=args.quant_opt))
     state = init_train_state(model, 0, hp)
     step = make_train_step(model, hp)
     data = SyntheticTokens(cfg.vocab_size, args.seq, args.batch, device=dev)
-    ckpt = CheckpointManager(args.ckpt_dir, keep=2)
+    ckpt_kw = {}
+    if grid is not None:
+        from repro_torch.train.train_step import train_state_pspecs
+        ckpt_kw = dict(grid=grid,
+                       pspecs=train_state_pspecs(model, model.rules, hp))
+    ckpt = CheckpointManager(args.ckpt_dir, keep=2, **ckpt_kw)
 
-    n_chips = 1
+    n_chips = 1 if grid is None else grid.data * grid.model
     meter = SystemPowerModel(DATACENTER_H100, n_chips)
     work = StepWork(
         flops=6.0 * cfg.param_count() * args.batch * args.seq / n_chips,
@@ -91,7 +143,7 @@ def main(argv=None):
         node.power_sample((time.monotonic() - t0) * 1e3, watts,
                           node="node0")
         if s % 5 == 0:
-            print(f"step {s}: loss={float(metrics['loss']):.4f}")
+            say(f"step {s}: loss={float(metrics['loss']):.4f}")
 
     state, rep = run_with_recovery(
         state=state, step_fn=step, data_fn=data.batch, ckpt=ckpt,
@@ -104,8 +156,8 @@ def main(argv=None):
     s = energy_to_train(perf.events, {"node0": node.events},
                         switch_estimate=SwitchEstimator().estimate(
                             n_chips, dur_ms / 1e3))
-    print(f"energy-to-train (modeled): {s.energy_j:.1f} J, "
-          f"avg {s.avg_watts:.0f} W, {s.window_s:.1f} s")
+    say(f"energy-to-train (modeled): {s.energy_j:.1f} J, "
+        f"avg {s.avg_watts:.0f} W, {s.window_s:.1f} s")
     return state, rep, s
 
 

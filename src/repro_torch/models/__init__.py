@@ -6,7 +6,13 @@ from __future__ import annotations
 from repro_torch.configs.base import ModelConfig
 
 
-def build_model(cfg: ModelConfig, device="cuda", *, kernels: bool = True):
+def build_model(cfg: ModelConfig, device="cuda", *, kernels: bool = True,
+                grid=None):
+    """``grid``: a ``parallel.grid.Grid`` for sharded training (the
+    decoder-only LM only)."""
+    if grid is not None and cfg.family in ("tiny", "encdec"):
+        raise NotImplementedError(f"family {cfg.family!r}: sharded "
+                                  f"training takes the decoder-only LM")
     if cfg.family == "tiny":
         from repro_torch.models.tiny import TinyModel
         return TinyModel(cfg, device)
@@ -14,4 +20,4 @@ def build_model(cfg: ModelConfig, device="cuda", *, kernels: bool = True):
         from repro_torch.models.encdec import EncDecLM
         return EncDecLM(cfg, device, kernels=kernels)
     from repro_torch.models.lm import LM
-    return LM(cfg, device, kernels=kernels)
+    return LM(cfg, device, kernels=kernels, grid=grid)

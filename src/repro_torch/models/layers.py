@@ -6,8 +6,10 @@ attention (an encoder's bidirectional; training's on the plain path),
 GQA prefill/decode/verify with the KV-cache write, the paged-KV decode
 and verify paths, absorbed MLA (DeepSeek's latent attention) with its
 latent cache and without it (training), the SwiGLU FFN and the
-sort-based, capacity-limited MoE layer on its local path (no expert
-parallelism).  The reference's ``shard`` is an identity outside a mesh
+sort-based, capacity-limited MoE layer on its local path, and for
+sharded training the tensor-parallel attention and FFN and the
+expert-parallel MoE layer (``gqa_attention_tp``, ``ffn_tp``,
+``moe_ffn_ep``).  The reference's ``shard`` is an identity outside a mesh
 and is dropped; its ``tp_psum`` after each row-parallel projection is
 ``LM``'s all-reduce over its ``tp_group`` (``models/lm.py``).
 Attention goes through the kernel wrappers when ``kernels`` is set (CPU
@@ -642,6 +644,49 @@ def _capacity(n_tokens: int, mo) -> int:
                                 * mo.capacity_factor)))
 
 
+def _dispatch(x2d, topi, e: int, capacity: int):
+    """The (N, k) assignments sorted by expert (stably: by token within
+    an expert), each expert's first ``capacity`` rows gathered into an
+    (E, capacity, d) buffer and the rest dropped (GShard).  Returns the
+    buffer and (order, slot, keep) for ``_combine``."""
+    n, k = topi.shape
+    dev = x2d.device
+    flat_e = topi.reshape(-1).long()
+    order = torch.sort(flat_e, stable=True).indices
+    se = flat_e[order]
+    counts = torch.zeros(e, dtype=torch.long, device=dev).scatter_add_(
+        0, flat_e, torch.ones_like(flat_e))
+    starts = torch.cumsum(counts, 0) - counts
+    pos_in_e = torch.arange(n * k, device=dev) - starts[se]
+    keep = pos_in_e < capacity
+    slot = torch.where(keep, se * capacity + pos_in_e, e * capacity)
+    buf = torch.zeros((e * capacity + 1, x2d.shape[1]), dtype=x2d.dtype,
+                      device=dev)
+    buf[slot] = x2d[order // k]
+    return buf[:-1].view(e, capacity, -1), (order, slot, keep)
+
+
+def _combine(out, topv, route, dtype):
+    """Each token's kept expert outputs (rows of ``out``, (E * capacity,
+    d)) weighted by its gates and summed in float32, in assignment
+    order; dropped assignments add 0."""
+    order, slot, keep = route
+    n, k = topv.shape
+    y_sorted = torch.where(keep[:, None],
+                           out[slot.clamp(max=out.shape[0] - 1)], 0.0)
+    w_sorted = topv.reshape(-1)[order].to(y_sorted.dtype)
+    contrib = y_sorted * w_sorted[:, None]
+    # back to assignment order: token t's k outputs at rows t*k .. t*k+k-1
+    inv = torch.empty_like(order)
+    inv[order] = torch.arange(n * k, device=order.device)
+    return contrib[inv].view(n, k, -1).float().sum(1).to(dtype)
+
+
+def _experts(buf, wg, wu, wd):
+    """The experts' SwiGLU as batched GEMMs: (E, C, d) -> (E, C, d)."""
+    return torch.bmm(F.silu(torch.bmm(buf, wg)) * torch.bmm(buf, wu), wd)
+
+
 def _moe_local(x2d, topv, topi, wg, wu, wd, capacity: int):
     """Sort-based, capacity-limited expert compute (reference
     ``_moe_local``): the (N, k) assignments are sorted by expert
@@ -656,33 +701,9 @@ def _moe_local(x2d, topv, topi, wg, wu, wd, capacity: int):
     each token's k outputs back in assignment order and sums them in
     float32, where the reference scatter-adds (an atomic, run-dependent
     sum in bf16 on a GPU)."""
-    n, k = topi.shape
-    e = wg.shape[0]
-    dev = x2d.device
-    flat_e = topi.reshape(-1).long()
-    order = torch.sort(flat_e, stable=True).indices
-    tok = order // k
-    se = flat_e[order]
-    counts = torch.zeros(e, dtype=torch.long, device=dev).scatter_add_(
-        0, flat_e, torch.ones_like(flat_e))
-    starts = torch.cumsum(counts, 0) - counts
-    pos_in_e = torch.arange(n * k, device=dev) - starts[se]
-    keep = pos_in_e < capacity
-    slot = torch.where(keep, se * capacity + pos_in_e, e * capacity)
-    buf = torch.zeros((e * capacity + 1, x2d.shape[1]), dtype=x2d.dtype,
-                      device=dev)
-    buf[slot] = x2d[tok]
-    buf = buf[:-1].view(e, capacity, -1)
-    h = F.silu(torch.bmm(buf, wg)) * torch.bmm(buf, wu)
-    out = torch.bmm(h, wd).view(e * capacity, -1)
-    y_sorted = torch.where(keep[:, None],
-                           out[slot.clamp(max=e * capacity - 1)], 0.0)
-    w_sorted = topv.reshape(-1)[order].to(y_sorted.dtype)
-    contrib = y_sorted * w_sorted[:, None]
-    # back to assignment order: token t's k outputs at rows t*k .. t*k+k-1
-    inv = torch.empty_like(order)
-    inv[order] = torch.arange(n * k, device=dev)
-    return contrib[inv].view(n, k, -1).float().sum(1).to(x2d.dtype)
+    buf, route = _dispatch(x2d, topi, wg.shape[0], capacity)
+    out = _experts(buf, wg, wu, wd)
+    return _combine(out.view(-1, out.shape[-1]), topv, route, x2d.dtype)
 
 
 def moe_ffn(x, p, cfg, router_type="softmax"):
@@ -704,3 +725,118 @@ def moe_decode(x, p, cfg, router_type="softmax"):
     """Decode-time MoE (reference ``moe_decode``): on one device the same
     local path as ``moe_ffn``."""
     return moe_ffn(x, p, cfg, router_type)
+
+
+# ----------------------------------------------------------------------
+# Sharded training: tensor and expert parallelism over a model group
+# ----------------------------------------------------------------------
+# The reference trains under GSPMD rules (``make_rules(cfg, mesh,
+# "train")``) and ``_moe_shard_map``; the port runs one process a device
+# (``parallel.grid.Grid``).  Activations outside the MoE layer stay whole
+# on every rank of a data row (replicated over the model group): each
+# rank's weights are its blocks of the rules' layout, FSDP dims already
+# gathered (``parallel.sharding.gather_fsdp``), and the Megatron pair
+# (``parallel.collectives.copy_to`` / ``reduce_from``) opens and closes
+# each column/row-parallel region.  A replicated weight used for a part
+# of the computation on each rank (the q/k norms; K/V projections whose
+# heads do not divide the model axis; the router) goes through
+# ``copy_to`` too, so its gradient is summed over the group.
+def kv_window(index: int, h_local: int, group: int) -> tuple[int, int]:
+    """The KV heads [lo, hi) that query heads [index * h_local, (index +
+    1) * h_local) attend under GQA groups of ``group`` query heads.
+    Raises where the local heads do not map onto whole KV heads or one
+    KV head's part."""
+    if h_local % group and group % h_local:
+        raise NotImplementedError(
+            f"{h_local} query heads a rank across GQA groups of {group}")
+    lo = index * h_local // group
+    return lo, (index * h_local + h_local - 1) // group + 1
+
+
+def gqa_attention_tp(x, p, cfg, grid):
+    """Causal training attention on this rank's query heads: x (B, S, d)
+    replicated over the model group of ``grid`` (a
+    ``parallel.grid.Grid``) -> this rank's partial output, summed over
+    the group (replicated).  The K/V heads are split like the query
+    heads, or, where the rules left them whole (``p["wk"]`` holds all
+    of them on a model axis above 1), each rank projects all of them
+    and attends with its query heads' own."""
+    from repro_torch.parallel.collectives import copy_to, reduce_from
+    b, s, _ = x.shape
+    dh = cfg.head_dim
+    group, size = grid.model_group, grid.model
+    h = cfg.n_heads // size
+    x = copy_to(x, group)
+    kv_rep = size > 1 and p["wk"].shape[-1] == cfg.n_kv_heads * dh
+    w = {n: (copy_to(p[n], group) if kv_rep and n in
+             ("wk", "wv", "bk", "bv") else p[n]) for n in p}
+    q, k, v = x @ w["wq"], x @ w["wk"], x @ w["wv"]
+    if "bq" in w:
+        q, k, v = q + w["bq"], k + w["bk"], v + w["bv"]
+    q = q.reshape(b, s, h, dh)
+    k = k.reshape(b, s, -1, dh)
+    v = v.reshape(b, s, -1, dh)
+    if cfg.qk_norm:
+        q = rmsnorm(q, copy_to(w["q_norm"], group), cfg.norm_eps)
+        k = rmsnorm(k, copy_to(w["k_norm"], group), cfg.norm_eps)
+    if kv_rep:
+        lo, hi = kv_window(grid.index("model"), h,
+                           cfg.n_heads // cfg.n_kv_heads)
+        k, v = k[:, :, lo:hi], v[:, :, lo:hi]
+    positions = torch.arange(s, device=x.device)
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+    o = flash_attention_plain(q, k, v, causal=True, chunk=cfg.attn_chunk,
+                              triangular=cfg.causal_skip,
+                              bf16_scores=cfg.attn_bf16_scores)
+    return reduce_from(o.reshape(b, s, -1) @ w["wo"], group)
+
+
+def ffn_tp(x, p, group):
+    """SwiGLU with gate/up column-split and down row-split over
+    ``group``: replicated x -> replicated output."""
+    from repro_torch.parallel.collectives import copy_to, reduce_from
+    return reduce_from(ffn(copy_to(x, group), p), group)
+
+
+def moe_ffn_ep(x, p, cfg, router_type, grid):
+    """The MoE layer under expert parallelism, as the reference's
+    ``_moe_shard_map``: x (B, S, d), this data row's tokens, replicated
+    over the model group of ``grid`` (a ``parallel.grid.Grid``).  Each rank
+    takes its block of the sequence (the reference's ``seq_sp``), routes
+    its ``n`` tokens against the whole router (all-gathered from its
+    expert-split layout), fills an (E, capacity(n), d) buffer, sends
+    expert block j to rank j (all_to_all), runs its E / size experts on
+    the size * capacity rows it received, sends them back and combines;
+    the sequence is then all-gathered.  Capacity per shard decides
+    which tokens drop, so the result is the sharded reference's, not
+    the one-device layer's.  Returns (y replicated, aux): ``aux`` the
+    rank's load-balance loss averaged over the model group (the
+    reference's ``pmean`` over the expert axis).  The shared expert, if
+    any, is the caller's."""
+    from repro_torch.parallel.collectives import (all_to_all, gather,
+                                                  gather_rep, reduce_from,
+                                                  split)
+    group, size = grid.model_group, grid.model
+    mo = cfg.moe
+    b, s, d = x.shape
+    if s % size:
+        raise ValueError(f"sequence of {s} does not split over the model "
+                         f"axis ({size})")
+    xs = split(x, 1, group)
+    router = gather(p["router"], 1, group)
+    x2d = xs.reshape(-1, d)
+    n = x2d.shape[0]
+    topv, topi, aux = _route(x2d, router, mo, router_type)
+    cap = _capacity(n, mo)
+    e, el = mo.n_experts, p["w_gate"].shape[0]
+    buf, route = _dispatch(x2d, topi, e, cap)
+    # block j of dim 0 goes to rank j: (size, E / size, cap, d)
+    recv = all_to_all(buf.view(size, el, cap, d), group)
+    recv = recv.transpose(0, 1).reshape(el, size * cap, d)
+    out = _experts(recv, p["w_gate"], p["w_up"], p["w_down"])
+    back = all_to_all(out.view(el, size, cap, d).transpose(0, 1),
+                      group)
+    y = _combine(back.reshape(e * cap, d), topv, route, x2d.dtype)
+    y = gather_rep(y.view(b, s // size, d), 1, group)
+    return y, reduce_from(aux, group) / size

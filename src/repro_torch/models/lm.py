@@ -41,6 +41,14 @@ over the padded vocabulary, and DeepSeek's MTP loss.
 
   loss, metrics = lm.train_loss(params, {"tokens": t, "labels": y})
 
+``LM(cfg, grid=grid)`` trains sharded on a ``parallel.grid.Grid`` (the
+reference's ``make_rules(cfg, mesh, "train")`` layout: FSDP over the
+data axis for every family; over the model axis, for dense and moe,
+Megatron attention and FFN, vocab-parallel embedding, head and cross
+entropy and the expert-parallel MoE of ``_moe_shard_map``);
+``train_loss`` then takes the global batch and this rank's parameter
+blocks (``lm.shard(full)``).
+
 ``verify_step`` scores a T-token window per slot (speculative
 decoding).  With a ``tp_group`` (tensor parallelism, one process per
 shard: ``repro_torch.serving.sharded``) the LM is one shard of the
@@ -67,7 +75,7 @@ from repro_torch.models import mamba as M
 from repro_torch.models import rwkv6 as R
 from repro_torch.models.param import (DTYPES, ParamDef, init_params,
                                       stack_tree, tree_map)
-from repro_torch.parallel.sharding import tp_all_reduce
+from repro_torch.parallel import collectives as C
 
 _FAMILIES = ("dense", "moe", "mla_moe", "hybrid", "rwkv", "vlm")
 
@@ -98,6 +106,22 @@ def _ce_loss(logits_f32, labels, vocab: int, vocab_padded: int,
     return (ce * w).sum() / torch.clamp(w.sum(), min=1.0)
 
 
+# the families whose layers shard over the model axis in training (the
+# two the reference's tests shard); the data axis takes every family
+MODEL_AXIS_FAMILIES = ("dense", "moe")
+
+
+def check_model_axis(cfg: ModelConfig, model: int) -> None:
+    """Raise ``NotImplementedError`` when ``cfg``'s family does not
+    train at model axis ``model`` yet."""
+    if model > 1 and cfg.family not in MODEL_AXIS_FAMILIES:
+        raise NotImplementedError(
+            f"family {cfg.family!r} at model axis {model}: the model axis "
+            f"shards {' and '.join(MODEL_AXIS_FAMILIES)}; mla_moe, hybrid, "
+            f"rwkv and vlm are ROADMAP §A.8's later work (the data axis "
+            f"takes every family)")
+
+
 class LM:
     """Dense or MoE GQA decoder, MLA-MoE decoder, Mamba + GQA hybrid,
     RWKV-6 stack or VLM backbone.
@@ -109,10 +133,12 @@ class LM:
     no kernel: both settings run them alike).  ``tp_group``: the process
     group of a tensor-parallel shard (``None``: the whole model, no
     collective); the group belongs to the model, so a speculative draft
-    built without one stays replicated in the same thread."""
+    built without one stays replicated in the same thread.  ``grid``:
+    sharded training on a ``parallel.grid.Grid`` (``train_loss`` only;
+    see ``_train_loss_grid``)."""
 
     def __init__(self, cfg: ModelConfig, device="cuda", *,
-                 kernels: bool = True, tp_group=None):
+                 kernels: bool = True, tp_group=None, grid=None):
         if cfg.family not in _FAMILIES:
             raise NotImplementedError(
                 f"family {cfg.family!r} has no decoder-only LM (encdec and "
@@ -141,9 +167,42 @@ class LM:
         self.tp_group = tp_group
         if tp_group is not None and cfg.family != "dense":
             raise NotImplementedError(
-                f"family {cfg.family!r}: tensor parallelism shards dense "
-                f"GQA stacks only (parallel.tp_local_config); expert "
-                f"parallelism is ROADMAP §A.8's later work")
+                f"family {cfg.family!r}: serving tensor parallelism shards "
+                f"dense GQA stacks only, as the reference's "
+                f"tp_local_config (ROADMAP §A.8)")
+        self.grid = grid
+        if grid is not None:
+            self._init_grid(grid)
+
+    def _init_grid(self, grid) -> None:
+        """The train-mode layout on ``grid``: the reference's rules and
+        each parameter's partition spec (every family at model axis 1;
+        ``MODEL_AXIS_FAMILIES`` above)."""
+        from repro_torch.parallel.sharding import param_pspecs
+        cfg = self.cfg
+        if self.tp_group is not None:
+            raise ValueError("a serving tp_group and a training grid")
+        check_model_axis(cfg, grid.model)
+        self.rules = grid.rules(cfg)
+        self.pspecs = param_pspecs(self.param_defs(), self.rules)
+        need = ["heads_flat"] + (["experts"] if cfg.moe else ["d_ff"])
+        short = [n for n in need if self.rules.axis_size(n) != grid.model]
+        if short:
+            raise NotImplementedError(
+                f"{cfg.name}: {short} do not divide the model axis "
+                f"({grid.model})")
+
+    def shard(self, params):
+        """This rank's blocks of full ``params`` under the grid's
+        layout (``parallel.sharding.shard_tree``)."""
+        from repro_torch.parallel.sharding import shard_tree
+        return shard_tree(params, self.pspecs, self.grid.mesh,
+                          self.grid.axis_coords)
+
+    def gather(self, params):
+        """Full parameters from every rank's blocks (no gradient)."""
+        from repro_torch.parallel.sharding import gather_tree
+        return gather_tree(params, self.pspecs, self.grid)
 
     def _layer_kinds(self) -> list[str]:
         """Each layer's kind, as the reference's ``LM._layer_kinds``."""
@@ -341,7 +400,7 @@ class LM:
         partial output over ``tp_group`` (identity without one)."""
         if self.tp_group is None:
             return x
-        return tp_all_reduce(x, self.tp_group)
+        return C.all_reduce_sum(x, self.tp_group)
 
     def _apply_rwkv_block(self, x, bp, mode, cache):
         """One RWKV-6 block (reference ``LM._apply_block``, rwkv branch);
@@ -380,6 +439,8 @@ class LM:
         and caches.  One page table serves every layer (the pools are
         stacked per layer, the table is not), so the window's physical
         rows are resolved once here for all of them."""
+        if self.grid is not None:
+            raise NotImplementedError("a training grid's LM does not serve")
         dest = None
         if pages is not None:
             dest = L.paged_dest(pages, pos, x.shape[1],
@@ -399,21 +460,32 @@ class LM:
     # ------------------------------------------------------------------
     # Training (the reference's mode == "train")
     # ------------------------------------------------------------------
-    def _train_block(self, x, bp, kind):
+    def _train_block(self, x, bp, kind, specs=None):
         """One block in train mode: (x, aux), ``aux`` the MoE layer's
         load-balance loss (0 elsewhere).  Attention through the plain
         ``flash_attention_plain`` at ``cfg.attn_chunk`` (the reference's
         ``gqa_attention``), MLA through ``mla_attention``, Mamba and
-        RWKV-6 from a zero state with no cache written."""
+        RWKV-6 from a zero state with no cache written.  On a grid the
+        block's FSDP dims are gathered first (``specs``: the block's
+        partition specs), inside the remat unit, so that its recompute
+        gathers again as GSPMD's does; GQA attention and the FFNs then
+        run the tensor-parallel layers and every MoE layer the
+        expert-parallel one, over the grid's model group."""
         cfg = self.cfg
+        if specs is not None:
+            from repro_torch.parallel.sharding import gather_fsdp
+            bp = gather_fsdp(bp, specs, self.grid)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         h = L.rmsnorm(x, bp["ln1"], cfg.norm_eps)
         if kind == "rwkv":
             x = x + R.time_mix(h, bp["time"], cfg, kernels=False)[0]
             h2 = L.rmsnorm(x, bp["ln2"], cfg.norm_eps)
             return x + R.channel_mix(h2, bp["chan"]), aux
+        grid = self.grid
         mix, ff = kind.split("_")
-        if mix == "attn":
+        if mix == "attn" and grid is not None:
+            o = L.gqa_attention_tp(h, bp["attn"], cfg, grid)
+        elif mix == "attn":
             o = L.gqa_attention(h, bp["attn"], cfg, kernels=False)
         elif mix == "mla":
             o = L.mla_attention(h, bp["attn"], cfg)
@@ -423,9 +495,17 @@ class LM:
         h2 = L.rmsnorm(x, bp["ln2"], cfg.norm_eps)
         if ff == "moe":
             router = "sigmoid" if cfg.family == "mla_moe" else "softmax"
-            o2, aux = L.moe_ffn(h2, bp["moe"], cfg, router)
-        else:
+            if grid is None:
+                o2, aux = L.moe_ffn(h2, bp["moe"], cfg, router)
+            else:
+                o2, aux = L.moe_ffn_ep(h2, bp["moe"], cfg, router, grid)
+                if cfg.moe.n_shared:
+                    o2 = o2 + L.ffn_tp(h2, bp["moe"]["shared"],
+                                       grid.model_group)
+        elif grid is None:
             o2 = L.ffn(h2, bp["ffn"])
+        else:
+            o2 = L.ffn_tp(h2, bp["ffn"], grid.model_group)
         return x + o2, aux
 
     def _train_stack(self, params, x):
@@ -439,12 +519,13 @@ class LM:
         aux = None
         for name, subs, n in self.groups:
             unbound = tree_map(lambda a: a.unbind(0), params[name])
+            specs = self._block_specs(name)
             if subs[0][0] is None:
                 body = L.maybe_remat(functools.partial(
-                    self._train_block, kind=subs[0][1]), cfg.remat,
-                    cfg.remat_policy)
+                    self._train_block, kind=subs[0][1], specs=specs),
+                    cfg.remat, cfg.remat_policy)
             else:
-                body = self._superblock(subs)
+                body = self._superblock(subs, specs)
             auxes = []
             for i in range(n):
                 x, a = body(x, tree_map(lambda t: t[i], unbound))
@@ -452,14 +533,23 @@ class LM:
             aux = torch.stack(auxes).mean()
         return x, aux
 
-    def _superblock(self, subs):
+    def _block_specs(self, name):
+        """The partition specs of one repeat of stack ``name`` (the
+        stacked layer axis dropped), ``None`` off a grid."""
+        if self.grid is None:
+            return None
+        return tree_map(lambda sp: tuple(sp[1:]), self.pspecs[name])
+
+    def _superblock(self, subs, specs=None):
         """A hybrid superblock's train body: its sublayers in order,
         (x, sum of their aux / period); remat wraps the whole superblock,
         or each sublayer under ``sublayer_remat``."""
         remat, sub_remat = self.cfg.remat, self.cfg.sublayer_remat
         policy = self.cfg.remat_policy
         blocks = [(key, L.maybe_remat(functools.partial(
-            self._train_block, kind=kind), remat and sub_remat, policy))
+            self._train_block, kind=kind,
+            specs=None if specs is None else specs[key]),
+            remat and sub_remat, policy))
             for key, kind in subs]
 
         def body(x, bp):
@@ -472,17 +562,18 @@ class LM:
         return L.maybe_remat(body, remat and not sub_remat, policy)
 
     def _check_train(self) -> None:
-        """Raise on the one train-mode option not ported: sharded
-        training."""
+        """Raise on a serving ``tp_group``: sharded training takes a
+        ``grid`` (``LM(cfg, grid=...)``)."""
         if self.tp_group is not None:
             raise NotImplementedError(
-                "sharded training (tensor, FSDP or pipeline parallel) waits "
-                "for a 4-chip cell, see ROADMAP §A.8")
+                "a serving tp_group does not train: sharded training runs "
+                "on a grid (LM(cfg, grid=...)), see ROADMAP §A.8")
 
     def train_forward(self, params, batch):
         """The train path's forward: (logits (B, S, Vp) float32 of the
         tokens' positions, a VLM's patch rows sliced off; the last
-        hidden states (B, P + S, D); aux)."""
+        hidden states (B, P + S, D); aux).  On a grid ``batch`` is this
+        rank's rows and the logits are its vocabulary block."""
         cfg = self.cfg
         self._check_train()
         x = self._embed_inputs(params, batch)
@@ -498,8 +589,10 @@ class LM:
         (B, P, E) (their rows are sliced off the logits).  The loss is the
         cross entropy, plus ``AUX_COEF`` x aux for MoE and ``MTP_COEF`` x
         the MTP loss for DeepSeek; metrics ``ce``, ``aux`` (and ``mtp``),
-        as in the reference."""
+        as in the reference.  On a grid: ``_train_loss_grid``."""
         cfg = self.cfg
+        if self.grid is not None:
+            return self._train_loss_grid(params, batch)
         logits, x, aux = self.train_forward(params, batch)
         loss = _ce_loss(logits, batch["labels"], cfg.vocab_size, self.vp,
                         batch.get("loss_mask"))
@@ -512,13 +605,90 @@ class LM:
             loss = loss + MTP_COEF * mtp
         return loss, metrics
 
-    def _mtp_loss(self, params, h, batch):
+    def _train_loss_grid(self, params, batch):
+        """Sharded ``train_loss``: ``params`` this rank's blocks, ``batch``
+        the global batch, of which the rank takes the rows of its data
+        index (the reference shards the batch over data).  Each term is
+        the rank's share of the global one, so that the shares sum over
+        the data group to the reference's value: the cross entropy's sum
+        over the rank's tokens over the global token count (or over the
+        global ``loss_mask`` weight, at least 1), and ``aux`` the data
+        row's (the model group's mean of each shard's, as the reference's
+        ``pmean``) over the data size.  The returned loss carries the
+        global value (the shares all-reduced over data, no gradient) and
+        the gradient of the rank's share; metrics are global values."""
+        cfg, grid = self.cfg, self.grid
+        rows = next(iter(batch.values())).shape[0]
+        if rows % grid.data:
+            raise ValueError(f"batch of {rows} rows does not split over "
+                             f"the data axis ({grid.data})")
+        step = rows // grid.data
+        lo = grid.index("data") * step
+        local = {k: v[lo:lo + step] for k, v in batch.items()}
+        logits, x, aux = self.train_forward(params, local)
+        labels = batch["labels"]
+        w = batch.get("loss_mask")
+        denom = (labels.numel() if w is None else
+                 torch.clamp(w.float().sum(), min=1.0))
+        ce = self._ce_grid(logits, local["labels"], local.get("loss_mask"),
+                           denom)
+        terms = {"ce": ce, "aux": aux / grid.data}
+        if cfg.mtp:
+            terms["mtp"] = self._mtp_loss(params, x, local, batch)
+        share = terms["ce"]
+        if cfg.moe is not None:
+            share = share + AUX_COEF * terms["aux"]
+        if cfg.mtp:
+            share = share + MTP_COEF * terms["mtp"]
+        vals = C.all_reduce_sum(torch.stack(
+            [t.detach().float() for t in terms.values()]), grid.data_group)
+        metrics = dict(zip(terms, vals.unbind()))
+        total = metrics["ce"]
+        if cfg.moe is not None:
+            total = total + AUX_COEF * metrics["aux"]
+        if cfg.mtp:
+            total = total + MTP_COEF * metrics["mtp"]
+        return share + (total - share.detach()), metrics
+
+    def _ce_grid(self, logits, labels, weights, denom):
+        """The rank's share of the vocab-parallel cross entropy: logits
+        (B, S, Vp / model) this rank's vocabulary block.  The padded
+        columns are masked; the row max (no gradient) is all-reduced
+        with MAX over the model group, the sum of exponentials and the
+        label's logit (taken on the rank that owns it, 0 elsewhere)
+        with SUM; then sum(ce [x weights]) / ``denom``."""
+        grid = self.grid
+        vl = logits.shape[-1]
+        lo = grid.index("model") * vl
+        col = lo + torch.arange(vl, device=logits.device)
+        logits = logits.masked_fill(col >= self.cfg.vocab_size,
+                                    L.MASK_VALUE)
+        mx = C.all_reduce_max(logits.detach().amax(-1), grid.model_group)
+        idx = labels.long() - lo
+        own = (idx >= 0) & (idx < vl)
+        tgt = torch.gather(logits, -1, idx.clamp(0, vl - 1)[..., None])[
+            ..., 0]
+        se, tgt = C.reduce_from(torch.stack([
+            torch.exp(logits - mx[..., None]).sum(-1),
+            torch.where(own, tgt, 0.0)]), grid.model_group).unbind()
+        ce = mx + torch.log(se) - tgt
+        if weights is not None:
+            ce = ce * weights.to(ce.dtype)
+        return ce.sum() / denom
+
+    def _mtp_loss(self, params, h, batch, full=None):
         """DeepSeek-V3's depth-1 multi-token prediction: h_t joined with
         emb(tok_{t+1}) predicts label_{t+1} (= tok_{t+2}); the last two
-        positions weigh 0."""
+        positions weigh 0.  On a grid ``batch`` is the rank's rows and
+        ``full`` the global batch (its weight is the denominator), and
+        the result the rank's share."""
         cfg = self.cfg
         mp = params["mtp"]
-        emb_next = params["embed"][torch.roll(batch["tokens"], -1, dims=1)]
+        if self.grid is not None:
+            from repro_torch.parallel.sharding import gather_fsdp
+            mp = gather_fsdp(mp, self.pspecs["mtp"], self.grid)
+        emb_next = self._embed_rows(params,
+                                    torch.roll(batch["tokens"], -1, dims=1))
         z = torch.cat([L.rmsnorm(h, mp["norm_h"], cfg.norm_eps),
                        L.rmsnorm(emb_next, mp["norm_e"], cfg.norm_eps)],
                       dim=-1) @ mp["proj"]
@@ -526,12 +696,18 @@ class LM:
         z = self._train_block(z, mp["block"], kind)[0]
         logits = self._logits(params, z)
         labels = torch.roll(batch["labels"], -1, dims=1)
-        w = torch.ones(labels.shape, dtype=torch.float32,
-                       device=labels.device)
-        w[:, -2:] = 0.0
-        if "loss_mask" in batch:
-            w = w * batch["loss_mask"]
-        return _ce_loss(logits, labels, cfg.vocab_size, self.vp, w)
+
+        def weights(b):
+            w = torch.ones(b["labels"].shape, dtype=torch.float32,
+                           device=b["labels"].device)
+            w[:, -2:] = 0.0
+            return w * b["loss_mask"] if "loss_mask" in b else w
+
+        w = weights(batch)
+        if self.grid is None:
+            return _ce_loss(logits, labels, cfg.vocab_size, self.vp, w)
+        return self._ce_grid(logits, labels, w, torch.clamp(
+            weights(full).sum(), min=1.0))
 
     # ------------------------------------------------------------------
     # Caches
@@ -650,15 +826,41 @@ class LM:
         """Token embeddings, behind a VLM's projected ``patch_embeds``
         where the inputs have them (the reference's prefix: ``patch_embeds
         .astype(x.dtype) @ patch_proj``, then the tokens)."""
-        x = params["embed"][inputs["tokens"]]
+        x = self._embed_rows(params, inputs["tokens"])
         if self.cfg.vlm is not None and "patch_embeds" in inputs:
-            pe = inputs["patch_embeds"].to(x.dtype) @ params["patch_proj"]
+            pe = inputs["patch_embeds"].to(x.dtype) @ self._fsdp(
+                params, "patch_proj")
             x = torch.cat([pe, x], dim=1)
         return x
 
+    def _fsdp(self, params, name):
+        """Top-level leaf ``name``, its FSDP dims gathered on a grid."""
+        if self.grid is None:
+            return params[name]
+        from repro_torch.parallel.sharding import gather_fsdp
+        return gather_fsdp(params[name], self.pspecs[name], self.grid)
+
+    def _embed_rows(self, params, tokens):
+        """The embedding rows of ``tokens``.  On a grid the table is
+        vocab-parallel: each rank looks up the tokens in its block of
+        rows (the others masked to 0) and the model group all-reduces."""
+        if self.grid is None:
+            return params["embed"][tokens]
+        w = self._fsdp(params, "embed")
+        vl = w.shape[0]
+        idx = tokens.long() - self.grid.index("model") * vl
+        own = ((idx >= 0) & (idx < vl))[..., None]
+        rows = torch.where(own, w[idx.clamp(0, vl - 1)], 0.0)
+        return C.reduce_from(rows, self.grid.model_group)
+
     def _logits(self, params, x):
+        """float32 logits; on a grid the rank's vocabulary block (the
+        head column-split over the model group)."""
         x = L.rmsnorm(x, params["final_norm"], self.cfg.norm_eps)
-        return (x @ params["lm_head"]).float()
+        if self.grid is None:
+            return (x @ params["lm_head"]).float()
+        return (C.copy_to(x, self.grid.model_group)
+                @ self._fsdp(params, "lm_head")).float()
 
     # ------------------------------------------------------------------
     # Prefill / decode entry points

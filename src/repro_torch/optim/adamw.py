@@ -9,6 +9,13 @@ and v is bfloat16 in sqrt space: linear int8 cannot hold the dynamic
 range of g^2, and bf16-sqrt bounds the relative error of the
 denominator at every scale.  ``torch.round`` rounds half to even, as
 ``jnp.round`` does.
+
+On a grid (sharded training) ``adamw_update`` takes ``sharding`` =
+(grid, the parameters' partition specs): the global norm sums each
+leaf's squares over the mesh axes that split it (a replica is counted
+once), and ``_q8`` takes the maximum of the whole row, all-reduced over
+the axes that split the last dim, as the reference's global math does
+(its scales' spec is ``P(*ps[:-1], None)``).
 """
 from __future__ import annotations
 
@@ -19,6 +26,7 @@ import torch
 
 from repro_torch.models.param import (tree_leaves, tree_map,
                                       tree_zip_map)
+from repro_torch.parallel import collectives as C
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,9 +47,13 @@ class OptState(NamedTuple):
     v_scale: Any = None
 
 
-def _q8(x):
-    """float32 tensor -> int8 and its per-row (last axis) float32 scale."""
+def _q8(x, row_groups=()):
+    """float32 tensor -> int8 and its per-row (last axis) float32 scale;
+    the row maximum all-reduced over ``row_groups`` (the groups of the
+    mesh axes that split the last dim)."""
     amax = torch.amax(torch.abs(x), dim=-1, keepdim=True)
+    for g in row_groups:
+        C.all_reduce_max(amax, g)
     scale = torch.clamp(amax, min=1e-12) / 127.0
     q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
     return q, scale.float()
@@ -51,14 +63,33 @@ def _dq8(q, scale):
     return q.float() * scale
 
 
-def global_norm(tree):
+def global_norm(tree, sharding=None):
     """sqrt of the sum over leaves (in the reference's leaf order) of each
-    leaf's float32 sum of squares: a 0-d float32 tensor."""
-    total = None
-    for x in tree_leaves(tree):
-        sq = torch.sum(torch.square(x.float()))
-        total = sq if total is None else total + sq
-    return torch.sqrt(total)
+    leaf's float32 sum of squares: a 0-d float32 tensor.  ``sharding``
+    (grid, specs): ``tree`` holds this rank's blocks; the squares of the
+    leaves split over data, over model and over both are summed over
+    those axes (two all-reduces of one 4-vector), replicas once."""
+    if sharding is None:
+        total = None
+        for x in tree_leaves(tree):
+            sq = torch.sum(torch.square(x.float()))
+            total = sq if total is None else total + sq
+        return torch.sqrt(total)
+    from repro_torch.parallel.sharding import split_axes
+    grid, specs = sharding
+    parts = [[] for _ in range(4)]      # by split axes: none, d, m, d+m
+    for x, spec in zip(tree_leaves(tree), tree_leaves(specs)):
+        ax = split_axes(spec)
+        parts[("data" in ax) + 2 * ("model" in ax)].append(
+            torch.sum(torch.square(x.float())))
+    dev = tree_leaves(tree)[0].device
+    v = torch.stack([torch.stack(p).sum() if p else
+                     torch.zeros((), device=dev) for p in parts])
+    mask = torch.tensor([0.0, 1.0, 0.0, 1.0], device=dev)
+    v = v * (1 - mask) + C.all_reduce_sum(v * mask, grid.data_group)
+    mask = torch.tensor([0.0, 0.0, 1.0, 1.0], device=dev)
+    v = v * (1 - mask) + C.all_reduce_sum(v * mask, grid.model_group)
+    return torch.sqrt(v.sum())
 
 
 def _clip_scale(gnorm, max_norm: float):
@@ -99,12 +130,14 @@ def _unzip(tree, n: int) -> list:
     return [tree_map(lambda t, i=i: t[i], tree) for i in range(n)]
 
 
-def adamw_update(params, grads, state: OptState, lr, cfg: AdamWConfig):
+def adamw_update(params, grads, state: OptState, lr, cfg: AdamWConfig,
+                 sharding=None):
     """One AdamW step: (new params, new OptState, grad norm before
     clipping).  ``lr`` is a float or a 0-d float32 tensor.  The clip of
     ``clip_by_global_norm`` is applied leaf by leaf inside the update
-    (the same products), so no clipped copy of the gradients is held."""
-    gnorm = global_norm(grads)
+    (the same products), so no clipped copy of the gradients is held.
+    ``sharding`` (grid, specs): every tree holds this rank's blocks."""
+    gnorm = global_norm(grads, sharding)
     clip = _clip_scale(gnorm, cfg.clip_norm)
     step = state.step + 1
     bc1 = 1 - torch.pow(cfg.b1, step.float())
@@ -130,13 +163,20 @@ def adamw_update(params, grads, state: OptState, lr, cfg: AdamWConfig):
         return (pf - u).to(p.dtype), m, v
 
     if cfg.quant_moments:
-        def upd(p, g, mq, ms, vsq):
+        def upd(p, g, mq, ms, vsq, spec=()):
             newp, m, v = leaf(p, g, _dq8(mq, ms), torch.square(vsq.float()))
-            nmq, nms = _q8(m)
+            groups = ()
+            if sharding is not None and spec:
+                from repro_torch.parallel.sharding import split_axes
+                groups = [sharding[0].group(a)
+                          for a in sorted(split_axes(spec[-1:]))]
+            nmq, nms = _q8(m, groups)
             return newp, nmq, nms, torch.sqrt(v).to(torch.bfloat16)
 
-        newp, nm, nms, nv = _unzip(tree_zip_map(
-            upd, params, grads, state.m, state.m_scale, state.v), 4)
+        trees = (params, grads, state.m, state.m_scale, state.v)
+        if sharding is not None:
+            trees += (sharding[1],)
+        newp, nm, nms, nv = _unzip(tree_zip_map(upd, *trees), 4)
         return newp, OptState(step, nm, nv, nms, None), gnorm
 
     newp, nm, nv = _unzip(tree_zip_map(leaf, params, grads, state.m,

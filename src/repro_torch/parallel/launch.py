@@ -12,7 +12,10 @@ groups can start at once on one machine.
   run_tp(fn, 4, backend="gloo", timeout_s=120, args=(...,))
 
 calls ``fn(rank, tp, *args)`` on every rank inside its process group
-and returns rank 0's result (``fn`` and ``args`` must pickle: ``fn`` a
+and returns rank 0's result; ``run_grid(fn, data, model, ...)`` runs
+``data * model`` ranks the same way and calls ``fn(grid, *args)`` with
+each rank's ``parallel.grid.Grid`` (its coordinates and the groups of
+its data row and model column) (``fn`` and ``args`` must pickle: ``fn`` a
 module-level function; results plain data, not tensors).  A rank that
 raises, a rank that dies and a collective that hangs all end
 ``run_tp`` within ``timeout_s``: every rank is killed and the error
@@ -57,6 +60,25 @@ def _rank_main(fn, rank: int, tp: int, backend: str, timeout_s: float,
         return
     dist.destroy_process_group()
     results.put((rank, True, out if rank == 0 else None))
+
+
+def _on_grid(rank: int, tp: int, fn, data: int, model: int, *args):
+    """``run_grid``'s body on one rank: ``fn(grid, *args)``."""
+    from repro_torch.parallel.grid import Grid
+    dev = f"cuda:{rank}" if dist.get_backend() == "nccl" else "cpu"
+    return fn(Grid(data, model, device=dev), *args)
+
+
+def run_grid(fn: Callable[..., Any], data: int, model: int, *,
+             backend: str = "gloo", timeout_s: float = 300.0,
+             args: tuple = ()) -> Any:
+    """``run_tp`` over a ``data`` x ``model`` grid of ranks: calls
+    ``fn(grid, *args)`` on each (``grid`` its ``parallel.grid.Grid``) and
+    returns rank 0's result, with ``run_tp``'s errors and timeout."""
+    if data < 1 or model < 1:
+        raise ValueError(f"grid {data} x {model}")
+    return run_tp(_on_grid, data * model, backend=backend,
+                  timeout_s=timeout_s, args=(fn, data, model, *args))
 
 
 def run_tp(fn: Callable[..., Any], tp: int, *, backend: str = "gloo",

@@ -9,10 +9,10 @@ instead: each rank keeps its slice of the weights (``shard_params``,
 by the logical axis names of the ``ParamDef`` tree), builds the LM from
 the per-shard config (``tp_local_config``) and all-reduces each
 row-parallel output over the LM's own process group
-(``tp_all_reduce``).  The embeddings, norms and LM head stay
-replicated, as ``make_tp_rules`` nulls ``vocab``, ``fsdp``, ``batch``
-and ``kv_seq``, so every rank argmaxes the full logits and sampling
-needs no gather.
+(``parallel.collectives.all_reduce_sum``).  The embeddings, norms and
+LM head stay replicated, as ``make_tp_rules`` nulls ``vocab``,
+``fsdp``, ``batch`` and ``kv_seq``, so every rank argmaxes the full
+logits and sampling needs no gather.
 
 The GSPMD half of the reference module is here too, for the dry-run
 (``launch/specs.py``): ``make_rules`` maps a config's logical axes onto
@@ -41,16 +41,12 @@ from __future__ import annotations
 
 import dataclasses
 import math
-import threading
 from typing import Optional, Sequence, Union
 
 import torch
-import torch.distributed as dist
 
 # the logical dims ``make_tp_rules`` keeps on the tensor-parallel axis
 TP_AXES = ("heads", "kv_heads", "heads_flat", "kv_flat", "d_ff")
-
-_CALLS_LOCK = threading.Lock()
 
 
 def tp_local_config(cfg, tp: int):
@@ -120,19 +116,6 @@ def shard_params(params, defs, rank: int, tp: int):
         return p.narrow(axis, rank * step, step).clone()
 
     return walk(params, defs, "")
-
-
-def tp_all_reduce(x: torch.Tensor, group) -> torch.Tensor:
-    """Sum the partial row-parallel output ``x`` over ``group``'s ranks,
-    in place (the reference's ``tp_psum``); returns ``x``.
-    ``tp_all_reduce.calls`` counts the calls."""
-    with _CALLS_LOCK:
-        tp_all_reduce.calls += 1
-    dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
-    return x
-
-
-tp_all_reduce.calls = 0
 
 
 # ----------------------------------------------------------------------
@@ -337,3 +320,117 @@ def local_config(cfg, rules: Optional[ShardingRules]):
     return dataclasses.replace(cfg, n_heads=cfg.n_heads // h,
                                n_kv_heads=cfg.n_kv_heads // kvh,
                                d_ff=cfg.d_ff // ff, d_head=cfg.head_dim)
+
+
+# ----------------------------------------------------------------------
+# Sharded training: each rank's slices of a tree under the specs
+# ----------------------------------------------------------------------
+def _axes(ax: Axis) -> tuple:
+    return () if ax is None else ((ax,) if isinstance(ax, str) else
+                                  tuple(ax))
+
+
+def block_index(ax: Axis, mesh, coords: dict) -> int:
+    """Row-major index of ``coords`` over the mesh axes ``ax`` (the
+    order of a tuple of axes in a partition spec)."""
+    idx = 0
+    for a in _axes(ax):
+        idx = idx * mesh.shape[a] + coords[a]
+    return idx
+
+
+def shard_leaf(t: torch.Tensor, spec: tuple, mesh,
+               coords: dict) -> torch.Tensor:
+    """The block of the full leaf ``t`` that the device at ``coords``
+    ({axis: index}) holds under ``spec``, as an owned copy."""
+    out = t
+    for dim, ax in enumerate(spec):
+        n = _size(mesh, ax)
+        if n == 1:
+            continue
+        if t.shape[dim] % n:
+            raise ValueError(f"dim {dim} of {tuple(t.shape)} does not "
+                             f"split over {ax!r} ({n})")
+        step = t.shape[dim] // n
+        out = out.narrow(dim, block_index(ax, mesh, coords) * step, step)
+    return out.clone(memory_format=torch.contiguous_format)
+
+
+def shard_tree(tree, pspecs, mesh, coords: dict):
+    """Each leaf of ``tree`` (full tensors) cut to the block the device
+    at ``coords`` holds under the matching spec of ``pspecs`` (the
+    reference's ``param_pspecs(defs, make_rules(cfg, mesh, "train"))``:
+    the dry-run's table, so there is one layout)."""
+    from repro_torch.models.param import tree_zip_map
+    return tree_zip_map(lambda t, s: shard_leaf(t, s, mesh, coords),
+                        tree, pspecs)
+
+
+def gather_leaf(t: torch.Tensor, spec: tuple, grid) -> torch.Tensor:
+    """The full leaf rebuilt from every rank's block (no gradient):
+    an all-gather over each mesh axis that splits it, the last axis of
+    a tuple first, so that the blocks land in row-major order."""
+    from repro_torch.parallel.collectives import all_gather_nograd
+    for dim, ax in enumerate(spec):
+        for a in reversed(_axes(ax)):
+            t = all_gather_nograd(t, dim, grid.group(a))
+    return t
+
+
+def gather_tree(tree, pspecs, grid):
+    """``shard_tree``'s inverse on a grid: every leaf whole on every
+    rank (checkpoints, tests)."""
+    from repro_torch.models.param import tree_zip_map
+    return tree_zip_map(lambda t, s: gather_leaf(t, s, grid), tree, pspecs)
+
+
+def gather_fsdp(tree, pspecs, grid):
+    """Each leaf with its data-axis (FSDP) dimensions all-gathered over
+    the grid's data group, differentiably: the gradient comes back
+    reduce-scattered, summed over the data ranks.  Dimensions split
+    over the model axis stay split (tensor and expert parallelism)."""
+    from repro_torch.models.param import tree_zip_map
+    from repro_torch.parallel.collectives import gather
+
+    def one(t, spec):
+        for dim, ax in enumerate(spec):
+            if "data" in _axes(ax):
+                if _axes(ax) != ("data",):
+                    raise NotImplementedError(
+                        f"FSDP over {ax!r}: train meshes are (data, model)")
+                t = gather(t, dim, grid.data_group)
+        return t
+
+    return tree_zip_map(one, tree, pspecs)
+
+
+def split_axes(spec: tuple) -> set:
+    """The mesh axes a leaf of partition ``spec`` is split over."""
+    return {a for ax in spec for a in _axes(ax)}
+
+
+class Shard:
+    """A restore target's layout (the reference's ``NamedSharding``):
+    ``Shard(spec, mesh, coords)(full)`` is the block of ``full`` that
+    the device at ``coords`` holds."""
+
+    def __init__(self, spec: tuple, mesh, coords: dict):
+        self.spec, self.mesh, self.coords = tuple(spec), mesh, dict(coords)
+
+    def __call__(self, full: torch.Tensor) -> torch.Tensor:
+        return shard_leaf(full, self.spec, self.mesh, self.coords)
+
+
+def shardings(specs, mesh, coords: dict):
+    """A tree of ``Shard`` matching a tree of partition specs (dicts and
+    NamedTuples such as ``train_state_pspecs``'; a spec tuple is a leaf,
+    ``None`` stays ``None``): ``CheckpointManager.restore``'s
+    ``shardings`` for the device at ``coords``."""
+    if specs is None:
+        return None
+    if isinstance(specs, tuple) and hasattr(specs, "_fields"):
+        return type(specs)(*(shardings(getattr(specs, n), mesh, coords)
+                             for n in specs._fields))
+    if isinstance(specs, dict):
+        return {k: shardings(v, mesh, coords) for k, v in specs.items()}
+    return Shard(specs, mesh, coords)

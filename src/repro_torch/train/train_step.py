@@ -14,8 +14,21 @@ was.  The metrics are 0-d tensors on the model's device (``loss``,
 ``grad_norm``, ``lr`` and the model's own): a step makes no host read.
 ``train_state_pspecs`` gives the reference's partition specs of the
 state under a mesh's rules (``parallel.sharding.make_rules``): the
-dry-run reads them for the bytes each device holds; training itself
-runs on one card (sharded training waits for a 4-chip cell).
+dry-run reads them for the bytes each device holds, and sharded
+training holds its state by them.
+
+Sharded training (``make_train_step(model, hp)`` with ``model`` built on
+a ``parallel.grid.Grid``, ``build_model(cfg, grid=grid)``; the step
+takes the grid from the model): the state holds this rank's blocks,
+a step takes the global batch (each rank uses its data rows of each
+microbatch, as the reference splits before it shards), and after the
+backward the gradients of leaves replicated over data are summed over
+the data group (the loss is each rank's share of the global mean, so the
+sum is the mean's gradient); FSDP leaves were reduce-scattered by their
+gathers' backward, and leaves replicated over model that see model-split
+work (the router, q/k norms) were summed over model by ``copy_to`` and
+``gather``.  AdamW then runs on the blocks (``adamw_update``'s
+``sharding``).
 """
 from __future__ import annotations
 
@@ -48,8 +61,11 @@ class TrainHParams:
 
 def init_train_state(model, seed: int, hp: TrainHParams) -> TrainState:
     """Seeded parameters (``model.init(seed)``: the model's
-    ``torch.Generator`` on its device), zero moments, step 0."""
+    ``torch.Generator`` on its device; on a grid each rank draws the
+    whole tree and keeps its blocks), zero moments, step 0."""
     params = model.init(seed=seed)
+    if getattr(model, "grid", None) is not None:
+        params = model.shard(params)
     step = torch.zeros((), dtype=torch.int32,
                        device=tree_leaves(params)[0].device)
     return TrainState(params, adamw_init(params, hp.adamw), step)
@@ -92,18 +108,41 @@ def _value_and_grad(model, params, batch):
             grads)
 
 
-def apply_update(state: TrainState, grads, hp: TrainHParams):
+def apply_update(state: TrainState, grads, hp: TrainHParams,
+                 sharding=None):
     """The step's learning rate (``warmup_cosine`` at ``state.step``) and
-    the AdamW update: (new TrainState, lr, grad norm before clipping)."""
+    the AdamW update: (new TrainState, lr, grad norm before clipping).
+    ``sharding``: (grid, parameter specs) of a sharded state."""
     lr = warmup_cosine(state.step, peak_lr=hp.peak_lr, warmup=hp.warmup,
                        total=hp.total_steps)
     params, opt, gnorm = adamw_update(state.params, grads, state.opt, lr,
-                                      hp.adamw)
+                                      hp.adamw, sharding)
     return TrainState(params, opt, state.step + 1), lr, gnorm
 
 
+def reduce_over_data(grads, specs, grid):
+    """The gradients of the leaves replicated over data (no ``data`` in
+    their spec) summed over the grid's data group, in place: one
+    all-reduce per dtype over the leaves flattened together."""
+    from repro_torch.parallel.collectives import all_reduce_sum
+    from repro_torch.parallel.sharding import split_axes
+    leaves = [g for g, sp in zip(tree_leaves(grads), tree_leaves(specs))
+              if "data" not in split_axes(sp)]
+    for dtype in sorted({g.dtype for g in leaves}, key=str):
+        same = [g for g in leaves if g.dtype == dtype]
+        flat = all_reduce_sum(torch.cat([g.reshape(-1) for g in same]),
+                              grid.data_group)
+        for g, part in zip(same, flat.split([g.numel() for g in same])):
+            g.copy_(part.view_as(g))
+    return grads
+
+
 def make_train_step(model, hp: TrainHParams):
-    """Returns step(state, batch) -> (state, metrics)."""
+    """Returns step(state, batch) -> (state, metrics): sharded on the
+    ``parallel.grid.Grid`` ``model`` was built on (see the module
+    docstring), else the one-device step."""
+    grid = getattr(model, "grid", None)
+    sharding = None if grid is None else (grid, model.pspecs)
 
     def step(state: TrainState, batch) -> tuple[TrainState, dict]:
         if hp.microbatches > 1:
@@ -126,7 +165,9 @@ def make_train_step(model, hp: TrainHParams):
         else:
             (loss, metrics), grads = _value_and_grad(model, state.params,
                                                      batch)
-        new, lr, gnorm = apply_update(state, grads, hp)
+        if grid is not None:
+            grads = reduce_over_data(grads, model.pspecs, grid)
+        new, lr, gnorm = apply_update(state, grads, hp, sharding)
         out = {"loss": loss, "grad_norm": gnorm, "lr": lr}
         out.update(metrics)
         return new, out

@@ -30,7 +30,8 @@ def test_launch_train_reduced_six_steps(tmp_path, capsys, extra):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--arch", "qwen3-1.7b", "--model-axis", "2"], "4-chip"),
+    (["--arch", "rwkv6-3b", "--reduce", "--model-axis", "2", "--devices",
+      "2"], "§A.8"),
     (["--arch", "tiny-kws"], "tokens only"),
     (["--arch", "whisper-small", "--reduce"], "tokens only"),
 ])
