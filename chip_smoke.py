@@ -446,9 +446,23 @@ Phases, each fatal on failure:
    equal to the plan (all_to_all 6 a layer); (c) a world-1 save of
    ``launch.train_e2e``'s float32 model restored unsharded bit for bit;
    (d) ``scripts.make_experiments_md`` over phase 27's records into a
-   temporary file: one dry-run row a counted cell, every block filled.
-   No kernel is launched: the train path runs the plain versions, as
-   the reference trains in jnp.
+   temporary file: one dry-run row a counted cell, every block filled;
+   (e) the other decoder families at their published widths, int8
+   moments, one sharded step each against one unsharded step from the
+   same seed, hyperparameters and batch (``SPMD_FAMILIES``): rwkv6-3b at
+   full depth (3.28 B, 2 x 1,024), phi-3-vision-4.2b on ``VLM_LAYERS``
+   (1.12 B, 2 rows of 576 patches and 448 tokens), deepseek-v3-671b on 2
+   of 61 layers, one dense MLA layer and one MoE layer with 32 of its
+   256 experts (top 8 kept), and DeepSeek's MTP (4.79 B, 1 x 1,024), and
+   jamba-v0.1-52b on one superblock of 8 layers with 4 of its 16 experts
+   (top 2 kept) and ``sublayer_remat`` (4.84 B, 1 x 1,024); the cuts, and
+   why (a step's state at full expert count passes the card's 80 GB),
+   are printed; (f) whisper-small at full depth (0.34 B), 2 rows of
+   1,500 frames and 448 tokens.  (e) and (f) gate loss, ce, aux, mtp
+   where there is one and grad_norm within ``TRAIN_MB_REL_TOL`` of the
+   unsharded step's, each collective's calls equal to ``spmd_plan``, and
+   print each step's peak memory.  No kernel is launched: the train path
+   runs the plain versions, as the reference trains in jnp.
 
 The line before the last holds the kernels' JSON record; the last line
 is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside
@@ -6957,14 +6971,44 @@ def phase_contracts(torch, dev, smi: str) -> None:
 # int8 moments: one sharded step against one unsharded step from the
 # same seed (loss, ce, aux, grad_norm within TRAIN_MB_REL_TOL); (c) a
 # world-1 save of launch.train_e2e's float32 model restores unsharded
-# bit for bit; (d) make_experiments_md renders phase 27's records.
+# bit for bit; (d) make_experiments_md renders phase 27's records; (e)
+# and (f) as (b) for SPMD_FAMILIES and SPMD_WHISPER (family_steps).
 SPMD_MOE_ARCH, SPMD_MOE_LAYERS, SPMD_MOE_BATCH = "qwen3-moe-30b-a3b", 2, 2
+# (e) and (f): every other family at its published widths, one sharded
+# step against one unsharded step from the same seed, hyperparameters
+# (int8 moments) and batch.  (arch, layers or None for all, experts or
+# None for all, rows, rows' length (a VLM's holds its 576 patch rows,
+# whisper's is its decoder tokens beside 1,500 frames), overrides, why
+# the cut, printed with it).
+# The two MoE configs keep every width but their expert count: one MoE
+# layer is 15.82 B parameters (deepseek-v3, 256 experts) or 13.30 B
+# (jamba's superblock, 16 experts), and a step holds the parameters,
+# their gradients, the int8 moments and the update's new copies of all
+# three at once, plus one leaf's float32 scratch (deepseek's 0.94 B-row
+# embedding: ~30 GB); deepseek-v3 also keeps one of its 3 dense layers
+# before its MoE layer, so that the peak stays under ~70 GB.  jamba
+# remats each sublayer (``sublayer_remat``): under its superblock remat
+# the recompute tapes the seven Mamba scans at once (~10 GB each at
+# 1 x 1,024) and the step ran out of the card's memory.
+_MEM = ("the card's memory: a step holds the state twice and one "
+        "leaf's float32 scratch")
+SPMD_FAMILIES = (("rwkv6-3b", None, None, 2, 1024, {}, ""),
+                 ("phi-3-vision-4.2b", VLM_LAYERS, None, 2, 1024, {},
+                  "phase 25's depth, for the script's time"),
+                 ("deepseek-v3-671b", 2, 32, 1, 1024, {},
+                  _MEM + " (4 layers at 256 experts: 15.82 B)"),
+                 ("jamba-v0.1-52b", 8, 4, 1, 1024, {"sublayer_remat": True},
+                  _MEM + " (a superblock at 16 experts: 13.30 B), and a "
+                  "superblock's remat tapes its seven Mamba scans at once"))
+SPMD_WHISPER = ("whisper-small", None, None, 2, 448, {}, "")
 
 
-def spmd_plan(cfg, q8_leaves: int = 0) -> dict:
+def spmd_plan(cfg, q8_leaves: int = 0, *, patches: bool = False) -> dict:
     """The collective calls of one sharded ``make_train_step`` step
-    (microbatches 1) of a dense or moe ``cfg`` on a (1, 1) grid, written
-    before the run from the layers' code:
+    (microbatches 1) of ``cfg`` on a (1, 1) grid, written before the run
+    from the layers' code.  At world 1 every dimension the rules can
+    split sits on the size-1 model axis, so every layer runs its
+    tensor-parallel version and every FSDP leaf is gathered.
 
     - outside the layers: the embedding's FSDP gather and its
       vocab-parallel all-reduce, the head's gather; the cross entropy's
@@ -6972,44 +7016,170 @@ def spmd_plan(cfg, q8_leaves: int = 0) -> dict:
       the metrics' all-reduce over data; backward: the head input's
       ``copy_to`` (all-reduce), the head's and the embedding's
       reduce-scatters; the step: one all-reduce a dtype of the leaves
-      replicated over data (the norms, bf16; moe's float32 router too),
-      two for the global norm, and with int8 moments one all_reduce_max
-      a leaf whose last dim is split (``q8_leaves``); "a dtype": the
-      config's, and moe's float32 router;
-    - a layer's forward: 7 FSDP gathers (wq, wk, wv, wo and the FFN's or
-      the experts' three), the attention's ``reduce_from`` (all-reduce);
-      dense: the FFN's ``reduce_from``; moe: the router's gather over the
-      model axis, the sequence's ``gather_rep`` (all_gather), the aux's
-      ``reduce_from`` and 2 all_to_all;
-    - a layer's backward: the attention input's ``copy_to`` and q/k
-      norms' (3 all-reduces), 7 reduce-scatters; dense: the FFN input's
-      ``copy_to``; moe: the router's reduce-scatter, the sequence
-      split's all-gather, 2 all_to_all;
-    - remat (``cfg.remat``) runs each layer's forward again in backward,
-      up to its last product that backward needs (``torch.utils.
-      checkpoint`` stops its recompute there): the trailing
-      ``reduce_from`` of the FFN (dense) or the sequence's
-      ``gather_rep`` and the aux's ``reduce_from`` (moe) run once.
+      replicated over data (the config's dtype, and float32 where the
+      config has a router, Mamba's or RWKV's float32 leaves), two for
+      the global norm, and with int8 moments one all_reduce_max a leaf
+      whose last dim is split (``q8_leaves``); a VLM's ``patches``: the
+      patch projection's gather and reduce-scatter;
+    - each FSDP leaf of a layer (``fsdp`` below): one all_gather
+      forward, one reduce_scatter backward;
+    - a layer's own collectives, forward / backward:
+      GQA attention: ``reduce_from`` / the input's ``copy_to`` and the
+      q/k norms'; MLA: ``reduce_from`` / the ``copy_to`` of the query
+      latent, ``c_kv`` and ``k_rope``; Mamba: ``in_proj``'s gather over
+      the model axis, ``x_proj``'s ``reduce_from`` and ``out_proj``'s /
+      ``in_proj``'s reduce-scatter, the input's and ``x_proj``'s
+      output's ``copy_to``; a SwiGLU FFN (dense, a shared expert, an
+      encoder or decoder layer's): ``reduce_from`` / ``copy_to``; MoE:
+      the router's gather, the sequence's ``gather_rep``, the aux's
+      ``reduce_from``, 2 all_to_all / the router's reduce-scatter, the
+      sequence split's all_gather, 2 all_to_all; RWKV-6: the time-mix's
+      and the channel-mix's ``reduce_from`` / the ``copy_to`` of the
+      time-mix input, its five mixes and ``decay_a``, and of the
+      channel-mix's key branch; whisper's cross-attention:
+      ``reduce_from`` / its query input's ``copy_to``;
+    - whisper outside the layers: each decoder layer's cross K/V
+      projections' two FSDP gathers (once: they run before the decoder,
+      outside its remat), the encoder output's ``copy_to``;
+    - DeepSeek's MTP (no remat): its embedding lookup (gather,
+      all-reduce / reduce-scatter), the ``proj`` gather, an
+      ``mla_dense`` block, the head (gather / ``copy_to``,
+      reduce-scatter) and its cross entropy (all_reduce_max,
+      all-reduce);
+    - remat (``cfg.remat``) runs each remat unit's forward again in
+      backward up to its last op that saves a tensor
+      (``torch.utils.checkpoint`` stops there): a unit ending in an FFN
+      (a dense layer, a shared expert, whisper's layers, a hybrid's
+      superblock, whose last sublayer is dense) skips that FFN's
+      ``reduce_from``; an MoE layer without a shared expert skips the
+      ``gather_rep`` and the aux's ``reduce_from``; an RWKV-6 layer ends
+      in ``r * kv``, which saves the channel-mix's ``reduce_from``
+      output, and skips nothing.
     """
-    n = cfg.n_layers
-    moe = cfg.moe is not None
+    from collections import Counter
     qk = 2 if cfg.qk_norm else 0
-    fwd = dict(all_gather=9 if moe else 7, all_reduce=2,
-               all_to_all=2 if moe else 0)
-    tail = dict(all_gather=1, all_reduce=1) if moe else dict(all_reduce=1)
-    recompute = {k: v - tail.get(k, 0) for k, v in fwd.items()} \
-        if cfg.remat else {}
-    bwd = dict(all_reduce=1 + qk + (0 if moe else 1),
-               reduce_scatter=8 if moe else 7, all_gather=1 if moe else 0,
-               all_to_all=2 if moe else 0)
-    dtypes = len({cfg.dtype} | ({"float32"} if moe else set()))
-    outer = dict(all_gather=2, all_reduce=4 + dtypes + 2,
-                 reduce_scatter=2, all_to_all=0,
-                 all_reduce_max=1 + q8_leaves)
-    return {k: outer.get(k, 0) + n * (fwd.get(k, 0) + recompute.get(k, 0)
-                                      + bwd.get(k, 0))
-            for k in ("all_reduce", "all_gather", "reduce_scatter",
-                      "all_to_all", "all_reduce_max")}
+    n_shared = cfg.moe.n_shared if cfg.moe is not None else 0
+
+    def fsdp(n):
+        return Counter(all_gather=n), Counter(reduce_scatter=n)
+
+    def layer(kind):
+        """(forward, backward, remat tail) of one layer of ``kind``."""
+        fwd, bwd, tail = Counter(), Counter(), Counter()
+        if kind == "rwkv":
+            f, b = fsdp(9)
+            return f + Counter(all_reduce=2), b + Counter(all_reduce=8), tail
+        mix, ff = kind.split("_")
+        n = {"attn": 4, "mla": 3, "mamba": 2}[mix]
+        fwd.update(all_reduce=2 if mix == "mamba" else 1,
+                   all_gather=1 if mix == "mamba" else 0)
+        bwd.update(all_reduce={"attn": 1 + qk, "mla": 3, "mamba": 2}[mix],
+                   reduce_scatter=1 if mix == "mamba" else 0)
+        if ff == "dense":
+            n += 3
+            fwd.update(all_reduce=1)
+            bwd.update(all_reduce=1)
+            tail.update(all_reduce=1)
+        else:
+            n += 3
+            fwd.update(all_gather=2, all_reduce=1, all_to_all=2)
+            bwd.update(reduce_scatter=1, all_gather=1, all_to_all=2)
+            tail.update(all_gather=1, all_reduce=1)
+            if n_shared:
+                n += 3
+                fwd.update(all_reduce=1)
+                bwd.update(all_reduce=1)
+                tail = Counter(all_reduce=1)
+        f, b = fsdp(n)
+        return fwd + f, bwd + b, tail
+
+    total = Counter(all_gather=2, reduce_scatter=2,
+                    all_reduce=4 + 2, all_reduce_max=1 + q8_leaves)
+    f32 = cfg.moe is not None or cfg.mamba is not None or \
+        cfg.family == "rwkv"
+    total.update(all_reduce=len({cfg.dtype} | ({"float32"} if f32
+                                               else set())))
+    if patches:
+        total.update(all_gather=1, reduce_scatter=1)
+
+    def run(units):
+        """Each remat unit: a list of layer kinds run in order."""
+        for kinds in units:
+            parts = [layer(k) for k in kinds]
+            for f, b, _ in parts:
+                total.update(f)
+                total.update(b)
+            if cfg.remat:
+                for f, _, _ in parts:
+                    total.update(f)
+                total.subtract(parts[-1][2])
+
+    if cfg.family == "encdec":
+        enc = (Counter(all_gather=7, all_reduce=2),
+               Counter(reduce_scatter=7, all_reduce=2),
+               Counter(all_reduce=1))
+        dec = (Counter(all_gather=9, all_reduce=3),
+               Counter(reduce_scatter=9, all_reduce=3),
+               Counter(all_reduce=1))
+        for part, n in ((enc, cfg.encdec.enc_layers), (dec, cfg.n_layers)):
+            for _ in range(n):
+                total.update(part[0])
+                total.update(part[1])
+                if cfg.remat:
+                    total.update(part[0])
+                    total.subtract(part[2])
+        total.update(all_gather=2 * cfg.n_layers,
+                     reduce_scatter=2 * cfg.n_layers, all_reduce=1)
+    elif cfg.family == "hybrid":
+        period = cfg.hybrid.attn_period
+        kinds = _layer_kinds(cfg)
+        units = [kinds[i:i + period] for i in range(0, cfg.n_layers, period)]
+        if cfg.sublayer_remat:
+            units = [[k] for k in kinds]
+        run(units)
+    else:
+        run([[k] for k in _layer_kinds(cfg)])
+    if cfg.mtp:
+        f, b, _ = layer("mla_dense" if cfg.mla is not None else
+                        "attn_dense")
+        total.update(f)
+        total.update(b)
+        total.update(all_gather=3, reduce_scatter=3, all_reduce=3,
+                     all_reduce_max=1)
+    return {k: total[k] for k in ("all_reduce", "all_gather",
+                                  "reduce_scatter", "all_to_all",
+                                  "all_reduce_max")}
+
+
+def family_batch(cfg, rows: int, seq: int, device, seed: int = 0) -> dict:
+    """A training batch of ``rows`` x ``seq`` rows of ``cfg``'s inputs:
+    ``SyntheticTokens``' tokens and labels, a VLM's ``n_patches`` patch
+    embeddings in front (the tokens then fill the rest of ``seq``),
+    whisper's ``enc_len`` frames beside them (float32, seeded)."""
+    import torch
+    from repro_torch.data import SyntheticTokens
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    out = {}
+    if cfg.vlm is not None:
+        n_p = cfg.vlm.n_patches
+        out["patch_embeds"] = torch.randn(
+            (rows, n_p, cfg.vlm.patch_embed_dim or cfg.d_model),
+            generator=gen, device=device)
+        seq -= n_p
+    if cfg.encdec is not None:
+        out["frames"] = torch.randn((rows, cfg.encdec.enc_len, cfg.d_model),
+                                    generator=gen, device=device)
+    out.update(SyntheticTokens(cfg.vocab_size, seq, rows, seed=seed,
+                               device=device).batch(0))
+    return out
+
+
+def _layer_kinds(cfg) -> list:
+    """Each layer's kind, as ``LM._layer_kinds`` (built on meta, so no
+    memory is touched)."""
+    from repro_torch.models.lm import LM
+    return LM(cfg, "meta")._layer_kinds()
 
 
 def q8_leaf_count(model) -> int:
@@ -7044,6 +7214,103 @@ def phase_spmd(torch, dev, smi: str, train: dict, dry: dict) -> dict:
     out["seconds"] = time.perf_counter() - t_phase
     print(f"  phase 30 took {out['seconds']:.1f} s")
     return out
+
+
+def family_cut(arch: str, layers, experts, overrides=None):
+    """(config, the cuts as text) of ``arch`` on its first ``layers``
+    layers with ``experts`` experts (top k kept) and the config
+    ``overrides``; an MoE config whose first dense layers would fill the
+    cut keeps all but one of them, so that an MoE layer stays."""
+    from repro_torch.configs import get_config
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, **(overrides or {}))
+    cuts = [f"{k}={v}" for k, v in (overrides or {}).items()]
+    if layers is not None and layers < full.n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+        cuts.append(f"{layers} of {full.n_layers} layers")
+    if cfg.moe is not None:
+        mo = cfg.moe
+        if experts is not None and experts < mo.n_experts:
+            mo = dataclasses.replace(mo, n_experts=experts)
+            cuts.append(f"{experts} of {full.moe.n_experts} experts, top "
+                        f"{mo.top_k} kept")
+        if mo.first_k_dense >= cfg.n_layers:
+            mo = dataclasses.replace(mo, first_k_dense=cfg.n_layers - 1)
+            cuts.append(f"{mo.first_k_dense} of {full.moe.first_k_dense} "
+                        f"dense layers before the MoE one")
+        cfg = dataclasses.replace(cfg, moe=mo)
+    return cfg, cuts
+
+
+def family_steps(torch, dev, grid, cell, part: str) -> dict:
+    """Phase 30 (e) and (f): ``cell``'s config (``family_cut``) at world
+    1, one unsharded step, then one sharded step from the same seed,
+    hyperparameters (int8 moments) and batch; the gaps of loss, ce, aux,
+    mtp and grad_norm, the collective calls against ``spmd_plan``, each
+    step's peak memory."""
+    from repro_torch.models import build_model
+    from repro_torch.models.param import tree_leaves
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import (TrainHParams, init_train_state,
+                                   make_train_step)
+    t0 = time.perf_counter()
+    arch, layers, experts, rows, seq, overrides, why = cell
+    cfg, cuts = family_cut(arch, layers, experts, overrides)
+    hp = TrainHParams(peak_lr=TRAIN_PEAK_LR, warmup=TRAIN_WARMUP,
+                      total_steps=TRAIN_STEPS,
+                      adamw=AdamWConfig(quant_moments=True))
+    batch = family_batch(cfg, rows, seq, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    whole = build_model(cfg, dev)
+    state = init_train_state(whole, 0, hp)
+    n_params = sum(t.numel() for t in tree_leaves(state.params))
+    _, mu, ms_u, _ = timed_step(torch, make_train_step(whole, hp), state,
+                                batch)
+    del state, whole
+    gc.collect()
+    torch.cuda.empty_cache()
+    peak_u = peak_gb(torch, f"({part}) {arch} unsharded step")
+    model = build_model(cfg, dev, grid=grid)
+    plan = spmd_plan(cfg, q8_leaf_count(model),
+                     patches="patch_embeds" in batch)
+    state = init_train_state(model, 0, hp)
+    _, msh, ms_s, calls = timed_step(torch, make_train_step(model, hp),
+                                     state, batch)
+    del state, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    peak_s = peak_gb(torch, f"({part}) {arch} sharded step")
+    keys = [k for k in ("loss", "ce", "aux", "mtp", "grad_norm") if k in mu]
+    gaps = {k: rel_gap(msh[k], mu[k]) for k in keys}
+    shape = ", ".join(f"{k} {tuple(v.shape)}" for k, v in batch.items())
+    print(f"  ({part}) {arch}: {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {n_params / 1e9:.2f} B parameters "
+          f"({cfg.dtype}, remat {cfg.remat}); cut: "
+          f"{'; '.join(cuts) or 'none (full depth and width)'}"
+          f"{f' (why: {why})' if why else ''}; batch "
+          f"{shape}; int8 moments")
+    print(f"    sharded " + ", ".join(f"{k} {msh[k]:.6f}" for k in keys)
+          + "; unsharded " + ", ".join(f"{k} {mu[k]:.6f}" for k in keys)
+          + "; relative gaps " + ", ".join(f"{k} {v:.3e}"
+                                           for k, v in gaps.items())
+          + f" (gate {TRAIN_MB_REL_TOL})")
+    print(f"    planned {plan}; counted {calls}; step {ms_s:.1f} ms "
+          f"sharded, {ms_u:.1f} ms unsharded (each a process's first of "
+          f"its kind); peak {peak_s:.2f} GB sharded, {peak_u:.2f} GB "
+          f"unsharded; {time.perf_counter() - t0:.1f} s")
+    check(all(math.isfinite(msh[k]) for k in keys),
+          f"phase 30 ({part}): {arch}'s sharded step is not finite: {msh}")
+    check(max(gaps.values()) <= TRAIN_MB_REL_TOL,
+          f"phase 30 ({part}): {arch}'s sharded step parts from the "
+          f"unsharded one: {gaps}")
+    check(calls == plan, f"phase 30 ({part}): {arch}'s collective calls "
+                         f"{calls} != plan {plan}")
+    return dict(gaps=gaps, calls=calls, plan=plan, ms_sharded=ms_s,
+                ms_unsharded=ms_u, peak_gb=peak_s, peak_gb_unsharded=peak_u,
+                params_b=n_params / 1e9, cuts=cuts,
+                seconds=time.perf_counter() - t0)
 
 
 def timed_step(torch, step, state, batch):
@@ -7218,6 +7485,16 @@ def spmd_steps(torch, dev, smi, train, dry, tmp) -> dict:
           f"cells), {blocks['roofline'].count(chr(10)) - 1} roofline rows, "
           f"{blocks['perf'].count('#### Cell')} hillclimb tables")
     out["d"] = dict(rows=rows)
+
+    # (e) the other decoder families, (f) whisper's encoder-decoder
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  (e)-(f) start with {torch.cuda.memory_allocated() / 1e9:.2f} "
+          f"GB allocated by the script's earlier phases (in each step's "
+          f"peak below)")
+    out["e"] = {cell[0]: family_steps(torch, dev, grid, cell, "e")
+                for cell in SPMD_FAMILIES}
+    out["f"] = family_steps(torch, dev, grid, SPMD_WHISPER, "f")
     print(smi.strip())
     return out
 
@@ -7409,7 +7686,9 @@ def main() -> int:
     phase(f"phase 30: sharded training on a one-rank NCCL grid "
           f"({TRAIN_ARCH} at full width, {SPMD_MOE_ARCH} on "
           f"{SPMD_MOE_LAYERS} layers, a world-1 checkpoint, "
-          f"make_experiments_md)")
+          f"make_experiments_md, "
+          f"{', '.join(c[0] for c in SPMD_FAMILIES)} and "
+          f"{SPMD_WHISPER[0]})")
     print(smi.strip())
     spmd = phase_spmd(torch, dev, smi, train, dry)
 
@@ -7532,8 +7811,11 @@ def main() -> int:
           f"{spmd['a']['ms'][1]:.1f} ms (phase 26 median "
           f"{ta['median_ms']:.1f}), {SPMD_MOE_ARCH} "
           f"{spmd['b']['ms_sharded']:.1f} ms sharded / "
-          f"{spmd['b']['ms_unsharded']:.1f} unsharded, "
-          f"{spmd['seconds']:.1f} s")
+          f"{spmd['b']['ms_unsharded']:.1f} unsharded; "
+          + ", ".join(f"{a} {r['ms_sharded']:.1f} ms / {r['peak_gb']:.2f} "
+                      f"GB" for a, r in [*spmd["e"].items(),
+                                         (SPMD_WHISPER[0], spmd["f"])])
+          + f"; {spmd['seconds']:.1f} s")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi.strip())
     print(json.dumps(record))

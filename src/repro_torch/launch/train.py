@@ -24,9 +24,12 @@ and its report is returned (the state stays with the ranks):
   python -m repro_torch.launch.train --arch qwen3-1.7b --reduce \
       --steps 6 --model-axis 2 --devices 4 --device cpu
 
-It raises when ``--model-axis`` does not divide the world, and for a
-family the model axis does not shard yet (mla_moe, hybrid, rwkv and vlm
-above 1: ROADMAP §A.8).
+The model axis takes every family the launcher trains (dense, moe,
+mla_moe, hybrid and rwkv; its batches hold tokens only, so vlm, encdec
+and tiny stay refused, as the reference's launcher refuses them).  It
+raises when ``--model-axis`` does not divide the world, and for an MoE
+config whose experts do not divide the model axis
+(``models.lm.check_model_axis``).
 """
 from __future__ import annotations
 

@@ -25,6 +25,19 @@ plain path (the kernels have no backward).
   params = m.init(seed=0)                  # or param.from_jax(tree)
   logits, cache = m.prefill(params, {"frames": f, "tokens": t}, 448)
   logits, cache = m.decode_step(params, cache, next_tokens)
+
+``EncDecLM(cfg, grid=grid)`` trains sharded on a ``parallel.grid.Grid``
+with the LM's grid API (``rules``, ``pspecs``, ``shard``, ``gather``:
+``models.lm.GridTraining``), under the reference's ``make_rules(cfg,
+mesh, "train")`` layout: FSDP over the data axis; over the model axis,
+the encoder's bidirectional attention without RoPE, the decoder's causal
+self-attention and its cross-attention by heads, the FFNs by ``d_ff``
+(a dimension the rules leave whole is replicated), and a
+vocab-parallel embedding, head and cross entropy.  The cross K/V are
+projected from the encoder output, which enters the rank's heads through
+``copy_to``; where the rules leave the KV heads whole, each rank takes
+those its query heads attend (``layers.kv_window``).  A grid's model
+trains only.
 """
 from __future__ import annotations
 
@@ -37,6 +50,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention.ops import (flash_attention,
                                                      flash_attention_plain)
 from repro_torch.models import layers as L
+from repro_torch.models.lm import GridTraining, _ce_loss, model_split
 from repro_torch.models.param import (DTYPES, ParamDef, init_params,
                                       stack_tree, tree_map)
 
@@ -62,25 +76,39 @@ def cross_attention(x, ctx_k, ctx_v, p, cfg, *, kernels: bool = True):
     return o.reshape(b, sq, -1) @ p["wo"]
 
 
+def cross_attention_tp(x, ctx_k, ctx_v, p, cfg, grid):
+    """``cross_attention`` on this rank's query heads over the model
+    group of ``grid``: x (B, Sq, d) replicated over the group enters
+    through ``copy_to``, ``ctx_k``/``ctx_v`` are the rank's KV heads,
+    and the output is summed over the group."""
+    from repro_torch.parallel.collectives import copy_to, reduce_from
+    b, sq, _ = x.shape
+    q = (copy_to(x, grid.model_group) @ p["wq"]).reshape(b, sq, -1,
+                                                         cfg.head_dim)
+    o = flash_attention_plain(q, ctx_k, ctx_v, causal=False)
+    return reduce_from(o.reshape(b, sq, -1) @ p["wo"], grid.model_group)
+
+
 def cross_kv(ctx, p, cfg):
     """The encoder output's K and V for one decoder layer, each
-    (B, enc_len, KVH, D)."""
+    (B, enc_len, KVH, D) (on a grid, the rank's KV heads)."""
     b, s, _ = ctx.shape
-    kvh, dh = cfg.n_kv_heads, cfg.head_dim
-    return ((ctx @ p["wk"]).reshape(b, s, kvh, dh),
-            (ctx @ p["wv"]).reshape(b, s, kvh, dh))
+    dh = cfg.head_dim
+    return ((ctx @ p["wk"]).reshape(b, s, -1, dh),
+            (ctx @ p["wv"]).reshape(b, s, -1, dh))
 
 
-class EncDecLM:
+class EncDecLM(GridTraining):
     """Whisper-style encoder-decoder.  ``device`` defaults to ``cuda``
     and raises when no GPU is visible.  ``kernels=False`` sends every
     attention to the plain PyTorch versions on any device (the on-card
     yardstick); with ``kernels=True`` CUDA tensors go through the
     hand-written kernels and CPU tensors through the same plain
-    versions."""
+    versions.  ``grid``: sharded training on a ``parallel.grid.Grid``
+    (``train_loss`` only; see the module docstring)."""
 
     def __init__(self, cfg: ModelConfig, device="cuda", *,
-                 kernels: bool = True):
+                 kernels: bool = True, grid=None):
         if cfg.family != "encdec" or cfg.encdec is None:
             raise ValueError(f"EncDecLM needs an encdec config, got family "
                              f"{cfg.family!r}")
@@ -90,6 +118,9 @@ class EncDecLM:
         self.kernels = kernels
         self.dtype = DTYPES[cfg.dtype]
         self._tables: dict[int, torch.Tensor] = {}
+        self.grid = grid
+        if grid is not None:
+            self._init_grid(grid)
 
     # ------------------------------------------------------------------
     # Parameter definitions
@@ -138,9 +169,13 @@ class EncDecLM:
         ``kernels`` says (the kernels have no backward), self-attention
         with ``cfg.causal_skip`` and ``cfg.attn_bf16_scores``; remat by
         ``cfg.remat`` wraps each encoder and decoder layer, keeping only
-        its inputs (the reference's encdec takes no ``remat_policy``)."""
-        from repro_torch.models.lm import _ce_loss
-        cfg = self.cfg
+        its inputs (the reference's encdec takes no ``remat_policy``).
+        On a grid ``batch`` is the global batch, of which the rank takes
+        the rows of its data index, and the loss is its share
+        (``models.lm.GridTraining``)."""
+        cfg, grid = self.cfg, self.grid
+        if grid is not None:
+            batch, denom = self._rank_rows(batch)
         enc_out = self.encode(params, batch["frames"], train=True)
         # unbound once, so that backward stacks each layer's gradient
         # once (indexing the stack would write a whole stack a layer)
@@ -148,26 +183,59 @@ class EncDecLM:
                             self._cross_kv_all(params, enc_out))
         x = self._embed_dec(params, batch["tokens"])
         body = L.maybe_remat(self._train_dec_block, cfg.remat)
-        layers = tree_map(lambda a: a.unbind(0), params["dec_blocks"])
+        # the cross K/V projections were used above
+        layers = tree_map(lambda a: a.unbind(0), dict(
+            params["dec_blocks"], xattn={
+                k: v for k, v in params["dec_blocks"]["xattn"].items()
+                if k not in ("wk", "wv")}))
         for i in range(cfg.n_layers):
             x = body(x, tree_map(lambda t: t[i], layers), cross_k[i],
                      cross_v[i])
-        loss = _ce_loss(self._logits(params, x), batch["labels"],
-                        cfg.vocab_size, self.vp, batch.get("loss_mask"))
-        return loss, {"ce": loss,
-                      "aux": torch.zeros((), dtype=torch.float32,
-                                         device=x.device)}
+        logits = self._logits(params, x)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        if grid is not None:
+            ce = self._ce_grid(logits, batch["labels"],
+                               batch.get("loss_mask"), denom)
+            return self._grid_loss({"ce": ce, "aux": aux}, {"ce": 1.0})
+        loss = _ce_loss(logits, batch["labels"], cfg.vocab_size, self.vp,
+                        batch.get("loss_mask"))
+        return loss, {"ce": loss, "aux": aux}
+
+    def _dec_specs(self):
+        """One decoder layer's partition specs without the cross K/V
+        projections (``_cross_kv_all`` gathers those); ``None`` off a
+        grid."""
+        specs = self._block_specs("dec_blocks")
+        if specs is not None:
+            specs = dict(specs, xattn={k: v for k, v in
+                                       specs["xattn"].items()
+                                       if k not in ("wk", "wv")})
+        return specs
 
     def _train_dec_block(self, x, bp, ck, cv):
-        """One decoder layer in train mode, on the plain path."""
-        cfg = self.cfg
+        """One decoder layer in train mode, on the plain path; on a grid
+        its FSDP dims gathered first and each split layer run
+        tensor-parallel (``bp`` and its specs hold no cross K/V
+        projection: ``_cross_kv_all`` ran them)."""
+        cfg, grid = self.cfg, self.grid
+        specs = self._dec_specs()
+        if specs is not None:
+            from repro_torch.parallel.sharding import gather_fsdp
+            bp = gather_fsdp(bp, specs, grid)
         h = L.rmsnorm(x, bp["ln1"], cfg.norm_eps)
-        x = x + L.gqa_attention(h, bp["attn"], cfg, kernels=False)
+        if model_split(specs, "attn", "wq"):
+            x = x + L.gqa_attention_tp(h, bp["attn"], cfg, grid)
+        else:
+            x = x + L.gqa_attention(h, bp["attn"], cfg, kernels=False)
         h = L.rmsnorm(x, bp["ln_x"], cfg.norm_eps)
-        x = x + cross_attention(h, ck, cv, bp["xattn"], cfg, kernels=False)
+        if model_split(specs, "xattn", "wq"):
+            x = x + cross_attention_tp(h, ck, cv, bp["xattn"], cfg, grid)
+        else:
+            x = x + cross_attention(h, ck, cv, bp["xattn"], cfg,
+                                    kernels=False)
         h = L.rmsnorm(x, bp["ln2"], cfg.norm_eps)
-        return x + L.ffn(h, bp["ffn"])
-
+        return x + self._ffn(h, bp["ffn"], model_split(specs, "ffn",
+                                                       "w_gate"))
 
     # ------------------------------------------------------------------
     # Encoder, cross K/V, decoder stack
@@ -185,15 +253,24 @@ class EncDecLM:
         -> the normed encoder output, same shape, in the model's dtype.
         ``train``: the plain attention path and remat by ``cfg.remat``,
         as ``train_loss`` needs."""
-        cfg = self.cfg
+        cfg, grid = self.cfg, self.grid
         kernels = self.kernels and not train
+        specs = self._block_specs("enc_blocks")
 
         def block(x, bp):
+            if specs is not None:
+                from repro_torch.parallel.sharding import gather_fsdp
+                bp = gather_fsdp(bp, specs, grid)
             h = L.rmsnorm(x, bp["ln1"], cfg.norm_eps)
-            x = x + L.gqa_attention(h, bp["attn"], cfg, causal=False,
-                                    use_rope=False, kernels=kernels)
+            if model_split(specs, "attn", "wq"):
+                x = x + L.gqa_attention_tp(h, bp["attn"], cfg, grid,
+                                           causal=False, use_rope=False)
+            else:
+                x = x + L.gqa_attention(h, bp["attn"], cfg, causal=False,
+                                        use_rope=False, kernels=kernels)
             h = L.rmsnorm(x, bp["ln2"], cfg.norm_eps)
-            return x + L.ffn(h, bp["ffn"])
+            return x + self._ffn(h, bp["ffn"], model_split(specs, "ffn",
+                                                           "w_gate"))
 
         if train:
             block = L.maybe_remat(block, cfg.remat)
@@ -208,18 +285,41 @@ class EncDecLM:
         """Every decoder layer's cross K and V, computed once at prefill:
         (k, v), each (L, B, enc_len, KVH, D).  The stacked weights are
         unbound once (under autograd, indexing the stack a layer at a
-        time would write a whole stack's gradient a layer)."""
+        time would write a whole stack's gradient a layer).  On a grid
+        each layer's ``wk``/``wv`` have their FSDP dims gathered, and
+        where the cross-attention is split over the model axis
+        ``enc_out`` enters through ``copy_to`` and the rank projects the
+        KV heads its query heads attend: its block of them, or, where
+        the rules leave them whole, its ``kv_window`` of the whole
+        projections (which then enter through ``copy_to`` too)."""
+        cfg, grid = self.cfg, self.grid
         ks, vs = [], []
-        xattn = tree_map(lambda a: a.unbind(0), params["dec_blocks"]["xattn"])
-        for i in range(self.cfg.n_layers):
-            k, v = cross_kv(enc_out, tree_map(lambda a: a[i], xattn),
-                            self.cfg)
+        xattn = tree_map(lambda a: a.unbind(0), {
+            k: params["dec_blocks"]["xattn"][k] for k in ("wk", "wv")})
+        specs = self._block_specs("dec_blocks")
+        split = model_split(specs, "xattn", "wq")
+        if split:
+            from repro_torch.parallel.collectives import copy_to
+            enc_out = copy_to(enc_out, grid.model_group)
+        for i in range(cfg.n_layers):
+            p = tree_map(lambda a: a[i], xattn)
+            if specs is not None:
+                from repro_torch.parallel.sharding import gather_fsdp
+                p = gather_fsdp(p, {k: specs["xattn"][k] for k in p}, grid)
+            if split and L.kv_replicated(p["wk"], cfg, grid.model):
+                dh = cfg.head_dim
+                lo, hi = L.kv_window(grid.index("model"),
+                                     cfg.n_heads // grid.model,
+                                     cfg.n_heads // cfg.n_kv_heads)
+                p = {k: copy_to(w, grid.model_group)[:, lo * dh:hi * dh]
+                     for k, w in p.items()}
+            k, v = cross_kv(enc_out, p, cfg)
             ks.append(k)
             vs.append(v)
         return torch.stack(ks), torch.stack(vs)
 
     def _embed_dec(self, params, tokens, pos0: int = 0):
-        x = params["embed"][tokens]
+        x = self._embed_rows(params, tokens)
         return x + self._table(pos0 + tokens.shape[1])[pos0:][None]
 
     def _dec_stack(self, params, x, mode: str, cache, pos):
@@ -228,6 +328,9 @@ class EncDecLM:
         "decode" writes one row at ``pos`` and attends up to it.  Both
         cross-attend to the cache's ``cross_k``/``cross_v``."""
         cfg = self.cfg
+        if self.grid is not None:
+            raise NotImplementedError("a training grid's EncDecLM does not "
+                                      "serve")
         for i in range(cfg.n_layers):
             bp = tree_map(lambda a: a[i], params["dec_blocks"])
             kv = {"k": cache["self_k"][i], "v": cache["self_v"][i]}
@@ -248,10 +351,6 @@ class EncDecLM:
             h = L.rmsnorm(x, bp["ln2"], cfg.norm_eps)
             x = x + L.ffn(h, bp["ffn"])
         return x
-
-    def _logits(self, params, x):
-        x = L.rmsnorm(x, params["final_norm"], self.cfg.norm_eps)
-        return (x @ params["lm_head"]).float()
 
     # ------------------------------------------------------------------
     # Caches

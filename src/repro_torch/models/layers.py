@@ -8,10 +8,11 @@ and verify paths, absorbed MLA (DeepSeek's latent attention) with its
 latent cache and without it (training), the SwiGLU FFN and the
 sort-based, capacity-limited MoE layer on its local path, and for
 sharded training the tensor-parallel attention and FFN and the
-expert-parallel MoE layer (``gqa_attention_tp``, ``ffn_tp``,
-``moe_ffn_ep``).  The reference's ``shard`` is an identity outside a mesh
-and is dropped; its ``tp_psum`` after each row-parallel projection is
-``LM``'s all-reduce over its ``tp_group`` (``models/lm.py``).
+expert-parallel MoE layer (``gqa_attention_tp``, ``mla_attention_tp``,
+``ffn_tp``, ``moe_ffn_ep``).  The reference's ``shard`` is an identity
+outside a mesh and is dropped; its ``tp_psum`` after each row-parallel
+projection is ``LM``'s all-reduce over its ``tp_group``
+(``models/lm.py``).
 Attention goes through the kernel wrappers when ``kernels`` is set (CPU
 tensors still take the plain version inside them) and straight to the
 plain versions otherwise.
@@ -450,21 +451,27 @@ def mla_defs(cfg) -> dict:
     }
 
 
-def _mla_qc(x, p, cfg, positions):
+def _mla_qc(x, p, cfg, positions, group=None):
     """Project to the absorbed query (B, S, H, R), its RoPE part (B, S,
-    H, P), and the latent KV: c_kv (B, S, R) and k_rope (B, S, P)."""
+    H, P), and the latent KV: c_kv (B, S, R) and k_rope (B, S, P).
+    ``group``: the heads of ``p`` are one rank's share (``mla_attention_tp``);
+    the query latent, ``c_kv`` and ``k_rope``, computed whole on every
+    rank, then enter its heads through ``copy_to``."""
     m = cfg.mla
     b, s, _ = x.shape
     qa = rmsnorm(x @ p["wq_a"], p["q_a_norm"], cfg.norm_eps)
+    kv = x @ p["wkv_a"]
+    c_kv = rmsnorm(kv[..., :m.kv_lora_rank], p["kv_a_norm"], cfg.norm_eps)
+    k_rope = rope(kv[..., m.kv_lora_rank:][:, :, None, :], positions,
+                  cfg.rope_theta)[:, :, 0, :]
+    if group is not None:
+        from repro_torch.parallel.collectives import copy_to
+        qa, c_kv, k_rope = (copy_to(t, group) for t in (qa, c_kv, k_rope))
     q = (qa @ p["wq_b"].flatten(1)).view(b, s, *p["wq_b"].shape[1:])
     q_nope, q_rope = q[..., :m.qk_nope_head_dim], q[..., m.qk_nope_head_dim:]
     q_rope = rope(q_rope, positions, cfg.rope_theta)
     # absorb W_uk into q: q' = q_nope @ W_uk^T -> (B, S, H, kv_rank)
     q_abs = torch.einsum("bshd,hrd->bshr", q_nope, p["wk_b"])
-    kv = x @ p["wkv_a"]
-    c_kv = rmsnorm(kv[..., :m.kv_lora_rank], p["kv_a_norm"], cfg.norm_eps)
-    k_rope = rope(kv[..., m.kv_lora_rank:][:, :, None, :], positions,
-                  cfg.rope_theta)[:, :, 0, :]
     return q_abs, q_rope, c_kv, k_rope
 
 
@@ -753,8 +760,10 @@ def kv_window(index: int, h_local: int, group: int) -> tuple[int, int]:
     return lo, (index * h_local + h_local - 1) // group + 1
 
 
-def gqa_attention_tp(x, p, cfg, grid):
-    """Causal training attention on this rank's query heads: x (B, S, d)
+def gqa_attention_tp(x, p, cfg, grid, *, causal: bool = True,
+                     use_rope: bool = True):
+    """Training attention on this rank's query heads (causal with RoPE,
+    or, for whisper's encoder, bidirectional without): x (B, S, d)
     replicated over the model group of ``grid`` (a
     ``parallel.grid.Grid``) -> this rank's partial output, summed over
     the group (replicated).  The K/V heads are split like the query
@@ -767,7 +776,7 @@ def gqa_attention_tp(x, p, cfg, grid):
     group, size = grid.model_group, grid.model
     h = cfg.n_heads // size
     x = copy_to(x, group)
-    kv_rep = size > 1 and p["wk"].shape[-1] == cfg.n_kv_heads * dh
+    kv_rep = kv_replicated(p["wk"], cfg, size)
     w = {n: (copy_to(p[n], group) if kv_rep and n in
              ("wk", "wv", "bk", "bv") else p[n]) for n in p}
     q, k, v = x @ w["wq"], x @ w["wk"], x @ w["wv"]
@@ -783,13 +792,37 @@ def gqa_attention_tp(x, p, cfg, grid):
         lo, hi = kv_window(grid.index("model"), h,
                            cfg.n_heads // cfg.n_kv_heads)
         k, v = k[:, :, lo:hi], v[:, :, lo:hi]
-    positions = torch.arange(s, device=x.device)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
-    o = flash_attention_plain(q, k, v, causal=True, chunk=cfg.attn_chunk,
+    if use_rope:
+        positions = torch.arange(s, device=x.device)
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+    o = flash_attention_plain(q, k, v, causal=causal, chunk=cfg.attn_chunk,
                               triangular=cfg.causal_skip,
                               bf16_scores=cfg.attn_bf16_scores)
     return reduce_from(o.reshape(b, s, -1) @ w["wo"], group)
+
+
+def kv_replicated(wk, cfg, size: int) -> bool:
+    """Whether a K (or V) projection ``wk`` holds every KV head on a
+    model axis of ``size`` above 1: the rules left ``kv_flat`` whole."""
+    return size > 1 and wk.shape[-1] == cfg.n_kv_heads * cfg.head_dim
+
+
+def mla_attention_tp(x, p, cfg, grid):
+    """Training MLA on this rank's heads (``wq_b``, ``wk_b`` and ``wv_b``
+    split by heads, ``wo`` by rows): x (B, S, d) replicated over the
+    model group of ``grid``.  The query latent and the shared latent KV
+    (``c_kv``, ``k_rope``) are computed whole on every rank from the
+    replicated ``wq_a``/``wkv_a`` and their norms, and enter the rank's
+    heads through ``copy_to`` (``_mla_qc``); the output is summed over
+    the group.  The reference's ``mla_attention``, query chunks of
+    1,024 rows with the port's ragged tail."""
+    from repro_torch.parallel.collectives import reduce_from
+    positions = torch.arange(x.shape[1], device=x.device)
+    q_abs, q_rope, c_kv, k_rope = _mla_qc(x, p, cfg, positions,
+                                          grid.model_group)
+    o_l = _mla_ol_chunked(q_abs, q_rope, c_kv, k_rope, cfg)
+    return reduce_from(_mla_o(o_l, p), grid.model_group)
 
 
 def ffn_tp(x, p, group):

@@ -43,11 +43,15 @@ over the padded vocabulary, and DeepSeek's MTP loss.
 
 ``LM(cfg, grid=grid)`` trains sharded on a ``parallel.grid.Grid`` (the
 reference's ``make_rules(cfg, mesh, "train")`` layout: FSDP over the
-data axis for every family; over the model axis, for dense and moe,
-Megatron attention and FFN, vocab-parallel embedding, head and cross
-entropy and the expert-parallel MoE of ``_moe_shard_map``);
-``train_loss`` then takes the global batch and this rank's parameter
-blocks (``lm.shard(full)``).
+data axis; over the model axis, every family's Megatron layers (GQA
+and MLA attention by heads, the Mamba mixer by channels, RWKV-6's
+time-mix by heads and channel-mix by ``d_ff``, the FFNs by ``d_ff``;
+a dimension the rules leave whole is replicated), vocab-parallel
+embedding, head and cross entropy and the expert-parallel MoE of
+``_moe_shard_map``; DeepSeek's MTP block and a VLM's patch rows take
+the same layout); ``train_loss`` then takes the global batch and this
+rank's parameter blocks (``lm.shard(full)``).  ``GridTraining`` holds
+the parts ``models.encdec.EncDecLM`` shares.
 
 ``verify_step`` scores a T-token window per slot (speculative
 decoding).  With a ``tp_group`` (tensor parallelism, one process per
@@ -76,6 +80,7 @@ from repro_torch.models import rwkv6 as R
 from repro_torch.models.param import (DTYPES, ParamDef, init_params,
                                       stack_tree, tree_map)
 from repro_torch.parallel import collectives as C
+from repro_torch.parallel.sharding import split_axes
 
 _FAMILIES = ("dense", "moe", "mla_moe", "hybrid", "rwkv", "vlm")
 
@@ -106,23 +111,172 @@ def _ce_loss(logits_f32, labels, vocab: int, vocab_padded: int,
     return (ce * w).sum() / torch.clamp(w.sum(), min=1.0)
 
 
-# the families whose layers shard over the model axis in training (the
-# two the reference's tests shard); the data axis takes every family
-MODEL_AXIS_FAMILIES = ("dense", "moe")
-
-
 def check_model_axis(cfg: ModelConfig, model: int) -> None:
-    """Raise ``NotImplementedError`` when ``cfg``'s family does not
-    train at model axis ``model`` yet."""
-    if model > 1 and cfg.family not in MODEL_AXIS_FAMILIES:
+    """Raise ``NotImplementedError`` where the port cannot follow the
+    reference's train layout at model axis ``model``: an MoE config
+    whose experts do not divide it (the reference then runs its
+    one-device MoE layer under GSPMD, expert capacity over the global
+    batch, which no rank of the port sees).  Every other dimension the
+    rules leave whole is replicated, as the reference replicates it."""
+    if model > 1 and cfg.moe is not None and cfg.moe.n_experts % model:
         raise NotImplementedError(
-            f"family {cfg.family!r} at model axis {model}: the model axis "
-            f"shards {' and '.join(MODEL_AXIS_FAMILIES)}; mla_moe, hybrid, "
-            f"rwkv and vlm are ROADMAP §A.8's later work (the data axis "
-            f"takes every family)")
+            f"{cfg.name}: {cfg.moe.n_experts} experts over a model axis of "
+            f"{model}: the reference's replicated MoE layer routes the "
+            f"global batch, which the port's ranks do not see (ROADMAP "
+            f"§A.8)")
 
 
-class LM:
+def model_split(specs, *path) -> bool:
+    """Whether the leaf at ``path`` of a block's partition ``specs`` is
+    split over the model axis: its layer then runs tensor-parallel
+    (every layer on a size-1 axis too); a leaf the rules leave whole
+    runs the plain layer, replicated.  False off a grid."""
+    if specs is None:
+        return False
+    for key in path:
+        specs = specs[key]
+    return "model" in split_axes(specs)
+
+
+class GridTraining:
+    """Sharded training's parts that do not depend on the layers, for
+    ``LM`` and ``models.encdec.EncDecLM`` on a ``parallel.grid.Grid``:
+    the train-mode layout (``rules``, ``pspecs``), ``shard`` and
+    ``gather``, the FSDP gather of a top-level leaf, the vocab-parallel
+    embedding, head and cross entropy, and the rank's share of the loss.
+    The host class has ``cfg``, ``vp``, ``grid`` and ``param_defs``."""
+
+    def _init_grid(self, grid) -> None:
+        """The train-mode layout on ``grid``: the reference's rules and
+        each parameter's partition spec (``check_model_axis`` says what
+        stays refused)."""
+        from repro_torch.parallel.sharding import param_pspecs
+        check_model_axis(self.cfg, grid.model)
+        self.rules = grid.rules(self.cfg)
+        self.pspecs = param_pspecs(self.param_defs(), self.rules)
+        self.vocab_split = "model" in split_axes(self.pspecs["embed"])
+
+    def shard(self, params):
+        """This rank's blocks of full ``params`` under the grid's
+        layout (``parallel.sharding.shard_tree``)."""
+        from repro_torch.parallel.sharding import shard_tree
+        return shard_tree(params, self.pspecs, self.grid.mesh,
+                          self.grid.axis_coords)
+
+    def gather(self, params):
+        """Full parameters from every rank's blocks (no gradient)."""
+        from repro_torch.parallel.sharding import gather_tree
+        return gather_tree(params, self.pspecs, self.grid)
+
+    def _block_specs(self, name):
+        """The partition specs of one repeat of stack ``name`` (the
+        stacked layer axis dropped), ``None`` off a grid."""
+        if self.grid is None:
+            return None
+        return tree_map(lambda sp: tuple(sp[1:]), self.pspecs[name])
+
+    def _ffn(self, x, p, split: bool):
+        """A SwiGLU FFN, tensor-parallel over the grid's model group
+        where ``split`` (``ffn_tp``), else whole."""
+        if split:
+            return L.ffn_tp(x, p, self.grid.model_group)
+        return L.ffn(x, p)
+
+    def _fsdp(self, params, name):
+        """Top-level leaf ``name``, its FSDP dims gathered on a grid."""
+        if self.grid is None:
+            return params[name]
+        from repro_torch.parallel.sharding import gather_fsdp
+        return gather_fsdp(params[name], self.pspecs[name], self.grid)
+
+    def _embed_rows(self, params, tokens):
+        """The embedding rows of ``tokens``.  On a grid the table is
+        vocab-parallel: each rank looks up the tokens in its block of
+        rows (the others masked to 0) and the model group all-reduces."""
+        if self.grid is None:
+            return params["embed"][tokens]
+        w = self._fsdp(params, "embed")
+        if not self.vocab_split:
+            return w[tokens]
+        vl = w.shape[0]
+        idx = tokens.long() - self.grid.index("model") * vl
+        own = ((idx >= 0) & (idx < vl))[..., None]
+        rows = torch.where(own, w[idx.clamp(0, vl - 1)], 0.0)
+        return C.reduce_from(rows, self.grid.model_group)
+
+    def _logits(self, params, x):
+        """float32 logits; on a grid the rank's vocabulary block (the
+        head column-split over the model group)."""
+        x = L.rmsnorm(x, params["final_norm"], self.cfg.norm_eps)
+        if self.grid is None:
+            return (x @ params["lm_head"]).float()
+        if self.vocab_split:
+            x = C.copy_to(x, self.grid.model_group)
+        return (x @ self._fsdp(params, "lm_head")).float()
+
+    def _ce_grid(self, logits, labels, weights, denom):
+        """The rank's share of the vocab-parallel cross entropy: logits
+        (B, S, Vp / model) this rank's vocabulary block.  The padded
+        columns are masked; the row max (no gradient) is all-reduced
+        with MAX over the model group, the sum of exponentials and the
+        label's logit (taken on the rank that owns it, 0 elsewhere)
+        with SUM; then sum(ce [x weights]) / ``denom``."""
+        grid = self.grid
+        if not self.vocab_split:
+            ce = token_ce(logits, labels, self.cfg.vocab_size, self.vp)
+        else:
+            vl = logits.shape[-1]
+            lo = grid.index("model") * vl
+            col = lo + torch.arange(vl, device=logits.device)
+            logits = logits.masked_fill(col >= self.cfg.vocab_size,
+                                        L.MASK_VALUE)
+            mx = C.all_reduce_max(logits.detach().amax(-1), grid.model_group)
+            idx = labels.long() - lo
+            own = (idx >= 0) & (idx < vl)
+            tgt = torch.gather(logits, -1, idx.clamp(0, vl - 1)[..., None])[
+                ..., 0]
+            se, tgt = C.reduce_from(torch.stack([
+                torch.exp(logits - mx[..., None]).sum(-1),
+                torch.where(own, tgt, 0.0)]), grid.model_group).unbind()
+            ce = mx + torch.log(se) - tgt
+        if weights is not None:
+            ce = ce * weights.to(ce.dtype)
+        return ce.sum() / denom
+
+    def _rank_rows(self, batch):
+        """(the rank's rows of the global ``batch``: those of its data
+        index, as the reference shards the batch over data; the global
+        cross entropy's denominator: the token count, or the
+        ``loss_mask`` weight, at least 1)."""
+        grid = self.grid
+        rows = next(iter(batch.values())).shape[0]
+        if rows % grid.data:
+            raise ValueError(f"batch of {rows} rows does not split over "
+                             f"the data axis ({grid.data})")
+        step = rows // grid.data
+        lo = grid.index("data") * step
+        labels, w = batch["labels"], batch.get("loss_mask")
+        denom = (labels.numel() if w is None else
+                 torch.clamp(w.float().sum(), min=1.0))
+        return {k: v[lo:lo + step] for k, v in batch.items()}, denom
+
+    def _grid_loss(self, terms: dict, coefs: dict):
+        """(loss, metrics) from the rank's ``terms``, each its share of
+        the global one (they sum over the data group to the reference's
+        value): the returned loss carries the global value (the shares
+        all-reduced over data, no gradient) and the gradient of the
+        rank's share, sum(coefs[k] x terms[k]); metrics are the global
+        values of every term."""
+        share = sum(c * terms[k] for k, c in coefs.items())
+        vals = C.all_reduce_sum(torch.stack(
+            [t.detach().float() for t in terms.values()]),
+            self.grid.data_group)
+        metrics = dict(zip(terms, vals.unbind()))
+        total = sum(c * metrics[k] for k, c in coefs.items())
+        return share + (total - share.detach()), metrics
+
+
+class LM(GridTraining):
     """Dense or MoE GQA decoder, MLA-MoE decoder, Mamba + GQA hybrid,
     RWKV-6 stack or VLM backbone.
     ``device`` defaults to ``cuda`` and raises when no GPU is visible.
@@ -172,37 +326,9 @@ class LM:
                 f"tp_local_config (ROADMAP §A.8)")
         self.grid = grid
         if grid is not None:
+            if tp_group is not None:
+                raise ValueError("a serving tp_group and a training grid")
             self._init_grid(grid)
-
-    def _init_grid(self, grid) -> None:
-        """The train-mode layout on ``grid``: the reference's rules and
-        each parameter's partition spec (every family at model axis 1;
-        ``MODEL_AXIS_FAMILIES`` above)."""
-        from repro_torch.parallel.sharding import param_pspecs
-        cfg = self.cfg
-        if self.tp_group is not None:
-            raise ValueError("a serving tp_group and a training grid")
-        check_model_axis(cfg, grid.model)
-        self.rules = grid.rules(cfg)
-        self.pspecs = param_pspecs(self.param_defs(), self.rules)
-        need = ["heads_flat"] + (["experts"] if cfg.moe else ["d_ff"])
-        short = [n for n in need if self.rules.axis_size(n) != grid.model]
-        if short:
-            raise NotImplementedError(
-                f"{cfg.name}: {short} do not divide the model axis "
-                f"({grid.model})")
-
-    def shard(self, params):
-        """This rank's blocks of full ``params`` under the grid's
-        layout (``parallel.sharding.shard_tree``)."""
-        from repro_torch.parallel.sharding import shard_tree
-        return shard_tree(params, self.pspecs, self.grid.mesh,
-                          self.grid.axis_coords)
-
-    def gather(self, params):
-        """Full parameters from every rank's blocks (no gradient)."""
-        from repro_torch.parallel.sharding import gather_tree
-        return gather_tree(params, self.pspecs, self.grid)
 
     def _layer_kinds(self) -> list[str]:
         """Each layer's kind, as the reference's ``LM._layer_kinds``."""
@@ -468,27 +594,40 @@ class LM:
         RWKV-6 from a zero state with no cache written.  On a grid the
         block's FSDP dims are gathered first (``specs``: the block's
         partition specs), inside the remat unit, so that its recompute
-        gathers again as GSPMD's does; GQA attention and the FFNs then
-        run the tensor-parallel layers and every MoE layer the
-        expert-parallel one, over the grid's model group."""
-        cfg = self.cfg
+        gathers again as GSPMD's does; each layer whose weights the
+        rules split over the model axis then runs its tensor-parallel
+        version over the grid's model group (GQA and MLA attention by
+        heads, the Mamba mixer by channels, RWKV's time-mix by heads and
+        channel-mix by ``d_ff``, the FFNs by ``d_ff``), a layer the rules
+        leave whole its plain version, replicated, and every MoE layer
+        the expert-parallel one."""
+        cfg, grid = self.cfg, self.grid
         if specs is not None:
             from repro_torch.parallel.sharding import gather_fsdp
-            bp = gather_fsdp(bp, specs, self.grid)
+            bp = gather_fsdp(bp, specs, grid)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         h = L.rmsnorm(x, bp["ln1"], cfg.norm_eps)
         if kind == "rwkv":
-            x = x + R.time_mix(h, bp["time"], cfg, kernels=False)[0]
+            if model_split(specs, "time", "w_r"):
+                x = x + R.time_mix_tp(h, bp["time"], cfg, grid)
+            else:
+                x = x + R.time_mix(h, bp["time"], cfg, kernels=False)[0]
             h2 = L.rmsnorm(x, bp["ln2"], cfg.norm_eps)
+            if model_split(specs, "chan", "w_k"):
+                return x + R.channel_mix_tp(h2, bp["chan"],
+                                            grid.model_group), aux
             return x + R.channel_mix(h2, bp["chan"]), aux
-        grid = self.grid
         mix, ff = kind.split("_")
-        if mix == "attn" and grid is not None:
+        if mix == "attn" and model_split(specs, "attn", "wq"):
             o = L.gqa_attention_tp(h, bp["attn"], cfg, grid)
         elif mix == "attn":
             o = L.gqa_attention(h, bp["attn"], cfg, kernels=False)
+        elif mix == "mla" and model_split(specs, "attn", "wq_b"):
+            o = L.mla_attention_tp(h, bp["attn"], cfg, grid)
         elif mix == "mla":
             o = L.mla_attention(h, bp["attn"], cfg)
+        elif model_split(specs, "mamba", "in_proj"):
+            o = M.mamba_block_tp(h, bp["mamba"], cfg, grid)
         else:
             o = M.mamba_block(h, bp["mamba"], cfg)
         x = x + o
@@ -500,12 +639,11 @@ class LM:
             else:
                 o2, aux = L.moe_ffn_ep(h2, bp["moe"], cfg, router, grid)
                 if cfg.moe.n_shared:
-                    o2 = o2 + L.ffn_tp(h2, bp["moe"]["shared"],
-                                       grid.model_group)
-        elif grid is None:
-            o2 = L.ffn(h2, bp["ffn"])
+                    o2 = o2 + self._ffn(h2, bp["moe"]["shared"], model_split(
+                        specs, "moe", "shared", "w_gate"))
         else:
-            o2 = L.ffn_tp(h2, bp["ffn"], grid.model_group)
+            o2 = self._ffn(h2, bp["ffn"],
+                           model_split(specs, "ffn", "w_gate"))
         return x + o2, aux
 
     def _train_stack(self, params, x):
@@ -532,13 +670,6 @@ class LM:
                 auxes.append(a)
             aux = torch.stack(auxes).mean()
         return x, aux
-
-    def _block_specs(self, name):
-        """The partition specs of one repeat of stack ``name`` (the
-        stacked layer axis dropped), ``None`` off a grid."""
-        if self.grid is None:
-            return None
-        return tree_map(lambda sp: tuple(sp[1:]), self.pspecs[name])
 
     def _superblock(self, subs, specs=None):
         """A hybrid superblock's train body: its sublayers in order,
@@ -608,73 +739,25 @@ class LM:
     def _train_loss_grid(self, params, batch):
         """Sharded ``train_loss``: ``params`` this rank's blocks, ``batch``
         the global batch, of which the rank takes the rows of its data
-        index (the reference shards the batch over data).  Each term is
-        the rank's share of the global one, so that the shares sum over
-        the data group to the reference's value: the cross entropy's sum
-        over the rank's tokens over the global token count (or over the
-        global ``loss_mask`` weight, at least 1), and ``aux`` the data
-        row's (the model group's mean of each shard's, as the reference's
-        ``pmean``) over the data size.  The returned loss carries the
-        global value (the shares all-reduced over data, no gradient) and
-        the gradient of the rank's share; metrics are global values."""
+        index (``_rank_rows``).  Each term is the rank's share of the
+        global one (``_grid_loss``): the cross entropy's sum over the
+        rank's tokens over the global token count (or over the global
+        ``loss_mask`` weight, at least 1), ``aux`` the data row's (the
+        model group's mean of each shard's, as the reference's ``pmean``)
+        over the data size, and the MTP loss's share."""
         cfg, grid = self.cfg, self.grid
-        rows = next(iter(batch.values())).shape[0]
-        if rows % grid.data:
-            raise ValueError(f"batch of {rows} rows does not split over "
-                             f"the data axis ({grid.data})")
-        step = rows // grid.data
-        lo = grid.index("data") * step
-        local = {k: v[lo:lo + step] for k, v in batch.items()}
+        local, denom = self._rank_rows(batch)
         logits, x, aux = self.train_forward(params, local)
-        labels = batch["labels"]
-        w = batch.get("loss_mask")
-        denom = (labels.numel() if w is None else
-                 torch.clamp(w.float().sum(), min=1.0))
         ce = self._ce_grid(logits, local["labels"], local.get("loss_mask"),
                            denom)
         terms = {"ce": ce, "aux": aux / grid.data}
+        coefs = {"ce": 1.0}
+        if cfg.moe is not None:
+            coefs["aux"] = AUX_COEF
         if cfg.mtp:
             terms["mtp"] = self._mtp_loss(params, x, local, batch)
-        share = terms["ce"]
-        if cfg.moe is not None:
-            share = share + AUX_COEF * terms["aux"]
-        if cfg.mtp:
-            share = share + MTP_COEF * terms["mtp"]
-        vals = C.all_reduce_sum(torch.stack(
-            [t.detach().float() for t in terms.values()]), grid.data_group)
-        metrics = dict(zip(terms, vals.unbind()))
-        total = metrics["ce"]
-        if cfg.moe is not None:
-            total = total + AUX_COEF * metrics["aux"]
-        if cfg.mtp:
-            total = total + MTP_COEF * metrics["mtp"]
-        return share + (total - share.detach()), metrics
-
-    def _ce_grid(self, logits, labels, weights, denom):
-        """The rank's share of the vocab-parallel cross entropy: logits
-        (B, S, Vp / model) this rank's vocabulary block.  The padded
-        columns are masked; the row max (no gradient) is all-reduced
-        with MAX over the model group, the sum of exponentials and the
-        label's logit (taken on the rank that owns it, 0 elsewhere)
-        with SUM; then sum(ce [x weights]) / ``denom``."""
-        grid = self.grid
-        vl = logits.shape[-1]
-        lo = grid.index("model") * vl
-        col = lo + torch.arange(vl, device=logits.device)
-        logits = logits.masked_fill(col >= self.cfg.vocab_size,
-                                    L.MASK_VALUE)
-        mx = C.all_reduce_max(logits.detach().amax(-1), grid.model_group)
-        idx = labels.long() - lo
-        own = (idx >= 0) & (idx < vl)
-        tgt = torch.gather(logits, -1, idx.clamp(0, vl - 1)[..., None])[
-            ..., 0]
-        se, tgt = C.reduce_from(torch.stack([
-            torch.exp(logits - mx[..., None]).sum(-1),
-            torch.where(own, tgt, 0.0)]), grid.model_group).unbind()
-        ce = mx + torch.log(se) - tgt
-        if weights is not None:
-            ce = ce * weights.to(ce.dtype)
-        return ce.sum() / denom
+            coefs["mtp"] = MTP_COEF
+        return self._grid_loss(terms, coefs)
 
     def _mtp_loss(self, params, h, batch, full=None):
         """DeepSeek-V3's depth-1 multi-token prediction: h_t joined with
@@ -683,17 +766,24 @@ class LM:
         ``full`` the global batch (its weight is the denominator), and
         the result the rank's share."""
         cfg = self.cfg
-        mp = params["mtp"]
+        mp, specs = params["mtp"], None
         if self.grid is not None:
+            # the block gathers its own leaves and runs tensor-parallel
+            # like the stack's blocks
             from repro_torch.parallel.sharding import gather_fsdp
-            mp = gather_fsdp(mp, self.pspecs["mtp"], self.grid)
+            specs = self.pspecs["mtp"]
+            top = [k for k in mp if k != "block"]
+            mp = dict(gather_fsdp({k: mp[k] for k in top},
+                                  {k: specs[k] for k in top}, self.grid),
+                      block=mp["block"])
+            specs = specs["block"]
         emb_next = self._embed_rows(params,
                                     torch.roll(batch["tokens"], -1, dims=1))
         z = torch.cat([L.rmsnorm(h, mp["norm_h"], cfg.norm_eps),
                        L.rmsnorm(emb_next, mp["norm_e"], cfg.norm_eps)],
                       dim=-1) @ mp["proj"]
         kind = "mla_dense" if cfg.mla is not None else "attn_dense"
-        z = self._train_block(z, mp["block"], kind)[0]
+        z = self._train_block(z, mp["block"], kind, specs)[0]
         logits = self._logits(params, z)
         labels = torch.roll(batch["labels"], -1, dims=1)
 
@@ -832,35 +922,6 @@ class LM:
                 params, "patch_proj")
             x = torch.cat([pe, x], dim=1)
         return x
-
-    def _fsdp(self, params, name):
-        """Top-level leaf ``name``, its FSDP dims gathered on a grid."""
-        if self.grid is None:
-            return params[name]
-        from repro_torch.parallel.sharding import gather_fsdp
-        return gather_fsdp(params[name], self.pspecs[name], self.grid)
-
-    def _embed_rows(self, params, tokens):
-        """The embedding rows of ``tokens``.  On a grid the table is
-        vocab-parallel: each rank looks up the tokens in its block of
-        rows (the others masked to 0) and the model group all-reduces."""
-        if self.grid is None:
-            return params["embed"][tokens]
-        w = self._fsdp(params, "embed")
-        vl = w.shape[0]
-        idx = tokens.long() - self.grid.index("model") * vl
-        own = ((idx >= 0) & (idx < vl))[..., None]
-        rows = torch.where(own, w[idx.clamp(0, vl - 1)], 0.0)
-        return C.reduce_from(rows, self.grid.model_group)
-
-    def _logits(self, params, x):
-        """float32 logits; on a grid the rank's vocabulary block (the
-        head column-split over the model group)."""
-        x = L.rmsnorm(x, params["final_norm"], self.cfg.norm_eps)
-        if self.grid is None:
-            return (x @ params["lm_head"]).float()
-        return (C.copy_to(x, self.grid.model_group)
-                @ self._fsdp(params, "lm_head")).float()
 
     # ------------------------------------------------------------------
     # Prefill / decode entry points

@@ -17,6 +17,8 @@ multiple of its chunk; the port takes a ragged last chunk as it is.
 
 ``mamba_decode`` writes the slot's new state into the cache in place,
 where the reference returns a new state (its jit donates the buffer).
+``mamba_block_tp`` is the training mixer split by channels over a
+training grid's model group.
 """
 from __future__ import annotations
 
@@ -91,10 +93,17 @@ def _ssm_scan(a, b):
     return torch.cat(hs, 1)
 
 
-def _ssm_params(x_in, p, cfg):
-    """dt (B, S, Din), A (Din, N), B and C (B, S, N), float32."""
+def _ssm_params(x_in, p, cfg, group=None):
+    """dt (B, S, Din), A (Din, N), B and C (B, S, N), float32.
+    ``group``: ``x_in`` and ``x_proj``'s rows are one rank's channels
+    (``mamba_block_tp``); their partial (dt_low, B, C) is summed over the
+    group, and, used whole for the rank's channels, carries back the
+    sum of every rank's gradient."""
     mc = cfg.mamba
     proj = x_in @ p["x_proj"]
+    if group is not None:
+        from repro_torch.parallel.collectives import copy_to, reduce_from
+        proj = copy_to(reduce_from(proj, group), group)
     dt_raw, B, C = torch.split(proj, [_dt_rank(cfg), mc.d_state, mc.d_state],
                                dim=-1)
     dt = F.softplus(dt_raw @ p["dt_proj"] + p["dt_bias"]).float()
@@ -148,6 +157,33 @@ def mamba_block(x, p, cfg, return_state: bool = False):
     if return_state:
         return out, {"h": h, "conv": conv_state}
     return out
+
+
+def mamba_block_tp(x, p, cfg, grid):
+    """Training Mamba mixer, channel-parallel over ``d_inner`` on the
+    model group of ``grid`` (a ``parallel.grid.Grid``): x (B, S, d)
+    replicated over the group -> the output, summed over it.  The rank
+    holds channels [r * Din / m, (r + 1) * Din / m) of the conv, the
+    scan's parameters, ``x_proj``'s rows and ``out_proj``'s rows.
+    ``in_proj`` is the reference's (d, 2 Din) leaf split by columns in
+    blocks, so a rank's block holds neither its ``x_in`` nor its ``z``
+    channels in general: the leaf is all-gathered over the group (its
+    gradient reduce-scattered back) and the rank takes both of its
+    column ranges.  The stored block and the checkpoint keep the
+    reference's layout."""
+    from repro_torch.parallel.collectives import copy_to, gather, reduce_from
+    group = grid.model_group
+    d_loc = p["conv_w"].shape[1]
+    d_in = cfg.mamba.expand * cfg.d_model
+    lo = grid.index("model") * d_loc
+    w = gather(p["in_proj"], 1, group)
+    w = torch.cat([w[:, lo:lo + d_loc], w[:, d_in + lo:d_in + lo + d_loc]], 1)
+    x_in, z = (copy_to(x, group) @ w).chunk(2, dim=-1)
+    x_in, _ = causal_conv(x_in, p["conv_w"], p["conv_b"])
+    x_in = F.silu(x_in)
+    dt, A, B, C = _ssm_params(x_in, p, cfg, group)
+    y, _ = selective_scan(x_in, dt, A, B, C, p["D"])
+    return reduce_from((y.to(x.dtype) * F.silu(z)) @ p["out_proj"], group)
 
 
 def mamba_decode(x, p, cfg, state):

@@ -5,8 +5,9 @@ plus the squared-ReLU channel-mix.
 The same parameter tree and math as the reference, as functions on
 tensors.  Heads are padded from 40 to 48 (a multiple of 16), as in the
 reference; the 8 padding heads carry random weights and do real work.
-The reference's ``shard`` calls are identities at TP = 1 and are
-dropped.
+The reference's ``shard`` calls are dropped: sharded training runs
+``time_mix_tp`` (by heads) and ``channel_mix_tp`` (by ``d_ff``) on a
+training grid's model group instead.
 
 The sequence recurrence of prefill is ``linear_scan``: on CUDA with
 ``kernels`` the hand-written kernel, otherwise the plain chunked form
@@ -159,6 +160,39 @@ def channel_mix(x, p, x_prev=None):
     xs = _token_shift(x, x_prev)
     k = _mix(x, xs, p["mix_k"]) @ p["w_k"]
     kv = torch.square(torch.relu(k)) @ p["w_v"]
+    r = torch.sigmoid(_mix(x, xs, p["mix_r"]) @ p["w_r"])
+    return r * kv
+
+
+# the time-mix leaves every rank uses whole for its own heads
+_TIME_SHARED = ("mix_r", "mix_k", "mix_v", "mix_w", "mix_g", "decay_a")
+
+
+def time_mix_tp(x, p, cfg, grid):
+    """Training time-mix on this rank's (padded) heads over the model
+    group of ``grid``: ``w_r``/``w_k``/``w_v``/``w_g`` split by columns,
+    ``decay_b``, ``decay_w0``, ``bonus_u`` and the group norm by heads,
+    ``w_o`` by rows.  x (B, S, d) and the leaves every rank uses whole
+    (the five mixes and ``decay_a``) enter through ``copy_to``; the
+    output is summed over the group.  Padded heads compute like real
+    ones, as in the reference: a rank may hold padding only."""
+    from repro_torch.parallel.collectives import copy_to, reduce_from
+    group = grid.model_group
+    p = {k: copy_to(v, group) if k in _TIME_SHARED else v
+         for k, v in p.items()}
+    o, _ = time_mix(copy_to(x, group), p, cfg, kernels=False)
+    return reduce_from(o, group)
+
+
+def channel_mix_tp(x, p, group):
+    """Training channel-mix with ``w_k`` split by columns and ``w_v`` by
+    rows (``d_ff``) over ``group``: only that branch is split, so its
+    mixed input enters through ``copy_to`` and its output is summed;
+    the receptance ``r`` is computed whole on every rank."""
+    from repro_torch.parallel.collectives import copy_to, reduce_from
+    xs = _token_shift(x)
+    k = copy_to(_mix(x, xs, p["mix_k"]), group) @ p["w_k"]
+    kv = reduce_from(torch.square(torch.relu(k)) @ p["w_v"], group)
     r = torch.sigmoid(_mix(x, xs, p["mix_r"]) @ p["w_r"])
     return r * kv
 

@@ -93,10 +93,14 @@ def forward_loss(model, params, batch):
 
 def backward_grads(params, live, loss):
     """The gradients of ``loss`` with respect to ``live``'s leaves, as a
-    tree shaped like ``params`` (remat's forwards rerun here)."""
+    tree shaped like ``params`` (remat's forwards rerun here); a leaf
+    the loss does not use (a VLM's ``patch_proj`` under a tokens-only
+    batch) gets zeros, as ``jax.grad`` gives it."""
+    leaves = tree_leaves(live)
     with torch.enable_grad():
-        grads = torch.autograd.grad(loss, tree_leaves(live))
-    return tree_unflatten(params, grads)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    return tree_unflatten(params, [torch.zeros_like(t) if g is None else g
+                                   for t, g in zip(leaves, grads)])
 
 
 def _value_and_grad(model, params, batch):

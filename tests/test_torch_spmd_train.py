@@ -627,13 +627,34 @@ def test_launch_train_model_axis_on_cpu_ranks(tmp_path, capfd):
                                             "step_00000006"]
 
 
+def test_launch_train_model_axis_trains_the_hybrid(tmp_path, capfd):
+    """``launch.train --arch jamba-v0.1-52b --model-axis 2 --devices 4
+    --device cpu --reduce``: 6 steps of the Mamba + MoE hybrid on a
+    (2, 2) gloo grid through run_with_recovery, checkpoints at 5 and
+    6."""
+    from repro_torch.launch import train as ttrain
+    state, rep, summary = ttrain.main([
+        "--arch", "jamba-v0.1-52b", "--reduce", "--steps", "6", "--batch",
+        "4", "--seq", "32", "--model-axis", "2", "--devices", "4",
+        "--device", "cpu", "--ckpt-dir", str(tmp_path)])
+    assert state is None and rep.final_step == 6 and rep.failures == 0
+    assert len(rep.losses) == 6 and all(np.isfinite(rep.losses))
+    out = capfd.readouterr().out
+    assert "mesh data=2 model=2 (gloo)" in out
+    assert sorted(os.listdir(tmp_path)) == ["step_00000005",
+                                            "step_00000006"]
+
+
 @pytest.mark.parametrize("argv,exc,match", [
     (["--arch", "qwen3-1.7b", "--model-axis", "3", "--devices", "4"],
      ValueError, "does not divide"),
-    (["--arch", "jamba-v0.1-52b", "--model-axis", "2", "--devices", "4"],
-     NotImplementedError, "§A.8"),
+    (["--arch", "qwen3-moe-30b-a3b", "--model-axis", "3", "--devices",
+      "3"], NotImplementedError, "§A.8"),
 ])
 def test_launch_train_sharded_refusals(argv, exc, match):
+    """What stays refused: a model axis that does not divide the world;
+    MoE experts that do not divide the model axis (8 over 3), before any
+    rank is spawned."""
     from repro_torch.launch import train as ttrain
     with pytest.raises(exc, match=match):
         ttrain.main([*argv, "--reduce", "--device", "cpu"])
@@ -748,42 +769,62 @@ def test_data_axis_takes_every_family(dp_runs, arch):
 # ----------------------------------------------------------------------
 # The collective plan chip_smoke.py's phase 30 holds the card to
 # ----------------------------------------------------------------------
-def _plan_rank(grid, arch, quant):
+def _plan_rank(grid, arch, quant, overrides=None):
     import dataclasses
 
     import chip_smoke
     from repro_torch import configs as tcfg
-    from repro_torch.data import SyntheticTokens
     from repro_torch.models import build_model
     from repro_torch.optim import AdamWConfig
     from repro_torch.parallel import collectives as C
     from repro_torch.train import (TrainHParams, init_train_state,
                                    make_train_step)
     cfg = dataclasses.replace(tcfg.reduce_config(tcfg.get_config(arch)),
-                              remat=True)
+                              remat=True, **(overrides or {}))
     model = build_model(cfg, "cpu", grid=grid)
     hp = TrainHParams(adamw=AdamWConfig(quant_moments=quant))
     state = init_train_state(model, 0, hp)
-    batch = SyntheticTokens(cfg.vocab_size, 32, 2, device="cpu").batch(0)
+    batch = chip_smoke.family_batch(cfg, 2, 32, "cpu")
     C.reset_counts()
     make_train_step(model, hp)(state, batch)
     got = C.counts()
     want = chip_smoke.spmd_plan(
-        cfg, chip_smoke.q8_leaf_count(model) if quant else 0)
+        cfg, chip_smoke.q8_leaf_count(model) if quant else 0,
+        patches="patch_embeds" in batch)
     return got, want
 
 
-@pytest.mark.parametrize("arch,quant", [("qwen3-1.7b", False),
-                                        ("qwen3-moe-30b-a3b", True)])
+@pytest.mark.parametrize("arch,quant", [
+    ("qwen3-1.7b", False), ("qwen3-moe-30b-a3b", True),
+    ("deepseek-v3-671b", True), ("jamba-v0.1-52b", True),
+    ("rwkv6-3b", False), ("phi-3-vision-4.2b", False),
+    ("whisper-small", False)])
 def test_world_one_step_issues_the_planned_collectives(arch, quant):
     """A (1, 1) grid still issues every collective (none is skipped at
     size 1), and one remat step's calls equal ``chip_smoke.spmd_plan``,
-    the plan phase 30 holds the H100's NCCL run to."""
+    the plan phase 30 holds the H100's NCCL run to (a VLM's batch with
+    its patches, whisper's with its frames)."""
     sys.path.insert(0, ROOT)
     got, want = run_grid(_plan_rank, 1, 1, timeout_s=TIMEOUT_S,
                          args=(arch, quant))
     assert got == want
-    assert got["all_to_all"] == (6 * 4 if "moe" in arch else 0)
+    moe_layers = {"qwen3-moe-30b-a3b": 4, "deepseek-v3-671b": 3,
+                  "jamba-v0.1-52b": 4}.get(arch, 0)
+    assert got["all_to_all"] == 6 * moe_layers
+
+
+def test_world_one_plan_under_sublayer_remat():
+    """jamba with ``sublayer_remat`` (phase 30 (e)'s config): each
+    sublayer is a remat unit, so each skips its own trailing collectives
+    in the recompute; the calls equal ``chip_smoke.spmd_plan``."""
+    sys.path.insert(0, ROOT)
+    got, want = run_grid(_plan_rank, 1, 1, timeout_s=TIMEOUT_S,
+                         args=("jamba-v0.1-52b", True,
+                               {"sublayer_remat": True}))
+    assert got == want
+    whole, _ = run_grid(_plan_rank, 1, 1, timeout_s=TIMEOUT_S,
+                        args=("jamba-v0.1-52b", True))
+    assert got["all_gather"] < whole["all_gather"]
 
 
 def _recovery_rank(grid, directory, fail_at):

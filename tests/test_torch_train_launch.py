@@ -30,8 +30,8 @@ def test_launch_train_reduced_six_steps(tmp_path, capsys, extra):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--arch", "rwkv6-3b", "--reduce", "--model-axis", "2", "--devices",
-      "2"], "§A.8"),
+    (["--arch", "deepseek-v3-671b", "--reduce", "--model-axis", "3",
+      "--devices", "3"], "§A.8"),
     (["--arch", "tiny-kws"], "tokens only"),
     (["--arch", "whisper-small", "--reduce"], "tokens only"),
 ])
