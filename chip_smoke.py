@@ -2199,12 +2199,12 @@ def phase_paged_engine(torch, dev, model, params):
 
 
 def phase_token_identity(torch, dev, model, params, engine, requests):
-    """Phase 7: phase 4's requests through its contiguous engine and a
-    paged engine with shuffled pages (no prefix cache) must give the
-    same tokens: prefill is the same flash kernel and paged decode is
-    bit-identical to decode.  A prefix hit computes its suffix through
-    paged verify, so there phase 5's rule holds instead: its first-token
-    logits against a cold prefill's."""
+    """Phase 7: the first ``CUT_REQUESTS`` of phase 4's requests through
+    its contiguous engine and a paged engine with shuffled pages (no
+    prefix cache) must give the same tokens: prefill is the same flash
+    kernel and paged decode is bit-identical to decode. A prefix hit
+    computes its suffix through paged verify, so there phase 5's rule
+    holds instead: its first-token logits against a cold prefill's."""
     import copy
 
     import numpy as np
@@ -2349,9 +2349,10 @@ def phase_spec_engine(torch, dev, model, make, requests):
 
 def phase_spec_tokens(torch, dev, model, params, make, requests):
     """Phase 9: speculative token checks.  (1) Model level: a 5-token
-    ``verify_step`` against 5 sequential ``decode_step``s.  (2) Phase
-    4's requests offline through the plain and the speculative
-    contiguous engines: every divergence must start at a near-tie.
+    ``verify_step`` against 5 sequential ``decode_step``s.  (2) The
+    first ``CUT_REQUESTS`` of phase 4's requests offline through the
+    plain and the speculative contiguous engines: every divergence must
+    start at a near-tie.
     (3) The same requests through the speculative paged engine
     (shuffled 16-row pages) must give the speculative contiguous
     engine's tokens exactly."""
@@ -2513,11 +2514,11 @@ def measured_server(torch, engine, requests, name, meter, idle_w, limit_w,
     over ``requests``' prompts and budgets (phase 15's settings): the
     review must ACCEPT, the stack's accelerator energy lie within
     ``ENERGY_ALIGN_TOL`` of the counter's delta over the serve, the
-    serve's window inside the sampler's readings to within one period,
-    the accelerator's average watts between half ``idle_w`` and 1.05 x
-    ``limit_w``, and the launches be exact (flash an attention layer per
-    admission, decode an attention layer per decode step).  Returns its
-    launches, Joules and rates."""
+    sampler's first read begin and its last read end within one period
+    of the serve's window, the accelerator's average watts between half
+    ``idle_w`` and 1.05 x ``limit_w``, and the launches be exact (flash
+    an attention layer per admission, decode an attention layer per
+    decode step).  Returns its launches, Joules and rates."""
     import numpy as np
     from repro_torch.harness import ContinuousBatchingSUT, PowerRun, Server
     from repro_torch.serving import Request
@@ -2539,9 +2540,22 @@ def measured_server(torch, engine, requests, name, meter, idle_w, limit_w,
     kernels = launch_counters()
     for k in kernels.values():
         k.launches = 0
-    r = PowerRun(sut, Server(mode="queue", target_qps=8.0, min_queries=16,
-                             latency_slo_s=10.0, min_duration_s=1.0),
-                 seed=0).run()
+    collections_ = []                   # (start, seconds, generation)
+
+    def on_gc(phase, info, started=[0.0]):
+        if phase == "start":
+            started[0] = time.monotonic()
+        else:
+            collections_.append((started[0], time.monotonic() - started[0],
+                                 info["generation"]))
+
+    gc.callbacks.append(on_gc)
+    try:
+        r = PowerRun(sut, Server(mode="queue", target_qps=8.0,
+                                 min_queries=16, latency_slo_s=10.0,
+                                 min_duration_s=1.0), seed=0).run()
+    finally:
+        gc.callbacks.remove(on_gc)
     launches = {name: k.launches for name, k in kernels.items()}
     print("  " + r.render().replace("\n", "\n  "))
     m = r.outcome.server
@@ -2582,13 +2596,17 @@ def measured_server(torch, engine, requests, name, meter, idle_w, limit_w,
           f"counter's delta over the serve {counter_j:.3f} J in "
           f"{sampler.window_s():.3f} s, {sampler.n_samples} readings every "
           f"{sampler.period_s * 1e3:.3f} ms; stack vs counter "
-          f"{err * 100:.3f} %; the sampler read {lead * 1e3:.3f} ms "
-          f"before the serve's t = 0 and {tail * 1e3:.3f} ms after its "
-          f"window")
+          f"{err * 100:.3f} %; the sampler's first read began "
+          f"{lead * 1e3:.3f} ms before the serve's t = 0 and its last "
+          f"ended {tail * 1e3:.3f} ms after its window")
+    stall = sampler_stall(sampler, sut.trace.segments[0][2], window,
+                          collections_)
+    print(f"  sampler: {stall['text']}")
     check(0 <= lead <= sampler.period_s and 0 <= tail <= sampler.period_s,
-          f"{label}: the serve's window is not inside the sampler's "
-          f"readings to within one period ({sampler.period_s * 1e3:.3f} "
-          f"ms): {lead * 1e3:.3f} ms before, {tail * 1e3:.3f} ms after")
+          f"{label}: the sampler's readings do not bracket the serve's "
+          f"window to within one period ({sampler.period_s * 1e3:.3f} "
+          f"ms): {lead * 1e3:.3f} ms before, {tail * 1e3:.3f} ms after; "
+          f"sampler: {stall['text']}")
     check(err <= ENERGY_ALIGN_TOL,
           f"{label}: the stack's accelerator energy {acc_j:.3f} J is "
           f"{err * 100:.2f} % off the counter's delta {counter_j:.3f} J")
@@ -2596,12 +2614,58 @@ def measured_server(torch, engine, requests, name, meter, idle_w, limit_w,
           f"{label}: accelerator {acc_w:.2f} W outside [{0.5 * idle_w:.2f},"
           f" {1.05 * limit_w:.2f}] W")
     return dict(launches=launches, accelerator_j=acc_j, counter_j=counter_j,
-                tokens_per_s=m.tokens_per_s, passed=r.passed,
+                tokens_per_s=m.tokens_per_s, passed=r.passed, stall=stall,
                 completed=sut.completed, decode_steps=engine.decode_steps,
                 n_queries=n,
                 tok_per_j_accelerator=tokens / acc_j,
                 tok_per_j_wall=tokens / r.summary.energy_j,
                 host_share=host_j / r.summary.energy_j)
+
+
+def sampler_stall(sampler, t0: float, window_s: float,
+                  collections_: list) -> dict:
+    """What a measured serve's ``EnergySampler`` did, for phase 15's
+    alignment gate: its readings against the window's worth of
+    periods; its largest gap between readings, when in the serve it
+    fell (seconds from the serve's t = 0) and how it splits into the
+    reading before it (``read_s``: the NVML call), the period and the
+    rest (the thread's late wake-up: the interpreter lock or the host's
+    scheduler), with the garbage collections that overlap it; the
+    slowest NVML read; and how long after the window's end ``stop()``
+    was called.  Returns the numbers and one line of text."""
+    import numpy as np
+    t = np.asarray(sampler.t_s) - t0
+    gaps = sampler.gaps()
+    i = int(np.argmax(gaps))
+    read = np.asarray(sampler.read_s)
+    a, b = t[i], t[i + 1]
+    gc_in = [(s - t0, d, g) for s, d, g in collections_
+             if s - t0 < b and s - t0 + d > a]
+    gc_long = max(collections_, key=lambda c: c[1], default=None)
+    out = dict(reads=len(t), expected=window_s / sampler.period_s,
+               gap_s=float(gaps[i]), gap_at_s=float(a),
+               gap_read_s=float(read[i]),
+               gap_wake_s=float(gaps[i] - read[i] - sampler.period_s),
+               max_read_s=float(read.max()), mean_read_s=float(read.mean()),
+               first_read_s=float(read[0]), last_read_s=float(read[-1]),
+               stop_after_window_s=sampler.stop_s - t0 - window_s,
+               gc_in_gap=gc_in, gc_count=len(collections_),
+               gc_longest_s=gc_long[1] if gc_long else 0.0)
+    out["text"] = (
+        f"{out['reads']} readings in {t[-1] - t[0]:.3f} s ({window_s:.3f} "
+        f"s window: {out['expected']:.0f} periods of "
+        f"{sampler.period_s * 1e3:.3f} ms); largest gap "
+        f"{out['gap_s'] * 1e3:.3f} ms from t = {a:.3f} s (NVML read "
+        f"before it {out['gap_read_s'] * 1e3:.3f} ms, late wake-up "
+        f"{out['gap_wake_s'] * 1e3:.3f} ms, collections in it "
+        f"{[(round(s, 3), round(d * 1e3, 3), g) for s, d, g in gc_in]}); "
+        f"NVML reads mean {out['mean_read_s'] * 1e3:.3f} ms, max "
+        f"{out['max_read_s'] * 1e3:.3f} ms, the first "
+        f"{out['first_read_s'] * 1e3:.3f} ms and the last "
+        f"{out['last_read_s'] * 1e3:.3f} ms; {out['gc_count']} collections, "
+        f"longest {out['gc_longest_s'] * 1e3:.3f} ms; stop() called "
+        f"{out['stop_after_window_s'] * 1e3:.3f} ms after the window")
+    return out
 
 
 # Phase 16 (a): paged verify at the chunk shapes of the sweep's geometry
@@ -2824,14 +2888,32 @@ def phase_slo(torch, dev, model, params, kernels: dict) -> dict:
     from a near-tie on, launches exact (chunked: paged verify one a
     layer per chunk and no flash; monolithic: flash one a layer per
     admission; both paged decode one a layer per step), no host read
-    inside a non-final chunk.  (c)
+    inside a non-final chunk.  (b') the same requests through the
+    chunked engine with speculative decoding (``spec_k=SLO_SPEC_K``),
+    twice: a ``truncate_draft`` of ``SLO_SPEC_DRAFT`` layers (on random
+    weights it accepts nothing), then the target's own ``CUT_LAYERS``
+    layers as the draft, which accepts (``accepted`` > 0), so the
+    rounds' multi-token accept and rollback run.  Each: every budget
+    reached; ``draft_prefill_tokens`` the sum of the prompt lengths
+    (the draft prefills each whole prompt); more prefill chunks than
+    requests; tokens the chunked engine's except from a near-tie on; no
+    host read inside a non-final chunk; and exactly these launches
+    (``tests/test_torch_slo_serving.py::
+    test_speculative_chunked_prefill_matches_reference``'s accounting:
+    the target's cache is paged, the draft's contiguous), with L the
+    target's layers, l the draft's, C the prefill chunks and R the
+    rounds (``spec_rounds``: ``chunk_steps`` a decode chunk): paged
+    verify L (C + R) (each chunk, and each round's k + 1-token window),
+    decode l (k + 1) R (the draft's steps), flash l a request (the
+    draft's whole-prompt prefill at the final chunk), nothing else.
+    (c)
     the reference's preemption test at 64-row pages (two 240 + 16-token
     best-effort requests fill the 8 usable pages; a priority-1 112 +
     16-token one arrives at 10 ms of a virtual clock that ticks 2 ms a
     read): a preemption and a resume, only priority 0 parked, tokens as
     an uncontended run's except from a near-tie on.  (d)
     ``slo_sweep.metrics(smoke=True)`` on the card with the NVML meter:
-    every review ACCEPTED.  Returns (b)'s launches."""
+    every review ACCEPTED.  Returns (b)'s and (b')'s launches."""
     import numpy as np
     from repro_torch.benchmarks import slo_sweep as sw
     from repro_torch.serving import (ContinuousBatchingEngine, Request,
@@ -2923,6 +3005,67 @@ def phase_slo(torch, dev, model, params, kernels: dict) -> dict:
         near_tie(torch, model, params, r.prompt, runs["monolithic"][r.rid],
                  runs["chunked"][r.rid],
                  f"(b) request {r.rid} ({len(r.prompt)} tokens)")
+
+    # (b') speculative decoding under chunked prefill: k = SLO_SPEC_K
+    # with a SLO_SPEC_DRAFT-layer truncated draft (on random weights it
+    # accepts nothing), then with the target's own layers as the draft
+    # (it accepts), so the rounds' multi-token accept and rollback run.
+    # The target's chunks and rounds are paged verify windows; the
+    # draft's cache is contiguous: it prefills each whole prompt at the
+    # final chunk (flash) and decodes k + 1 steps a round (decode)
+    for dl in (SLO_SPEC_DRAFT, layers):
+        tag = f"(b') {dl}-layer draft"
+        dmodel, dparams = truncate_draft(model, params, dl)
+        eng = engine(prefill_chunk_tokens=sw.PREFILL_CHUNK,
+                     spec_k=SLO_SPEC_K, draft_model=dmodel,
+                     draft_params=dparams)
+        non_final = guard_host_reads(torch, eng, "_prefill_chunk")
+        done, wall_s, counts = served_run(torch, eng, requests,
+                                          honor_arrivals=False)
+        st, sp, rounds = eng.sched_stats, eng.spec_stats, eng.spec_rounds
+        print(f"  {tag}, k = {SLO_SPEC_K}: {len(done)} requests, "
+              f"{sum(len(r.output) for r in done)} tokens in {wall_s:.3f} "
+              f"s; {st['prefill_chunks']} prefill chunks, "
+              f"{st['decode_chunks']} decode chunks, {rounds} rounds, "
+              f"acceptance {sp['accepted'] / max(1, sp['proposed']):.4f} "
+              f"({sp['accepted']} of {sp['proposed']}), draft prefill "
+              f"tokens {sp['draft_prefill_tokens']}; launches: "
+              + ", ".join(f"{k} {n}" for k, n in counts.items() if n))
+        check(len(done) == len(requests) and all(
+            len(r.output) == r.max_new_tokens for r in done),
+            f"phase 16 {tag}: not every request completed its budget")
+        check(sp["draft_prefill_tokens"] == sum(lens),
+              f"phase 16 {tag}: draft prefill tokens "
+              f"{sp['draft_prefill_tokens']} != {sum(lens)}")
+        check(st["prefill_chunks"] > len(requests),
+              f"phase 16 {tag}: {st['prefill_chunks']} prefill chunks for "
+              f"{len(requests)} requests")
+        if dl == layers:
+            check(sp["accepted"] > 0,
+                  f"phase 16 {tag}: the target's own layers as the draft "
+                  f"accepted no token")
+        want = {"paged_verify_attention": layers * (st["prefill_chunks"]
+                                                    + rounds),
+                "decode_attention": dl * (SLO_SPEC_K + 1) * rounds,
+                "flash_attention": dl * len(requests)}
+        check(all(counts[k] == n for k, n in want.items())
+              and sum(counts.values()) == sum(want.values()),
+              f"phase 16 {tag}: launches {counts} != {want}")
+        check(len(non_final) == st["prefill_chunks"] - len(lens),
+              f"phase 16 {tag}: {len(non_final)} guarded non-final "
+              f"chunks != {st['prefill_chunks'] - len(lens)}")
+        spec = {r.rid: r.output for r in done}
+        same = sum(spec[i] == runs["chunked"][i] for i in range(len(lens)))
+        print(f"  {tag}: {len(non_final)} non-final chunks without a host "
+              f"read; {same}/{len(lens)} requests token-identical to the "
+              f"non-speculative chunked engine")
+        for r in requests:
+            near_tie(torch, model, params, r.prompt, runs["chunked"][r.rid],
+                     spec[r.rid], f"{tag} request {r.rid} "
+                     f"({len(r.prompt)} tokens)")
+        launches["speculative" if dl == SLO_SPEC_DRAFT
+                 else "speculative_accepting"] = counts
+        del eng, dmodel, dparams
 
     # (c) preemption, the reference test's geometry at 64-row pages
     def contended():
@@ -3022,7 +3165,7 @@ def phase_slo(torch, dev, model, params, kernels: dict) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     print(f"  phase 16 took {time.perf_counter() - t_phase:.1f} s")
-    return {k: launches["monolithic"][k] + launches["chunked"][k]
+    return {k: sum(run[k] for run in launches.values())
             for k in launches["chunked"]}
 
 
@@ -3622,7 +3765,7 @@ def phase_benchmarks(torch, dev, kernels: dict, period_s: float) -> dict:
     """Phase 18: (a) ``phase_bench_kernels``, whose errors join the
     JSON line's (``bench_shapes``).  (b) ``prefix_cache`` and
     ``speculative_efficiency`` on the card at full width, on
-    ``CUT_LAYERS`` layers (``qwen3_depth``), with the NVML meter, each
+    ``BENCH_LAYERS`` layers (``qwen3_depth``), with the NVML meter, each
     through its own engines on its own seeded weights (seed 0, as phase
     4's).  Every review ACCEPTs and every kernel's launches are those
     each serve's request stream and counts fix (``check_launches``).
@@ -3643,7 +3786,7 @@ def phase_benchmarks(torch, dev, kernels: dict, period_s: float) -> dict:
         kernels[name]["max_abs_err"] = max(
             [kernels[name]["max_abs_err"]]
             + [r["max_abs_err"] for r in shapes.values()])
-    layers = CUT_LAYERS
+    layers = BENCH_LAYERS
     print(f"  (b) both benchmarks on {layers} of qwen3-1.7b's "
           f"{get_config('qwen3-1.7b').n_layers} layers")
     counters = launch_counters()
@@ -3995,6 +4138,16 @@ TP_TICK_S = 0.1
 # inside its time limit on a host that runs the host-bound serves 30-40 %
 # slower.
 CUT_LAYERS = 14
+# Phases 7, 9 and 21 (a) hold token identities on the first CUT_REQUESTS
+# of phase 4's 16 requests, and phase 18 runs its benchmarks on
+# BENCH_LAYERS of qwen3-1.7b's layers: the script's time on a slow host
+CUT_REQUESTS = 8
+BENCH_LAYERS = 7
+
+# Phase 16 (b'): speculative serving under chunked prefill, the draft the
+# first SLO_SPEC_DRAFT of the CUT_LAYERS layers
+SLO_SPEC_K = 3
+SLO_SPEC_DRAFT = 2
 
 
 @contextlib.contextmanager
@@ -4134,7 +4287,8 @@ def profile_decode_chunk(torch, engine, reps: int = 3) -> dict:
 def phase_tp(torch, dev, model, params, requests) -> dict:
     """Phase 21: tensor-parallel serving at TP 1 through an NCCL group
     of one rank on ``cuda:0`` (in-process, ``file://`` rendezvous), on
-    phase 4's weights.  (a) Phase 4's 16 requests with their arrivals,
+    phase 4's weights.  (a) The first ``CUT_REQUESTS`` of phase 4's 16
+    requests with their arrivals,
     through ``ShardedContinuousBatchingEngine`` and through phase 4's
     engine on one virtual clock: tokens, launches, host copies (one a
     chunk) and decode steps equal; the all-reduces 2 a layer per decode
@@ -4200,11 +4354,13 @@ def tp_serves(torch, dev, model, params, engine, requests, np) -> dict:
     # (a) phase 4's requests, arrivals on the virtual clock
     sharded = ShardedContinuousBatchingEngine(model, params, tp=1, rank=0,
                                               **geometry)
-    want = clocked_serve(torch, engine, requests)
-    got = clocked_serve(torch, sharded, requests)
+    first = requests[:CUT_REQUESTS]
+    want = clocked_serve(torch, engine, first)
+    got = clocked_serve(torch, sharded, first)
     tally(got[2])
-    same_serves("(a) phase 4's 16 requests", sharded, engine, got, want)
-    n = len(requests)
+    same_serves(f"(a) the first {len(first)} of phase 4's requests",
+                sharded, engine, got, want)
+    n = len(first)
     check(got[2]["decode_attention"] == layers * sharded.decode_steps
           and got[2]["flash_attention"] == layers * n,
           f"(a) launches {got[2]} != {layers} x {sharded.decode_steps} "
@@ -4494,6 +4650,8 @@ MOE_WAVE_TOKENS = 24
 MOE_SPEC_K = 4
 MOE_DRAFT = "qwen3-1.7b"
 MOE_SPEC_TOKENS = 32
+# Phase 22 (g): the disaggregated serve's page rows (phase 6's)
+MOE_PAGE = 16
 # Phase 23: deepseek-v3-671b at full width on its first 4 layers (the 3
 # first_k_dense MLA layers and 1 MLA-MoE layer) and its MTP block
 MLA_ARCH = "deepseek-v3-671b"
@@ -4958,7 +5116,8 @@ def phase_moe(torch, dev) -> dict:
     wave of 8 requests with equal budgets through the contiguous engine
     and a paged one with shuffled pages: equal tokens; (e) ``spec_k = 4``
     with a full-width qwen3-1.7b draft on 8 requests offline, launches
-    exact; a decode chunk under ``set_sync_debug_mode("error")``; a
+    exact; (g) ``moe_disagg``: a disaggregated serve of 8 of phase 4's
+    requests; a decode chunk under ``set_sync_debug_mode("error")``; a
     decode step's time and kernels (``launch.profile_engine``'s
     measurement).  Returns the launches of each part and (a)'s kernel
     rows."""
@@ -5151,6 +5310,15 @@ def phase_moe(torch, dev) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
 
+    print(f"  (g) disaggregated serve: two prefill workers and a paged "
+          f"decode engine ({MOE_PAGE}-row pages), {len(requests[:8])} of "
+          f"phase 4's requests offline")
+    out["launches"]["g"] = moe_disagg(torch, dev, model, params,
+                                      requests[:8])
+    gc.collect()
+    torch.cuda.empty_cache()
+    peak_gb(torch, "(g)")
+
     rng = np.random.default_rng(5)
     prompts = [torch.as_tensor(rng.integers(0, cfg.vocab_size, 1024),
                                device=dev)[None] for _ in range(8)]
@@ -5182,6 +5350,66 @@ def phase_moe(torch, dev) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return out
+
+
+def moe_disagg(torch, dev, model, params, requests) -> dict:
+    """Phase 22 (g): ``DisaggregatedEngine`` with two ``PrefillWorker``
+    threads and a paged decode engine (``MOE_PAGE``-row pages) serves
+    ``requests`` offline after a warm-up outside the count: every budget
+    reached, flash one a layer per worker request (counted from the
+    worker threads), paged decode one a layer per decode step, nothing
+    else, and one host read a decode chunk.  Tokens are not held to the
+    colocated engine: expert capacity couples a batch's slots, so the
+    two part wherever their batches differ (ROADMAP §C; the CPU test
+    holds the port to the reference's disaggregated records instead).
+    Returns the launches."""
+    import copy
+
+    import numpy as np
+    from repro_torch.serving import (ContinuousBatchingEngine,
+                                     DisaggregatedEngine, PrefillWorker,
+                                     Request)
+
+    layers = model.cfg.n_layers
+    dec = ContinuousBatchingEngine(model, params, max_len=2048, n_slots=8,
+                                   chunk_steps=8, kv_page_size=MOE_PAGE,
+                                   device=dev)
+    deng = DisaggregatedEngine(
+        [PrefillWorker(model, params, page_size=MOE_PAGE, device=dev)
+         for _ in range(2)], dec)
+    deng.serve([Request(rid=-1 - k, prompt=np.arange(64 + 8 * k),
+                        max_new_tokens=9) for k in range(2)],
+               honor_arrivals=False)                  # warm-up
+    done, wall_s, got = count_launches(
+        torch, lambda: deng.serve(copy.deepcopy(requests),
+                                  honor_arrivals=False))
+    st = dec.sched_stats
+    print(f"  (g) {len(done)} requests, {sum(len(r.output) for r in done)} "
+          f"tokens in {wall_s:.3f} s; prefill tokens by worker "
+          f"{[w.prefill_tokens for w in deng.workers]}; "
+          f"{st['decode_chunks']} decode chunks, {dec.host_syncs} host "
+          f"reads, {dec.decode_steps} decode steps; launches: "
+          + ", ".join(f"{k} {n}" for k, n in got.items() if n))
+    check_served("phase 22 (g)", done, requests, model.vp)
+    check(got["flash_attention"] == layers * len(requests),
+          f"phase 22 (g): flash launches {got['flash_attention']} != "
+          f"{layers} x {len(requests)} worker requests")
+    check(got["paged_decode_attention"] == layers * dec.decode_steps,
+          f"phase 22 (g): paged decode launches "
+          f"{got['paged_decode_attention']} != {layers} x "
+          f"{dec.decode_steps} steps")
+    check(sum(got.values()) == got["flash_attention"]
+          + got["paged_decode_attention"],
+          f"phase 22 (g): a kernel off the disaggregated path ran: {got}")
+    check(dec.host_syncs == st["decode_chunks"]
+          and dec.decode_steps == dec.chunk_steps * dec.host_syncs,
+          f"phase 22 (g): {dec.host_syncs} host reads for "
+          f"{st['decode_chunks']} decode chunks")
+    print(f"  (g) launches exact: flash {got['flash_attention']} = {layers} "
+          f"x {len(requests)}, paged decode "
+          f"{got['paged_decode_attention']} = {layers} x "
+          f"{dec.decode_steps} steps; one host read a chunk")
+    return got
 
 
 def phase_mla(torch, dev) -> dict:
@@ -6252,6 +6480,10 @@ def phase_dryrun(torch, dev, smi: str) -> dict:
         reports.append(CellReport.from_json(
             {k: v for k, v in rec.items() if k in fields}))
     print(render_table(reports))
+    for r in reports:
+        if r.collectives_unchecked:
+            print(f"  {r.arch} {r.shape} {r.mesh}: collectives unchecked: "
+                  f"{r.collectives_unchecked}")
     print(f"  (a) {len(todo)} cells and phase 28 (e)'s "
           f"{len(hill_recs)} hillclimb iterations counted on meta by "
           f"{jobs} processes in {a_s:.1f} s, nothing else running; roofline "
@@ -6322,14 +6554,19 @@ def phase_hill_readers(base: dict, hill_recs: dict) -> dict:
 
 
 def dryrun_kernel_check(torch, dev, kind: str, seq: int, batch: int,
-                        cfg, part: str = "27 (b)") -> dict:
+                        cfg, part: str = "27 (b)",
+                        timed: bool = False) -> dict:
     """Phase 27 (b)'s kernel at its cell's shape, on inputs drawn from a
     seeded generator, against its plain version at phase 3's bf16
     tolerances: the decode kernel's whole call (every slot at the last
     row, as the cell's step) also against the split algorithm's plain
     version at the kernel's own split layout; the flash kernel's whole
     causal output against the chunked plain version.  Returns (max abs
-    error, the relative norm error)."""
+    error, the relative norm error); ``timed`` adds the kernel's time by
+    events and kernel-only, the plain version's, SDPA's kernel-only time
+    (a yardstick the port never calls: the decode call's keys up to
+    ``pos`` by a boolean mask) and the bound from ``kernels/work.py``."""
+    import torch.nn.functional as F
     from repro_torch.kernels.decode_attention.ops import (
         decode_attention, decode_attention_plain)
     from repro_torch.kernels.decode_attention.ops import plan as decode_plan
@@ -6368,10 +6605,53 @@ def dryrun_kernel_check(torch, dev, kind: str, seq: int, batch: int,
         how = f"route {_route(seq, seq, h, kvh, d, bf16)}"
     print(f"  {part} {label} vs its plain version on seeded inputs: max "
           f"|kernel - plain| {err:.3e}, rel {rel:.3e}; {how}")
+    out = dict(max_abs_err=err, rel=rel)
+    if timed:
+        if kind == "decode":
+            mask = (torch.arange(seq, device=dev)[None, :]
+                    <= pos[:, None])[:, None, None, :]
+
+            def kernel():
+                return decode_attention(q, k, v, pos)
+
+            def plain():
+                return decode_attention_plain(q, k, v, pos)
+
+            def sdpa():
+                return F.scaled_dot_product_attention(
+                    q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                    attn_mask=mask, enable_gqa=True)
+
+            flops, nbytes = work.decode(q, k, pos)
+        else:
+            def kernel():
+                return flash_attention(q, k, v, causal=True)
+
+            def plain():
+                return flash_attention_plain(q, k, v, causal=True)
+
+            def sdpa():
+                return F.scaled_dot_product_attention(
+                    q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                    is_causal=True, enable_gqa=True)
+
+            flops, nbytes = work.flash(q, k, v, True)
+        out["ms"] = time_ms(kernel)
+        out["device_ms"], kerns = device_ms(torch, kernel)
+        out["plain_ms"] = time_ms(plain)
+        out["library_ms"] = time_ms(sdpa)
+        out["library_device_ms"], _ = device_ms(torch, sdpa)
+        out["bound_ms"], out["bound_by"] = bound(nbytes, flops)
+        print(f"  {part} {label}: kernel {out['ms']:.4f} ms (kernel-only "
+              f"{fmt_ms(out['device_ms'])}: {kerns}), plain "
+              f"{out['plain_ms']:.4f} ms, SDPA {out['library_ms']:.4f} ms "
+              f"(kernel-only {fmt_ms(out['library_device_ms'])}), bound "
+              f"{out['bound_ms'] * 1e3:.2f} us ({out['bound_by']}, "
+              f"{flops} flop, {nbytes} B)")
     del q, k, v, got
     gc.collect()
     torch.cuda.empty_cache()
-    return dict(max_abs_err=err, rel=rel)
+    return out
 
 
 def seed_kv(torch, tree, gen) -> None:
@@ -6571,7 +6851,8 @@ def phase28_serve_power(torch, dev, smi: str) -> dict:
     """Phase 28 (a): ``repro_torch.examples.serve_power`` at full width
     (granite-3-2b: 40 layers, H 32, KVH 8, D 64, so G 4), its decode and
     flash kernels held first against their plain versions at the serve's
-    shapes (phase 27 (b)'s seeded inputs and gates); the serve's
+    shapes (phase 27 (b)'s seeded inputs and gates) and timed there
+    beside their plain versions, SDPA and their bounds; the serve's
     launches only those two kernels, each a whole multiple of the 40
     layers; each review's verdict printed."""
     from repro_torch.configs import get_config
@@ -6585,10 +6866,12 @@ def phase28_serve_power(torch, dev, smi: str) -> dict:
                                             (2048, 8))),
             ("prefill", "flash_attention", ((sp.PROMPT, sp.BATCH),
                                             (1024, 2)))):
-        errs = [dryrun_kernel_check(torch, dev, kind, seq, batch, cfg,
-                                    part="28 (a)")["max_abs_err"]
-                for seq, batch in shapes]
-        kernels[name] = dict(max_abs_err=max(errs))
+        rows = {f"{batch} x {seq}": dryrun_kernel_check(
+            torch, dev, kind, seq, batch, cfg, part="28 (a)", timed=True)
+            for seq, batch in shapes}
+        kernels[name] = dict(max_abs_err=max(r["max_abs_err"]
+                                             for r in rows.values()),
+                             shapes=rows)
     res, wall, launches = count_launches(torch, lambda: sp.main(
         ["--device", "cuda", "--min-duration", str(SERVE_POWER_WINDOW_S),
          "--server-duration", str(SERVE_POWER_WINDOW_S)]))
@@ -7330,6 +7613,11 @@ def rel_gap(a: float, b: float) -> float:
     return abs(a - b) / max(abs(b), 1e-12)
 
 
+# Phase 30 (e): what may stay allocated before the family steps, whose
+# deepseek-v3 step peaks within 7.5 GB of the card's 85 GB
+SPMD_START_GB = 1.0
+
+
 def spmd_steps(torch, dev, smi, train, dry, tmp) -> dict:
     """Phase 30's parts inside the world-1 process group."""
     import numpy as np
@@ -7403,17 +7691,19 @@ def spmd_steps(torch, dev, smi, train, dry, tmp) -> dict:
                             device=dev).batch(0)
     whole = build_model(cfg, dev)
     state = init_train_state(whole, 0, hp_q)
-    _, mu, ms_u, _ = timed_step(torch, make_train_step(whole, hp_q), state,
-                                batch)
-    del state, whole
+    new, mu, ms_u, _ = timed_step(torch, make_train_step(whole, hp_q),
+                                  state, batch)
+    del state, whole, new
     gc.collect()
     torch.cuda.empty_cache()
     model = build_model(cfg, dev, grid=grid)
     plan = spmd_plan(cfg, q8_leaf_count(model))
     state = init_train_state(model, 0, hp_q)
-    _, ms_, ms_s, calls = timed_step(torch, make_train_step(model, hp_q),
-                                     state, batch)
-    del state, model
+    new, ms_, ms_s, calls = timed_step(torch, make_train_step(model, hp_q),
+                                       state, batch)
+    # the new state too: a name left bound to it kept 12 GB on the card
+    # through (e)-(f)
+    del state, model, new
     gaps = {k: rel_gap(ms_[k], mu[k]) for k in ("loss", "ce", "aux",
                                                "grad_norm")}
     print(f"  (b) {SPMD_MOE_ARCH} at full width on {SPMD_MOE_LAYERS} of 48 "
@@ -7456,7 +7746,9 @@ def spmd_steps(torch, dev, smi, train, dry, tmp) -> dict:
     print(f"  (c) {cfg.param_count() / 1e6:.1f}M float32 model: a world-1 "
           f"save ({meta['mesh']}) restored unsharded, {len(got)} tensors "
           f"bit for bit")
-    del state, back, model
+    del state, back, model, saved, got
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # (d) make_experiments_md over phase 27's records
     recs = os.path.join(tmp, "records")
@@ -7489,9 +7781,12 @@ def spmd_steps(torch, dev, smi, train, dry, tmp) -> dict:
     # (e) the other decoder families, (f) whisper's encoder-decoder
     gc.collect()
     torch.cuda.empty_cache()
-    print(f"  (e)-(f) start with {torch.cuda.memory_allocated() / 1e9:.2f} "
-          f"GB allocated by the script's earlier phases (in each step's "
-          f"peak below)")
+    start_gb = torch.cuda.memory_allocated() / 1e9
+    print(f"  (e)-(f) start with {start_gb:.2f} GB allocated by the "
+          f"script's earlier phases and (a)-(d) (in each step's peak "
+          f"below)")
+    check(start_gb < SPMD_START_GB, f"phase 30 (e): {start_gb:.2f} GB still "
+          f"allocated before the family steps (>= {SPMD_START_GB} GB)")
     out["e"] = {cell[0]: family_steps(torch, dev, grid, cell, "e")
                 for cell in SPMD_FAMILIES}
     out["f"] = family_steps(torch, dev, grid, SPMD_WHISPER, "f")
@@ -7518,8 +7813,23 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
+    seconds: dict = {}                   # phase -> seconds
+    current: list = []                   # the running phase, its start
+
+    def end_phase() -> None:
+        """Close the running phase: its seconds and the bytes still
+        allocated on the card at its end, on a line of their own."""
+        if not current:
+            return
+        name, t0 = current.pop()
+        seconds[name] = time.perf_counter() - t0
+        print(f"{name}: {seconds[name]:.1f} s; "
+              f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated at "
+              f"its end")
 
     def phase(title: str) -> None:
+        end_phase()
+        current.append((title.split(":")[0], time.perf_counter()))
         print(f"{title}  [t = {time.perf_counter() - t_start:.1f} s]")
 
     phase("phase 1: device")
@@ -7575,14 +7885,16 @@ def main() -> int:
     paged_launches, _ = phase_paged_engine(torch, dev, model, params)
 
     phase("phase 7: paged vs contiguous tokens; prefix hit vs cold logits")
-    phase_token_identity(torch, dev, model, params, engine, requests)
+    phase_token_identity(torch, dev, model, params, engine,
+                         requests[:CUT_REQUESTS])
 
     phase("phase 8: full-width speculative engine (k = 4) vs plain engine")
     make = spec_engines(dev, model, params)
     spec_launches = phase_spec_engine(torch, dev, model, make, requests)
 
     phase("phase 9: speculative tokens: verify_step, near-ties, paged")
-    phase_spec_tokens(torch, dev, model, params, make, requests)
+    phase_spec_tokens(torch, dev, model, params, make,
+                      requests[:CUT_REQUESTS])
 
     phase("phase 15: the main path under PowerRun with the card's energy")
     power = phase_power(torch, dev, model, engine, requests)
@@ -7691,6 +8003,7 @@ def main() -> int:
           f"{SPMD_WHISPER[0]})")
     print(smi.strip())
     spmd = phase_spmd(torch, dev, smi, train, dry)
+    end_phase()
 
     # launches: each kernel's count on its own paths' runs (phases 4, 14,
     # 15, 17, 20, 24 and 25 for decode and flash, 16, 18 and 19 for flash,
@@ -7710,8 +8023,8 @@ def main() -> int:
                 "21": tp["launches"], "24": jamba["launches"],
                 "25": vlm["launches"], "27": dry["launches"],
                 "28": paper["a"]["launches"]}
-    uses = {"decode_attention": ("4", "14", "15", "17", "18", "20", "21",
-                                 "22", "24", "25", "27", "28"),
+    uses = {"decode_attention": ("4", "14", "15", "16", "17", "18", "20",
+                                 "21", "22", "24", "25", "27", "28"),
             "flash_attention": ("4", "14", "15", "16", "17", "18", "19",
                                 "20", "21", "22", "24", "25", "27", "28"),
             "paged_decode_attention": ("6", "16", "18", "19", "21", "22"),
@@ -7816,6 +8129,8 @@ def main() -> int:
                       f"GB" for a, r in [*spmd["e"].items(),
                                          (SPMD_WHISPER[0], spmd["f"])])
           + f"; {spmd['seconds']:.1f} s")
+    print("seconds by phase: " + ", ".join(
+        f"{k[6:]} {v:.1f}" for k, v in seconds.items()))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi.strip())
     print(json.dumps(record))

@@ -443,16 +443,20 @@ class MeasuredTrace:
 
     def gaps_s(self, window_s: float) -> tuple[float, float]:
         """For a run of one segment whose window is ``window_s`` seconds
-        from its t = 0: how long the sampler read before t = 0 and after
-        the window's end.  Both lie within one sampling period when the
-        counter's delta is the window's energy, so the trace's t = 0 is
-        the run's to within a reading; an engine whose t = 0 comes after
-        its first ``now()`` shows as a longer gap after the window."""
+        from its t = 0: how long before t = 0 the sampler's first read
+        began and how long after the window's end its last read ended
+        (``EnergySampler.bracket``), the most the counter's delta can
+        hold outside the window.  Both lie within one sampling period
+        when the delta is the window's energy, so the trace's t = 0 is
+        the run's to within a reading; a slow first or last read, or an
+        engine whose t = 0 comes after its first ``now()``, shows as a
+        longer gap."""
         if len(self.segments) != 1:
             raise ValueError(f"MeasuredTrace.gaps_s: {len(self.segments)} "
                              f"segments, not one run's")
         _, sampler, t0 = self.segments[0]
-        return t0 - sampler.t_s[0], sampler.t_s[-1] - (t0 + window_s)
+        first, last = sampler.bracket()
+        return t0 - first, last - (t0 + window_s)
 
     def energy_j(self) -> float:
         """The counter's delta summed over this run's segments."""

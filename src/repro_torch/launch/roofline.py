@@ -92,6 +92,10 @@ class CellReport:
     min_hbm_bytes: float = 0.0
     memory_floor_s: float = 0.0
     notes: str = ""
+    # why the collective term has no compiled program of the reference
+    # behind it ("" where the collective-plan tests hold it):
+    # ``launch.specs.unchecked_layout``
+    collectives_unchecked: str = ""
 
     def to_json(self) -> dict:
         return dataclasses.asdict(self)
@@ -155,6 +159,7 @@ def analyze(cell, counts, *, chip: ChipSpec = H100_SXM, mesh_name: str = "",
         step_s=max(terms.values()),
         min_hbm_bytes=min_hbm,
         memory_floor_s=min_hbm / chip.hbm_bandwidth,
+        collectives_unchecked=cell.unchecked,
     )
 
 
@@ -217,7 +222,7 @@ def render_table(reports: list) -> str:
     hdr = (f"{'arch':<20} {'shape':<12} {'mesh':<10} {'flops/dev':>10} "
            f"{'bytes/dev':>10} {'coll/dev':>10} {'t_comp':>9} {'t_mem':>9} "
            f"{'t_coll':>9} {'bneck':>10} {'MF-ratio':>8} {'GB/dev':>7} "
-           f"{'fits':>5}")
+           f"{'fits':>5} {'coll plan':>9}")
     lines = [hdr, "-" * len(hdr)]
     for r in reports:
         live_gb = (r.arg_bytes + r.temp_bytes) / 2**30
@@ -226,5 +231,6 @@ def render_table(reports: list) -> str:
             f"{r.hbm_bytes:>10.3e} {r.coll_bytes:>10.3e} "
             f"{r.compute_s:>9.4f} {r.memory_s:>9.4f} {r.collective_s:>9.4f} "
             f"{r.bottleneck:>10} {r.model_flops_ratio:>8.3f} "
-            f"{live_gb:>7.2f} {str(r.fits_hbm):>5}")
+            f"{live_gb:>7.2f} {str(r.fits_hbm):>5} "
+            f"{'unchecked' if r.collectives_unchecked else 'checked':>9}")
     return "\n".join(lines)

@@ -183,7 +183,28 @@ class EnergySampler:
     """Reads a cumulative energy counter (``reader() -> mJ``) every
     ``period_s`` on a thread between ``start()`` and ``stop()``; times
     are ``clock()`` seconds (``time.monotonic``, the serving engines'
-    clock).  Use as ``with EnergySampler(...) as s:``."""
+    clock).  Use as ``with EnergySampler(...) as s:``.
+
+    NVML's energy read takes milliseconds, and now and then a tenth of
+    a second (``sampler_stall`` in ``chip_smoke.py``), so no reading
+    waits on another:
+
+    * the thread reads on a fixed schedule, the k-th reading due at
+      ``k * period_s`` after the first: a slow read or a late wake-up
+      delays that reading only, not every later one;
+    * every reading is timed when its read begins (``t_s``) and keeps
+      how long the read took (``read_s``): the counter's value comes
+      from somewhere in between, so the readings bracket the energy
+      from the first read's beginning to the last read's end
+      (``bracket()``), and a slow first or last read widens it;
+    * ``start()`` and ``stop()`` read on the calling thread; a thread
+      reading still in progress when ``stop()`` reads is dropped.
+
+    ``stop_s`` keeps when ``stop()`` was called, so a long gap between
+    readings can be told apart: a slow read shows in ``read_s``, a late
+    wake-up (the interpreter lock held elsewhere, a collection) in
+    ``gaps()`` less the read before it, a late ``stop()`` in
+    ``stop_s``."""
 
     def __init__(self, reader: Callable[[], float], *,
                  period_s: float = 0.01,
@@ -193,19 +214,40 @@ class EnergySampler:
         self.clock = clock
         self.t_s: list[float] = []
         self.mj: list[float] = []
+        self.read_s: list[float] = []
+        self.stop_s: Optional[float] = None
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
+        self._lock = threading.Lock()
+
+    def _take(self) -> tuple[float, float, float]:
+        """(clock before the read, mJ, clock after it)."""
+        t = self.clock()
+        mj = float(self.reader())
+        return t, mj, self.clock()
+
+    def _keep(self, t: float, mj: float, read_s: float) -> None:
+        with self._lock:
+            self.t_s.append(t)
+            self.mj.append(mj)
+            self.read_s.append(read_s)
 
     def _read(self) -> None:
         # the time first: a native reader releases the interpreter lock,
         # and taking it back can wait a switch interval (5 ms) behind
         # the serving thread, which a time read after would count
-        t = self.clock()
-        self.mj.append(float(self.reader()))
-        self.t_s.append(t)
+        t, mj, done = self._take()
+        self._keep(t, mj, done - t)
 
     def _run(self) -> None:
-        while not self._stop.wait(self.period_s):
+        due = self.t_s[0]
+        while True:
+            due += self.period_s
+            behind = self.clock() - due
+            if behind > 0:              # past one or more readings' times:
+                due += self.period_s * (behind // self.period_s)  # skip
+            if self._stop.wait(max(0.0, due - self.clock())):
+                return
             self._read()
 
     def start(self) -> "EnergySampler":
@@ -220,12 +262,30 @@ class EnergySampler:
     def stop(self) -> None:
         if self._thread is None:
             raise RuntimeError("EnergySampler.stop: never started")
+        self.stop_s = self.clock()
         self._stop.set()
+        t, mj, done = self._take()
         self._thread.join(timeout=10.0)
         if self._thread.is_alive():
             raise RuntimeError("EnergySampler.stop: the reader thread "
                                "did not end")
-        self._read()
+        with self._lock:                 # start()'s reading stays
+            keep = [0] + [i for i in range(1, len(self.t_s))
+                          if self.t_s[i] + self.read_s[i] <= t]
+            self.t_s = [self.t_s[i] for i in keep]
+            self.mj = [self.mj[i] for i in keep]
+            self.read_s = [self.read_s[i] for i in keep]
+        self._keep(t, mj, done - t)
+
+    def gaps(self) -> np.ndarray:
+        """Seconds between consecutive readings' times."""
+        return np.diff(np.asarray(self.t_s, float))
+
+    def bracket(self) -> tuple[float, float]:
+        """(the first read's beginning, the last read's end): the
+        counter's delta is the energy of a span inside this one that
+        holds the first read's end to the last read's beginning."""
+        return self.t_s[0], self.t_s[-1] + self.read_s[-1]
 
     def __enter__(self) -> "EnergySampler":
         return self.start()

@@ -4,15 +4,19 @@ _install_slot`` and ``DisaggregatedSUT``) on the CPU against the JAX
 reference.
 
 Weights are the reference's seed-0 reduced qwen3-1.7b, bridged with
-``from_jax`` (float32, the JAX package's jnp path).  Every serve that
-compares stamps runs both packages on one virtual clock (every
-``now()`` read ticks 2 ms, ``sleep`` jumps ahead) with the prefill
-workers' threads run synchronously at ``start`` in both packages, so
-the order of the clock's reads, and with it every stamp, ``host_syncs``
-and ``decode_chunks``, is fixed; the tokens are then also held to the
-port's colocated paged engine, and, with real worker threads, once more
-(tokens do not depend on timing).  The test of a raising worker runs
-the port alone: the reference's decode loop would wait for it forever.
+``from_jax`` (float32, the JAX package's jnp path), and for the
+``test_moe_*`` cases reduced qwen3-moe-30b-a3b's, whose tokens are held
+to the reference's disaggregated records only (expert capacity couples a
+batch's slots, so the colocated engine's batches give other tokens).
+Every serve that compares stamps runs both packages on one virtual clock
+(every ``now()`` read ticks 2 ms, ``sleep`` jumps ahead) with the
+prefill workers' threads run synchronously at ``start`` in both
+packages, so the order of the clock's reads, and with it every stamp,
+``host_syncs`` and ``decode_chunks``, is fixed; qwen3-1.7b's tokens are
+then also held to the port's colocated paged engine, and, with real
+worker threads, once more (tokens do not depend on timing).  The test of a
+raising worker runs the port alone: the reference's decode loop would
+wait for it forever.
 """
 import queue
 import threading
@@ -51,16 +55,30 @@ PAGE = 8
 F32 = dict(rtol=1e-4, atol=1e-4)
 
 
-@pytest.fixture(scope="module")
-def models():
-    """The same reduced config, model and weights in both packages."""
-    jc = jcfg.reduce_config(jcfg.get_config("qwen3-1.7b"))
+def _bridged(arch):
+    """The same reduced config, model and seed-0 weights in both
+    packages."""
+    jc = jcfg.reduce_config(jcfg.get_config(arch))
     assert not jc.use_pallas                # the reference's jnp path
     jm = jax_build_model(jc)
     jp = jax_init_params(jm.param_defs(), jax.random.PRNGKey(0))
-    tm = build_model(tcfg.reduce_config(tcfg.get_config("qwen3-1.7b")),
-                     "cpu")
+    tm = build_model(tcfg.reduce_config(tcfg.get_config(arch)), "cpu")
     return jm, jp, tm, from_jax(jax.tree.map(np.asarray, jp), "cpu")
+
+
+@pytest.fixture(scope="module")
+def models():
+    return _bridged("qwen3-1.7b")
+
+
+@pytest.fixture(scope="module")
+def moe_models():
+    """Reduced qwen3-moe-30b-a3b: expert capacity follows a call's rows,
+    so a disaggregated serve's tokens part from the colocated engine's
+    wherever their batches differ (ROADMAP §C: an MoE layer couples
+    slots), in the reference as in the port.  Its tests hold the port to
+    the reference's own disaggregated records instead."""
+    return _bridged("qwen3-moe-30b-a3b")
 
 
 def _clock():
@@ -152,6 +170,17 @@ def _colocated(models, requests, **kw):
 
 @pytest.mark.parametrize("n_prompt", [3, 8, 21])
 def test_prefill_worker_is_the_reference_worker(models, n_prompt):
+    _same_worker(models, n_prompt)
+
+
+@pytest.mark.parametrize("n_prompt", [3, 8, 21])
+def test_moe_prefill_worker_is_the_reference_worker(moe_models, n_prompt):
+    _same_worker(moe_models, n_prompt)
+
+
+def _same_worker(models, n_prompt):
+    """The port's handoff blocks within f32 1e-4 of the reference
+    worker's, its first token, counts and stamps equal."""
     jm, jp, tm, tp = models
     jr, tr = _req(JaxRequest, 0, n_prompt, 4), _req(Request, 0, n_prompt, 4)
     now, _ = _clock()
@@ -215,6 +244,27 @@ def test_install_slot_is_the_paged_prefill_without_compute(models):
 @pytest.mark.parametrize("arrivals", [False, True],
                          ids=["offline", "arrivals"])
 def test_serve_is_the_reference_serve(models, sync_threads, arrivals):
+    got = _same_serve(models, arrivals)
+    assert _tokens(got) == _colocated(models, _reqs(Request))
+    assert all(len(r.output) == r.max_new_tokens for r in got)
+
+
+@pytest.mark.parametrize("arrivals", [False, True],
+                         ids=["offline", "arrivals"])
+def test_moe_serve_is_the_reference_serve(moe_models, sync_threads,
+                                          arrivals):
+    """Reduced qwen3-moe-30b-a3b on the virtual clock: the reference's
+    disaggregated records (tokens, stamps, prefill tokens), host reads,
+    decode chunks and worker accounting; every budget reached."""
+    got = _same_serve(moe_models, arrivals)
+    assert all(len(r.output) == r.max_new_tokens for r in got)
+
+
+def _same_serve(models, arrivals):
+    """Serve ``MIX`` through both packages' disaggregated engines (two
+    synchronous workers, the 2 ms virtual clock) and hold the port's
+    records and accounting to the reference's; returns the port's
+    requests."""
     jde, tde = _jax_disagg(models), _port_disagg(models)
     now, sleep = _clock()
     want = jde.serve(_reqs(JaxRequest, arrivals), now=now, sleep=sleep,
@@ -232,8 +282,7 @@ def test_serve_is_the_reference_serve(models, sync_threads, arrivals):
                                        * tde.engine.host_syncs)
     assert [w.prefill_tokens for w in tde.workers] == [
         w.prefill_tokens for w in jde.workers]
-    assert _tokens(got) == _colocated(models, _reqs(Request))
-    assert all(len(r.output) == r.max_new_tokens for r in got)
+    return got
 
 
 @pytest.mark.parametrize("n_workers", [1, 2, 3])
@@ -254,6 +303,27 @@ def test_pool_pressure_defers_an_install_until_a_slot_retires(
     """A pool of 6 usable pages holds one 30 + 7-token request (5 pages)
     at a time: the next handoff waits until that slot retires, and the
     tokens are the reference's and the colocated engine's."""
+    reqs = _pressed(models, monkeypatch)
+    assert _tokens(reqs) == _colocated(
+        models, [_req(Request, i, n, b) for i, (n, b) in enumerate(PRESSED)])
+
+
+def test_moe_pool_pressure_defers_an_install_until_a_slot_retires(
+        moe_models, sync_threads, monkeypatch):
+    """The same pool pressure on reduced qwen3-moe-30b-a3b: the
+    reference's installs, deferrals and records."""
+    reqs = _pressed(moe_models, monkeypatch)
+    assert all(len(r.output) == r.max_new_tokens for r in reqs)
+
+
+# prompts and budgets of the pool-pressure serve
+PRESSED = [(30, 7), (29, 5), (33, 3)]
+
+
+def _pressed(models, monkeypatch):
+    """``PRESSED`` through both packages behind a 7-page pool: the same
+    install attempts (a deferred one, then its install) and records;
+    returns the port's requests."""
     installs = {}
     for side, mod in (("ref", jdisagg), ("port", tdisagg)):
         install = mod.DisaggregatedEngine._install
@@ -264,7 +334,7 @@ def test_pool_pressure_defers_an_install_until_a_slot_retires(
             return ok
 
         monkeypatch.setattr(mod.DisaggregatedEngine, "_install", logged)
-    reqs = [(30, 7), (29, 5), (33, 3)]
+    reqs = PRESSED
     jde = _jax_disagg(models, kv_pages=7)
     tde = _port_disagg(models, kv_pages=7)
     now, sleep = _clock()
@@ -278,8 +348,7 @@ def test_pool_pressure_defers_an_install_until_a_slot_retires(
     assert _record(got) == _record(want)
     assert installs["port"] == installs["ref"]
     assert (1, False) in installs["port"] and (1, True) in installs["port"]
-    assert _tokens(got) == _colocated(
-        models, [_req(Request, i, n, b) for i, (n, b) in enumerate(reqs)])
+    return got
 
 
 def test_a_request_that_can_never_fit_raises(models, sync_threads):

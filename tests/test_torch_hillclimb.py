@@ -198,8 +198,10 @@ def _layer_all_reduces(arch, shape, mesh, pol="nothing", remat=True):
 
 def test_collective_rule_without_remat_matches_dots_for_all_reduces():
     """The rule's other side: without remat the plan has as many
-    activation all-reduces as under "dots" and half the all-gathers of
-    "nothing"."""
+    activation all-reduces as under "dots" and half the parameter
+    all-gathers of "nothing" (the records without an activation's
+    operand shape: since the plan follows ``seq_sp`` it also gathers
+    activations, which the rule for weights does not count)."""
     shape = dataclasses.replace(SHAPES["train_4k"], seq_len=1024,
                                 global_batch=4)
     mesh = make_mesh((2, 4), ("data", "model"))
@@ -208,12 +210,14 @@ def test_collective_rule_without_remat_matches_dots_for_all_reduces():
                  dict(remat_policy="nothing")):
         cfg = get_config("granite-3-2b", n_layers=2, **over)
         cell = build_cell(cfg, shape, mesh)
-        got[tuple(over.items())] = [r[0] for r in collective_records(
-            cfg, shape, cell.rules, cell.model, cell.model.param_defs())]
+        recs = collective_records(cfg, shape, cell.rules, cell.model,
+                                  cell.model.param_defs())
+        got[tuple(over.items())] = [r[0] for r in recs if r.shape is None
+                                    or r[0] == "all-reduce"]
     no, dots, nothing = got.values()
     assert no.count("all-reduce") == dots.count("all-reduce")
     assert 2 * no.count("all-gather") == nothing.count("all-gather") \
-        == dots.count("all-gather")
+        == dots.count("all-gather") > 0
 
 
 def test_the_dots_rule_is_the_reference_s_compiled_program():

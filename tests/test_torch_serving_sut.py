@@ -625,3 +625,126 @@ def test_measured_sampler_thread_ends():
     with EnergySampler(FakeCounter(), period_s=0.001):
         time.sleep(0.01)
     assert threading.active_count() == before
+
+
+class _Ticks:
+    """A clock that moves only when told to."""
+
+    def __init__(self):
+        self.t = 0.0
+
+    def __call__(self):
+        return self.t
+
+
+class _Waits:
+    """``EnergySampler._stop`` on a ``_Ticks`` clock: ``wait(timeout)``
+    moves the clock by ``timeout`` and reports a stop after ``n``
+    waits."""
+
+    def __init__(self, clock, n):
+        self.clock, self.n = clock, n
+
+    def wait(self, timeout):
+        self.clock.t += timeout
+        self.n -= 1
+        return self.n < 0
+
+
+@pytest.mark.parametrize("stall_at", [None, 5], ids=["slow", "stalled"])
+def test_energy_sampler_keeps_its_schedule_through_slow_reads(stall_at):
+    """NVML's energy read takes milliseconds on an H100 (a mean of
+    3.7-9.4 ms and up to 114 ms a read in ``chip_smoke.py``'s measured
+    serves): a sampler that waited a whole period after each read fell
+    behind by every read's time, reading up to a quarter fewer times
+    than the window has periods.
+    On the fixed schedule every reading lands on its period however
+    long the reads take (here 0.4 of a period), and after a read that
+    takes 2.5 periods one reading catches up and the rest return to the
+    schedule."""
+    period = 0.05
+    clock = _Ticks()
+    taken = []
+
+    def reader():
+        clock.t += period * (2.5 if len(taken) == stall_at else 0.4)
+        taken.append(clock.t)
+        return 1000.0 * len(taken)
+
+    s = EnergySampler(reader, period_s=period, clock=clock)
+    s._read()                           # start()'s first reading, t = 0
+    s._stop = _Waits(clock, 20)
+    s._run()
+    t = np.asarray(s.t_s)
+    on_grid = np.isclose(t / period, np.round(t / period))
+    if stall_at is None:
+        assert len(t) == 21
+        assert np.allclose(t, period * np.arange(len(t)))
+    else:
+        # the stalled read ends 2.5 periods after it began: the next
+        # reading comes at once, the one after on the schedule again
+        assert on_grid[:stall_at + 1].all()
+        assert not on_grid[stall_at + 1]
+        assert on_grid[stall_at + 2:].all()
+        assert s.gaps().max() == pytest.approx(2.5 * period)
+    assert np.all(np.asarray(s.read_s) == pytest.approx(
+        [0.4 * period if i != stall_at else 2.5 * period
+         for i in range(len(t))]))
+
+
+class _InFlight:
+    """The sampler's thread, stubbed: ``join`` lands the reading it was
+    taking when ``stop()`` came, begun before ``stop()`` and ended after
+    ``stop()``'s own reading."""
+
+    def __init__(self, sampler, clock):
+        self.sampler, self.clock = sampler, clock
+
+    def start(self):
+        pass
+
+    def join(self, timeout=None):
+        s = self.sampler
+        s._keep(s.stop_s - 0.01, 1e9, 0.2)
+
+    def is_alive(self):
+        return False
+
+
+def test_energy_sampler_times_its_first_and_last_reading_around_the_work(
+        monkeypatch):
+    """Reads that take 3 periods: every reading is timed when its read
+    begins, ``start()``'s and ``stop()``'s alike, and keeps the read's
+    time, so the readings' bracket runs from ``start()``'s read's
+    beginning to ``stop()``'s read's end and holds the counter's values
+    (taken as each read returns) and the work between them (0.4 s): 3
+    periods wider than the work at each end, which the alignment gate
+    (one period) sees.  A reading the thread was still taking when
+    ``stop()`` read is dropped."""
+    period = 0.05
+    clock = _Ticks()
+
+    def reader():
+        clock.t += 3 * period
+        return 1000.0 * clock.t
+
+    s = EnergySampler(reader, period_s=period, clock=clock)
+    monkeypatch.setattr(nvml.threading, "Thread",
+                        lambda **kw: _InFlight(s, clock))
+    s.start()
+    t0 = clock.t                        # the work begins
+    clock.t += 0.4
+    end = clock.t                       # and ends
+    s.stop()
+    assert s.t_s == pytest.approx([t0 - 3 * period, end])
+    assert s.stop_s == end
+    assert s.read_s == pytest.approx([3 * period, 3 * period])
+    assert s.mj == [1000.0 * t0, 1000.0 * (end + 3 * period)]
+    first, last = s.bracket()
+    assert first == pytest.approx(t0 - 3 * period)
+    assert last == pytest.approx(end + 3 * period)
+    trace = tsut.MeasuredTrace(lambda: s)
+    trace.segments.append((0.0, s, t0))
+    lead, tail = trace.gaps_s(end - t0)
+    assert lead == pytest.approx(3 * period)
+    assert tail == pytest.approx(3 * period)
